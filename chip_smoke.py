@@ -5,7 +5,8 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device  the card (nvidia-smi name and power limit, capability); TF32 off
-  2. build   every CUDA kernel of the serving path, from moss_torch/csrc
+  2. build   every CUDA kernel of the serving and training paths, from
+             moss_torch/csrc, one nvcc each, all at once
   3. kernel  the forward blend kernel against its plain PyTorch version at
              512x512 / 16x16 tiles on three scenes (bench.py's 46,080-splat
              scene, the same at opacity 0.01, a dense opaque one that
@@ -18,12 +19,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              cloud, on the cached-transform path, each held to the same call
              through the plain rasterizer; the blend kernel's launch count is
              set to 0 just before one drive of the path and read just after
+  5. train_kernel  the backward blend kernel plus the segment sum against
+             autograd through the plain version (remat) at 512x512, on the
+             bench scene and (in phase 6) on the training slice's own
+             projected input: grads within the scaled atol, two backward passes
+             bitwise equal, with their times, the plain backward's, and bounds
+  6. train   the training path through the user entry points: the slice's
+             cloud and MLPs, 4 frames from make_frames at 512x512, a 256x256
+             crop, the six-term loss with the seeded random LPIPS backbone,
+             make_train_step; one step's grads held to the same step through
+             the plain rasterizer; then 2 warm-up and 5 timed steps, with every
+             kernel's launch count set to 0 just before and read just after
+             (one launch of each per step), and one profiled step
 
 then the kernels line and the last line {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; builds into build/moss_torch/.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -33,17 +47,19 @@ import time
 import numpy as np
 import torch
 
-from moss_torch.config import ModelConfig
-from moss_torch.data.synthetic import make_camera, make_scene, random_pose
+from moss_torch.config import Config, ModelConfig
+from moss_torch.data.synthetic import make_camera, make_frames, make_scene, random_pose
 from moss_torch.models import gaussians as G
 from moss_torch.models.lbs_field import LBSField
 from moss_torch.models.pose_refine import PoseRefine
-from moss_torch.ops import cuda_build, rasterize_cuda as rc
+from moss_torch.ops import cuda_build, lpips, rasterize_cuda as rc
 from moss_torch.ops.projection import preprocess
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import build_covariance, inverse_sigmoid
 from moss_torch.render.camera import Camera
 from moss_torch.render.render import render_frame
+from moss_torch.train.losses import compute_losses, crop_window
+from moss_torch.train.train_step import TrainState, make_train_step
 
 HW = 512
 MODEL = ModelConfig()
@@ -58,9 +74,19 @@ PEAK_F32 = 67e12
 # contribution (1 - alpha, T (1 - alpha), alpha T, five multiply-adds)
 OPS_PER_EVAL = 14
 OPS_PER_CONTRIB = 13
+# f32 operations of one contribution in csrc/rasterize_bwd.cu beyond the
+# evaluation: w, T (1 - alpha), dL/dw (4 multiply-adds), the prefix, s_after,
+# dL/dpower (5), the ten per-pair values (10), and their ten adds into the
+# tile's sum
+OPS_PER_CONTRIB_BWD = 38
 # image rule of tests/test_rasterize_tpu.py:50-59: atol, share of pixels
 # allowed as termination-threshold flips, largest flip
 ATOL, OUTLIER_FRAC, OUTLIER_ATOL, DEPTH_ATOL = 3e-5, 2e-3, 1.0, 1e-4
+# grad rule of tests/test_rasterize_tpu.py:150 (divide by max|g_ref|) and :166
+GRAD_ATOL, BG_RTOL = 5e-4, 1e-4
+KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum")
+CROP = 256         # the trainer's crop (moss_tpu/train/trainer.py:139-140)
+TRAIN_FRAMES = 4
 
 
 def emit(obj):
@@ -143,9 +169,18 @@ def device_breakdown(fn, top=6):
     busy = sum(by_name.values())
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
+    host = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.key.startswith(("aten::", "cuda", "autograd::"))]
+    syncs = sum(c for k, _, c in host if k in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    # the (23, 3, 3) SVD of the Fisher loss, on the host and on the device
+    svd = {"host_self_ms": sum(ms for k, ms, _ in host if "svd" in k.lower()),
+           "device_ms": sum(ms for k, ms in by_name.items()
+                            if any(w in k.lower() for w in ("svd", "gesvd", "jacobi")))}
     return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
             "kernel_launches": len(kernels),
-            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top],
+            "host_syncs": syncs, "svd": svd,
+            "top_host_self_ms": [h[:2] for h in sorted(host, key=lambda h: -h[1])[:top]]}
 
 
 def blend_work(proj, pairs, height, width):
@@ -339,6 +374,245 @@ def phase_slice(dev, H=HW, n_verts=N_VERTS, capacity=CAPACITY, n_live=N_LIVE, fr
     return row, launches
 
 
+def bwd_bound(proj, pairs, height, width):
+    """The least time for the backward kernel's work on these inputs: the pair
+    list, ten floats per Gaussian and six gradient planes read, ten floats per
+    pair written; the evaluations and contributions the forward needs."""
+    evals, contribs = blend_work(proj, pairs, height, width)
+    P = proj.mean2d.shape[0]
+    bytes_ = 4 * (pairs.num_pairs + pairs.tile_offsets.numel() + 10 * P + 6 * height * width
+                  + rc.GRAD_COLS * pairs.num_pairs)
+    flops = OPS_PER_EVAL * evals + OPS_PER_CONTRIB_BWD * contribs
+    t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "evaluations": evals, "contributions": contribs, "bytes": bytes_, "flops": flops}
+
+
+def segment_bound(pairs, P):
+    """Rows and positions read once, the (P, 10) sums written; one add per value."""
+    bytes_ = 4 * (rc.GRAD_COLS * pairs.num_pairs + pairs.num_pairs + (P + 1) + rc.GRAD_COLS * P)
+    flops = rc.GRAD_COLS * pairs.num_pairs
+    t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def blend_grads(proj, bg, height, width, upstream, raster):
+    """Grads of sum(out * upstream) for the five kernel fields and bg."""
+    leaves = [getattr(proj, f).detach().clone().requires_grad_() for f in rc._KERNEL_FIELDS]
+    bg = bg.detach().clone().requires_grad_()
+    out = raster(proj._replace(**dict(zip(rc._KERNEL_FIELDS, leaves))), bg, height, width)
+    loss = sum((out[k] * upstream[k]).sum() for k in upstream)
+    return torch.autograd.grad(loss, leaves + [bg]), out
+
+
+def scaled_err(g, g_ref):
+    return float((g - g_ref).abs().max()) / (float(g_ref.abs().max()) + 1e-8)
+
+
+def measure_backward(proj, bg, height, width, seed=0):
+    """Backward kernel + segment sum vs autograd through the plain version
+    (remat) on one projected cloud, with upstream grads drawn from `seed`:
+    errors, bitwise repeat, times and bounds."""
+    gen = torch.Generator(device=bg.device).manual_seed(seed)
+    up = {k: torch.randn(s, generator=gen, device=bg.device)
+          for k, s in (("color", (height, width, 3)), ("depth", (height, width)),
+                       ("alpha", (height, width)), ("final_T", (height, width)))}
+    plain = functools.partial(rasterize_reference, tile_h=rc.TILE, tile_w=rc.TILE, remat=True)
+    g, out = blend_grads(proj, bg, height, width, up, rc.rasterize_cuda)
+    again, _ = blend_grads(proj, bg, height, width, up, rc.rasterize_cuda)
+    if not all(torch.equal(a, b) for a, b in zip(g, again)):
+        raise AssertionError("two backward passes on the same input differ")
+    g_ref, _ = blend_grads(proj, bg, height, width, up, plain)
+    errs = {f: scaled_err(a, b) for f, a, b in zip(rc._KERNEL_FIELDS, g[:-1], g_ref[:-1])}
+    bg_rel = float(((g[-1] - g_ref[-1]).abs() / g_ref[-1].abs()).max())
+    if max(errs.values()) > GRAD_ATOL or bg_rel > BG_RTOL or not all(torch.isfinite(x).all() for x in g):
+        raise AssertionError(f"backward kernel vs plain: scaled errors {errs}, bg rel {bg_rel:.2e}")
+
+    # the kernels alone, at the inputs the autograd.Function gives them
+    pairs = rc.bin_projected(proj, height, width)
+    img = rc.rasterize_pairs(pairs, proj, height, width)
+    # the grads of the six planes; final_T also carries the bg term
+    g_img = torch.stack([up["color"][..., 0], up["color"][..., 1], up["color"][..., 2],
+                         up["depth"], up["alpha"], up["final_T"] + (up["color"] * bg).sum(-1)])
+    gimg = torch.cat([g_img[:5], (g_img * img).sum(0, keepdim=True)]).contiguous()
+    rows = rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width)
+    P = proj.mean2d.shape[0]
+    index = pairs.pair_gaussian.long()
+
+    def library():
+        return torch.zeros((P, rc.GRAD_COLS), device=rows.device).index_add_(0, index, rows)
+
+    if scaled_err(rc.segment_sum(rows, pairs), library()) > 1e-5:
+        raise AssertionError("segment sum vs index_add_ disagree")
+
+    def plain_fwd():
+        with torch.no_grad():
+            plain(proj, bg, height, width)
+
+    fwd_ms = host_ms(plain_fwd, n=2, warmup=1)
+    fwd_bwd_ms = host_ms(lambda: blend_grads(proj, bg, height, width, up, plain), n=2, warmup=1)
+    bound = bwd_bound(proj, pairs, height, width)
+    return {
+        "pairs": pairs.num_pairs,
+        "max_tile_pairs": int(pairs.tile_count.max()),
+        "busy_tiles": int((pairs.tile_count > 0).sum()),
+        "scaled_err": errs, "bg_rel_err": bg_rel, "bitwise_repeat": True,
+        "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(g[:-1], g_ref[:-1])),
+        "ms": cuda_ms(lambda: rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width)),
+        "plain_ms": fwd_bwd_ms - fwd_ms, "plain_fwd_bwd_ms": fwd_bwd_ms,
+        **bound,
+        "segment": {"ms": cuda_ms(lambda: rc.segment_sum(rows, pairs)),
+                    "library_ms": cuda_ms(library),
+                    "plain_ms": cuda_ms(lambda: rc.segment_sum_plain(rows, pairs)),
+                    "max_abs_err": float((rc.segment_sum(rows, pairs)
+                                          - rc.segment_sum_plain(rows, pairs)).abs().max()),
+                    **segment_bound(pairs, P)},
+    }
+
+
+def raster_grads(step, ts, frame, feat, raster, g_img=None):
+    """Grads of the step's params and zero mean2d offset through one render
+    with `raster`, for image grads g_img of (render, render_alpha), by default
+    the six-term loss's own; returns ({group: {name: grad}}, g_img)."""
+    gauss = ts.params["gauss"]
+    leaves = G.GaussianParams(**{f: getattr(gauss, f).detach().requires_grad_() for f in G.FIELDS})
+    offset = torch.zeros((gauss.capacity, 2), device=gauss.xyz.device, requires_grad=True)
+    mlps = ts.params["mlps"]
+    out = render_frame(leaves, ts.gstate.valid, mlps, step.scene, frame.smpl_params,
+                       frame.camera, step.bg, MODEL.sh_degree, rasterize_fn=raster,
+                       mean2d_offset=offset, active_sh=0, device=gauss.xyz.device)
+    images = [out["render"], out["render_alpha"]]
+    if g_img is None:
+        total, _ = compute_losses(out, frame.image, frame.bkgd_mask, frame.bound_mask,
+                                  frame.pose_rotmats, frame.crop_y0, frame.crop_x0,
+                                  step.crop_h, step.crop_w, lpips_params=step.lpips_params,
+                                  weights=step.weights, gt_lpips_feats=feat)
+        g_img = torch.autograd.grad(total, images, retain_graph=True)
+    groups = {**{f: {f: getattr(leaves, f)} for f in G.FIELDS},
+              **{k: dict(m.named_parameters()) for k, m in mlps.items()},
+              "mean2d_offset": {"mean2d_offset": offset}}
+    names = [(k, n) for k, tensors in groups.items() for n in tensors]
+    flat = torch.autograd.grad(images, [groups[k][n] for k, n in names], grad_outputs=g_img,
+                               allow_unused=True)
+    grads = {k: {} for k in groups}
+    for (k, n), gr in zip(names, flat):
+        grads[k][n] = torch.zeros_like(groups[k][n]) if gr is None else gr
+    return grads, g_img
+
+
+def grad_errors(g, g_ref):
+    """{group.name: max|g - g_ref| / scale}: scale is the leaf's max|g_ref|,
+    or for an MLP the max over the whole MLP, some of whose parameters have a
+    grad that is 0 but for rounding (tests/test_torch_grads.py)."""
+    errs = {}
+    for group, ref in g_ref.items():
+        mlp_scale = max(float(t.abs().max()) for t in ref.values())
+        for name, b in ref.items():
+            scale = mlp_scale if group in ("pose", "lbs") else float(b.abs().max())
+            errs[f"{group}.{name}"] = float((g[group][name] - b).abs().max()) / (scale + 1e-30)
+    return errs
+
+
+def phase_train_kernel(dev, H=HW, P=CAPACITY):
+    proj, _ = bench_scene(dev, H=H, P=P)
+    row = measure_backward(proj, torch.zeros(3, device=dev), H, H)
+    emit({"phase": "train_kernel", "scene": "bench", "hw": H, "gaussians": P, **row})
+    return row
+
+
+def phase_train(dev, H=HW, n_verts=N_VERTS, capacity=CAPACITY, n_live=N_LIVE,
+                n_frames=TRAIN_FRAMES, crop=CROP, steps=5, warmup=2):
+    """The training path end to end; returns (the backward kernel's row at
+    its input, launches of each kernel in the driven run)."""
+    scene = make_scene(n_verts=n_verts, device=dev)
+    params, valid = make_cloud(scene, dev, capacity, n_live)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mlps = {"pose": PoseRefine(gen, dev), "lbs": LBSField(gen, dev)}
+    frames, _ = make_frames(scene, n_frames=n_frames, H=H, W=H, crop=crop)
+    lp = lpips.init_random(3407, device=dev)
+    feats = [lpips.gt_features(lp, crop_window(f.image, f.crop_y0, f.crop_x0, crop, crop))
+             for f in frames]
+    cfg = Config(model=MODEL)
+    init, step = make_train_step(scene, cfg, None, lp, crop, crop, device=dev)
+    plain = functools.partial(rasterize_reference, tile_h=rc.TILE, tile_w=rc.TILE, remat=True)
+    _, plain_step = make_train_step(scene, cfg, plain, lp, crop, crop, device=dev)
+    state = {"gauss": params, "mlps": mlps}
+    ts = TrainState(state, init(state), G.initial_state(valid), 0)
+
+    # one step through the kernels against the same step through the plain
+    # rasterizer, from the same state. The gate holds the loss's image grads
+    # fixed (taken once, from the kernel's render) and sends them back through
+    # both renders: the bf16 LPIPS towers turn the two renders' 1e-6
+    # differences into image grads that differ by up to 1e-3 (PERF.md, Findings),
+    # a sensitivity of the loss, not of the rasterizer. The whole step's grads
+    # through each path are reported beside it.
+    g, g_img = raster_grads(step, ts, frames[0], feats[0], None)
+    g_ref, _ = raster_grads(step, ts, frames[0], feats[0], plain, g_img)
+    errs = grad_errors(g, g_ref)
+    if max(errs.values()) > GRAD_ATOL:
+        raise AssertionError(f"train step grads, kernel vs plain: {errs}")
+    _, logs, _, gw, offw = step.grads(ts, frames[0], 0, feats[0])
+    _, logs_ref, _, gw_ref, offw_ref = plain_step.grads(ts, frames[0], 0, feats[0])
+    whole = grad_errors({**gw, "mean2d_offset": {"mean2d_offset": offw}},
+                        {**gw_ref, "mean2d_offset": {"mean2d_offset": offw_ref}})
+    loss_rel = abs(float(logs["loss"]) - float(logs_ref["loss"])) / abs(float(logs_ref["loss"]))
+
+    # the kernels at the shapes the training path gives them
+    seen = []
+    render_frame(params, valid, mlps, scene, frames[0].smpl_params, frames[0].camera,
+                 step.bg, MODEL.sh_degree, device=dev,
+                 rasterize_fn=lambda proj, *a: seen.append(proj) or rc.rasterize_cuda(proj, *a))
+    proj = rc.Projected(*(t.detach() if torch.is_tensor(t) else t for t in seen[0]))
+    row = measure_backward(proj, step.bg, H, H)
+    emit({"phase": "train_kernel", "scene": "train_slice", "hw": H, "gaussians": capacity, **row})
+    emit({"phase": "kernel", "scene": "train_slice", "hw": H, "gaussians": capacity,
+          **measure_kernel(proj, step.bg, H, H)[1]})
+
+    # the training path, driven once: warm-up and timed steps
+    rc.launches = rc.bwd_launches = rc.segment_launches = 0
+    times, losses = [], []
+    for i in range(warmup + steps):
+        k = i % n_frames
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, logs = step(ts, frames[k], 0, feats[k])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(logs["loss"]))
+        if int(logs["raster_overflow"]) != 0:
+            raise AssertionError("the pair list overflowed")
+    launches = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
+                "segment_sum": rc.segment_launches}
+    if any(n != warmup + steps for n in launches.values()):
+        raise AssertionError(f"{warmup + steps} steps launched the kernels {launches} times")
+    gs = ts.gstate
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if float(gs.xyz_grad_accum.max()) <= 0 or float(gs.denom.max()) <= 0:
+        raise AssertionError("the densify statistics stayed 0")
+    emit({"phase": "train", "hw": H, "capacity": capacity, "live": int(valid.sum()), "crop": crop,
+          "frames": n_frames, "ms_per_step": float(np.median(times[warmup:])),
+          "step_ms": times, "losses": losses,
+          "loss_terms": {k: float(v) for k, v in logs.items()},
+          "kernel_vs_plain_grad_scaled_err": max(errs.values()),
+          "whole_step_grad_scaled_err": {k: max(v for n, v in whole.items()
+                                                if n.split(".")[0] == k)
+                                         for k in {n.split(".")[0] for n in whole}},
+          "kernel_vs_plain_loss_rel_err": loss_rel,
+          "xyz_grad_accum_max": float(gs.xyz_grad_accum.max()),
+          "denom_max": float(gs.denom.max()), "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    holder = [ts]
+
+    def one_step():
+        holder[0], _ = step(holder[0], frames[0], 0, feats[0])
+
+    emit({"phase": "profile", "path": "train_step", **device_breakdown(one_step, top=10)})
+    return row, launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -354,21 +628,40 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    cuda_build.build_all(["rasterize_fwd"])
-    ptxas = [ln.strip() for ln in cuda_build.build_logs.get("rasterize_fwd", "").splitlines()
-             if "registers" in ln or "bytes stack" in ln]
+    cuda_build.build_all(KERNELS)
+    ptxas = {n: [ln.strip() for ln in cuda_build.build_logs.get(n, "").splitlines()
+                 if "registers" in ln or "bytes stack" in ln] for n in KERNELS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
     with torch.inference_mode():
         phase_kernel(dev)
-        row, launches = phase_slice(dev)
-    emit({"kernels": [{
-        "name": "rasterize_fwd", "route": "cuda", "source": "moss_torch/csrc/rasterize_fwd.cu",
-        "replaces": "moss_tpu/ops/rasterize_tpu.py:288", "launches": launches,
-        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
-        "tolerance": f"atol {ATOL} (depth {DEPTH_ATOL}); at most {OUTLIER_FRAC} of pixels beyond",
-    }]})
+        row, serve_launches = phase_slice(dev)
+    phase_train_kernel(dev)
+    bwd, train_launches = phase_train(dev)
+    grad_tol = f"grads: max|g - g_plain| / max|g_plain| <= {GRAD_ATOL}; bg rtol {BG_RTOL}"
+
+    def entry(name, source, replaces, launches, by_path, measured, tolerance, library_ms=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "launches_by_path": by_path,
+                "max_abs_err": measured["max_abs_err"], "ms": measured["ms"],
+                "plain_ms": measured["plain_ms"], "bound_ms": measured["bound_ms"],
+                "bound_by": measured["bound_by"], "library_ms": library_ms,
+                "tolerance": tolerance}
+
+    emit({"kernels": [
+        entry("rasterize_fwd", "moss_torch/csrc/rasterize_fwd.cu",
+              "moss_tpu/ops/rasterize_tpu.py:288",
+              serve_launches + train_launches["rasterize_fwd"],
+              {"serve": serve_launches, "train": train_launches["rasterize_fwd"]}, row,
+              f"atol {ATOL} (depth {DEPTH_ATOL}); at most {OUTLIER_FRAC} of pixels beyond"),
+        entry("rasterize_bwd", "moss_torch/csrc/rasterize_bwd.cu",
+              "moss_tpu/ops/rasterize_tpu.py:383", train_launches["rasterize_bwd"],
+              {"train": train_launches["rasterize_bwd"]}, bwd, grad_tol),
+        entry("segment_sum", "moss_torch/csrc/segment_sum.cu", "moss_tpu/ops/binning.py:51",
+              train_launches["segment_sum"], {"train": train_launches["segment_sum"]},
+              bwd["segment"], "1e-5 of the max against index_add_; grads as rasterize_bwd",
+              library_ms=bwd["segment"]["library_ms"]),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -1,7 +1,7 @@
-"""The model configuration fields the render path reads.
+"""The configuration fields the render path and the training step read.
 
-The port's own copy of moss_tpu/config.py:15-31 (ModelConfig), reduced to the
-fields serving reads. The JAX pipeline's rect cap
+The port's own copies of moss_tpu/config.py:15-70 (ModelConfig,
+OptimConfig), reduced to the fields the port reads. The JAX pipeline's rect cap
 (PipelineConfig.max_tiles_per_gaussian) has no counterpart: the port sizes
 its pair buffers per frame from the live pair count (ops/binning.py), so no
 Gaussian is ever capped.
@@ -16,6 +16,45 @@ class ModelConfig:
     sh_degree: int = 3
     motion_offset: bool = True   # pose-correction MLPs + LBS-weight field
     static_scene: bool = False   # vanilla 3DGS: no body model, no deform
+    white_background: bool = False
     # the reference caps densification at 45,695 points; rounded up to a
     # lane-aligned 46,080 (the north-star capacity, bench.py:90-91)
     capacity: int = 46080
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    iterations: int = 3000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    pose_refine_lr: float = 0.00025     # 'auto_regression' group
+    lbs_field_lr: float = 0.0001        # 'cross_attention_lbs' group
+    adam_eps: float = 1e-15             # AdamW eps (the reference's gaussian_model.py:226)
+    weight_decay: float = 0.01          # torch AdamW default
+
+    # the densify / reset schedule the update skips read (train/optim.py);
+    # densification's own thresholds come with its port
+    densification_interval: int = 100
+    opacity_reset_interval: int = 4000
+    densify_from_iter: int = 400
+    densify_until_iter: int = 2000
+
+    # loss weights (the reference's train_ZJU.py:131)
+    w_l1: float = 1.0
+    w_mask: float = 0.5
+    w_ssim: float = 0.2
+    w_lpips: float = 0.5
+    w_nll: float = 0.06
+    w_s3im: float = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = ModelConfig()
+    optim: OptimConfig = OptimConfig()

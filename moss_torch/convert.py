@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights across into the port.
+"""Carry the JAX package's weights and training state across into the port.
 
 The inputs are numpy arrays (anything np.asarray reads) laid out as the JAX
 package keeps them: the GaussianParams fields, the {"pose": ..., "lbs": ...}
@@ -7,6 +7,9 @@ heads as heads_w / heads_b), and the SMPLModel arrays. Mappings and objects
 with attributes are both accepted. `load_jax_checkpoint` reads a
 chkpnt{N}.npz written by moss_tpu's Trainer.save (one array per leaf, keyed
 by jax.tree_util.keystr, moss_tpu/train/checkpoint.py:19-30).
+`train_state_from_jax` carries a whole TrainState (params, the optax
+multi_transform Adam states group by group, GaussianState, step),
+`lpips_params_from_jax` the LPIPS tower, `frame_from_jax` a Frame.
 """
 from __future__ import annotations
 
@@ -16,11 +19,16 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .models.gaussians import FIELDS, GaussianParams
+from .data.frames import Frame
+from .models.gaussians import FIELDS, GaussianParams, GaussianState
 from .models.lbs_field import LBSField
 from .models.pose_refine import PoseRefine
 from .models.smpl import SMPLModel
+from .ops import lpips
+from .render.camera import Camera
 from .render.render import SceneContext
+from .train.optim import GAUSS_GROUPS, AdamState
+from .train.train_step import TrainState
 
 _POSE_LINEARS = ("trunk0", "trunk1", "trunk2")
 _LBS_LINEARS = ("l0", "l1", "l2", "l3", "fc", "query", "key", "value")
@@ -39,21 +47,26 @@ def gaussians_from_jax(tree, device=None) -> GaussianParams:
     return GaussianParams(**{f: _tensor(_get(tree, f), device) for f in FIELDS})
 
 
+def _mlp_state(sub, group: str, device):
+    """One MLP's JAX tree (weights or Adam moments) keyed by the torch
+    module's parameter names; linear weights transposed to (out, in)."""
+    out = {}
+    for name in (_POSE_LINEARS if group == "pose" else _LBS_LINEARS):
+        out[f"{name}.weight"] = _tensor(_get(_get(sub, name), "w"), device).T.contiguous()
+        out[f"{name}.bias"] = _tensor(_get(_get(sub, name), "b"), device)
+    if group == "pose":
+        out["heads_w"] = _tensor(_get(sub, "heads_w"), device)
+        out["heads_b"] = _tensor(_get(sub, "heads_b"), device)
+    return out
+
+
 def mlps_from_jax(tree, device=None):
     """{"pose": PoseRefine, "lbs": LBSField} holding the JAX weights."""
     device = resolve_device(device)
-    pose, lbs = PoseRefine(device=device), LBSField(device=device)
-    with torch.no_grad():
-        for module, sub, names in ((pose, _get(tree, "pose"), _POSE_LINEARS),
-                                   (lbs, _get(tree, "lbs"), _LBS_LINEARS)):
-            for name in names:
-                lin = getattr(module, name)
-                lin.weight.copy_(_tensor(_get(_get(sub, name), "w"), device).T)
-                lin.bias.copy_(_tensor(_get(_get(sub, name), "b"), device))
-        pose_tree = _get(tree, "pose")
-        pose.heads_w.copy_(_tensor(_get(pose_tree, "heads_w"), device))
-        pose.heads_b.copy_(_tensor(_get(pose_tree, "heads_b"), device))
-    return {"pose": pose, "lbs": lbs}
+    mlps = {"pose": PoseRefine(device=device), "lbs": LBSField(device=device)}
+    for group, module in mlps.items():
+        module.load_state_dict(_mlp_state(_get(tree, group), group, device))
+    return mlps
 
 
 def scene_from_jax(smpl, big_pose_params, big_pose_vertices, device=None) -> SceneContext:
@@ -92,3 +105,61 @@ def load_jax_checkpoint(path: str, device=None):
                     for n in _LBS_LINEARS},
         }
     return params, valid, mlps_from_jax(tree, device)
+
+
+def gstate_from_jax(gs, device=None) -> GaussianState:
+    device = resolve_device(device)
+    return GaussianState(
+        valid=torch.as_tensor(np.array(_get(gs, "valid"), bool), device=device),
+        **{f: _tensor(_get(gs, f), device)
+           for f in ("max_radii2d", "xyz_grad_accum", "denom", "joint_F", "lbs_weight_sum")})
+
+
+def adam_states_from_jax(opt_state, device=None):
+    """{group: AdamState} from moss_tpu's optax multi_transform state: each
+    group's MaskedState holds (ScaleByAdamState(count, mu, nu), ...) over the
+    whole params tree, its own leaves unmasked."""
+    device = resolve_device(device)
+    out = {}
+    for group, masked in opt_state.inner_states.items():
+        adam = masked.inner_state[0]
+
+        def leaves(tree, group=group):
+            if group in GAUSS_GROUPS:
+                return {group: _tensor(getattr(tree["gauss"], group), device)}
+            return _mlp_state(tree["mlps"][group], group, device)
+
+        out[group] = AdamState(int(adam.count), leaves(adam.mu), leaves(adam.nu))
+    return out
+
+
+def train_state_from_jax(ts, device=None) -> TrainState:
+    """A moss_tpu TrainState (params, optax state, GaussianState, step) as the port's."""
+    device = resolve_device(device)
+    mlps = ts.params.get("mlps")
+    return TrainState(
+        params={"gauss": gaussians_from_jax(ts.params["gauss"], device),
+                "mlps": None if mlps is None else mlps_from_jax(mlps, device)},
+        opt_state=adam_states_from_jax(ts.opt_state, device),
+        gstate=gstate_from_jax(ts.gstate, device),
+        step=int(ts.step),
+    )
+
+
+def lpips_params_from_jax(params, device=None):
+    """moss_tpu's LPIPS params (numpy, HWIO; lpips_jax.init_random/load_params)."""
+    return lpips.params_from_numpy(params, device)
+
+
+def frame_from_jax(frame, device=None) -> Frame:
+    device = resolve_device(device)
+    cam = frame.camera
+    camera = Camera(**{f: _tensor(getattr(cam, f), device)
+                       for f in ("world_view", "full_proj", "cam_center", "tan_fovx", "tan_fovy")},
+                    height=int(cam.height), width=int(cam.width))
+    return Frame(
+        camera=camera,
+        **{f: _tensor(getattr(frame, f), device)
+           for f in ("image", "bkgd_mask", "bound_mask", "poses", "shapes", "R", "Th",
+                     "pose_rotmats")},
+        crop_y0=int(frame.crop_y0), crop_x0=int(frame.crop_x0), pose_id=int(frame.pose_id))

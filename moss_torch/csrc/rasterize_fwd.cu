@@ -27,17 +27,18 @@
 // cores: TF32 would corrupt exp(power) through cancellation, the Hopper twin
 // of the MXU finding in PERF.md. expf (not __expf), and no --use_fast_math.
 //
+// The skip and stop tests live in csrc/blend_common.cuh, shared with the
+// backward kernel, which must stop every pixel exactly where this one does.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//             -shared -Xcompiler -fPIC (moss_torch/ops/rasterize_cuda.py)
+//             -shared -Xcompiler -fPIC (moss_torch/ops/cuda_build.py)
 #include <cuda_runtime.h>
+
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kBlock = kTile * kTile;  // one thread per pixel, one pair per thread per batch
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using namespace moss;  // kTile, kBlock (one pair per thread per batch), blend_step
 
 __global__ void __launch_bounds__(kBlock)
 rasterize_fwd_kernel(const int* __restrict__ tile_offsets,   // (num_tiles + 1,)
@@ -89,14 +90,11 @@ rasterize_fwd_kernel(const int* __restrict__ tile_offsets,   // (num_tiles + 1,)
     __syncthreads();
     const int n = min(kBlock, end - base);
     for (int j = 0; !done && j < n; ++j) {
-      const float dx = s_mx[j] - fx;
-      const float dy = s_my[j] - fy;
-      const float power = -0.5f * (s_a[j] * dx * dx + s_c[j] * dy * dy) - s_b[j] * dx * dy;
-      if (power > 0.0f) continue;
-      const float alpha = fminf(kAlphaMax, s_op[j] * expf(power));
-      if (alpha < kAlphaMin) continue;
-      const float test_T = T * (1.0f - alpha);
-      if (test_T < kTEps) {
+      float dx, dy, alpha, test_T;
+      const int step = blend_step(s_mx[j], s_my[j], s_a[j], s_b[j], s_c[j], s_op[j], fx, fy,
+                                  T, dx, dy, alpha, test_T);
+      if (step == kSkip) continue;
+      if (step == kStop) {
         done = true;
         break;
       }

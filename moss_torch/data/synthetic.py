@@ -1,17 +1,24 @@
-"""Synthetic scene and camera (port of moss_tpu/data/synthetic.py:28-56).
-
-Only what serving needs: the synthetic SMPL scene with its big pose, an
-orbit camera and a random pose. make_frames (ground truth for training)
-comes with the training slice.
+"""Synthetic dataset (port of moss_tpu/data/synthetic.py): the synthetic SMPL
+scene with its big pose, an orbit camera, a random pose, and make_frames,
+the ground-truth frames of a known cloud posed by skinning alone.
 """
 from __future__ import annotations
 
+from typing import Callable, List, Optional, Tuple
+
 import numpy as np
+import torch
 
 from .. import resolve_device
+from ..models import gaussians as G
 from ..models import smpl as S
+from ..models.deform import coarse_deform_c2source
+from ..ops.projection import preprocess
+from ..ops.rasterize_cuda import rasterize_cuda
+from ..ops.sh import sh_to_color
 from ..render.camera import Camera
 from ..render.render import SceneContext
+from .frames import Frame
 
 
 def make_scene(n_verts: int = 800, seed: int = 3407, device=None) -> SceneContext:
@@ -44,3 +51,58 @@ def random_pose(rng, magnitude: float = 0.25):
     poses = np.zeros(72, np.float32)
     poses[3:] = rng.normal(0, magnitude, 69)
     return poses
+
+
+def make_frames(
+    scene: SceneContext,
+    n_frames: int = 4,
+    H: int = 128,
+    W: int = 128,
+    seed: int = 0,
+    crop: int = 96,
+    rasterize_fn: Optional[Callable] = None,
+) -> Tuple[List[Frame], dict]:
+    """Render ground-truth frames of a target cloud deformed by LBS.
+
+    The target cloud sits on the big-pose vertices with random colours; each
+    frame poses it with coarse_deform_c2source (no learned corrections) and
+    rasterizes it with `rasterize_fn` (default rasterize_cuda: the kernel on a
+    GPU, the plain blend at 16x16 tiles on the CPU; moss_tpu renders with the
+    plain blend at 32x32 tiles). Runs where the scene lies. Returns
+    (frames, {"xyz", "colors"}).
+    """
+    from scipy.spatial.transform import Rotation
+
+    raster = rasterize_cuda if rasterize_fn is None else rasterize_fn
+    device = scene.big_pose_vertices.device
+    rng = np.random.default_rng(seed)
+    verts = scene.big_pose_vertices.cpu().numpy()
+    colors = rng.uniform(0.2, 0.9, (verts.shape[0], 3)).astype(np.float32)
+    params, _ = G.create_from_points(verts, colors, capacity=verts.shape[0], device=device)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    frames = []
+    with torch.no_grad():
+        for i in range(n_frames):
+            poses = random_pose(rng)
+            smpl_params = {"poses": t(poses)[None], "shapes": t(np.zeros((1, 10))),
+                           "R": t(np.eye(3)), "Th": t(np.zeros((1, 3)))}
+            cam = make_camera(H, W, angle=2 * np.pi * i / max(n_frames, 1), device=device)
+            out = coarse_deform_c2source(scene.smpl, params.xyz, smpl_params,
+                                         scene.big_pose_params, scene.big_pose_vertices)
+            cov3d = G.get_covariance(params, transform=out.transforms)
+            color = sh_to_color(0, G.get_features(params), out.world_pts, cam.cam_center)
+            proj = preprocess(out.world_pts, cov3d, color, G.get_opacity(params), cam)
+            imgs = raster(proj, torch.zeros(3, device=device), H, W)
+            alpha = imgs["alpha"]
+            ys, xs = np.nonzero((alpha > 0.05).cpu().numpy())
+            y0 = int(np.clip(ys.min(), 0, H - crop)) if len(ys) else 0
+            x0 = int(np.clip(xs.min(), 0, W - crop)) if len(ys) else 0
+            rotmats = Rotation.from_rotvec(poses.reshape(24, 3)[1:]).as_matrix()
+            frames.append(Frame(
+                camera=cam, image=imgs["color"], bkgd_mask=alpha,
+                bound_mask=torch.ones((H, W), device=device), **smpl_params,
+                pose_rotmats=t(rotmats), crop_y0=y0, crop_x0=x0, pose_id=i))
+    return frames, {"xyz": params.xyz, "colors": colors}

@@ -2,7 +2,8 @@
 
 Port of moss_tpu/models/gaussians.py:31-128: the same fields and activations
 (exp / sigmoid / quat-normalize), capacity-padded with a `valid` mask so a
-cloud moves between the two packages slot for slot. `compact` is the serving
+cloud moves between the two packages slot for slot, and the GaussianState
+bookkeeping the training step keeps beside it. `compact` is the serving
 counterpart of Trainer.compact_for_eval (train/trainer.py:1404): the port has
 no static shapes, so it keeps exactly the live slots, in order.
 """
@@ -35,6 +36,35 @@ class GaussianParams:
     @property
     def capacity(self) -> int:
         return self.xyz.shape[0]
+
+
+@dataclasses.dataclass
+class GaussianState:
+    """Non-learnable bookkeeping that rides along the cloud."""
+
+    valid: torch.Tensor           # (P,) bool
+    max_radii2d: torch.Tensor     # (P,) f32, densify pruning stat
+    xyz_grad_accum: torch.Tensor  # (P,) f32, sum of screen-grad norms
+    denom: torch.Tensor           # (P,) f32, frames accumulated
+    joint_F: torch.Tensor         # (23, 3, 3) summed Fisher factors over the window
+    lbs_weight_sum: torch.Tensor  # (P, 24) summed blend weights over the window
+
+    @property
+    def num_valid(self):
+        return torch.sum(self.valid.to(torch.int32))
+
+
+def initial_state(valid) -> GaussianState:
+    """The state of a fresh cloud with live slots `valid` (zero statistics)."""
+    P, device = valid.shape[0], valid.device
+    return GaussianState(
+        valid=valid,
+        max_radii2d=torch.zeros((P,), device=device),
+        xyz_grad_accum=torch.zeros((P,), device=device),
+        denom=torch.zeros((P,), device=device),
+        joint_F=torch.zeros((23, 3, 3), device=device),
+        lbs_weight_sum=torch.zeros((P, 24), device=device),
+    )
 
 
 def get_scaling(p: GaussianParams):

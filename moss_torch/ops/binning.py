@@ -11,7 +11,9 @@ for the port's 16x16 tiles:
      alpha over the tile's pixel grid is below 1/255 (with a 1e-3 q-space
      margin) is dropped, which leaves the image unchanged;
   4. int64 keys tile << 32 | depth_rank, one torch.sort;
-  5. per-tile [start, end) ranges.
+  5. per-tile [start, end) ranges, and per Gaussian the positions of its
+     pairs (the inverse of the sort's permutation: the candidates were made
+     in Gaussian order), which the backward's segment sum reads.
 
 The pair list is sized per frame from the live pair count, so there is no
 static budget and nothing overflows. The 8x128-supertile, lane-group and
@@ -122,12 +124,18 @@ class PairList(NamedTuple):
       pair_gaussian[tile_offsets[t]:tile_offsets[t + 1]].
     tile_count: (num_tiles,) int32 live pairs per tile.
     overflow: () int32, always 0: every live pair is kept.
+    gaussian_pairs: (num_pairs,) int32 positions in the pair list, grouped by
+      Gaussian; Gaussian g's pairs sit at
+      gaussian_pairs[gaussian_offsets[g]:gaussian_offsets[g + 1]], in tile order.
+    gaussian_offsets: (P + 1,) int32.
     """
 
     pair_gaussian: torch.Tensor
     tile_offsets: torch.Tensor
     tile_count: torch.Tensor
     overflow: torch.Tensor
+    gaussian_pairs: torch.Tensor
+    gaussian_offsets: torch.Tensor
 
     @property
     def num_pairs(self) -> int:
@@ -164,18 +172,28 @@ def bin_pairs(mean2d, conic, opacity, depth, radius, radius_xy, valid,
     live = peak_alpha_live(mean2d[gid], conic[gid], opacity[gid], tx, ty, tile_h, tile_w)
     gid, tx, ty = gid[live], tx[live], ty[live]
 
-    # 4. one sort of (tile << 32 | depth rank) keys
+    # 4. one sort of (tile << 32 | depth rank) keys; the keys are unique, so
+    # the order is fixed
     tile = ty * grid_w + tx
-    keys, _ = torch.sort((tile << 32) | rank[gid])
+    keys, perm = torch.sort((tile << 32) | rank[gid])
     pair_gaussian = order[keys & 0xFFFFFFFF].to(torch.int32)
 
-    # 5. per-tile ranges
+    # 5. per-tile ranges; per-Gaussian ranges through the inverse permutation
+    # (gid is sorted, so candidate slot perm[i] of pair i is in Gaussian order)
     tile_count = torch.bincount(keys >> 32, minlength=num_tiles)
-    tile_offsets = torch.zeros(num_tiles + 1, dtype=torch.int64, device=device)
-    tile_offsets[1:] = torch.cumsum(tile_count, 0)
+    gaussian_pairs = torch.empty_like(perm)
+    gaussian_pairs[perm] = torch.arange(perm.shape[0], device=device)
+
+    def offsets(counts):
+        out = torch.zeros(counts.shape[0] + 1, dtype=torch.int64, device=device)
+        out[1:] = torch.cumsum(counts, 0)
+        return out.to(torch.int32)
+
     return PairList(
         pair_gaussian=pair_gaussian,
-        tile_offsets=tile_offsets.to(torch.int32),
+        tile_offsets=offsets(tile_count),
         tile_count=tile_count.to(torch.int32),
         overflow=torch.zeros((), dtype=torch.int32, device=device),
+        gaussian_pairs=gaussian_pairs.to(torch.int32),
+        gaussian_offsets=offsets(torch.bincount(gid, minlength=P)),
     )

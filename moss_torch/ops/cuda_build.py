@@ -7,14 +7,16 @@ plain C interface, loaded with ctypes:
          -Xcompiler -fPIC -Xptxas -v -o build/moss_torch/<name>-<hash>.so
 
 into build/moss_torch/ beside the package. The library name carries a hash
-of the source, so an edited source is rebuilt and a current one is reused.
-Several sources build in parallel, one nvcc each.
+of the source and of every csrc/ header it includes, so an edited source or
+shared header is rebuilt and a current one is reused. Several sources build
+in parallel, one nvcc each.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,9 +43,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build moss_torch's kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen=None):
+    """`path` and every csrc/ file it includes with quotes, transitively."""
+    seen = [] if seen is None else seen
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha1()
+    for src in _sources(CSRC / f"{name}.cu"):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str]) -> Dict[str, Path]:

@@ -14,11 +14,19 @@ and the tile-rect cutoff: a Gaussian reaches only pixels whose (tile_h,
 tile_w) tile lies inside its reference rect. The sequential recurrence runs
 as masked cumulative ops over depth-ordered chunks of `chunk` splats (see
 _composite_chunk). This is the CPU path of the port and the oracle the CUDA
-kernel (ops/rasterize_cuda.py) is held to.
+kernels (ops/rasterize_cuda.py) are held to, forward and, through autograd,
+backward.
+
+remat=True (moss_tpu's rasterize_reference(remat=...)) runs each chunk under
+torch.utils.checkpoint when grads are recorded: autograd then keeps only the
+chunk's inputs and the carried T, and recomputes the (chunk, H*W) tensors in
+the backward. Without it, autograd keeps several of them for every chunk,
+hundreds of GB at 512x512 / 46k Gaussians.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .binning import tile_rect
 
@@ -48,8 +56,26 @@ def _composite_chunk(T_in, done_in, alpha, feat):
     return T_in * cum2[-1], fired[-1], acc
 
 
+def _blend_chunk(T, done, mean2d, conic, opacity, valid, rect, feat, px, py, pt_y, pt_x):
+    """One depth-ordered chunk: alphas with the skip and rect masks, then
+    the sequential composite. rect: (K, 4) int (min_y, min_x, max_y, max_x)."""
+    dx = mean2d[:, 0:1] - px[None]  # (K, N)
+    dy = mean2d[:, 1:2] - py[None]
+    a, b, c = conic[:, 0:1], conic[:, 1:2], conic[:, 2:3]
+    power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+    alpha = torch.clamp_max(opacity[:, None] * torch.exp(power), ALPHA_MAX)
+    in_rect = (
+        (pt_y[None] >= rect[:, 0:1]) & (pt_y[None] < rect[:, 2:3])
+        & (pt_x[None] >= rect[:, 1:2]) & (pt_x[None] < rect[:, 3:4])
+    )
+    mask = valid[:, None] & (power <= 0.0) & (alpha >= ALPHA_MIN) & in_rect
+    alpha = torch.where(mask, alpha, 0.0)
+    return _composite_chunk(T, done, alpha, feat)
+
+
 def rasterize_reference(proj, bg_color, height: int, width: int,
-                        tile_h: int = 16, tile_w: int = 16, chunk: int = 128):
+                        tile_h: int = 16, tile_w: int = 16, chunk: int = 128,
+                        remat: bool = False):
     """Rasterize pre-projected Gaussians; dict of (H, W, *) images."""
     device = proj.mean2d.device
     P = proj.mean2d.shape[0]
@@ -63,8 +89,8 @@ def rasterize_reference(proj, bg_color, height: int, width: int,
     depth = proj.depth[order]
     opacity = proj.opacity[order]
     valid = proj.valid[order]
-    min_y, min_x, max_y, max_x = tile_rect(
-        mean2d, proj.radius[order], grid_h, grid_w, tile_h, tile_w)
+    rect = torch.stack(tile_rect(
+        mean2d, proj.radius[order], grid_h, grid_w, tile_h, tile_w), dim=1)
 
     py, px = torch.meshgrid(
         torch.arange(height, dtype=torch.float32, device=device),
@@ -83,20 +109,15 @@ def rasterize_reference(proj, bg_color, height: int, width: int,
     T = torch.ones((N,), dtype=torch.float32, device=device)
     done = torch.zeros((N,), dtype=torch.bool, device=device)
     acc = torch.zeros((N, C + 2), dtype=torch.float32, device=device)
+    remat = remat and torch.is_grad_enabled()
     for s in range(0, P, chunk):
         sl = slice(s, s + chunk)
-        dx = mean2d[sl, 0:1] - px[None]  # (K, N)
-        dy = mean2d[sl, 1:2] - py[None]
-        a, b, c = conic[sl, 0:1], conic[sl, 1:2], conic[sl, 2:3]
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha = torch.clamp_max(opacity[sl, None] * torch.exp(power), ALPHA_MAX)
-        in_rect = (
-            (pt_y[None] >= min_y[sl, None]) & (pt_y[None] < max_y[sl, None])
-            & (pt_x[None] >= min_x[sl, None]) & (pt_x[None] < max_x[sl, None])
-        )
-        mask = valid[sl, None] & (power <= 0.0) & (alpha >= ALPHA_MIN) & in_rect
-        alpha = torch.where(mask, alpha, 0.0)
-        T, done, acc_k = _composite_chunk(T, done, alpha, feat[sl])
+        args = (T, done, mean2d[sl], conic[sl], opacity[sl], valid[sl], rect[sl], feat[sl],
+                px, py, pt_y, pt_x)
+        if remat:
+            T, done, acc_k = checkpoint(_blend_chunk, *args, use_reentrant=False)
+        else:
+            T, done, acc_k = _blend_chunk(*args)
         acc = acc + acc_k
 
     out_color = acc[:, :C] + T[:, None] * bg_color[None, :]

@@ -1,0 +1,97 @@
+"""The six-term training loss (port of moss_tpu/train/losses.py).
+
+loss = L1(bound) + 0.5 mask_L2 + 0.2 (1 - SSIM) + 0.5 LPIPS + 0.06 FisherNLL
+       + 0.3 S3IM
+
+SSIM, S3IM and LPIPS read a fixed-size crop window whose top-left each frame
+carries, as in moss_tpu. LPIPS runs its towers in bf16 for the training loss
+(the metric path stays f32), and is skipped when its weight is 0.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from ..ops import lpips as lpips_mod
+from ..ops.fisher import matrix_fisher_nll
+from ..ops.ssim import s3im as s3im_fn
+from ..ops.ssim import ssim as ssim_fn
+
+
+class LossWeights(NamedTuple):
+    l1: float = 1.0
+    mask: float = 0.5
+    ssim: float = 0.2
+    lpips: float = 0.5
+    nll: float = 0.06
+    s3im: float = 0.3
+
+
+def crop_window(img, y0: int, x0: int, crop_h: int, crop_w: int):
+    """Fixed-size crop at (y0, x0); img (H, W, C) or (H, W)."""
+    return img[y0:y0 + crop_h, x0:x0 + crop_w]
+
+
+def compute_losses(
+    render_out: Dict,
+    gt_image,             # (H, W, 3)
+    bkgd_mask,            # (H, W) soft alpha target
+    bound_mask,           # (H, W) 0/1 region of interest
+    target_pose_rotmats,  # (23, 3, 3) dataset pose rotations
+    crop_y0: int,
+    crop_x0: int,
+    crop_h: int,
+    crop_w: int,
+    lpips_params=None,
+    weights: LossWeights = LossWeights(),
+    gt_lpips_feats=None,
+):
+    """(total, logs) with the six terms. lpips_params is needed unless
+    weights.lpips is 0; gt_lpips_feats is lpips.gt_features of the crop of
+    the gt image (bf16), computed once per frame."""
+    img = render_out["render"]
+    alpha = render_out["render_alpha"]
+
+    bound = bound_mask.to(img.dtype)
+    n_bound = torch.sum(bound) + 1e-8
+
+    l1 = torch.sum(torch.abs(img - gt_image) * bound[..., None]) / (3.0 * n_bound)
+    mask_l2 = torch.sum(((alpha - bkgd_mask) ** 2) * bound) / n_bound
+
+    img_c = crop_window(img, crop_y0, crop_x0, crop_h, crop_w)
+    gt_c = crop_window(gt_image, crop_y0, crop_x0, crop_h, crop_w)
+    ssim_val = ssim_fn(img_c, gt_c)
+    s3im_loss = s3im_fn(img_c, gt_c)
+
+    if weights.lpips != 0.0:
+        if lpips_params is None:
+            raise ValueError("the LPIPS term needs lpips_params (ops/lpips.init_random or load_params)")
+        lpips_loss = lpips_mod.lpips(lpips_params, img_c, gt_c, dtype=torch.bfloat16,
+                                     cached_f2=gt_lpips_feats)
+    else:
+        lpips_loss = img.new_zeros(())
+
+    pose_out = render_out.get("pose_out")
+    if pose_out is not None:
+        nll = torch.mean(matrix_fisher_nll(pose_out["Rs"], target_pose_rotmats))
+    else:
+        nll = img.new_zeros(())
+
+    total = (
+        weights.l1 * l1
+        + weights.mask * mask_l2
+        + weights.ssim * (1.0 - ssim_val)
+        + weights.lpips * lpips_loss
+        + weights.nll * nll
+        + weights.s3im * s3im_loss
+    )
+    return total, {
+        "loss": total,
+        "l1": l1,
+        "mask": mask_l2,
+        "ssim": ssim_val,
+        "lpips": lpips_loss,
+        "nll": nll,
+        "s3im": s3im_loss,
+    }

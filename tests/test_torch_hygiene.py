@@ -11,10 +11,12 @@ import moss_torch
 from moss_torch import convert
 from moss_torch.data import synthetic
 from moss_torch.models import gaussians, smpl
-from moss_torch.ops import rasterize_cuda as rc
+from moss_torch.config import Config
+from moss_torch.ops import lpips, rasterize_cuda as rc
 from moss_torch.ops.projection import Projected
 from moss_torch.render.camera import Camera
 from moss_torch.render.render import render_frame
+from moss_torch.train.train_step import make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,6 +57,11 @@ def _entry_points():
         "scene_from_jax": lambda: convert.scene_from_jax({}, {}, pts),
         "load_jax_checkpoint": lambda: convert.load_jax_checkpoint("missing.npz"),
         "render_frame": lambda: render_frame(None, None, None, None, None, None, None, 3),
+        "train_state_from_jax": lambda: convert.train_state_from_jax(None),
+        "frame_from_jax": lambda: convert.frame_from_jax(None),
+        "lpips.init_random": lambda: lpips.init_random(),
+        "lpips.load_params": lambda: lpips.load_params("missing.npz"),
+        "make_train_step": lambda: make_train_step(None, Config(), None, None, 8, 8),
     }
 
 
