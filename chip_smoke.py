@@ -30,9 +30,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              make_train_step; one step's grads held to the same step through
              the plain rasterizer; then 2 warm-up and 5 timed steps, with every
              kernel's launch count set to 0 just before and read just after
-             (one launch of each per step), and one profiled step
+             (one launch of each per step), and one profiled step; and the
+             backward kernel's stages (phase 9) on the slice's projected input
+  7. tool_sort  the two sort-pass kernels against their plain versions,
+             exactly, at every stride of a 2^19-key network; a pass's time
+             against R; then moss_torch.tools.sort_micro, counted
+  8. tool_conv  the 3x3 conv kernel against its plain version at the JAX
+             tool's check() shapes and the eight VGG16 layer shapes, in f32
+             (atol 1e-4) and bf16 (2e-2 of the max); then
+             moss_torch.tools.conv_proto, counted
+  9. tool_bwd_floor  the backward kernel's stages: full and full_soa bitwise
+             equal to the production kernel, every stage held to its plain
+             version, with times and bounds; then
+             moss_torch.tools.bwd_kernel_floor, counted
 
-then the kernels line and the last line {"ok": true, "device": {...}}.
+Each tool phase sets its kernels' launch counts to 0 just before it drives
+the tool's main() and reads them just after. Then the kernels line and the
+last line {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; builds into build/moss_torch/.
 """
 from __future__ import annotations
@@ -48,16 +62,18 @@ import numpy as np
 import torch
 
 from moss_torch.config import Config, ModelConfig
-from moss_torch.data.synthetic import make_camera, make_frames, make_scene, random_pose
+from moss_torch.data.synthetic import bench_scene, make_camera, make_frames, make_scene, \
+    random_pose
 from moss_torch.models import gaussians as G
 from moss_torch.models.lbs_field import LBSField
 from moss_torch.models.pose_refine import PoseRefine
-from moss_torch.ops import cuda_build, lpips, rasterize_cuda as rc
-from moss_torch.ops.projection import preprocess
+from moss_torch.ops import bwd_stages, conv3x3 as conv, cuda_build, lpips, \
+    rasterize_cuda as rc, sort_pass
 from moss_torch.ops.rasterize_ref import rasterize_reference
-from moss_torch.ops.transforms import build_covariance, inverse_sigmoid
-from moss_torch.render.camera import Camera
+from moss_torch.ops.transforms import inverse_sigmoid
 from moss_torch.render.render import render_frame
+from moss_torch.tools import bwd_kernel_floor, conv_proto, sort_micro
+from moss_torch.tools.timing import cuda_ms
 from moss_torch.train.losses import compute_losses, crop_window
 from moss_torch.train.train_step import TrainState, make_train_step
 
@@ -84,7 +100,16 @@ OPS_PER_CONTRIB_BWD = 38
 ATOL, OUTLIER_FRAC, OUTLIER_ATOL, DEPTH_ATOL = 3e-5, 2e-3, 1.0, 1e-4
 # grad rule of tests/test_rasterize_tpu.py:150 (divide by max|g_ref|) and :166
 GRAD_ATOL, BG_RTOL = 5e-4, 1e-4
-KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum")
+# the CUDA sources under moss_torch/csrc
+KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum", "sort_pass", "conv3x3")
+PEAK_BF16 = 989e12  # dense bf16 FLOP/s on the tensor cores
+# the sort passes' int32 min and max, counted at the f32 rate above: the
+# datasheet gives no int32 rate, and the SMs have half as many int32 lanes as
+# f32 ones, so this bound is low
+PEAK_INT32 = PEAK_F32
+# observer planes of the ablated backward stages against their plain version:
+# max |a - b| / max |b| beyond this on at most OUTLIER_FRAC of the pixels
+OBSERVE_RTOL = 1e-4
 CROP = 256         # the trainer's crop (moss_tpu/train/trainer.py:139-140)
 TRAIN_FRAMES = 4
 
@@ -113,25 +138,6 @@ def check_images(out, ref, what):
                 f"{what} {key}: {n_out} pixels beyond {atol} (allowed {allowed:.0f}), max {mx:.3e}")
         worst = max(worst, mx)
     return worst
-
-
-def cuda_ms(fn, n=20, reps=10, warmup=3):
-    """Device ms per call of fn: the median over n samples, each a run of
-    `reps` back-to-back calls between two CUDA events, after warm-up. One
-    call per event pair would also time the wrapper's host work before the
-    launch, while the stream sits idle."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / reps)
-    return float(np.median(times))
 
 
 def host_ms(fn, n=10, warmup=2):
@@ -203,15 +209,9 @@ def blend_work(proj, pairs, height, width):
     alpha = torch.clamp_max(proj.opacity[g, None] * torch.exp(power), 0.99)
     m = (power <= 0) & (alpha >= 1.0 / 255.0) & inside
     start = pairs.tile_offsets[:-1].long()
-
-    def seg_cumsum(x):  # cumulative sum restarted at every tile's first pair
-        cs = torch.cumsum(x, 0)
-        base = torch.where((start > 0)[:, None], cs[(start - 1).clamp_min(0)], 0)
-        return cs - base[t]
-
-    log_T = seg_cumsum(torch.where(m, torch.log1p(-alpha.double()), 0.0))
+    log_T = bwd_stages.seg_cumsum(torch.where(m, torch.log1p(-alpha.double()), 0.0), start, t)
     fired = m & (log_T < math.log(1e-4))
-    before = seg_cumsum(fired.int()) - fired.int()
+    before = bwd_stages.seg_cumsum(fired.int(), start, t) - fired.int()
     evaluated = (before == 0) & inside
     contrib = evaluated & m & ~fired
     return int(evaluated.sum()), int(contrib.sum())
@@ -247,33 +247,6 @@ def measure_kernel(proj, bg, height, width):
             n=3, warmup=1),
         **kernel_bound(proj, pairs, height, width),
     }
-
-
-def bench_scene(dev, opacity=None, dense=False, H=HW, P=CAPACITY):
-    """bench.py:92-113's scene (numpy default_rng(0), same draw order)."""
-    rng = np.random.default_rng(0)
-    f = 550.0 * H / 512.0
-    K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1.0]])
-    cam = Camera.from_KRT(K, np.eye(3), np.zeros(3), H, H, device=dev)
-    means = np.stack(
-        [rng.uniform(-0.4, 0.4, P), rng.uniform(-0.7, 0.7, P), rng.uniform(1.5, 2.5, P)], -1
-    ).astype(np.float32)
-    scales = rng.uniform(0.004, 0.012, (P, 3)).astype(np.float32)
-    quats = rng.normal(size=(P, 4)).astype(np.float32)
-    colors = rng.uniform(size=(P, 3)).astype(np.float32)
-    op = rng.uniform(0.3, 0.95, P).astype(np.float32)
-    if dense:  # tests/test_rasterize_tpu.py:76-90: packed, enlarged, near-opaque
-        means[:, :2] *= 0.5
-        scales *= 1.5
-        op[:] = 0.97
-    if opacity is not None:
-        op[:] = opacity
-
-    def t(x):
-        return torch.as_tensor(x, device=dev)
-
-    cov3d = build_covariance(t(scales), t(quats))
-    return preprocess(t(means), cov3d, t(colors), t(op), cam), cam
 
 
 def phase_kernel(dev, H=HW, P=CAPACITY):
@@ -374,15 +347,25 @@ def phase_slice(dev, H=HW, n_verts=N_VERTS, capacity=CAPACITY, n_live=N_LIVE, fr
     return row, launches
 
 
-def bwd_bound(proj, pairs, height, width):
-    """The least time for the backward kernel's work on these inputs: the pair
-    list, ten floats per Gaussian and six gradient planes read, ten floats per
-    pair written; the evaluations and contributions the forward needs."""
-    evals, contribs = blend_work(proj, pairs, height, width)
+def bwd_bound(proj, pairs, height, width, stage="full", work=None):
+    """The least time for the backward kernel's work on these inputs, at
+    `stage` (ops/bwd_stages.py): the pair list, ten floats per Gaussian and
+    six gradient planes read, ten floats per pair (and an ablated stage's
+    observer plane) written; the operations: load adds six staged values per
+    walked (pair, pixel); the other stages do the forward's evaluations and,
+    per contribution, 3 (w, T, the observer), 15 (+ dL/dw, prefix, s_after,
+    dL/dpower) or OPS_PER_CONTRIB_BWD. work: blend_work's (evaluations,
+    contributions), computed if not given."""
+    evals, contribs = work or blend_work(proj, pairs, height, width)
     P = proj.mean2d.shape[0]
     bytes_ = 4 * (pairs.num_pairs + pairs.tile_offsets.numel() + 10 * P + 6 * height * width
-                  + rc.GRAD_COLS * pairs.num_pairs)
-    flops = OPS_PER_EVAL * evals + OPS_PER_CONTRIB_BWD * contribs
+                  + rc.GRAD_COLS * pairs.num_pairs
+                  + (height * width if stage in bwd_stages.ABLATED else 0))
+    if stage == "load":
+        flops = 6 * pairs.num_pairs * rc.TILE * rc.TILE  # H and W are multiples of the tile
+    else:
+        per = {"recompute": 3, "suffix": 15}.get(stage, OPS_PER_CONTRIB_BWD)
+        flops = OPS_PER_EVAL * evals + per * contribs
     t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
@@ -567,6 +550,8 @@ def phase_train(dev, H=HW, n_verts=N_VERTS, capacity=CAPACITY, n_live=N_LIVE,
     proj = rc.Projected(*(t.detach() if torch.is_tensor(t) else t for t in seen[0]))
     row = measure_backward(proj, step.bg, H, H)
     emit({"phase": "train_kernel", "scene": "train_slice", "hw": H, "gaussians": capacity, **row})
+    emit({"phase": "tool_bwd_floor", "scene": "train_slice", "hw": H, "gaussians": capacity,
+          **measure_stages(proj, H, H)})
     emit({"phase": "kernel", "scene": "train_slice", "hw": H, "gaussians": capacity,
           **measure_kernel(proj, step.bg, H, H)[1]})
 
@@ -613,6 +598,165 @@ def phase_train(dev, H=HW, n_verts=N_VERTS, capacity=CAPACITY, n_live=N_LIVE,
     return row, launches
 
 
+def phase_tool_sort(dev):
+    """The sort passes against their plain versions at every stride of the
+    tool's 2^19-key network, a pass's time against R, then the tool."""
+    R = sort_pass.R
+    x = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 1 << 30, (sort_pass.ROWS, sort_pass.LANES), np.int32), device=dev)
+    for s in (1, 2, 4, 8, 16, 32, 64):
+        if not torch.equal(sort_pass.lane_pass(x, s, R), sort_pass.lane_pass_plain(x, s, R)):
+            raise AssertionError(f"lane pass at stride {s} differs from its plain version")
+    for s in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048):
+        if not torch.equal(sort_pass.row_pass(x, s, R), sort_pass.row_pass_plain(x, s, R)):
+            raise AssertionError(f"row pass at stride {s} differs from its plain version")
+    # a compare-exchange is idempotent: if the compiler had folded the
+    # repeats, four times R would take about the time of R
+    vs_r = {}
+    for name, fn in (("lane_s64", lambda r: sort_pass.lane_pass(x, 64, r)),
+                     ("lane_s1", lambda r: sort_pass.lane_pass(x, 1, r)),
+                     ("row_S64", lambda r: sort_pass.row_pass(x, 64, r))):
+        vs_r[name] = {r: cuda_ms(lambda r=r: fn(r)) for r in (R, 4 * R)}
+        if vs_r[name][4 * R] < 1.5 * vs_r[name][R]:
+            raise AssertionError(f"{name}: {vs_r[name]} ms at R and 4R; the repeats were folded")
+    plain = {"lane": cuda_ms(lambda: sort_pass.lane_pass_plain(x, 64, R), n=5, reps=2),
+             "row": cuda_ms(lambda: sort_pass.row_pass_plain(x, 64, R), n=5, reps=2)}
+
+    sort_pass.lane_launches = sort_pass.row_launches = 0
+    res = sort_micro.main(dev)
+    launches = {"lane": sort_pass.lane_launches, "row": sort_pass.row_launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the sort tool launched the pass kernels {launches} times")
+    # one launch = R passes over the block: read once, written once, one
+    # int32 min or max per element and pass
+    t_bytes = 2 * x.numel() * 4 / PEAK_BYTES
+    t_ops = R * x.numel() / PEAK_INT32
+    bound = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+    rows = {k: {"ms": res[f"{k}_pass_ms"] * R, "plain_ms": plain[k], "max_abs_err": 0.0, **bound}
+            for k in ("lane", "row")}
+    emit({"phase": "tool_sort", "keys": x.numel(), "reps": R, "ms_vs_reps": vs_r,
+          "launches": launches, "plain_ms_per_launch": plain,
+          **{k: v for k, v in res.items() if k != "torch_sort_ms"},
+          "torch_sort_ms": {str(k): v for k, v in res["torch_sort_ms"].items()}, **bound})
+    return rows, launches
+
+
+def phase_tool_conv(dev):
+    """The conv kernel against its plain version at the tool's check()
+    shapes and at the eight VGG16 layers in f32 and bf16, then the tool."""
+    f32_err, bf16_err, bf16_abs = 0.0, 0.0, 0.0
+    vs_f64 = {"kernel": 0.0, "plain": 0.0}  # both f32 versions against an f64 conv
+
+    def check_f32(x, w, b):
+        y, ref = conv.conv3x3(x, w, b), conv.conv3x3_plain(x, w, b)
+        exact = torch.relu(torch.nn.functional.conv2d(
+            x.double().permute(2, 0, 1)[None], w.double().permute(3, 2, 0, 1), padding=1)[0]
+            .permute(1, 2, 0) + b.double())
+        for k, v in (("kernel", y), ("plain", ref)):
+            vs_f64[k] = max(vs_f64[k], float((v.double() - exact).abs().max()))
+        return float((y - ref).abs().max())
+
+    for _, x, w, b in conv_proto.check_inputs(dev):
+        f32_err = max(f32_err, check_f32(x, w, b))
+    for layer, x, w, b in conv_proto.layer_inputs(dev):
+        f32_err = max(f32_err, check_f32(x, w, b))
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        for relu in (True, False):
+            y, ref = conv.conv3x3(xb, wb, b, relu=relu), conv.conv3x3_plain(xb, wb, b, relu=relu)
+            bf16_err = max(bf16_err, conv_proto.scaled_err(y, ref))
+            bf16_abs = max(bf16_abs, float((y.float() - ref.float()).abs().max()))
+    if f32_err > conv_proto.F32_ATOL or bf16_err > conv_proto.BF16_RTOL:
+        raise AssertionError(f"conv3x3 vs plain: f32 max abs err {f32_err}, bf16 {bf16_err}")
+
+    conv.launches = 0
+    res = conv_proto.main(dev)
+    launches = conv.launches
+    if launches == 0:
+        raise AssertionError("the conv tool did not launch the conv kernel")
+    layers = res["layers"]
+    t_ops = sum(r["flops"] for r in layers) / PEAK_BF16
+    t_bytes = sum(r["bytes"] for r in layers) / PEAK_BYTES
+    row = {"ms": sum(r["ms"] for r in layers), "plain_ms": sum(r["plain_ms"] for r in layers),
+           "library_ms": sum(r["library_ms"] for r in layers),
+           "bound_ms": sum(r["bound_ms"] for r in layers),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "max_abs_err": bf16_abs}
+    emit({"phase": "tool_conv", "f32_max_abs_err": f32_err, "f32_max_abs_err_vs_f64": vs_f64,
+          "bf16_scaled_err": bf16_err,
+          "launches": launches, "layers": layers, "check_max_abs_err": res["check_max_abs_err"],
+          "sum_over_layers": row})
+    return row, launches
+
+
+def check_stages(proj, height, width):
+    """Every stage of the backward kernel against its plain version
+    (ops/bwd_stages.py): (pairs, gimg, errors)."""
+    pairs, gimg = bwd_kernel_floor.floor_inputs(proj, height, width)
+    errs = {}
+    for stage in bwd_stages.STAGES:
+        rows, obs = bwd_stages.rasterize_bwd_stage(pairs, proj, gimg, height, width, stage)
+        rows_p, obs_p = bwd_stages.bwd_stage_plain(pairs, proj, gimg, height, width, stage)
+        if stage in bwd_stages.ABLATED:
+            if not torch.equal(rows, rows_p):
+                raise AssertionError(f"stage {stage}: staged rows differ from the plain version")
+            scale = float(obs_p.abs().max())
+            n_out, allowed, mx = mismatch(obs / scale, obs_p / scale, OBSERVE_RTOL)
+            if n_out > allowed or not torch.isfinite(obs).all():
+                raise AssertionError(f"stage {stage}: observer off its plain version on {n_out} "
+                                     f"pixels (allowed {allowed:.0f}), max {mx:.2e} of the max")
+            errs[stage] = mx
+        else:
+            errs[stage] = scaled_err(rows, rows_p)
+            errs[f"{stage}_max_abs"] = float((rows - rows_p).abs().max())
+            if errs[stage] > GRAD_ATOL:
+                raise AssertionError(f"stage {stage}: rows off the plain version by "
+                                     f"{errs[stage]:.2e} of the max")
+    return pairs, gimg, errs
+
+
+def measure_stages(proj, height, width, drive=None):
+    """The backward kernel's stages on one projected cloud: each held to its
+    plain version; then drive(), by default the tool's measure() on proj,
+    which holds full and full_soa bitwise to the production kernel and times
+    every stage; beside it the plain versions' times and the bounds."""
+    pairs, gimg, errs = check_stages(proj, height, width)
+    res = drive() if drive else bwd_kernel_floor.measure(proj, height, width)
+    work = blend_work(proj, pairs, height, width)
+    plain_ms = {s: cuda_ms(lambda s=s: bwd_stages.bwd_stage_plain(pairs, proj, gimg, height,
+                                                                     width, s),
+                           n=3, reps=1, warmup=1) for s in bwd_stages.STAGES}
+    bounds = {s: {k: v for k, v in bwd_bound(proj, pairs, height, width, s, work).items()
+                  if k.startswith("bound")} for s in bwd_stages.STAGES}
+    return {**res, "scaled_err_vs_plain": errs, "plain_ms": plain_ms, "bounds": bounds,
+            "evaluations": work[0], "contributions": work[1]}
+
+
+def phase_tool_bwd_floor(dev, H=HW, P=CAPACITY):
+    """The stages on bench's scene through the tool's main(), counted."""
+    proj, _ = bench_scene(dev, H=H, P=P)
+    counted = {}
+
+    def drive():
+        bwd_stages.launches = 0
+        res = bwd_kernel_floor.main(dev, H=H, P=P)
+        counted["launches"] = bwd_stages.launches
+        if counted["launches"] < len(bwd_stages.STAGES):
+            raise AssertionError(f"the stage tool launched the stages {counted} times")
+        return res
+
+    row = measure_stages(proj, H, H, drive)
+    bounds = row["bounds"].values()
+    bound_ms = sum(b["bound_ms"] for b in bounds)
+    by_bytes = sum(b["bound_ms"] for b in bounds if b["bound_by"] == "bytes")
+    total = {"ms": sum(row["stage_ms"].values()), "plain_ms": sum(row["plain_ms"].values()),
+             "bound_ms": bound_ms, "bound_by": "bytes" if by_bytes > bound_ms / 2 else "operations",
+             "max_abs_err": max(row["scaled_err_vs_plain"][f"{s}_max_abs"]
+                                for s in ("full", "full_soa"))}
+    emit({"phase": "tool_bwd_floor", "scene": "bench", "hw": H, "gaussians": P,
+          "launches": counted["launches"], **row, "sum_over_stages": total})
+    return total, counted["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -630,7 +774,8 @@ def main():
     t0 = time.perf_counter()
     cuda_build.build_all(KERNELS)
     ptxas = {n: [ln.strip() for ln in cuda_build.build_logs.get(n, "").splitlines()
-                 if "registers" in ln or "bytes stack" in ln] for n in KERNELS}
+                 if any(k in ln for k in ("entry function", "registers", "bytes stack"))]
+             for n in KERNELS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
     with torch.inference_mode():
@@ -638,6 +783,9 @@ def main():
         row, serve_launches = phase_slice(dev)
     phase_train_kernel(dev)
     bwd, train_launches = phase_train(dev)
+    sort_rows, sort_launches = phase_tool_sort(dev)
+    conv_row, conv_launches = phase_tool_conv(dev)
+    floor_row, floor_launches = phase_tool_bwd_floor(dev)
     grad_tol = f"grads: max|g - g_plain| / max|g_plain| <= {GRAD_ATOL}; bg rtol {BG_RTOL}"
 
     def entry(name, source, replaces, launches, by_path, measured, tolerance, library_ms=None):
@@ -661,6 +809,22 @@ def main():
               train_launches["segment_sum"], {"train": train_launches["segment_sum"]},
               bwd["segment"], "1e-5 of the max against index_add_; grads as rasterize_bwd",
               library_ms=bwd["segment"]["library_ms"]),
+        entry("sort_lane_pass", "moss_torch/csrc/sort_pass.cu", "tools/sort_micro.py:47",
+              sort_launches["lane"], {"tools": sort_launches["lane"]}, sort_rows["lane"],
+              "exact, every stride; ms per launch of R = 64 passes at s = 64"),
+        entry("sort_row_pass", "moss_torch/csrc/sort_pass.cu", "tools/sort_micro.py:68",
+              sort_launches["row"], {"tools": sort_launches["row"]}, sort_rows["row"],
+              "exact, every stride; ms per launch of R = 64 passes at S = 64"),
+        entry("conv3x3", "moss_torch/csrc/conv3x3.cu", "tools/conv_pallas_proto.py:28",
+              conv_launches, {"tools": conv_launches}, conv_row,
+              f"f32 atol {conv_proto.F32_ATOL}; bf16 max|y - y_plain| <= "
+              f"{conv_proto.BF16_RTOL} max|y_plain|; ms summed over the eight VGG16 layers",
+              library_ms=conv_row["library_ms"]),
+        entry("rasterize_bwd_stages", "moss_torch/csrc/rasterize_bwd.cu",
+              "tools/bwd_kernel_floor.py:97", floor_launches, {"tools": floor_launches},
+              floor_row, "full, full_soa bitwise equal to rasterize_bwd; rows vs plain "
+              f"{GRAD_ATOL} of the max, observers {OBSERVE_RTOL}; ms summed over the five "
+              "stages on bench"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
 """Synthetic dataset (port of moss_tpu/data/synthetic.py): the synthetic SMPL
 scene with its big pose, an orbit camera, a random pose, and make_frames,
-the ground-truth frames of a known cloud posed by skinning alone.
+the ground-truth frames of a known cloud posed by skinning alone; and
+bench_scene, bench.py's projected splat cloud.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from ..models.deform import coarse_deform_c2source
 from ..ops.projection import preprocess
 from ..ops.rasterize_cuda import rasterize_cuda
 from ..ops.sh import sh_to_color
+from ..ops.transforms import build_covariance
 from ..render.camera import Camera
 from ..render.render import SceneContext
 from .frames import Frame
@@ -106,3 +108,38 @@ def make_frames(
                 bound_mask=torch.ones((H, W), device=device), **smpl_params,
                 pose_rotmats=t(rotmats), crop_y0=y0, crop_x0=x0, pose_id=i))
     return frames, {"xyz": params.xyz, "colors": colors}
+
+
+def bench_scene(device=None, opacity=None, dense=False, H: int = 512, P: int = 46080):
+    """bench.py:92-113's projected cloud (numpy default_rng(0), same draw
+    order), also tools/bwd_kernel_floor.py:64-77's at 512x512: P splats with
+    means in [-0.4, 0.4] x [-0.7, 0.7] x [1.5, 2.5], scales U(0.004, 0.012),
+    random rotations and colours, opacity U(0.3, 0.95), seen by an H x H
+    pinhole camera at the origin with f = 550 H / 512. opacity sets every
+    opacity (the cloud after an opacity reset); dense packs the splats,
+    enlarges them and makes them near-opaque (tests/test_rasterize_tpu.py:
+    76-90). Returns (Projected, Camera)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(0)
+    f = 550.0 * H / 512.0
+    K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1.0]])
+    cam = Camera.from_KRT(K, np.eye(3), np.zeros(3), H, H, device=device)
+    means = np.stack(
+        [rng.uniform(-0.4, 0.4, P), rng.uniform(-0.7, 0.7, P), rng.uniform(1.5, 2.5, P)], -1
+    ).astype(np.float32)
+    scales = rng.uniform(0.004, 0.012, (P, 3)).astype(np.float32)
+    quats = rng.normal(size=(P, 4)).astype(np.float32)
+    colors = rng.uniform(size=(P, 3)).astype(np.float32)
+    op = rng.uniform(0.3, 0.95, P).astype(np.float32)
+    if dense:
+        means[:, :2] *= 0.5
+        scales *= 1.5
+        op[:] = 0.97
+    if opacity is not None:
+        op[:] = opacity
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    cov3d = build_covariance(t(scales), t(quats))
+    return preprocess(t(means), cov3d, t(colors), t(op), cam), cam

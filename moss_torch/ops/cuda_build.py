@@ -23,6 +23,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "moss_torch"
 NVCC_FLAGS = (
@@ -96,3 +98,18 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _libs[name] = ctypes.CDLL(str(build_all([name])[name]))
     return _libs[name]
+
+
+def launch(name: str, symbol: str, argtypes, device, *args):
+    """Call the C entry point `symbol` of library `name` with `args` and the
+    current stream of `device` appended; raise if it reports a launch error.
+    argtypes: the ctypes types of `args` (c_void_p for pointers, c_int for
+    ints), the stream's c_void_p excluded."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

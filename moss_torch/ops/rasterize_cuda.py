@@ -35,31 +35,20 @@ segment_launches = 0  # segment_sum
 
 _KERNEL_FIELDS = ("mean2d", "conic", "opacity", "color", "depth")
 _C_SIGNATURES = {
-    # 7 input pointers; height, width, grid_w, num_tiles; out; stream
+    # 7 input pointers; height, width, grid_w, num_tiles; out
     ("rasterize_fwd", "moss_rasterize_fwd"): [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-    + [ctypes.c_void_p] * 2,
-    # 8 input pointers (the 7 above + gimg); height, width, grid_w, num_tiles; rows; stream
+    + [ctypes.c_void_p],
+    # 8 input pointers (the 7 above + gimg); height, width, grid_w, num_tiles; rows
     ("rasterize_bwd", "moss_rasterize_bwd"): [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-    + [ctypes.c_void_p] * 2,
-    # rows, gaussian_pairs, offsets; num_gaussians; out; stream
+    + [ctypes.c_void_p],
+    # rows, gaussian_pairs, offsets; num_gaussians; out
     ("segment_sum", "moss_segment_sum"): [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 2,
+    + [ctypes.c_void_p],
 }
 
 
-def _kernel(lib: str, symbol: str):
-    fn = getattr(cuda_build.load(lib), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = _C_SIGNATURES[(lib, symbol)]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(lib: str, symbol: str, device, *args):
-    with torch.cuda.device(device):
-        err = _kernel(lib, symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{lib} kernel launch failed: cudaError {err}")
+    cuda_build.launch(lib, symbol, _C_SIGNATURES[(lib, symbol)], device, *args)
 
 
 def check_kernel_inputs(proj: Projected, device: torch.device):
@@ -95,6 +84,12 @@ def _check_pairs(pairs: PairList, device, height: int, width: int, P: int):
     return grid_w, num_tiles
 
 
+def check_gimg(gimg, device, height: int, width: int):
+    if (gimg.device != device or gimg.dtype != torch.float32 or not gimg.is_contiguous()
+            or tuple(gimg.shape) != (6, height, width)):
+        raise ValueError(f"gimg: expected contiguous float32 (6, {height}, {width}) on {device}")
+
+
 def rasterize_pairs(pairs: PairList, proj: Projected, height: int, width: int):
     """Launch the blend kernel on a built pair list; (6, H, W) f32 planes
     r, g, b, depth, alpha (sum of weights), final_T."""
@@ -119,9 +114,7 @@ def rasterize_pairs_bwd(pairs: PairList, proj: Projected, gimg, height: int, wid
     device = proj.mean2d.device
     grid_w, num_tiles = _check_pairs(pairs, device, height, width, proj.mean2d.shape[0])
     check_kernel_inputs(proj, device)
-    if (gimg.device != device or gimg.dtype != torch.float32 or not gimg.is_contiguous()
-            or tuple(gimg.shape) != (6, height, width)):
-        raise ValueError(f"gimg: expected contiguous float32 (6, {height}, {width}) on {device}")
+    check_gimg(gimg, device, height, width)
     rows = torch.zeros((pairs.num_pairs, GRAD_COLS), dtype=torch.float32, device=device)
     _launch("rasterize_bwd", "moss_rasterize_bwd", device,
             pairs.tile_offsets.data_ptr(), pairs.pair_gaussian.data_ptr(),

@@ -1,6 +1,7 @@
-"""The CUDA blend kernels (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu,
-csrc/segment_sum.cu) against their plain PyTorch versions, on the card, and
-one training step through them.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+blend kernels (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu and its stages,
+csrc/segment_sum.cu) and one training step through them, the sort passes
+(csrc/sort_pass.cu) and the 3x3 conv (csrc/conv3x3.cu).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. Imports neither jax nor
 moss_tpu, so it runs on a machine with only PyTorch:
@@ -10,6 +11,8 @@ moss_tpu, so it runs on a machine with only PyTorch:
 Image rule of tests/test_rasterize_tpu.py:50-59 (atol 3e-5, at most 2e-3 of
 the pixels as termination-threshold flips; depth atol 1e-4); grads at
 tests/test_rasterize_tpu.py:150 (divide by max|g_ref|, atol 5e-4), bg rtol 1e-4.
+Sort passes: exact. Conv: f32 atol 1e-4 (tools/conv_pallas_proto.py:102), bf16
+max |y - y_plain| <= 2e-2 max |y_plain| (tests/test_losses_parity.py:108).
 """
 import functools
 
@@ -17,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from moss_torch.ops import rasterize_cuda as rc
+from moss_torch.ops import bwd_stages, conv3x3 as conv, rasterize_cuda as rc, sort_pass
 from moss_torch.ops.projection import preprocess
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import build_covariance
@@ -200,3 +203,107 @@ def test_train_step_on_the_card(cuda_device):
     assert_grad_close(off, off_ref, "mean2d_offset")
     ts, logs = step(ts, frames[0], 0)
     assert torch.isfinite(logs["loss"]) and float(ts.gstate.xyz_grad_accum.max()) > 0
+
+
+def _block(device, rows, seed=0):
+    x = np.random.default_rng(seed).integers(0, 1 << 30, (rows, sort_pass.LANES), np.int32)
+    return torch.as_tensor(x, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2, 4, 8, 16, 32, 64])
+def test_lane_pass_matches_plain(cuda_device, stride):
+    x = _block(cuda_device, 72)
+    before = sort_pass.lane_launches
+    got = sort_pass.lane_pass(x, stride, 3)
+    torch.cuda.synchronize()
+    assert sort_pass.lane_launches == before + 1
+    assert torch.equal(got, sort_pass.lane_pass_plain(x, stride, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride_rows", [1, 4, 64])
+def test_row_pass_matches_plain(cuda_device, stride_rows):
+    x = _block(cuda_device, 256)
+    before = sort_pass.row_launches
+    got = sort_pass.row_pass(x, stride_rows, 3)
+    torch.cuda.synchronize()
+    assert sort_pass.row_launches == before + 1
+    assert torch.equal(got, sort_pass.row_pass_plain(x, stride_rows, 3))
+
+
+@pytest.mark.cuda
+def test_sort_pass_time_grows_with_repeats(cuda_device):
+    """A compare-exchange is idempotent; were the R repeats folded into one,
+    4R repeats would take about the time of R."""
+    from moss_torch.tools.timing import cuda_ms
+
+    x = _block(cuda_device, sort_pass.ROWS)
+    R = sort_pass.R
+    for fn in (lambda r: sort_pass.lane_pass(x, 64, r), lambda r: sort_pass.lane_pass(x, 1, r),
+               lambda r: sort_pass.row_pass(x, 64, r)):
+        t_r, t_4r = cuda_ms(lambda: fn(R)), cuda_ms(lambda: fn(4 * R))
+        assert t_4r > 1.5 * t_r, (t_r, t_4r)
+
+
+def _conv_inputs(device, H, W, cin, cout, seed=0):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.normal(size=(H, W, cin)).astype(np.float32), device=device),
+            torch.as_tensor(rng.normal(0, 0.1, (3, 3, cin, cout)).astype(np.float32),
+                            device=device),
+            torch.as_tensor(rng.normal(0, 0.1, cout).astype(np.float32), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 128, 8, 16), (8, 256, 64, 64), (32, 128, 16, 8),
+                                   (13, 29, 5, 70)], ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_matches_plain_f32(cuda_device, shape):
+    x, w, b = _conv_inputs(cuda_device, *shape)
+    before = conv.launches
+    for relu in (True, False):
+        got = conv.conv3x3(x, w, b, relu=relu)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, conv.conv3x3_plain(x, w, b, relu=relu), rtol=0, atol=1e-4)
+    assert conv.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [None, torch.float32], ids=["bf16_out", "f32_out"])
+def test_conv3x3_matches_plain_bf16(cuda_device, out_dtype):
+    x, w, b = _conv_inputs(cuda_device, 24, 40, 48, 72, seed=1)
+    x = x.to(torch.bfloat16)
+    for relu in (True, False):
+        got = conv.conv3x3(x, w, b, relu=relu, out_dtype=out_dtype)
+        want = conv.conv3x3_plain(x, w, b, relu=relu, out_dtype=out_dtype)
+        assert got.dtype == want.dtype == (out_dtype or torch.bfloat16)
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2e-2 * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["scene", "dense"])
+def test_bwd_stages_match_production_and_plain(cuda_device, dense):
+    """full and full_soa are the production kernel's rows bit for bit; every
+    stage is its plain version (staged rows exactly, observers within 1e-4
+    of the max but for termination flips, full rows within the grad rule)."""
+    from moss_torch.tools.bwd_kernel_floor import floor_inputs
+
+    H, W = 64, 77
+    proj = projected(cuda_device, H, W, n=400, dense=dense)
+    pairs, gimg = floor_inputs(proj, H, W)
+    prod = rc.rasterize_pairs_bwd(pairs, proj, gimg, H, W)
+    before = bwd_stages.launches
+    for stage in bwd_stages.STAGES:
+        rows, obs = bwd_stages.rasterize_bwd_stage(pairs, proj, gimg, H, W, stage)
+        rows_p, obs_p = bwd_stages.bwd_stage_plain(pairs, proj, gimg, H, W, stage)
+        torch.cuda.synchronize()
+        if stage in bwd_stages.ABLATED:
+            assert torch.equal(rows, rows_p), stage
+            scale = float(obs_p.abs().max())
+            assert_images_match(obs / scale, obs_p / scale, atol=1e-4)
+        else:
+            assert obs is None
+            assert torch.equal(rows.T if stage == "full_soa" else rows, prod), stage
+            assert_grad_close(rows, rows_p, stage)
+    assert bwd_stages.launches == before + len(bwd_stages.STAGES)

@@ -16,6 +16,7 @@ from moss_torch.ops import lpips, rasterize_cuda as rc
 from moss_torch.ops.projection import Projected
 from moss_torch.render.camera import Camera
 from moss_torch.render.render import render_frame
+from moss_torch.tools import bwd_kernel_floor, conv_proto, sort_micro
 from moss_torch.train.train_step import make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,6 +63,10 @@ def _entry_points():
         "lpips.init_random": lambda: lpips.init_random(),
         "lpips.load_params": lambda: lpips.load_params("missing.npz"),
         "make_train_step": lambda: make_train_step(None, Config(), None, None, 8, 8),
+        "bench_scene": lambda: synthetic.bench_scene(H=32, P=8),
+        "tools.sort_micro.main": lambda: sort_micro.main(),
+        "tools.conv_proto.main": lambda: conv_proto.main(),
+        "tools.bwd_kernel_floor.main": lambda: bwd_kernel_floor.main(),
     }
 
 
