@@ -43,6 +43,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              equal to the production kernel, every stage held to its plain
              version, with times and bounds; then
              moss_torch.tools.bwd_kernel_floor, counted
+ 10. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
+             cores, bf16, split2 and 3xTF32 tensor-core forms): their
+             observers bitwise equal across the 256 tiles, a launch's time
+             against REPS; then moss_torch.tools.mxu_micro, counted, which
+             holds each against its plain version (1e-5 of the max)
 
 Each tool phase sets its kernels' launch counts to 0 just before it drives
 the tool's main() and reads them just after. Then the kernels line and the
@@ -68,11 +73,11 @@ from moss_torch.models import gaussians as G
 from moss_torch.models.lbs_field import LBSField
 from moss_torch.models.pose_refine import PoseRefine
 from moss_torch.ops import bwd_stages, conv3x3 as conv, cuda_build, lpips, \
-    rasterize_cuda as rc, sort_pass
+    rasterize_cuda as rc, reduce_scan as rs, sort_pass
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import inverse_sigmoid
 from moss_torch.render.render import render_frame
-from moss_torch.tools import bwd_kernel_floor, conv_proto, sort_micro
+from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro
 from moss_torch.tools.timing import cuda_ms
 from moss_torch.train.losses import compute_losses, crop_window
 from moss_torch.train.train_step import TrainState, make_train_step
@@ -101,7 +106,8 @@ ATOL, OUTLIER_FRAC, OUTLIER_ATOL, DEPTH_ATOL = 3e-5, 2e-3, 1.0, 1e-4
 # grad rule of tests/test_rasterize_tpu.py:150 (divide by max|g_ref|) and :166
 GRAD_ATOL, BG_RTOL = 5e-4, 1e-4
 # the CUDA sources under moss_torch/csrc
-KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum", "sort_pass", "conv3x3")
+KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum", "sort_pass", "conv3x3",
+           "reduce_scan")
 PEAK_BF16 = 989e12  # dense bf16 FLOP/s on the tensor cores
 # the sort passes' int32 min and max, counted at the f32 rate above: the
 # datasheet gives no int32 rate, and the SMs have half as many int32 lanes as
@@ -757,6 +763,63 @@ def phase_tool_bwd_floor(dev, H=HW, P=CAPACITY):
     return total, counted["launches"]
 
 
+# the four kernels of csrc/reduce_scan.cu: (kernels-line name, launch-count
+# key, the runs of rs.RUNS it carries, the TPU kernels it replaces)
+MXU_KERNELS = (
+    ("mxu_moments", "moments", ("moments",), "tools/mxu_micro.py:58",
+     "kern_moments_vpu :58, kern_moments_mxu :81"),
+    ("mxu_reshape", "reshape", ("reshape",), "tools/mxu_micro.py:94", "kern_reshape_only :94"),
+    ("mxu_acc", "acc", ("acc",), "tools/mxu_micro.py:102", "kern_acc_vpu :102, kern_acc_mxu :116"),
+    ("mxu_scan", "scan", ("cumsum", "cumprod"), "tools/mxu_micro.py:153",
+     "kern_cumsum_vpu :153, kern_cumsum_mxu :175, kern_cumprod_vpu :192, "
+     "kern_cumprod_logmxu :203"),
+)
+
+
+def phase_tool_mxu(dev):
+    """The twelve reduction and scan runs: their observers across tiles and a
+    launch's time against REPS; then the tool, counted, which holds each run
+    to its plain version (raising past mxu_micro.RTOL) and times it. Returns
+    ({kernel: row summed over its runs}, {kernel: launches})."""
+    x, s = mxu_micro.inputs(dev)
+    checks = {}
+    for name, *_ in rs.RUNS:
+        _, obs = rs.run(name, x, s)
+        if not torch.equal(obs, obs[:1].expand_as(obs)):
+            raise AssertionError(f"{name}: the tiles' observers differ")
+        # had the compiler folded the repeats, 4 REPS would take about REPS's time
+        vs_reps = {r: cuda_ms(lambda r=r: rs.run(name, x, s, reps=r))
+                   for r in (rs.REPS, 4 * rs.REPS)}
+        if vs_reps[4 * rs.REPS] <= 1.5 * vs_reps[rs.REPS]:
+            raise AssertionError(f"{name}: {vs_reps} ms at REPS and 4 REPS; the repeats were "
+                                 "folded")
+        checks[name] = {"observers_equal": True, "observer_shape": list(obs.shape),
+                        "ms_vs_reps": vs_reps}
+
+    rs.reset_launch_counts()
+    res = mxu_micro.main(dev)
+    launches = rs.launch_counts()
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the mxu tool launched the kernels {launches} times")
+    rows = res["runs"]
+    kernels = {}
+    for kname, key, families, _, _ in MXU_KERNELS:
+        names = [n for n, fam, *_ in rs.RUNS if fam in families]
+        by_ops = sum(rows[n]["bound_ms"] for n in names if rows[n]["bound_by"] == "operations")
+        bound_ms = sum(rows[n]["bound_ms"] for n in names)
+        kernels[kname] = {
+            # each timed over a launch's TILES x REPS chunk-ops
+            **{k: sum(rows[n][k] for n in names) for k in ("ms", "plain_ms", "library_ms")},
+            "bound_ms": bound_ms, "bound_by": "operations" if by_ops >= bound_ms / 2 else "bytes",
+            "max_abs_err": max(rows[n]["max_abs_err"] for n in names),
+            "variants": {n: {k: rows[n][k] for k in ("ms", "ns_per_chunk_op", "bound_ms",
+                                                      "plain_ms", "library_ms", "max_abs_err")}
+                         for n in names}}
+    emit({"phase": "tool_mxu", "reps": rs.REPS, "tiles": rs.TILES, "checks": checks,
+          "launches": launches, **res})
+    return kernels, {k[0]: launches[k[1]] for k in MXU_KERNELS}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -786,15 +849,23 @@ def main():
     sort_rows, sort_launches = phase_tool_sort(dev)
     conv_row, conv_launches = phase_tool_conv(dev)
     floor_row, floor_launches = phase_tool_bwd_floor(dev)
+    mxu_rows, mxu_launches = phase_tool_mxu(dev)
     grad_tol = f"grads: max|g - g_plain| / max|g_plain| <= {GRAD_ATOL}; bg rtol {BG_RTOL}"
 
-    def entry(name, source, replaces, launches, by_path, measured, tolerance, library_ms=None):
+    def entry(name, source, replaces, launches, by_path, measured, tolerance, library_ms=None,
+              **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_by_path": by_path,
                 "max_abs_err": measured["max_abs_err"], "ms": measured["ms"],
                 "plain_ms": measured["plain_ms"], "bound_ms": measured["bound_ms"],
                 "bound_by": measured["bound_by"], "library_ms": library_ms,
-                "tolerance": tolerance}
+                "tolerance": tolerance, **extra}
+
+    mxu_tol = (f"max|out - plain| <= {mxu_micro.RTOL} max|plain| (tensor-core forms against a "
+               "plain version rounding as the kernel does); observers bitwise equal across "
+               "tiles; ms, bound, plain (on the TILES chunks stacked) and library (one "
+               "PyTorch call over the TILES x REPS chunks) each of a launch's TILES x REPS "
+               "chunk-ops, summed over the variants")
 
     emit({"kernels": [
         entry("rasterize_fwd", "moss_torch/csrc/rasterize_fwd.cu",
@@ -825,6 +896,12 @@ def main():
               floor_row, "full, full_soa bitwise equal to rasterize_bwd; rows vs plain "
               f"{GRAD_ATOL} of the max, observers {OBSERVE_RTOL}; ms summed over the five "
               "stages on bench"),
+        *(entry(kname, "moss_torch/csrc/reduce_scan.cu", replaces, mxu_launches[kname],
+                {"tools": mxu_launches[kname]}, mxu_rows[kname], mxu_tol,
+                library_ms=mxu_rows[kname]["library_ms"],
+                replaces_all=f"tools/mxu_micro.py: {all_}",
+                variants=mxu_rows[kname]["variants"])
+          for kname, _, _, replaces, all_ in MXU_KERNELS),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,6 +13,9 @@ the pixels as termination-threshold flips; depth atol 1e-4); grads at
 tests/test_rasterize_tpu.py:150 (divide by max|g_ref|, atol 5e-4), bg rtol 1e-4.
 Sort passes: exact. Conv: f32 atol 1e-4 (tools/conv_pallas_proto.py:102), bf16
 max |y - y_plain| <= 2e-2 max |y_plain| (tests/test_losses_parity.py:108).
+Reductions and scans: max |out - plain| <= 1e-5 max |plain|, the plain version
+rounding a tensor-core form's operands as its kernel does; observers bitwise
+equal across tiles.
 """
 import functools
 
@@ -20,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from moss_torch.ops import bwd_stages, conv3x3 as conv, rasterize_cuda as rc, sort_pass
+from moss_torch.ops import bwd_stages, conv3x3 as conv, rasterize_cuda as rc, reduce_scan as rs, \
+    sort_pass
 from moss_torch.ops.projection import preprocess
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import build_covariance
@@ -307,3 +311,47 @@ def test_bwd_stages_match_production_and_plain(cuda_device, dense):
             assert torch.equal(rows.T if stage == "full_soa" else rows, prod), stage
             assert_grad_close(rows, rows_p, stage)
     assert bwd_stages.launches == before + len(bwd_stages.STAGES)
+
+
+def _chunk(device):
+    from moss_torch.tools.mxu_micro import inputs
+
+    return inputs(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("name", [r[0] for r in rs.RUNS])
+def test_reduce_scan_matches_plain(cuda_device, name, reps):
+    """Each of the twelve instantiations: kernel against plain, the observers
+    of the tiles bitwise equal, one launch; the same wrapper given CPU
+    tensors runs the plain version and launches nothing."""
+    x, s = _chunk(cuda_device)
+    family = rs.RUN[name][1]
+    key = {"cumsum": "scan", "cumprod": "scan"}.get(family, family)
+    before = rs.launch_counts()
+    out, obs = rs.run(name, x, s, reps=reps)
+    torch.cuda.synchronize()
+    assert rs.launch_counts()[key] == before[key] + 1
+    plain = rs.run_plain(name, x, s, reps=reps)
+    assert out.shape == plain.shape and torch.isfinite(out).all()
+    err = float((out - plain).abs().max()) / float(plain.abs().max())
+    assert err <= 1e-5, err
+    assert obs.shape[0] == rs.TILES and torch.isfinite(obs).all()
+    assert torch.equal(obs, obs[:1].expand_as(obs))
+    counts = rs.launch_counts()
+    cpu_out, cpu_obs = rs.run(name, x.cpu(), s.cpu(), reps=reps)
+    assert rs.launch_counts() == counts and cpu_obs is None
+    assert torch.equal(cpu_out, rs.run_plain(name, x.cpu(), s.cpu(), reps=reps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [r[0] for r in rs.RUNS])
+def test_reduce_scan_time_grows_with_reps(cuda_device, name):
+    """Were the repeats folded, 4 REPS would take about the time of REPS."""
+    from moss_torch.tools.timing import cuda_ms
+
+    x, s = _chunk(cuda_device)
+    t_r = cuda_ms(lambda: rs.run(name, x, s, reps=rs.REPS))
+    t_4r = cuda_ms(lambda: rs.run(name, x, s, reps=4 * rs.REPS))
+    assert t_4r > 1.5 * t_r, (t_r, t_4r)

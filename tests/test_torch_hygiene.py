@@ -16,7 +16,7 @@ from moss_torch.ops import lpips, rasterize_cuda as rc
 from moss_torch.ops.projection import Projected
 from moss_torch.render.camera import Camera
 from moss_torch.render.render import render_frame
-from moss_torch.tools import bwd_kernel_floor, conv_proto, sort_micro
+from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro
 from moss_torch.train.train_step import make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,6 +67,7 @@ def _entry_points():
         "tools.sort_micro.main": lambda: sort_micro.main(),
         "tools.conv_proto.main": lambda: conv_proto.main(),
         "tools.bwd_kernel_floor.main": lambda: bwd_kernel_floor.main(),
+        "tools.mxu_micro.main": lambda: mxu_micro.main(),
     }
 
 
