@@ -23,7 +23,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              autograd through the plain version (remat) at 512x512, on the
              bench scene and (in phase 6) on the training slice's own
              projected input: grads within the scaled atol, two backward passes
-             bitwise equal, with their times, the plain backward's, and bounds
+             bitwise equal, with their times, the plain backward's, and bounds;
+             the segment sum alone against its plain version and index_add_
+             (1e-5 of the max), bitwise repeatable, its time beside
+             index_add_'s, and the distribution of segment lengths
   6. train   the training path through the user entry points: the slice's
              cloud and MLPs, 4 frames from make_frames at 512x512, a 256x256
              crop, the six-term loss with the seeded random LPIPS backbone,
@@ -35,10 +38,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   7. tool_sort  the two sort-pass kernels against their plain versions,
              exactly, at every stride of a 2^19-key network; a pass's time
              against R; then moss_torch.tools.sort_micro, counted
-  8. tool_conv  the 3x3 conv kernel against its plain version at the JAX
-             tool's check() shapes and the eight VGG16 layer shapes, in f32
-             (atol 1e-4) and bf16 (2e-2 of the max); then
-             moss_torch.tools.conv_proto, counted
+  8. tool_conv  the two 3x3 conv kernels against their plain version: the
+             CUDA-core kernel in f32 (atol 1e-4) at the JAX tool's check()
+             shapes and the eight VGG16 layer shapes, the tensor-core kernel
+             in bf16 (2e-2 of the max) at the eight layers and at ragged
+             shapes, bitwise repeatable, each shape on the route it should
+             take, an unaligned input too; the tensor-core kernel's stages
+             equal to their plain versions; then moss_torch.tools.conv_proto,
+             counted, which prints per layer the tensor-core kernel's ms,
+             TFLOP/s, share of the bound, cuDNN's ms and its stages' ms
   9. tool_bwd_floor  the backward kernel's stages: full and full_soa bitwise
              equal to the production kernel, every stage held to its plain
              version, with times and bounds; then
@@ -48,6 +56,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              observers bitwise equal across the 256 tiles, a launch's time
              against REPS; then moss_torch.tools.mxu_micro, counted, which
              holds each against its plain version (1e-5 of the max)
+ 11. timing  how many runs cuda_ms took again because the host had not
+             queued them before their spin ended (0: every time above is the
+             first run's)
 
 Each tool phase sets its kernels' launch counts to 0 just before it drives
 the tool's main() and reads them just after. Then the kernels line and the
@@ -77,7 +88,7 @@ from moss_torch.ops import bwd_stages, conv3x3 as conv, cuda_build, lpips, \
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import inverse_sigmoid
 from moss_torch.render.render import render_frame
-from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro
+from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro, timing
 from moss_torch.tools.timing import cuda_ms
 from moss_torch.train.losses import compute_losses, crop_window
 from moss_torch.train.train_step import TrainState, make_train_step
@@ -105,6 +116,8 @@ OPS_PER_CONTRIB_BWD = 38
 ATOL, OUTLIER_FRAC, OUTLIER_ATOL, DEPTH_ATOL = 3e-5, 2e-3, 1.0, 1e-4
 # grad rule of tests/test_rasterize_tpu.py:150 (divide by max|g_ref|) and :166
 GRAD_ATOL, BG_RTOL = 5e-4, 1e-4
+# the segment sum against its plain version and index_add_: max |a - b| / max |b|
+SEGMENT_RTOL = 1e-5
 # the CUDA sources under moss_torch/csrc
 KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum", "sort_pass", "conv3x3",
            "reduce_scan")
@@ -387,6 +400,19 @@ def segment_bound(pairs, P):
             "bound_by": "bytes" if t_bytes > t_ops else "operations"}
 
 
+def segment_lengths(pairs):
+    """The distribution of the segment sum's segments (pairs per Gaussian)."""
+    lengths = (pairs.gaussian_offsets[1:] - pairs.gaussian_offsets[:-1]).long()
+    live = lengths[lengths > 0]
+    edges = (0, 1, 2, 3, 5, 9, 17, rc.SEGMENT_LONG + 1)
+    hist = {(f"{lo}" if hi == lo + 1 else f"{lo}-{hi - 1}"):
+            int(((lengths >= lo) & (lengths < hi)).sum()) for lo, hi in zip(edges, edges[1:])}
+    hist[f">{rc.SEGMENT_LONG}"] = int((lengths > rc.SEGMENT_LONG).sum())
+    return {"gaussians": lengths.numel(), "empty": int((lengths == 0).sum()),
+            "mean_nonempty": float(live.float().mean()) if live.numel() else 0.0,
+            "max": int(lengths.max()) if lengths.numel() else 0, "histogram": hist}
+
+
 def blend_grads(proj, bg, height, width, upstream, raster):
     """Grads of sum(out * upstream) for the five kernel fields and bg."""
     leaves = [getattr(proj, f).detach().clone().requires_grad_() for f in rc._KERNEL_FIELDS]
@@ -433,8 +459,13 @@ def measure_backward(proj, bg, height, width, seed=0):
     def library():
         return torch.zeros((P, rc.GRAD_COLS), device=rows.device).index_add_(0, index, rows)
 
-    if scaled_err(rc.segment_sum(rows, pairs), library()) > 1e-5:
-        raise AssertionError("segment sum vs index_add_ disagree")
+    seg = rc.segment_sum(rows, pairs)
+    if not torch.equal(seg, rc.segment_sum(rows, pairs)):
+        raise AssertionError("two segment sums of the same rows differ")
+    seg_errs = {"plain": scaled_err(seg, rc.segment_sum_plain(rows, pairs)),
+                "index_add_": scaled_err(seg, library())}
+    if max(seg_errs.values()) > SEGMENT_RTOL:
+        raise AssertionError(f"segment sum vs plain and index_add_: scaled errors {seg_errs}")
 
     def plain_fwd():
         with torch.no_grad():
@@ -443,6 +474,14 @@ def measure_backward(proj, bg, height, width, seed=0):
     fwd_ms = host_ms(plain_fwd, n=2, warmup=1)
     fwd_bwd_ms = host_ms(lambda: blend_grads(proj, bg, height, width, up, plain), n=2, warmup=1)
     bound = bwd_bound(proj, pairs, height, width)
+    segment = {"ms": cuda_ms(lambda: rc.segment_sum(rows, pairs)), "library_ms": cuda_ms(library),
+               "plain_ms": cuda_ms(lambda: rc.segment_sum_plain(rows, pairs)),
+               "max_abs_err": float((seg - rc.segment_sum_plain(rows, pairs)).abs().max()),
+               "scaled_err": seg_errs, "bitwise_repeat": True, "lengths": segment_lengths(pairs),
+               **segment_bound(pairs, P)}
+    print(f"segment sum {segment['ms']:.5f} ms, index_add_ {segment['library_ms']:.5f} ms, "
+          f"bound {segment['bound_ms']:.5f} ms; pairs per Gaussian {segment['lengths']}",
+          flush=True)
     return {
         "pairs": pairs.num_pairs,
         "max_tile_pairs": int(pairs.tile_count.max()),
@@ -452,12 +491,7 @@ def measure_backward(proj, bg, height, width, seed=0):
         "ms": cuda_ms(lambda: rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width)),
         "plain_ms": fwd_bwd_ms - fwd_ms, "plain_fwd_bwd_ms": fwd_bwd_ms,
         **bound,
-        "segment": {"ms": cuda_ms(lambda: rc.segment_sum(rows, pairs)),
-                    "library_ms": cuda_ms(library),
-                    "plain_ms": cuda_ms(lambda: rc.segment_sum_plain(rows, pairs)),
-                    "max_abs_err": float((rc.segment_sum(rows, pairs)
-                                          - rc.segment_sum_plain(rows, pairs)).abs().max()),
-                    **segment_bound(pairs, P)},
+        "segment": segment,
     }
 
 
@@ -649,13 +683,26 @@ def phase_tool_sort(dev):
 
 
 def phase_tool_conv(dev):
-    """The conv kernel against its plain version at the tool's check()
-    shapes and at the eight VGG16 layers in f32 and bf16, then the tool."""
+    """The two conv kernels against their plain version (f32 at the tool's
+    check() shapes and the eight VGG16 layers on the CUDA cores, bf16 at the
+    layers and ragged shapes on the tensor cores), each shape on its route,
+    the tensor-core kernel bitwise repeatable; then the tool, counted.
+    Returns ({kernel: row}, {kernel: launches})."""
     f32_err, bf16_err, bf16_abs = 0.0, 0.0, 0.0
     vs_f64 = {"kernel": 0.0, "plain": 0.0}  # both f32 versions against an f64 conv
 
+    def routed(fn, tensor_cores):
+        """fn() after checking that it launched the kernel of its route once."""
+        before = (conv.launches, conv.tc_launches)
+        y = fn()
+        after = (conv.launches, conv.tc_launches)
+        if after != (before[0] + (not tensor_cores), before[1] + tensor_cores):
+            raise AssertionError(f"conv3x3 took the wrong route: launches {before} -> {after}")
+        return y
+
     def check_f32(x, w, b):
-        y, ref = conv.conv3x3(x, w, b), conv.conv3x3_plain(x, w, b)
+        y = routed(lambda: conv.conv3x3(x, w, b), False)
+        ref = conv.conv3x3_plain(x, w, b)
         exact = torch.relu(torch.nn.functional.conv2d(
             x.double().permute(2, 0, 1)[None], w.double().permute(3, 2, 0, 1), padding=1)[0]
             .permute(1, 2, 0) + b.double())
@@ -663,35 +710,80 @@ def phase_tool_conv(dev):
             vs_f64[k] = max(vs_f64[k], float((v.double() - exact).abs().max()))
         return float((y - ref).abs().max())
 
+    def check_bf16(x, w, b, relu=True, tensor_cores=True):
+        nonlocal bf16_err, bf16_abs
+        y = routed(lambda: conv.conv3x3(x, w, b, relu=relu), tensor_cores)
+        ref = conv.conv3x3_plain(x, w, b, relu=relu)
+        bf16_err = max(bf16_err, conv_proto.scaled_err(y, ref))
+        bf16_abs = max(bf16_abs, float((y.float() - ref.float()).abs().max()))
+        return y
+
+    def check_stages_conv(x, w, b, y):
+        """Every stage of the tensor-core kernel equal to its plain version
+        (full: bitwise to the production call's y, relu off)."""
+        out = {s: conv.conv3x3_tc_stage(x, w, b, s, relu=False) for s in conv.STAGES}
+        return torch.equal(out.pop("full"), y) and all(
+            torch.equal(v, conv.conv3x3_stage_plain(x, w, b, s, relu=False))
+            for s, v in out.items())
+
     for _, x, w, b in conv_proto.check_inputs(dev):
         f32_err = max(f32_err, check_f32(x, w, b))
+    repeat, stages_exact = {}, {}
     for layer, x, w, b in conv_proto.layer_inputs(dev):
         f32_err = max(f32_err, check_f32(x, w, b))
         xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
         for relu in (True, False):
-            y, ref = conv.conv3x3(xb, wb, b, relu=relu), conv.conv3x3_plain(xb, wb, b, relu=relu)
-            bf16_err = max(bf16_err, conv_proto.scaled_err(y, ref))
-            bf16_abs = max(bf16_abs, float((y.float() - ref.float()).abs().max()))
+            y = check_bf16(xb, wb, b, relu)
+        repeat[str(layer)] = torch.equal(y, conv.conv3x3(xb, wb, b, relu=False))
+    # ragged shapes: Cin not a multiple of 64, Cout not one of the tile's
+    # channels, H and W not multiples of the tile; Cin 5 takes the CUDA cores.
+    # The stages there, with a bias that is not zero
+    rng = np.random.default_rng(2)
+    for H, W, cin, cout in ((13, 29, 5, 70), (13, 29, 48, 72)):
+        x, w, b = (torch.as_tensor(a.astype(np.float32), device=dev).to(torch.bfloat16)
+                   for a in (rng.normal(size=(H, W, cin)), rng.normal(0, 0.1, (3, 3, cin, cout)),
+                             rng.normal(0, 0.1, cout)))
+        y = check_bf16(x, w, b, False, tensor_cores=cin % 8 == 0)
+        repeat[str((H, W, cin, cout))] = torch.equal(y, conv.conv3x3(x, w, b, relu=False))
+        if cin % 8 == 0:
+            stages_exact[str((H, W, cin, cout))] = check_stages_conv(x, w, b, y)
+    # an x that does not start on 16 bytes is copied to one that does
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape).copy_(x)
+    repeat["unaligned"] = torch.equal(routed(lambda: conv.conv3x3(xs, w, b, relu=False), True),
+                                      conv.conv3x3(x, w, b, relu=False))
     if f32_err > conv_proto.F32_ATOL or bf16_err > conv_proto.BF16_RTOL:
         raise AssertionError(f"conv3x3 vs plain: f32 max abs err {f32_err}, bf16 {bf16_err}")
+    if not all(repeat.values()):
+        raise AssertionError(f"conv3x3: two calls on the same input differ: {repeat}")
+    if not all(stages_exact.values()):
+        raise AssertionError(f"conv3x3 stages differ from their plain version: {stages_exact}")
 
-    conv.launches = 0
+    conv.launches = conv.tc_launches = conv.stage_launches = 0
     res = conv_proto.main(dev)
-    launches = conv.launches
-    if launches == 0:
-        raise AssertionError("the conv tool did not launch the conv kernel")
-    layers = res["layers"]
-    t_ops = sum(r["flops"] for r in layers) / PEAK_BF16
-    t_bytes = sum(r["bytes"] for r in layers) / PEAK_BYTES
-    row = {"ms": sum(r["ms"] for r in layers), "plain_ms": sum(r["plain_ms"] for r in layers),
-           "library_ms": sum(r["library_ms"] for r in layers),
-           "bound_ms": sum(r["bound_ms"] for r in layers),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "max_abs_err": bf16_abs}
+    launches = {"conv3x3": conv.tc_launches, "conv3x3_f32": conv.launches,
+                "conv3x3_stages": conv.stage_launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the conv tool launched the conv kernels {launches} times")
+
+    def summed(rows, flops_peak, err):
+        t_ops = sum(r["flops"] for r in rows) / flops_peak
+        t_bytes = sum(r["bytes"] for r in rows) / PEAK_BYTES
+        return {**{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms",
+                                                           "bound_ms")},
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "max_abs_err": err}
+
+    kernels = {"conv3x3": {**summed(res["layers"], PEAK_BF16, bf16_abs),
+                           "stage_ms": {s: sum(r["stage_ms"][s] for r in res["layers"])
+                                        for s in conv.STAGES}},
+               "conv3x3_f32": summed(res["checks"], PEAK_F32,
+                                     max(r["max_abs_err"] for r in res["checks"]))}
     emit({"phase": "tool_conv", "f32_max_abs_err": f32_err, "f32_max_abs_err_vs_f64": vs_f64,
-          "bf16_scaled_err": bf16_err,
-          "launches": launches, "layers": layers, "check_max_abs_err": res["check_max_abs_err"],
-          "sum_over_layers": row})
-    return row, launches
+          "bf16_scaled_err": bf16_err, "bf16_max_abs_err": bf16_abs, "bitwise_repeat": repeat,
+          "stages_exact": stages_exact, "launches": launches, "tiles": res["tiles"],
+          "checks": res["checks"],
+          "layers": res["layers"], "sum_over_layers": kernels["conv3x3"],
+          "sum_over_checks": kernels["conv3x3_f32"]})
+    return kernels, launches
 
 
 def check_stages(proj, height, width):
@@ -836,20 +928,25 @@ def main():
 
     t0 = time.perf_counter()
     cuda_build.build_all(KERNELS)
-    ptxas = {n: [ln.strip() for ln in cuda_build.build_logs.get(n, "").splitlines()
-                 if any(k in ln for k in ("entry function", "registers", "bytes stack"))]
-             for n in KERNELS}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    seconds = time.perf_counter() - t0
+    ptxas = {n: cuda_build.ptxas_report(n) for n in KERNELS}
+    for n, kernels in ptxas.items():
+        for k in kernels:
+            print(f"ptxas {n}: {k['kernel']}: {k['registers']} registers, {k['smem_bytes']} bytes "
+                  f"static smem, spills {k['spill_stores']} / {k['spill_loads']} bytes", flush=True)
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
 
+    timing.runs_retaken = 0
     with torch.inference_mode():
         phase_kernel(dev)
         row, serve_launches = phase_slice(dev)
     phase_train_kernel(dev)
     bwd, train_launches = phase_train(dev)
     sort_rows, sort_launches = phase_tool_sort(dev)
-    conv_row, conv_launches = phase_tool_conv(dev)
+    conv_rows, conv_launches = phase_tool_conv(dev)
     floor_row, floor_launches = phase_tool_bwd_floor(dev)
     mxu_rows, mxu_launches = phase_tool_mxu(dev)
+    emit({"phase": "timing", "runs_retaken": timing.runs_retaken})
     grad_tol = f"grads: max|g - g_plain| / max|g_plain| <= {GRAD_ATOL}; bg rtol {BG_RTOL}"
 
     def entry(name, source, replaces, launches, by_path, measured, tolerance, library_ms=None,
@@ -886,11 +983,18 @@ def main():
         entry("sort_row_pass", "moss_torch/csrc/sort_pass.cu", "tools/sort_micro.py:68",
               sort_launches["row"], {"tools": sort_launches["row"]}, sort_rows["row"],
               "exact, every stride; ms per launch of R = 64 passes at S = 64"),
-        entry("conv3x3", "moss_torch/csrc/conv3x3.cu", "tools/conv_pallas_proto.py:28",
-              conv_launches, {"tools": conv_launches}, conv_row,
-              f"f32 atol {conv_proto.F32_ATOL}; bf16 max|y - y_plain| <= "
-              f"{conv_proto.BF16_RTOL} max|y_plain|; ms summed over the eight VGG16 layers",
-              library_ms=conv_row["library_ms"]),
+        *(entry(name, "moss_torch/csrc/conv3x3.cu", "tools/conv_pallas_proto.py:28",
+                conv_launches[name], {"tools": conv_launches[name]}, conv_rows[name], tol,
+                library_ms=conv_rows[name]["library_ms"], **extra)
+          for name, tol, extra in (
+              ("conv3x3", f"bf16 on the tensor cores: max|y - y_plain| <= {conv_proto.BF16_RTOL} "
+                          "max|y_plain|, bitwise repeatable; ms summed over the eight VGG16 "
+                          "layers, library cuDNN bf16",
+               {"stage_launches": conv_launches["conv3x3_stages"],
+                "stage_ms": conv_rows["conv3x3"]["stage_ms"]}),
+              ("conv3x3_f32", f"f32 on the CUDA cores: atol {conv_proto.F32_ATOL}; ms summed "
+                              "over check()'s three shapes, library cuDNN f32 (TF32 off), "
+                              "which is the plain version too", {}))),
         entry("rasterize_bwd_stages", "moss_torch/csrc/rasterize_bwd.cu",
               "tools/bwd_kernel_floor.py:97", floor_launches, {"tools": floor_launches},
               floor_row, "full, full_soa bitwise equal to rasterize_bwd; rows vs plain "

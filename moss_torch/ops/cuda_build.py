@@ -6,10 +6,11 @@ plain C interface, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/moss_torch/<name>-<hash>.so
 
-into build/moss_torch/ beside the package. The library name carries a hash
-of the source and of every csrc/ header it includes, so an edited source or
-shared header is rebuilt and a current one is reused. Several sources build
-in parallel, one nvcc each.
+into build/moss_torch/ beside the package, with nvcc's output (ptxas's
+register and shared-memory report) as <name>-<hash>.log. The library name
+carries a hash of the source and of every csrc/ header it includes, so an
+edited source or shared header is rebuilt and a current one is reused.
+Several sources build in parallel, one nvcc each.
 """
 from __future__ import annotations
 
@@ -33,8 +34,6 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
-# nvcc's output (ptxas register / shared-memory report) of the last build
-build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -82,15 +81,52 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
         failed = []
         for name, (proc, tmp) in procs.items():
             log, _ = proc.communicate()
-            build_logs[name] = log
             if proc.returncode != 0:
                 os.unlink(tmp)
                 failed.append(f"{name}:\n{log}")
             else:
+                todo[name].with_suffix(".log").write_text(log)
                 os.replace(tmp, todo[name])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {n: library_path(n) for n in names}
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+_LENGTH = re.compile(r"\d+")
+
+
+def _short(mangled: str) -> str:
+    """A kernel's mangled name without its file's anonymous namespace: its
+    name, then its mangled template and parameter types."""
+    if mangled.startswith("_ZN"):
+        n = _LENGTH.match(mangled, 3)
+        if n and mangled.startswith("_GLOBAL__N_", n.end()):
+            rest = mangled[n.end() + int(n.group()):]
+            m = _LENGTH.match(rest)
+            if m:
+                return f"{rest[m.end():m.end() + int(m.group())]} {rest[m.end() + int(m.group()):]}"
+    return mangled
+
+
+def ptxas_report(name: str):
+    """Per kernel of library `name` as ptxas reported its build (the log
+    beside the library, built if needed): [{kernel (mangled, its file's
+    namespace cut), registers, smem_bytes (static), spill_stores,
+    spill_loads}]."""
+    out = []
+    for line in build_all([name])[name].with_suffix(".log").read_text().splitlines():
+        if m := _ENTRY.search(line):
+            out.append({"kernel": _short(m.group(1)), "registers": None, "smem_bytes": 0,
+                        "spill_stores": None, "spill_loads": None})
+        elif out and (m := _SPILL.search(line)):
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif out and (m := _USED.search(line)):
+            out[-1]["registers"] = int(m.group(1))
+            out[-1]["smem_bytes"] = int(m.group(2) or 0)
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -27,6 +27,7 @@ from .rasterize_ref import rasterize_reference
 
 TILE = 16  # csrc/blend_common.cuh kTile
 GRAD_COLS = 10  # csrc/rasterize_bwd.cu kGrads: d(mx, my, conic a, b, c, opacity, r, g, b, depth)
+SEGMENT_LONG = 32  # csrc/segment_sum.cu kLong: longer segments are summed by a whole warp
 
 # kernel launches since the last reset (set to 0 to count a run)
 launches = 0          # rasterize_fwd

@@ -1,12 +1,17 @@
 """Check csrc/conv3x3.cu, then time it at the LPIPS VGG16 layer shapes.
 
-Counterpart of tools/conv_pallas_proto.py's check() and bench(): the kernel
-against its plain version at check()'s three f32 shapes (atol 1e-4, :102),
-then each of bench()'s eight VGG16 layer shapes (:123-124) in bf16, with
-bench()'s inputs (x N(0, 1), w N(0, 0.05), b = 0), beside its FLOPs
-(2 H^2 Cin Cout 9), its bound (the larger of the FLOPs at the H100's 989
-TFLOP/s bf16 and the bytes at 3.35 TB/s), the plain f32 version, and one
-cuDNN call (F.conv2d + relu in bf16, channels_last) as the library yardstick.
+Counterpart of tools/conv_pallas_proto.py's check() and bench(): the
+CUDA-core kernel against its plain version at check()'s three f32 shapes
+(atol 1e-4, :102), then the tensor-core kernel at each of bench()'s eight
+VGG16 layer shapes (:123-124) in bf16, with bench()'s inputs (x N(0, 1),
+w N(0, 0.05), b = 0). Each beside its FLOPs (2 H W Cin Cout 9), its bound
+(the larger of the FLOPs at the H100's peak for the unit, 989 TFLOP/s bf16
+on the tensor cores or 67 TFLOP/s f32 on the CUDA cores, and the bytes at
+3.35 TB/s), the plain version, and one cuDNN call as the library yardstick
+(F.conv2d + relu, channels_last; f32 with TF32 off, where it is the plain
+version too and is timed once). Per bf16 layer also the ms of each stage of
+the tensor-core kernel (ops.conv3x3.STAGES: the copies alone, with the A
+loads, the products alone, the wgmmas alone), which say what holds it back.
 The port never calls cuDNN's conv; the JAX tool's yardstick was the im2col
 conv of moss_tpu/ops/lpips_jax.py:133.
 
@@ -21,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..ops.conv3x3 import conv3x3, conv3x3_plain
+from ..ops.conv3x3 import STAGES, _full_f32, conv3x3, conv3x3_plain, conv3x3_tc_stage, \
+    tc_tile, tc_tiles
 from .timing import device_name, timer
 
 CHECK_SHAPES = ((16, 128, 8, 16), (8, 256, 64, 64), (32, 128, 16, 8))  # (H, W, Cin, Cout)
@@ -29,7 +35,8 @@ VGG_LAYERS = ((512, 64, 64), (256, 64, 128), (256, 128, 128), (128, 128, 256),
               (128, 256, 256), (64, 256, 512), (64, 512, 512), (32, 512, 512))  # (H, Cin, Cout)
 F32_ATOL = 1e-4   # tools/conv_pallas_proto.py:102
 BF16_RTOL = 2e-2  # max |y - y_plain| / max |y_plain|: the bf16 rule of tests/test_losses_parity.py:108
-PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA datasheet)
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s, tensor cores (NVIDIA datasheet)
+PEAK_F32 = 67e12    # f32 FLOP/s on the CUDA cores
 PEAK_BYTES = 3.35e12
 TIMING = {"n": 10, "reps": 5, "warmup": 2}
 
@@ -60,37 +67,55 @@ def scaled_err(y, ref):
     return float((y.float() - ref.float()).abs().max()) / (float(ref.float().abs().max()) + 1e-30)
 
 
-def layer_bound(H, cin, cout, itemsize=2):
-    """(FLOPs, bytes, bound ms, bound_by) of one layer in bf16: x, w, b read
-    once, the output written once."""
-    flops = 2 * H * H * cin * cout * 9
-    bytes_ = itemsize * (H * H * cin + 9 * cin * cout + cout + H * H * cout)
-    t_ops, t_bytes = flops / PEAK_BF16, bytes_ / PEAK_BYTES
+def layer_bound(H, cin, cout, W=None, itemsize=2, peak=PEAK_BF16):
+    """(FLOPs, bytes, bound ms, bound_by) of one (H, W) layer: x, w, b read
+    once, the output written once; operations at `peak` FLOP/s."""
+    W = H if W is None else W
+    flops = 2 * H * W * cin * cout * 9
+    bytes_ = itemsize * (H * W * cin + 9 * cin * cout + cout + H * W * cout)
+    t_ops, t_bytes = flops / peak, bytes_ / PEAK_BYTES
     return flops, bytes_, 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def library_conv(x, w, b):
-    """cuDNN's conv + relu on the same bf16 data: x as an NCHW view with
-    channels_last strides, w as OIHW channels_last."""
+    """cuDNN's conv + relu on the same data, in its type: x as an NCHW view
+    with channels_last strides, w as OIHW channels_last."""
     xl = x.permute(2, 0, 1)[None]
     wl = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
-    return lambda: F.relu(F.conv2d(xl, wl, b, padding=1))
+
+    def call():
+        with _full_f32():
+            return F.relu(F.conv2d(xl, wl, b, padding=1))
+
+    return call
 
 
 def main(device=None):
-    """Print and return the check errors and, per layer, the kernel's,
-    plain version's and library's ms with FLOPs and bound."""
+    """Print and return, per f32 check shape and per bf16 layer: the error
+    against the plain version, the kernel's, plain version's and library's
+    ms, FLOPs, bound and (layers) the tensor-core tile and the ms of each of
+    its stages (ops.conv3x3.STAGES)."""
     dev = resolve_device(device)
     time_ms = timer(dev)
     print(f"device: {device_name(dev)}")
     checks = []
     for (H, W, cin, cout), x, w, b in check_inputs(dev):
         err = float((conv3x3(x, w, b) - conv3x3_plain(x, w, b)).abs().max())
-        print(f"H{H} W{W} {cin}->{cout}: max abs err {err:.2e}")
         if not err <= F32_ATOL:
             raise AssertionError(f"conv3x3 f32 at {(H, W, cin, cout)}: max abs err {err}")
-        checks.append(err)
+        flops, bytes_, bound_ms, bound_by = layer_bound(H, cin, cout, W, 4, PEAK_F32)
+        ms = time_ms(lambda: conv3x3(x, w, b), **TIMING)
+        library_ms = time_ms(library_conv(x, w, b), **TIMING)
+        print(f"H{H} W{W} {cin}->{cout}: max abs err {err:.2e}  f32 kernel {ms:.4f} ms"
+              f"  bound {bound_ms:.5f} ms  cuDNN f32 {library_ms:.4f} ms")
+        # in f32 the plain version is this same cuDNN call (TF32 off), timed once
+        checks.append({"shape": [H, W, cin, cout], "max_abs_err": err, "flops": flops,
+                       "bytes": bytes_, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "plain_ms": library_ms, "library_ms": library_ms})
 
+    on_card = dev.type == "cuda"
+    tiles = tc_tiles(dev) if on_card else ()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if on_card else 0
     rows = []
     for (H, cin, cout), x, w, b in layer_inputs(dev):
         x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
@@ -101,13 +126,20 @@ def main(device=None):
         ms = time_ms(lambda: conv3x3(x, w, b), **TIMING)
         plain_ms = time_ms(lambda: conv3x3_plain(x, w, b), **TIMING)
         library_ms = time_ms(library_conv(x, w, b.to(torch.bfloat16)), **TIMING)
-        print(f"{H:4d}^2 {cin:3d}->{cout:3d}: kernel {ms:7.3f} ms ({flops / ms / 1e9:6.1f} TF/s)"
-              f"  bound {bound_ms:7.4f} ms  plain f32 {plain_ms:7.3f} ms"
-              f"  F.conv2d bf16 {library_ms:7.3f} ms  scaled err {err:.1e}")
-        rows.append({"layer": [H, cin, cout], "flops": flops, "bytes": bytes_, "ms": ms,
+        tile = tiles[tc_tile(H, H, cout, tiles, sms)] if on_card else None
+        stage_ms = {s: time_ms(lambda s=s: conv3x3_tc_stage(x, w, b, s), **TIMING)
+                    for s in STAGES}
+        print(f"{H:4d}^2 {cin:3d}->{cout:3d}: kernel {ms:7.4f} ms ({flops / ms / 1e9:6.1f} TF/s,"
+              f" {bound_ms / ms:5.1%} of bound)  bound {bound_ms:7.4f} ms"
+              f"  plain f32 {plain_ms:7.3f} ms  cuDNN bf16 {library_ms:7.4f} ms"
+              f"  scaled err {err:.1e}  tile {tile}")
+        print("        stages ms: " + "  ".join(f"{s} {t:.4f}" for s, t in stage_ms.items()))
+        rows.append({"layer": [H, cin, cout], "tile": tile, "flops": flops, "bytes": bytes_,
+                     "ms": ms, "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
                      "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "bf16_scaled_err": err})
-    return {"device": device_name(dev), "check_max_abs_err": checks, "layers": rows}
+                     "bound_by": bound_by, "bf16_scaled_err": err, "stage_ms": stage_ms})
+    return {"device": device_name(dev), "tiles": tiles, "checks": checks,
+            "check_max_abs_err": [c["max_abs_err"] for c in checks], "layers": rows}
 
 
 if __name__ == "__main__":

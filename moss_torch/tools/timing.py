@@ -8,12 +8,16 @@ import torch
 
 
 _cycles_per_ms = None
+# runs cuda_ms took again because their spin ended before the host had queued
+# them (set to 0 to count a stretch of timings)
+runs_retaken = 0
 
 
 def _sleep_ms(ms: float):
     """Keep the current stream busy for about `ms` in a spinning kernel."""
     global _cycles_per_ms
     if _cycles_per_ms is None:  # calibrate the spin once per process
+        torch.cuda._sleep(10 ** 7)  # loads the spin kernel and lifts the clocks from idle
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         torch.cuda._sleep(10 ** 7)
@@ -29,8 +33,13 @@ def cuda_ms(fn, n=20, reps=10, warmup=3):
     each run the stream spins for twice the host time it takes to queue a
     run, so the host's work between launches (a wrapper's checks, ctypes)
     leaves the device no idle gap inside the events: a kernel shorter than
-    that work is timed, not the host. A call that synchronizes waits for the
-    spin and is timed with its host work, as it would be without it."""
+    that work is timed, not the host. A run whose spin ended before the host
+    had queued it (the host slowed down, or the spin ran short) was paced by
+    the host: it is taken again, after a spin twice as long, up to n times
+    (counted in runs_retaken). A call that synchronizes waits for any spin:
+    it is timed with its host work, as it would be without one, and no run
+    of it is taken again."""
+    global runs_retaken
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -39,15 +48,29 @@ def cuda_ms(fn, n=20, reps=10, warmup=3):
         fn()
     queue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
+    _sleep_ms(2 * queue_ms)
+    spun = torch.cuda.Event()
+    spun.record()
+    fn()
+    retakes = 0 if spun.query() else n  # the call returned only once the spin was done
+    torch.cuda.synchronize()
     times = []
-    for _ in range(n):
+    while len(times) < n:
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         _sleep_ms(2 * queue_ms)
         e0.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         e1.record()
+        took_ms = (time.perf_counter() - t0) * 1e3
+        paced = e0.query()  # the spin was over before the run was queued
         e1.synchronize()
+        if paced and retakes:
+            retakes -= 1
+            runs_retaken += 1
+            queue_ms = max(2 * queue_ms, took_ms)
+            continue
         times.append(e0.elapsed_time(e1) / reps)
     return float(np.median(times))
 

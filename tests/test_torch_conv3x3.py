@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from moss_torch.ops.conv3x3 import conv3x3
+from moss_torch.ops import conv3x3 as conv
+from moss_torch.ops.conv3x3 import conv3x3, tc_tile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,3 +60,41 @@ def test_plain_matches_pallas_bf16_without_relu():
     got = got.float().numpy()
     assert got.min() < 0  # relu off
     assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+VGG_LAYERS = ((512, 64, 64), (256, 64, 128), (256, 128, 128), (128, 128, 256),
+              (128, 256, 256), (64, 256, 512), (64, 512, 512), (32, 512, 512))
+# the tensor-core kernel's tiles (rows of 16 pixels, output channels), largest
+# first: a copy of with_tile's table in csrc/conv3x3.cu, which the C library
+# reports only on the card; tests/test_torch_cuda.py holds this copy to it
+TILES = ({"rows": 8, "channels": 128}, {"rows": 8, "channels": 64}, {"rows": 4, "channels": 64})
+
+
+@pytest.mark.parametrize("layer,want", zip(VGG_LAYERS, (1, 0, 0, 0, 0, 0, 0, 2)),
+                         ids=["x".join(map(str, l)) for l in VGG_LAYERS])
+def test_tensor_core_tile_for_each_vgg_layer(layer, want):
+    """On a 132-SM H100: 64 channels where Cout is 64, the 4-row tile where the
+    larger ones leave a quarter of the SMs without a tile (32x32x512), else
+    the 8 x 16 x 128 tile."""
+    H, _, cout = layer
+    assert tc_tile(H, H, cout, TILES, 132) == want
+
+
+@pytest.mark.parametrize("stage", conv.STAGES)
+def test_stage_plain_on_the_cpu(stage):
+    """A stage of the tensor-core kernel on CPU tensors is its plain version,
+    with no launch: the conv for "full", relu(b) at every pixel for the stages
+    that sum no products."""
+    x, w, b = (torch.as_tensor(a).to(torch.bfloat16) for a in _inputs(5, 7, 16, 24, seed=4))
+    before = (conv.launches, conv.tc_launches, conv.stage_launches)
+    for relu in (True, False):
+        got = conv.conv3x3_tc_stage(x, w, b, stage, relu=relu)
+        if stage == "full":
+            want = conv.conv3x3_plain(x, w, b, relu, torch.bfloat16)
+        else:
+            want = b.float().expand(5, 7, 24)
+            want = (torch.relu(want) if relu else want).to(torch.bfloat16)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert (conv.launches, conv.tc_launches, conv.stage_launches) == before
+    with pytest.raises(ValueError):
+        conv.conv3x3_tc_stage(x, w, b, stage + "_")

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 blend kernels (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu and its stages,
 csrc/segment_sum.cu) and one training step through them, the sort passes
-(csrc/sort_pass.cu) and the 3x3 conv (csrc/conv3x3.cu).
+(csrc/sort_pass.cu), the 3x3 conv's two kernels (csrc/conv3x3.cu: tensor
+cores for bf16, CUDA cores for f32) and the reductions and scans
+(csrc/reduce_scan.cu).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. Imports neither jax nor
 moss_tpu, so it runs on a machine with only PyTorch:
@@ -11,13 +13,18 @@ moss_tpu, so it runs on a machine with only PyTorch:
 Image rule of tests/test_rasterize_tpu.py:50-59 (atol 3e-5, at most 2e-3 of
 the pixels as termination-threshold flips; depth atol 1e-4); grads at
 tests/test_rasterize_tpu.py:150 (divide by max|g_ref|, atol 5e-4), bg rtol 1e-4.
-Sort passes: exact. Conv: f32 atol 1e-4 (tools/conv_pallas_proto.py:102), bf16
-max |y - y_plain| <= 2e-2 max |y_plain| (tests/test_losses_parity.py:108).
+Segment sum: 1e-5 of the max against its plain version and index_add_, and
+bit for bit its own order of adds (tests/_segment_order.py). Sort passes:
+exact. Conv: f32 atol 1e-4 (tools/conv_pallas_proto.py:102), bf16
+max |y - y_plain| <= 2e-2 max |y_plain| (tests/test_losses_parity.py:108),
+two calls bitwise equal; the tensor-core kernel's ablated stages exactly
+their plain version.
 Reductions and scans: max |out - plain| <= 1e-5 max |plain|, the plain version
 rounding a tensor-core form's operands as its kernel does; observers bitwise
 equal across tiles.
 """
 import functools
+import time
 
 import numpy as np
 import pytest
@@ -29,6 +36,7 @@ from moss_torch.ops.projection import preprocess
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import build_covariance
 from moss_torch.render.camera import Camera
+from _segment_order import CASES, kernel_order, pair_list
 
 
 @pytest.fixture
@@ -165,6 +173,32 @@ def test_segment_sum_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,lengths", CASES, ids=[c[0] for c in CASES])
+def test_segment_sum_empty_and_long_segments(cuda_device, name, lengths):
+    """Gaussians with no pair give zero rows; segments longer than 64 pairs
+    take the warp-wide path; the kernel is its own order of adds bit for bit,
+    repeats bit for bit, and is within 1e-5 of the max of the plain version
+    and of index_add_."""
+    pairs = pair_list(lengths, seed=4, device=cuda_device)
+    rows = torch.as_tensor(np.random.default_rng(4).normal(size=(pairs.num_pairs, rc.GRAD_COLS))
+                           .astype(np.float32), device=cuda_device)
+    before = rc.segment_launches
+    got = rc.segment_sum(rows, pairs)
+    again = rc.segment_sum(rows, pairs)
+    torch.cuda.synchronize()
+    assert rc.segment_launches == before + 2
+    assert torch.equal(got, again)
+    order = kernel_order(rows.cpu().numpy(), pairs.gaussian_pairs.cpu().numpy(),
+                         pairs.gaussian_offsets.cpu().numpy())
+    assert np.array_equal(got.cpu().numpy(), order)
+    assert not bool(got[torch.as_tensor(np.asarray(lengths) == 0, device=cuda_device)].any())
+    lib = torch.zeros_like(got).index_add_(0, pairs.pair_gaussian.long(), rows)
+    for want in (rc.segment_sum_plain(rows, pairs), lib):
+        scale = float(want.abs().max()) + 1e-30
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
 def test_train_step_on_the_card(cuda_device):
     """One step at 64x64 through the kernels: its grads against the same
     step through the plain blend, and one launch of each kernel."""
@@ -248,6 +282,29 @@ def test_sort_pass_time_grows_with_repeats(cuda_device):
                lambda r: sort_pass.row_pass(x, 64, r)):
         t_r, t_4r = cuda_ms(lambda: fn(R)), cuda_ms(lambda: fn(4 * R))
         assert t_4r > 1.5 * t_r, (t_r, t_4r)
+
+
+@pytest.mark.cuda
+def test_cuda_ms_times_the_device_when_the_host_slows_down(cuda_device):
+    """A host that queues each call 0.5 ms more slowly once cuda_ms has sized
+    its spin: the runs it paced are taken again behind a longer spin, so the
+    sort pass is timed on the device, not at the host's pace."""
+    from moss_torch.tools import timing
+
+    x = _block(cuda_device, sort_pass.ROWS)
+    calls = [0]
+
+    def fn():
+        calls[0] += 1
+        if calls[0] > 3 + 10 + 1:  # past the warm-up, the queueing run and the probe
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 5e-4:
+                pass
+        return sort_pass.lane_pass(x, 64, sort_pass.R)
+
+    timing.runs_retaken = 0
+    ms = timing.cuda_ms(fn)
+    assert timing.runs_retaken > 0 and ms < 0.1, (timing.runs_retaken, ms)
 
 
 def _conv_inputs(device, H, W, cin, cout, seed=0):
@@ -355,3 +412,105 @@ def test_reduce_scan_time_grows_with_reps(cuda_device, name):
     t_r = cuda_ms(lambda: rs.run(name, x, s, reps=rs.REPS))
     t_4r = cuda_ms(lambda: rs.run(name, x, s, reps=4 * rs.REPS))
     assert t_4r > 1.5 * t_r, (t_r, t_4r)
+
+
+def _conv_bf16(device, shape, seed=2):
+    x, w, b = _conv_inputs(device, *shape, seed=seed)
+    return x.to(torch.bfloat16), w.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+def _bf16_close(got, want):
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2e-2 * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [None, torch.float32], ids=["bf16_out", "f32_out"])
+@pytest.mark.parametrize("shape", [(13, 29, 48, 72), (32, 32, 512, 512), (5, 7, 128, 136)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_tensor_cores_match_plain(cuda_device, shape, out_dtype):
+    """The tensor-core kernel at its edges (Cin not a multiple of 64, Cout not
+    one of the tile's channels, H and W not multiples of the tile, an image
+    smaller than a tile) and at the 32x32x512->512 VGG layer: one launch of
+    the tensor-core kernel a call, none of the CUDA-core one."""
+    x, w, b = _conv_bf16(cuda_device, shape)
+    before = (conv.launches, conv.tc_launches)
+    for relu in (True, False):
+        got = conv.conv3x3(x, w, b, relu=relu, out_dtype=out_dtype)
+        want = conv.conv3x3_plain(x, w, b, relu=relu, out_dtype=out_dtype)
+        assert got.dtype == want.dtype == (out_dtype or torch.bfloat16)
+        _bf16_close(got, want)
+    torch.cuda.synchronize()
+    assert (conv.launches, conv.tc_launches) == (before[0], before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [(512, 64, 64), (256, 64, 128), (256, 128, 128),
+                                   (128, 128, 256), (128, 256, 256), (64, 256, 512),
+                                   (64, 512, 512), (32, 512, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_tensor_cores_at_the_vgg_layers(cuda_device, layer):
+    """The eight VGG16 layers, which between them take every tile the C
+    library has; its tiles are those tests/test_torch_conv3x3.py::TILES
+    copies."""
+    assert [(t["rows"], t["channels"]) for t in conv.tc_tiles(cuda_device)] == \
+        [(8, 128), (8, 64), (4, 64)]
+    H, cin, cout = layer
+    x, w, b = _conv_bf16(cuda_device, (H, H, cin, cout), seed=3)
+    before = conv.tc_launches
+    _bf16_close(conv.conv3x3(x, w, b), conv.conv3x3_plain(x, w, b))
+    assert conv.tc_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 29, 5, 70), (13, 29, 48, 70)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_bf16_off_the_tensor_cores(cuda_device, shape):
+    """Cin or Cout not a multiple of 8: the CUDA-core kernel takes bf16 too."""
+    x, w, b = _conv_bf16(cuda_device, shape)
+    before = (conv.launches, conv.tc_launches)
+    _bf16_close(conv.conv3x3(x, w, b, relu=False), conv.conv3x3_plain(x, w, b, relu=False))
+    torch.cuda.synchronize()
+    assert (conv.launches, conv.tc_launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 29, 48, 72), (32, 32, 512, 512), (64, 64, 256, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_bf16_repeats_bit_for_bit(cuda_device, shape):
+    x, w, b = _conv_bf16(cuda_device, shape)
+    assert torch.equal(conv.conv3x3(x, w, b), conv.conv3x3(x, w, b))
+
+
+@pytest.mark.cuda
+def test_conv3x3_unaligned_input_takes_the_tensor_cores(cuda_device):
+    """An x that does not start on 16 bytes is copied to one that does, and
+    goes to the tensor-core kernel with the aligned input's bits."""
+    x, w, b = _conv_bf16(cuda_device, (13, 29, 48, 72))
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)[1:].view(x.shape)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16 != 0
+    before = (conv.launches, conv.tc_launches)
+    assert torch.equal(conv.conv3x3(xs, w, b), conv.conv3x3(x, w, b))
+    assert (conv.launches, conv.tc_launches) == (before[0], before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", conv.STAGES)
+@pytest.mark.parametrize("shape", [(13, 29, 48, 72), (32, 32, 512, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_stage_matches_plain(cuda_device, shape, stage):
+    """Each stage of the tensor-core kernel at every tile: "full" the conv,
+    bitwise equal to the production call at the tile that call takes; the
+    others exactly relu(b) at every pixel."""
+    x, w, b = _conv_bf16(cuda_device, shape)
+    for tile in [None, *range(len(conv.tc_tiles(cuda_device)))]:
+        before = conv.stage_launches
+        got = conv.conv3x3_tc_stage(x, w, b, stage, tile=tile)
+        assert conv.stage_launches == before + 1
+        if stage != "full":
+            assert torch.equal(got, conv.conv3x3_stage_plain(x, w, b, stage)), tile
+        elif tile is None:
+            assert torch.equal(got, conv.conv3x3(x, w, b))
+        else:
+            _bf16_close(got, conv.conv3x3_plain(x, w, b))
