@@ -7,11 +7,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   1. device  the card (nvidia-smi name and power limit, capability); TF32 off
   2. build   every CUDA kernel of the serving and training paths, from
              moss_torch/csrc, one nvcc each, all at once
-  3. kernel  the forward blend kernel against its plain PyTorch version at
-             512x512 / 16x16 tiles on three scenes (bench.py's 46,080-splat
+  3. kernel  the forward blend kernels against their plain PyTorch versions
+             at 512x512 / 16x16 tiles on three scenes (bench.py's 46,080-splat
              scene, the same at opacity 0.01, a dense opaque one that
-             exercises termination), with its time, the binning's, the plain
-             version's, and the bound the card sets for the same work
+             exercises termination): tiles split into segments of at most
+             rc.SEGMENT pairs against the plain blend and the plain segment
+             scheme (ops/split_blend.py), bitwise repeatable, and unsplit
+             (one segment a tile) against the plain blend; with the split
+             and unsplit times, the times at the segment lengths SEG_LENS,
+             the segment count, the binning's time, the plain version's, and
+             the bound the card sets for the same work
   4. slice   the serving path through the user entry points: a 6,890-vertex
              synthetic SMPL scene, a 45,695-Gaussian cloud in a 46,080
              capacity, random MLPs, a 512x512 camera; render_frame on the full
@@ -23,7 +28,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              autograd through the plain version (remat) at 512x512, on the
              bench scene and (in phase 6) on the training slice's own
              projected input: grads within the scaled atol, two backward passes
-             bitwise equal, with their times, the plain backward's, and bounds;
+             bitwise equal, the split kernel's rows against the plain segment
+             scheme's and its grads against the unsplit kernel's, with the
+             split and unsplit times, those at SEG_LENS, the plain
+             backward's, and bounds;
              the segment sum alone against its plain version and index_add_
              (1e-5 of the max), bitwise repeatable, its time beside
              index_add_'s, and the distribution of segment lengths
@@ -58,7 +66,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              holds each against its plain version (1e-5 of the max)
  11. timing  how many runs cuda_ms took again because the host had not
              queued them before their spin ended (0: every time above is the
-             first run's)
+             first run's), by phase and by kernel
 
 Each tool phase sets its kernels' launch counts to 0 just before it drives
 the tool's main() and reads them just after. Then the kernels line and the
@@ -84,7 +92,7 @@ from moss_torch.models import gaussians as G
 from moss_torch.models.lbs_field import LBSField
 from moss_torch.models.pose_refine import PoseRefine
 from moss_torch.ops import bwd_stages, conv3x3 as conv, cuda_build, lpips, \
-    rasterize_cuda as rc, reduce_scan as rs, sort_pass
+    rasterize_cuda as rc, reduce_scan as rs, sort_pass, split_blend
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import inverse_sigmoid
 from moss_torch.render.render import render_frame
@@ -126,11 +134,19 @@ PEAK_BF16 = 989e12  # dense bf16 FLOP/s on the tensor cores
 # datasheet gives no int32 rate, and the SMs have half as many int32 lanes as
 # f32 ones, so this bound is low
 PEAK_INT32 = PEAK_F32
+# the kernels a cuda_ms site outside chip_smoke.py times (its file), for the
+# timing line's runs retaken by kernel; a site of chip_smoke.py names its kernel
+SITE_KERNELS = {"sort_micro.py": "sort_lane_pass/sort_row_pass",
+                "conv_proto.py": "conv3x3/conv3x3_f32",
+                "bwd_kernel_floor.py": "rasterize_bwd_stages", "mxu_micro.py": "mxu_*",
+                "mxu": "mxu_*"}
 # observer planes of the ablated backward stages against their plain version:
 # max |a - b| / max |b| beyond this on at most OUTLIER_FRAC of the pixels
 OBSERVE_RTOL = 1e-4
 CROP = 256         # the trainer's crop (moss_tpu/train/trainer.py:139-140)
 TRAIN_FRAMES = 4
+# segment lengths the blend kernels are also timed at, beside rc.SEGMENT
+SEG_LENS = (32, 64, 96, 128, 256)
 
 
 def emit(obj):
@@ -247,19 +263,58 @@ def kernel_bound(proj, pairs, height, width):
             "evaluations": evals, "contributions": contribs, "bytes": bytes_, "flops": flops}
 
 
+def segments(pairs, seg_len=rc.SEGMENT):
+    """How the kernels cut this pair list at seg_len: the segments of the
+    busy tiles, the tiles split, and the CTAs launched."""
+    counts = pairs.tile_count.long()
+    busy = counts[counts > 0]
+    return {"seg_len": seg_len, "segments": int(((busy + seg_len - 1) // seg_len).sum()),
+            "split_tiles": int((busy > seg_len).sum()),
+            "slots": split_blend.num_slots(counts.numel(), pairs.num_pairs, seg_len)}
+
+
+def unsplit_len(pairs):
+    """A segment length no tile exceeds: one segment a tile, one kernel."""
+    return max(1, pairs.num_pairs)
+
+
+def as_images(img, bg):
+    """rasterize_cuda's dict from the six planes."""
+    return {"color": img[:3].permute(1, 2, 0) + img[5][..., None] * bg, "depth": img[3],
+            "alpha": img[4], "final_T": img[5]}
+
+
 def measure_kernel(proj, bg, height, width):
-    """Kernel vs plain on one projected cloud: errors, times and the bound."""
+    """Kernels vs plain on one projected cloud, split and unsplit: errors,
+    times and the bound."""
     out = rc.rasterize_cuda(proj, bg, height, width)
     ref = rasterize_reference(proj, bg, height, width, tile_h=rc.TILE, tile_w=rc.TILE)
     err = check_images(out, ref, "kernel vs plain")
     pairs = rc.bin_projected(proj, height, width)
+    img, _ = rc.rasterize_pairs(pairs, proj, height, width)
+    if not torch.equal(img, rc.rasterize_pairs(pairs, proj, height, width)[0]):
+        raise AssertionError("two forward passes on the same input differ")
+    plain_split, _ = split_blend.blend_split(pairs, proj, height, width, rc.SEGMENT)
+    err_split = check_images(as_images(img, bg), as_images(plain_split, bg),
+                             "kernel vs plain segment scheme")
+    whole = unsplit_len(pairs)
+    err_unsplit = check_images(as_images(rc.rasterize_pairs(pairs, proj, height, width, whole)[0],
+                                         bg), ref, "unsplit kernel vs plain")
     return ref, {
         "pairs": pairs.num_pairs,
         "max_tile_pairs": int(pairs.tile_count.max()),
         "busy_tiles": int((pairs.tile_count > 0).sum()),
+        **segments(pairs),
         "overflow": int(out["overflow"]),
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: rc.rasterize_pairs(pairs, proj, height, width)),
+        "max_abs_err_vs_plain_split": err_split, "max_abs_err_unsplit": err_unsplit,
+        "bitwise_repeat": True,
+        "ms": cuda_ms(lambda: rc.rasterize_pairs(pairs, proj, height, width),
+                      site="rasterize_fwd"),
+        "ms_unsplit": cuda_ms(lambda: rc.rasterize_pairs(pairs, proj, height, width, whole),
+                              site="rasterize_fwd unsplit"),
+        "ms_by_seg_len": {S: cuda_ms(lambda S=S: rc.rasterize_pairs(pairs, proj, height, width, S),
+                                     site=f"rasterize_fwd S={S}") for S in SEG_LENS},
         "bin_ms": host_ms(lambda: rc.bin_projected(proj, height, width)),
         "plain_ms": host_ms(
             lambda: rasterize_reference(proj, bg, height, width, tile_h=rc.TILE, tile_w=rc.TILE),
@@ -447,12 +502,27 @@ def measure_backward(proj, bg, height, width, seed=0):
 
     # the kernels alone, at the inputs the autograd.Function gives them
     pairs = rc.bin_projected(proj, height, width)
-    img = rc.rasterize_pairs(pairs, proj, height, width)
+    img, state = rc.rasterize_pairs(pairs, proj, height, width)
     # the grads of the six planes; final_T also carries the bg term
     g_img = torch.stack([up["color"][..., 0], up["color"][..., 1], up["color"][..., 2],
                          up["depth"], up["alpha"], up["final_T"] + (up["color"] * bg).sum(-1)])
     gimg = torch.cat([g_img[:5], (g_img * img).sum(0, keepdim=True)]).contiguous()
-    rows = rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width)
+    rows = rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width, state)
+    # the split kernel's rows against the plain segment scheme's, and its
+    # grads against the unsplit kernel's (one segment a tile)
+    _, plain_state = split_blend.blend_split(pairs, proj, height, width, rc.SEGMENT)
+    split_errs = {"rows_vs_plain_split": scaled_err(
+        rows, split_blend.blend_split_bwd(pairs, proj, gimg, height, width, plain_state))}
+    whole = unsplit_len(pairs)
+    _, whole_state = rc.rasterize_pairs(pairs, proj, height, width, whole)
+
+    def unsplit():
+        return rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width, whole_state, whole)
+
+    split_errs["grads_vs_unsplit"] = scaled_err(rc.segment_sum(rows, pairs),
+                                                rc.segment_sum(unsplit(), pairs))
+    if max(split_errs.values()) > GRAD_ATOL:
+        raise AssertionError(f"split backward kernel: scaled errors {split_errs}")
     P = proj.mean2d.shape[0]
     index = pairs.pair_gaussian.long()
 
@@ -474,21 +544,34 @@ def measure_backward(proj, bg, height, width, seed=0):
     fwd_ms = host_ms(plain_fwd, n=2, warmup=1)
     fwd_bwd_ms = host_ms(lambda: blend_grads(proj, bg, height, width, up, plain), n=2, warmup=1)
     bound = bwd_bound(proj, pairs, height, width)
-    segment = {"ms": cuda_ms(lambda: rc.segment_sum(rows, pairs)), "library_ms": cuda_ms(library),
-               "plain_ms": cuda_ms(lambda: rc.segment_sum_plain(rows, pairs)),
+    segment = {"ms": cuda_ms(lambda: rc.segment_sum(rows, pairs), site="segment_sum"),
+               "library_ms": cuda_ms(library, site="segment_sum index_add_"),
+               "plain_ms": cuda_ms(lambda: rc.segment_sum_plain(rows, pairs),
+                                   site="segment_sum plain"),
                "max_abs_err": float((seg - rc.segment_sum_plain(rows, pairs)).abs().max()),
                "scaled_err": seg_errs, "bitwise_repeat": True, "lengths": segment_lengths(pairs),
                **segment_bound(pairs, P)}
     print(f"segment sum {segment['ms']:.5f} ms, index_add_ {segment['library_ms']:.5f} ms, "
           f"bound {segment['bound_ms']:.5f} ms; pairs per Gaussian {segment['lengths']}",
           flush=True)
+
+    def split_at(S):
+        _, st = rc.rasterize_pairs(pairs, proj, height, width, S)
+        return lambda: rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width, st, S)
+
     return {
         "pairs": pairs.num_pairs,
         "max_tile_pairs": int(pairs.tile_count.max()),
         "busy_tiles": int((pairs.tile_count > 0).sum()),
+        **segments(pairs),
         "scaled_err": errs, "bg_rel_err": bg_rel, "bitwise_repeat": True,
+        "split_scaled_err": split_errs,
         "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(g[:-1], g_ref[:-1])),
-        "ms": cuda_ms(lambda: rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width)),
+        "ms": cuda_ms(lambda: rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width, state),
+                      site="rasterize_bwd"),
+        "ms_unsplit": cuda_ms(unsplit, site="rasterize_bwd unsplit"),
+        "ms_by_seg_len": {S: cuda_ms(split_at(S), site=f"rasterize_bwd S={S}")
+                          for S in SEG_LENS},
         "plain_ms": fwd_bwd_ms - fwd_ms, "plain_fwd_bwd_ms": fwd_bwd_ms,
         **bound,
         "segment": segment,
@@ -656,11 +739,14 @@ def phase_tool_sort(dev):
     for name, fn in (("lane_s64", lambda r: sort_pass.lane_pass(x, 64, r)),
                      ("lane_s1", lambda r: sort_pass.lane_pass(x, 1, r)),
                      ("row_S64", lambda r: sort_pass.row_pass(x, 64, r))):
-        vs_r[name] = {r: cuda_ms(lambda r=r: fn(r)) for r in (R, 4 * R)}
+        vs_r[name] = {r: cuda_ms(lambda r=r: fn(r), site=f"sort_{name.split('_')[0]}_pass")
+                      for r in (R, 4 * R)}
         if vs_r[name][4 * R] < 1.5 * vs_r[name][R]:
             raise AssertionError(f"{name}: {vs_r[name]} ms at R and 4R; the repeats were folded")
-    plain = {"lane": cuda_ms(lambda: sort_pass.lane_pass_plain(x, 64, R), n=5, reps=2),
-             "row": cuda_ms(lambda: sort_pass.row_pass_plain(x, 64, R), n=5, reps=2)}
+    plain = {"lane": cuda_ms(lambda: sort_pass.lane_pass_plain(x, 64, R), n=5, reps=2,
+                             site="sort_lane_pass plain"),
+             "row": cuda_ms(lambda: sort_pass.row_pass_plain(x, 64, R), n=5, reps=2,
+                            site="sort_row_pass plain")}
 
     sort_pass.lane_launches = sort_pass.row_launches = 0
     res = sort_micro.main(dev)
@@ -789,10 +875,10 @@ def phase_tool_conv(dev):
 def check_stages(proj, height, width):
     """Every stage of the backward kernel against its plain version
     (ops/bwd_stages.py): (pairs, gimg, errors)."""
-    pairs, gimg = bwd_kernel_floor.floor_inputs(proj, height, width)
+    pairs, gimg, state = bwd_kernel_floor.floor_inputs(proj, height, width)
     errs = {}
     for stage in bwd_stages.STAGES:
-        rows, obs = bwd_stages.rasterize_bwd_stage(pairs, proj, gimg, height, width, stage)
+        rows, obs = bwd_stages.rasterize_bwd_stage(pairs, proj, gimg, height, width, stage, state)
         rows_p, obs_p = bwd_stages.bwd_stage_plain(pairs, proj, gimg, height, width, stage)
         if stage in bwd_stages.ABLATED:
             if not torch.equal(rows, rows_p):
@@ -822,7 +908,8 @@ def measure_stages(proj, height, width, drive=None):
     work = blend_work(proj, pairs, height, width)
     plain_ms = {s: cuda_ms(lambda s=s: bwd_stages.bwd_stage_plain(pairs, proj, gimg, height,
                                                                      width, s),
-                           n=3, reps=1, warmup=1) for s in bwd_stages.STAGES}
+                           n=3, reps=1, warmup=1, site="rasterize_bwd_stages plain")
+                for s in bwd_stages.STAGES}
     bounds = {s: {k: v for k, v in bwd_bound(proj, pairs, height, width, s, work).items()
                   if k.startswith("bound")} for s in bwd_stages.STAGES}
     return {**res, "scaled_err_vs_plain": errs, "plain_ms": plain_ms, "bounds": bounds,
@@ -880,7 +967,7 @@ def phase_tool_mxu(dev):
         if not torch.equal(obs, obs[:1].expand_as(obs)):
             raise AssertionError(f"{name}: the tiles' observers differ")
         # had the compiler folded the repeats, 4 REPS would take about REPS's time
-        vs_reps = {r: cuda_ms(lambda r=r: rs.run(name, x, s, reps=r))
+        vs_reps = {r: cuda_ms(lambda r=r: rs.run(name, x, s, reps=r), site=f"mxu {name}")
                    for r in (rs.REPS, 4 * rs.REPS)}
         if vs_reps[4 * rs.REPS] <= 1.5 * vs_reps[rs.REPS]:
             raise AssertionError(f"{name}: {vs_reps} ms at REPS and 4 REPS; the repeats were "
@@ -937,26 +1024,49 @@ def main():
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
 
     timing.runs_retaken = 0
+    timing.retaken_by_site.clear()
+    by_phase = {}
+
+    def phase(name, fn, *args):
+        """fn(*args), with the runs cuda_ms retook in it counted by site."""
+        before = dict(timing.retaken_by_site)
+        out = fn(*args)
+        by_phase[name] = {k: v - before.get(k, 0) for k, v in timing.retaken_by_site.items()
+                          if v != before.get(k, 0)}
+        return out
+
     with torch.inference_mode():
-        phase_kernel(dev)
-        row, serve_launches = phase_slice(dev)
-    phase_train_kernel(dev)
-    bwd, train_launches = phase_train(dev)
-    sort_rows, sort_launches = phase_tool_sort(dev)
-    conv_rows, conv_launches = phase_tool_conv(dev)
-    floor_row, floor_launches = phase_tool_bwd_floor(dev)
-    mxu_rows, mxu_launches = phase_tool_mxu(dev)
-    emit({"phase": "timing", "runs_retaken": timing.runs_retaken})
+        phase("kernel", phase_kernel, dev)
+        row, serve_launches = phase("slice", phase_slice, dev)
+    phase("train_kernel", phase_train_kernel, dev)
+    bwd, train_launches = phase("train", phase_train, dev)
+    sort_rows, sort_launches = phase("tool_sort", phase_tool_sort, dev)
+    conv_rows, conv_launches = phase("tool_conv", phase_tool_conv, dev)
+    floor_row, floor_launches = phase("tool_bwd_floor", phase_tool_bwd_floor, dev)
+    mxu_rows, mxu_launches = phase("tool_mxu", phase_tool_mxu, dev)
+    by_kernel = {}
+    for site, n in timing.retaken_by_site.items():
+        key = site.split(":")[0].split()[0]
+        kernel = SITE_KERNELS.get(key, key)
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + n
+    emit({"phase": "timing", "runs_retaken": timing.runs_retaken, "by_phase": by_phase,
+          "by_kernel": by_kernel})
     grad_tol = f"grads: max|g - g_plain| / max|g_plain| <= {GRAD_ATOL}; bg rtol {BG_RTOL}"
 
     def entry(name, source, replaces, launches, by_path, measured, tolerance, library_ms=None,
               **extra):
+        retaken = sum(n for k, n in by_kernel.items()
+                      if name == k or name in k.split("/") or (k == "mxu_*" and "mxu" in name))
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_by_path": by_path,
                 "max_abs_err": measured["max_abs_err"], "ms": measured["ms"],
                 "plain_ms": measured["plain_ms"], "bound_ms": measured["bound_ms"],
                 "bound_by": measured["bound_by"], "library_ms": library_ms,
-                "tolerance": tolerance, **extra}
+                "tolerance": tolerance, "runs_retaken": retaken, **extra}
+
+    def split(measured):
+        return {k: measured[k] for k in ("ms_unsplit", "seg_len", "segments", "split_tiles",
+                                         "max_tile_pairs")}
 
     mxu_tol = (f"max|out - plain| <= {mxu_micro.RTOL} max|plain| (tensor-core forms against a "
                "plain version rounding as the kernel does); observers bitwise equal across "
@@ -969,10 +1079,15 @@ def main():
               "moss_tpu/ops/rasterize_tpu.py:288",
               serve_launches + train_launches["rasterize_fwd"],
               {"serve": serve_launches, "train": train_launches["rasterize_fwd"]}, row,
-              f"atol {ATOL} (depth {DEPTH_ATOL}); at most {OUTLIER_FRAC} of pixels beyond"),
+              f"atol {ATOL} (depth {DEPTH_ATOL}); at most {OUTLIER_FRAC} of pixels beyond; "
+              "against the plain blend and the plain segment scheme; bitwise repeatable; ms "
+              "on the serving input, one call being two launches of the kernel",
+              **split(row)),
         entry("rasterize_bwd", "moss_torch/csrc/rasterize_bwd.cu",
               "moss_tpu/ops/rasterize_tpu.py:383", train_launches["rasterize_bwd"],
-              {"train": train_launches["rasterize_bwd"]}, bwd, grad_tol),
+              {"train": train_launches["rasterize_bwd"]}, bwd,
+              grad_tol + "; rows against the plain segment scheme, grads against the unsplit "
+              "kernel, the same; ms on the training input", **split(bwd)),
         entry("segment_sum", "moss_torch/csrc/segment_sum.cu", "moss_tpu/ops/binning.py:51",
               train_launches["segment_sum"], {"train": train_launches["segment_sum"]},
               bwd["segment"], "1e-5 of the max against index_add_; grads as rasterize_bwd",

@@ -1,4 +1,5 @@
-// Backward of the alpha blend: per-pair gradients, one CTA per 16x16 tile.
+// Backward of the alpha blend: per-pair gradients, one CTA per tile segment
+// of at most S pairs (S = seg_len, csrc/blend_common.cuh).
 //
 // Replaces moss_tpu/ops/rasterize_tpu.py::_bwd_kernel (:383-568) and its
 // launcher _run_bwd (:598-626). It reads the pair list of the forward
@@ -15,7 +16,16 @@
 //
 //   dL/dpower = (dL/dw T - s_after / (1 - alpha)) alpha   (alpha < 0.99)
 //
-// and the per-pair gradients follow (rasterize_tpu.py:436-505). The ten
+// and the per-pair gradients follow (rasterize_tpu.py:436-505). A tile cut
+// into segments by the forward (csrc/rasterize_fwd.cu) is walked one CTA a
+// segment, with no exchange between CTAs: segment k starts from the
+// forward's state (ops/split_blend.py (e)), T_k where the segment is live,
+// else 0, so it stops exactly where the forward's blend did, and
+// s_after = (Qtail - g . cum_k) - its own prefix, g . cum_k being the sum of
+// w dL/dw over the segments before it. A tile of at most S pairs is one
+// segment with T = 1 and the prefix from 0: the unsplit kernel bit for bit.
+// A pair lies in one segment, so its row is still summed over the tile's
+// 256 pixels by one CTA. The ten
 // columns of a pair's row are d(mean_x, mean_y, conic a, b, c, opacity,
 // r, g, b, depth). Rows of pairs that no pixel reached (after a whole-tile
 // stop) are left as the caller zeroed them; nothing is added with atomics.
@@ -23,9 +33,9 @@
 // What bounds it on the H100: f32 operations, as for the forward (about 14
 // per (pair, pixel) evaluation, about 38 more per contribution), against a
 // few MB of pair list, Gaussian data, gradient planes and per-pair rows. In
-// practice a tile's CTA walks its pairs one after another, and the stages
-// below show that walk (the staging and the loop, with no blend math) taking
-// most of the time on inputs with tiles of thousands of pairs.
+// practice a CTA walks its pairs one after another, and the stages below
+// showed that walk (the staging and the loop, with no blend math) taking most
+// of the time on inputs with tiles of thousands of pairs, hence the segments.
 // What the design does about it: one thread per pixel keeps T, the prefix
 // and its six gradient planes in registers; pairs are staged through shared
 // memory 128 at a time. The sum of a pair's ten values over the tile's 256
@@ -55,9 +65,13 @@
 //                           TPU's transpose-free `fullT`)
 //
 // nvcc deletes a computation whose result never reaches memory, so each
-// ablated stage adds its last quantity into a per-pixel sum, started from
-// the pixel's six gradient values, and writes it once to `observe` (H, W):
-// the staged geometry for kLoad, w for kRecompute, dL/dpower for kSuffix.
+// ablated stage adds its last quantity into a per-pixel sum and writes it
+// once: the staged geometry for kLoad, w for kRecompute, dL/dpower for
+// kSuffix. A tile's first segment starts its sum from the pixel's six
+// gradient values and writes it to `observe` (H, W); a later segment starts
+// from 0 and writes to observe_part (slots, 256), which
+// rasterize_bwd_observe_kernel then adds to `observe` in segment order. kLoad
+// has no T: it walks every pair of every segment and reads no state.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (moss_torch/ops/cuda_build.py)
@@ -86,9 +100,11 @@ rasterize_bwd_kernel(const int* __restrict__ tile_offsets,   // (num_tiles + 1,)
                      const float* __restrict__ color,        // (P, 3)
                      const float* __restrict__ depth,        // (P,)
                      const float* __restrict__ gimg,         // (6, H, W)
-                     int height, int width, int grid_w,
+                     int height, int width, int grid_w, int num_tiles, int seg_len,
+                     const float* __restrict__ state,        // (slots, kStatePlanes, 256)
                      float* __restrict__ pair_grads,         // (num_pairs, 10); soa: (10, num_pairs)
                      float* __restrict__ observe,            // (H, W), ablated stages only
+                     float* __restrict__ observe_part,       // (slots, 256), ablated stages only
                      int num_pairs)
 {
   constexpr bool kMoments = kStage >= kProduction;
@@ -98,17 +114,18 @@ rasterize_bwd_kernel(const int* __restrict__ tile_offsets,   // (num_tiles + 1,)
   // per-warp sums of each staged pair's ten values (40 KB)
   __shared__ float s_part[kMoments ? kWarps : 1][kMoments ? kBatch * kGrads : 1];
 
-  const int tile = blockIdx.x;
+  Segment seg;
+  if (!segment_of(blockIdx.x, tile_offsets, num_tiles, seg_len, seg)) return;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int px = (tile % grid_w) * kTile + t % kTile;
-  const int py = (tile / grid_w) * kTile + t / kTile;
+  const int px = (seg.tile % grid_w) * kTile + t % kTile;
+  const int py = (seg.tile / grid_w) * kTile + t / kTile;
   const bool inside = px < width && py < height;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
-  const int start = tile_offsets[tile];
-  const int end = tile_offsets[tile + 1];
+  const int start = seg.start;
+  const int end = seg.end;
 
   float g_r = 0.0f, g_g = 0.0f, g_b = 0.0f, g_d = 0.0f, g_a = 0.0f, q_tail = 0.0f;
   if (inside) {
@@ -121,10 +138,20 @@ rasterize_bwd_kernel(const int* __restrict__ tile_offsets,   // (num_tiles + 1,)
     g_a = gimg[4 * plane + pix];
     q_tail = gimg[5 * plane + pix];
   }
-  float sink = g_r + g_g + g_b + g_d + g_a + q_tail;  // what an ablated stage writes
+  // what an ablated stage writes
+  float sink = seg.k == 0 ? g_r + g_g + g_b + g_d + g_a + q_tail : 0.0f;
 
-  bool done = !inside;
   float T = 1.0f;
+  float q_base = q_tail;  // Qtail less the segments before this one
+  if (kStage != kLoad && seg.k > 0 && inside) {
+    const float* st = state + static_cast<size_t>(blockIdx.x) * kStatePlanes * kBlock + t;
+    T = st[kTIn * kBlock];
+    const float prior = g_r * st[kAcc * kBlock] + g_g * st[(kAcc + 1) * kBlock]
+        + g_b * st[(kAcc + 2) * kBlock] + g_d * st[(kAcc + 3) * kBlock]
+        + g_a * st[(kAcc + 4) * kBlock];
+    q_base = q_tail - prior;
+  }
+  bool done = !inside || T < kTEps;
   float prefix = 0.0f;
 
   for (int base = start; base < end; base += kBatch) {
@@ -173,7 +200,7 @@ rasterize_bwd_kernel(const int* __restrict__ tile_offsets,   // (num_tiles + 1,)
             const float dl_dw =
                 s_r[j] * g_r + s_g[j] * g_g + s_bl[j] * g_b + s_d[j] * g_d + g_a;
             prefix += w * dl_dw;
-            const float s_after = q_tail - prefix;
+            const float s_after = q_base - prefix;
             const float dp =
                 alpha < kAlphaMax ? (dl_dw * T - s_after / (1.0f - alpha)) * alpha : 0.0f;
             if constexpr (kStage == kSuffix) {
@@ -260,52 +287,83 @@ rasterize_bwd_kernel(const int* __restrict__ tile_offsets,   // (num_tiles + 1,)
     }
   }
   if constexpr (!kMoments) {
-    if (inside) observe[py * width + px] = sink;
+    if (seg.k > 0) observe_part[static_cast<size_t>(blockIdx.x) * kBlock + t] = sink;
+    else if (inside) observe[py * width + px] = sink;
   }
+}
+
+// An ablated stage's observer: the later segments' sums added to the first's,
+// in segment order, one CTA per split tile.
+__global__ void __launch_bounds__(kBlock)
+rasterize_bwd_observe_kernel(const int* __restrict__ tile_offsets, int height, int width,
+                             int grid_w, int num_tiles, int seg_len,
+                             const float* __restrict__ observe_part, float* __restrict__ observe)
+{
+  const Segment seg = tile_segment(tile_offsets, blockIdx.x, 0, seg_len);
+  const int t = threadIdx.x;
+  const int px = (seg.tile % grid_w) * kTile + t % kTile;
+  const int py = (seg.tile / grid_w) * kTile + t / kTile;
+  if (seg.count == 1 || px >= width || py >= height) return;
+  float v = observe[py * width + px];
+  for (int k = 1; k < seg.count; ++k)
+    v += observe_part[static_cast<size_t>(segment_slot(seg, k, num_tiles)) * kBlock + t];
+  observe[py * width + px] = v;
 }
 
 template <int kStage>
 int launch_stage(const int* tile_offsets, const int* pair_gaussian, const float* mean2d,
                  const float* conic, const float* opacity, const float* color,
                  const float* depth, const float* gimg, int height, int width, int grid_w,
-                 int num_tiles, float* pair_grads, float* observe, int num_pairs,
+                 int num_tiles, int seg_len, int num_slots, const float* state,
+                 float* pair_grads, float* observe, float* observe_part, int num_pairs,
                  cudaStream_t stream) {
-  rasterize_bwd_kernel<kStage><<<num_tiles, kBlock, 0, stream>>>(
+  rasterize_bwd_kernel<kStage><<<num_slots, kBlock, 0, stream>>>(
       tile_offsets, pair_gaussian, mean2d, conic, opacity, color, depth, gimg, height, width,
-      grid_w, pair_grads, observe, num_pairs);
+      grid_w, num_tiles, seg_len, state, pair_grads, observe, observe_part, num_pairs);
+  if (kStage < kProduction && num_pairs > seg_len) {
+    if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+    rasterize_bwd_observe_kernel<<<num_tiles, kBlock, 0, stream>>>(
+        tile_offsets, height, width, grid_w, num_tiles, seg_len, observe_part, observe);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// pair_grads must be zeroed by the caller.
+// pair_grads must be zeroed by the caller. state: the forward's
+// (moss_rasterize_fwd with the same seg_len and num_slots).
 extern "C" int moss_rasterize_bwd(const int* tile_offsets, const int* pair_gaussian,
                                   const float* mean2d, const float* conic,
                                   const float* opacity, const float* color,
                                   const float* depth, const float* gimg, int height,
-                                  int width, int grid_w, int num_tiles, float* pair_grads,
-                                  void* stream) {
-  return launch_stage<kProduction>(tile_offsets, pair_gaussian, mean2d, conic, opacity, color, depth,
-                             gimg, height, width, grid_w, num_tiles, pair_grads, nullptr, 0,
-                             static_cast<cudaStream_t>(stream));
+                                  int width, int grid_w, int num_tiles, int num_pairs,
+                                  int seg_len, int num_slots, const float* state,
+                                  float* pair_grads, void* stream) {
+  return launch_stage<kProduction>(tile_offsets, pair_gaussian, mean2d, conic, opacity, color,
+                                   depth, gimg, height, width, grid_w, num_tiles, seg_len,
+                                   num_slots, state, pair_grads, nullptr, nullptr, num_pairs,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // The kernel at stage `stage` (0 load, 1 recompute, 2 suffix, 3 full,
 // 4 full_soa); as moss_rasterize_bwd, plus observe (H, W), written by
-// stages 0-2 at every pixel inside the image, and num_pairs, the row count
-// of full_soa's column-major rows.
+// stages 0-2 at every pixel inside the image (after a second kernel that
+// adds the later segments' observe_part (num_slots, 256) when a tile can be
+// split), and num_pairs, also the row count of full_soa's column-major rows.
 extern "C" int moss_rasterize_bwd_stage(int stage, const int* tile_offsets,
                                         const int* pair_gaussian, const float* mean2d,
                                         const float* conic, const float* opacity,
                                         const float* color, const float* depth,
                                         const float* gimg, int height, int width, int grid_w,
-                                        int num_tiles, int num_pairs, float* pair_grads,
-                                        float* observe, void* stream) {
+                                        int num_tiles, int num_pairs, int seg_len,
+                                        int num_slots, const float* state, float* pair_grads,
+                                        float* observe, float* observe_part, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
 #define MOSS_STAGE(k)                                                                         \
   launch_stage<k>(tile_offsets, pair_gaussian, mean2d, conic, opacity, color, depth, gimg,  \
-                  height, width, grid_w, num_tiles, pair_grads, observe, num_pairs, s)
+                  height, width, grid_w, num_tiles, seg_len, num_slots, state, pair_grads,  \
+                  observe, observe_part, num_pairs, s)
   switch (stage) {
     case kLoad: return MOSS_STAGE(kLoad);
     case kRecompute: return MOSS_STAGE(kRecompute);

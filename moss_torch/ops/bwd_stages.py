@@ -18,9 +18,13 @@ the ablated stages the rows are each pair's staged data (mean2d, conic,
 opacity, colour, depth) and observe (H, W) is each pixel's sum of its six
 gradient values and of the stage's last quantity over the pairs it walked:
 the six staged geometry values for load, w for recompute, dL/dpower for
-suffix. A batch of 128 pairs is staged only while some pixel of its tile
-blends, so rows after a whole-tile stop stay 0. These observers keep nvcc from deleting an ablated stage, and let a
-run check that each stage did its work.
+suffix. A batch of 128 pairs (counted from the start of its tile segment,
+csrc/blend_common.cuh) is staged only while some pixel of the segment
+blends, so rows after a whole-tile stop stay 0. These observers keep nvcc
+from deleting an ablated stage, and let a run check that each stage did its
+work. Since the kernel walks tile segments (ops/split_blend.py), a split
+tile's later segments add their observer sums to the first's in a second
+kernel, part of an ablated stage's launch and time.
 
 bwd_stage_plain computes the same outputs with tensors over every (pair,
 pixel) of the pair list: T before each pair from a per-tile cumulative sum of
@@ -47,15 +51,17 @@ ABLATED = STAGES[:3]
 # kernel launches since the last reset (set to 0 to count a run)
 launches = 0
 
-# stage; 8 input pointers; height, width, grid_w, num_tiles, num_pairs; rows, observe
-_SIGNATURE = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+# stage; 8 input pointers; height, width, grid_w, num_tiles, num_pairs, seg_len, num_slots;
+# state, rows, observe, observe_part
+_SIGNATURE = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
 
 
 def rasterize_bwd_stage(pairs: PairList, proj: Projected, gimg, height: int, width: int,
-                        stage: str):
+                        stage: str, state=None):
     """(rows, observe) of the backward kernel at `stage`: rows (num_pairs,
     10), (10, num_pairs) for full_soa; observe (H, W) for the ablated stages,
-    None for full and full_soa. gimg as rc.rasterize_pairs_bwd takes it."""
+    None for full and full_soa. gimg and state (needed on a CUDA tensor) as
+    rc.rasterize_pairs_bwd takes them at rc.SEGMENT."""
     global launches
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r}: expected one of {STAGES}")
@@ -65,17 +71,23 @@ def rasterize_bwd_stage(pairs: PairList, proj: Projected, gimg, height: int, wid
     grid_w, num_tiles = rc._check_pairs(pairs, device, height, width, proj.mean2d.shape[0])
     rc.check_kernel_inputs(proj, device)
     rc.check_gimg(gimg, device, height, width)
+    if state is None:
+        raise ValueError("rasterize_bwd_stage on a CUDA tensor needs the forward's state")
+    slots = rc.check_state(state, pairs, num_tiles, rc.SEGMENT)
     shape = (rc.GRAD_COLS, pairs.num_pairs) if stage == "full_soa" else (pairs.num_pairs,
                                                                           rc.GRAD_COLS)
     rows = torch.zeros(shape, dtype=torch.float32, device=device)
-    observe = (torch.empty((height, width), dtype=torch.float32, device=device)
-               if stage in ABLATED else None)
+    observe = part = None
+    if stage in ABLATED:
+        observe = torch.empty((height, width), dtype=torch.float32, device=device)
+        part = torch.empty((slots, rc.TILE * rc.TILE), dtype=torch.float32, device=device)
     cuda_build.launch("rasterize_bwd", "moss_rasterize_bwd_stage", _SIGNATURE, device,
                       STAGES.index(stage), pairs.tile_offsets.data_ptr(),
                       pairs.pair_gaussian.data_ptr(),
                       *(getattr(proj, f).data_ptr() for f in rc._KERNEL_FIELDS), gimg.data_ptr(),
-                      height, width, grid_w, num_tiles, pairs.num_pairs, rows.data_ptr(),
-                      0 if observe is None else observe.data_ptr())
+                      height, width, grid_w, num_tiles, pairs.num_pairs, rc.SEGMENT, slots,
+                      state.data_ptr(), rows.data_ptr(),
+                      *(0 if x is None else x.data_ptr() for x in (observe, part)))
     launches += 1
     return rows, observe
 
@@ -140,10 +152,11 @@ def bwd_stage_plain(pairs: PairList, proj: Projected, gimg, height: int, width: 
     stopped = (seg_cumsum(fired.int(), start, t) - fired.int()) > 0  # stopped before it
     live = m & ~fired & ~stopped
     w = torch.where(live, alpha * T, 0.0)
-    # the kernel stages a batch of 128 pairs only while some pixel of the
-    # tile is still blending; the rows of the batches after it stay 0
+    # the kernel stages a batch of 128 pairs of a tile segment only while some
+    # pixel of the tile is still blending; the rows of the batches after it stay 0
     k = torch.arange(pairs.num_pairs, device=device)
-    batch_start = start[t] + (k - start[t]) // 128 * 128
+    seg_start = start[t] + (k - start[t]) // rc.SEGMENT * rc.SEGMENT
+    batch_start = seg_start + (k - seg_start) // 128 * 128
     staged = torch.where((inside & ~stopped).any(1)[batch_start, None], staged, 0.0)
 
     def per_pixel(x):

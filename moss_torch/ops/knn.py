@@ -3,7 +3,9 @@
 Distances use the same expanded form |q|^2 - 2 q.r + |r|^2 in f32 as the JAX
 package (knn.py:59-63), so argmin ties fall the same way. Plain tensor code:
 at k=1 the (chunk, M) distance block and its min are one matmul and one
-reduction.
+reduction. For k > 1 a stable sort puts equal distances (repeated points,
+invalid refs at +inf) in index order, as jax.lax.top_k does (knn.py:73);
+torch.topk makes no such promise.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ def knn(queries, refs, k: int = 1, chunk: int = 4096, ref_valid=None):
         if k == 1:
             d, i = torch.min(d2, dim=-1, keepdim=True)
         else:
-            d, i = torch.topk(d2, k, dim=-1, largest=False)
+            d, i = torch.sort(d2, dim=-1, stable=True)
+            d, i = d[:, :k], i[:, :k]
         d2s.append(d)
         idxs.append(i)
     d2 = torch.clamp_min(torch.cat(d2s), 0.0)

@@ -10,6 +10,16 @@ return dict matches rasterize_reference's plus `overflow` (always 0: the pair
 list is sized per frame). `bg` is added outside the kernels, as
 rasterize_tpu.py:741-744 does, so its gradient is autograd's.
 
+Both blend kernels cut a tile of more than `seg_len` pairs into segments of
+at most seg_len, one CTA each (ops/split_blend.py has the scheme and its
+plain version): the forward launches one kernel twice (the tiles' first
+segments, and the local products of the segments between a split tile's
+first and last; then the later segments' blends, the last of a tile's CTAs
+merging in segment order), once when no tile can be split, and returns, beside
+the planes, the segments' state, from which the backward's CTAs start with
+no exchange between them. seg_len defaults to SEGMENT, the one length the
+training and serving paths use.
+
 On a CPU tensor the wrapper runs the plain version (ops/rasterize_ref.py) at
 the same tile shape, with autograd; on a CUDA tensor it launches the kernels
 or raises.
@@ -24,24 +34,28 @@ from . import cuda_build
 from .binning import PairList, bin_pairs
 from .projection import Projected
 from .rasterize_ref import rasterize_reference
+from .split_blend import GRAD_COLS, num_slots
 
 TILE = 16  # csrc/blend_common.cuh kTile
-GRAD_COLS = 10  # csrc/rasterize_bwd.cu kGrads: d(mx, my, conic a, b, c, opacity, r, g, b, depth)
+SEGMENT = 96  # pairs a blend kernel's CTA walks at most; longer tiles are split (PERF.md, §6)
+STATE_PLANES = 9  # csrc/blend_common.cuh kStatePlanes: per (slot, pixel) segment state
 SEGMENT_LONG = 32  # csrc/segment_sum.cu kLong: longer segments are summed by a whole warp
 
-# kernel launches since the last reset (set to 0 to count a run)
-launches = 0          # rasterize_fwd
+# launches since the last reset (set to 0 to count a run)
+launches = 0          # rasterize_fwd (one call: two launches of its kernel, one when none splits)
 bwd_launches = 0      # rasterize_bwd
 segment_launches = 0  # segment_sum
 
 _KERNEL_FIELDS = ("mean2d", "conic", "opacity", "color", "depth")
 _C_SIGNATURES = {
-    # 7 input pointers; height, width, grid_w, num_tiles; out
-    ("rasterize_fwd", "moss_rasterize_fwd"): [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-    + [ctypes.c_void_p],
-    # 8 input pointers (the 7 above + gimg); height, width, grid_w, num_tiles; rows
-    ("rasterize_bwd", "moss_rasterize_bwd"): [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-    + [ctypes.c_void_p],
+    # 7 input pointers; height, width, grid_w, num_tiles, num_pairs, seg_len, num_slots;
+    # out, state, tickets
+    ("rasterize_fwd", "moss_rasterize_fwd"): [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p] * 3,
+    # 8 input pointers (the 7 above + gimg); height, width, grid_w, num_tiles, num_pairs,
+    # seg_len, num_slots; state, rows
+    ("rasterize_bwd", "moss_rasterize_bwd"): [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p] * 2,
     # rows, gaussian_pairs, offsets; num_gaussians; out
     ("segment_sum", "moss_segment_sum"): [ctypes.c_void_p] * 3 + [ctypes.c_int]
     + [ctypes.c_void_p],
@@ -91,36 +105,62 @@ def check_gimg(gimg, device, height: int, width: int):
         raise ValueError(f"gimg: expected contiguous float32 (6, {height}, {width}) on {device}")
 
 
-def rasterize_pairs(pairs: PairList, proj: Projected, height: int, width: int):
-    """Launch the blend kernel on a built pair list; (6, H, W) f32 planes
-    r, g, b, depth, alpha (sum of weights), final_T."""
+def check_state(state, pairs: PairList, num_tiles: int, seg_len: int):
+    """Raise unless `state` is the forward's segment state for this pair list
+    and seg_len; returns its slot count."""
+    if seg_len < 1:
+        raise ValueError(f"seg_len must be positive, got {seg_len}")
+    slots = num_slots(num_tiles, pairs.num_pairs, seg_len)
+    if (state.device != pairs.tile_offsets.device or state.dtype != torch.float32
+            or not state.is_contiguous()
+            or tuple(state.shape) != (slots, STATE_PLANES, TILE * TILE)):
+        raise ValueError(f"state: expected contiguous float32 ({slots}, {STATE_PLANES}, "
+                         f"{TILE * TILE}) for seg_len {seg_len}, got {tuple(state.shape)}")
+    return slots
+
+
+def rasterize_pairs(pairs: PairList, proj: Projected, height: int, width: int,
+                    seg_len: int = SEGMENT):
+    """Launch the blend kernels on a built pair list: ((6, H, W) f32 planes
+    r, g, b, depth, alpha (sum of weights), final_T; the segment state that
+    rasterize_pairs_bwd takes)."""
     global launches
     device = proj.mean2d.device
     grid_w, num_tiles = _check_pairs(pairs, device, height, width, proj.mean2d.shape[0])
     check_kernel_inputs(proj, device)
+    if seg_len < 1:
+        raise ValueError(f"seg_len must be positive, got {seg_len}")
+    slots = num_slots(num_tiles, pairs.num_pairs, seg_len)
     out = torch.empty((6, height, width), dtype=torch.float32, device=device)
+    state = torch.empty((slots, STATE_PLANES, TILE * TILE), dtype=torch.float32, device=device)
+    tickets = torch.empty((num_tiles,), dtype=torch.int32, device=device)  # the kernels zero them
     _launch("rasterize_fwd", "moss_rasterize_fwd", device,
             pairs.tile_offsets.data_ptr(), pairs.pair_gaussian.data_ptr(),
             *(getattr(proj, f).data_ptr() for f in _KERNEL_FIELDS),
-            height, width, grid_w, num_tiles, out.data_ptr())
+            height, width, grid_w, num_tiles, pairs.num_pairs, seg_len, slots,
+            out.data_ptr(), state.data_ptr(), tickets.data_ptr())
     launches += 1
-    return out
+    return out, state
 
 
-def rasterize_pairs_bwd(pairs: PairList, proj: Projected, gimg, height: int, width: int):
+def rasterize_pairs_bwd(pairs: PairList, proj: Projected, gimg, height: int, width: int,
+                        state, seg_len: int = SEGMENT):
     """Launch the backward kernel: (num_pairs, 10) f32 per-pair gradient rows,
     in pair-list order. gimg: (6, H, W) f32 upstream grads of r, g, b, depth,
-    alpha, then Qtail (see csrc/rasterize_bwd.cu)."""
+    alpha, then Qtail (see csrc/rasterize_bwd.cu); state: rasterize_pairs's,
+    at the same seg_len."""
     global bwd_launches
     device = proj.mean2d.device
     grid_w, num_tiles = _check_pairs(pairs, device, height, width, proj.mean2d.shape[0])
     check_kernel_inputs(proj, device)
     check_gimg(gimg, device, height, width)
+    slots = check_state(state, pairs, num_tiles, seg_len)
     rows = torch.zeros((pairs.num_pairs, GRAD_COLS), dtype=torch.float32, device=device)
     _launch("rasterize_bwd", "moss_rasterize_bwd", device,
             pairs.tile_offsets.data_ptr(), pairs.pair_gaussian.data_ptr(),
             *(getattr(proj, f).data_ptr() for f in _KERNEL_FIELDS), gimg.data_ptr(),
-            height, width, grid_w, num_tiles, rows.data_ptr())
+            height, width, grid_w, num_tiles, pairs.num_pairs, seg_len, slots,
+            state.data_ptr(), rows.data_ptr())
     bwd_launches += 1
     return rows
 
@@ -166,20 +206,20 @@ class _Blend(torch.autograd.Function):
     def forward(ctx, mean2d, conic, opacity, color, depth, pairs, height, width):
         proj = Projected(mean2d=mean2d, depth=depth, conic=conic, radius=None,
                          color=color, opacity=opacity, valid=None)
-        img = rasterize_pairs(pairs, proj, height, width)
-        ctx.save_for_backward(mean2d, conic, opacity, color, depth, img)
+        img, state = rasterize_pairs(pairs, proj, height, width)
+        ctx.save_for_backward(mean2d, conic, opacity, color, depth, img, state)
         ctx.pairs = pairs
         return img
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_img):
-        mean2d, conic, opacity, color, depth, img = ctx.saved_tensors
+        mean2d, conic, opacity, color, depth, img, state = ctx.saved_tensors
         proj = Projected(mean2d=mean2d, depth=depth, conic=conic, radius=None,
                          color=color, opacity=opacity, valid=None)
         # Qtail = sum of g * out over the six planes, the g_T T term included
         gimg = torch.cat([g_img[:5], (g_img * img).sum(0, keepdim=True)]).contiguous()
-        rows = rasterize_pairs_bwd(ctx.pairs, proj, gimg, img.shape[1], img.shape[2])
+        rows = rasterize_pairs_bwd(ctx.pairs, proj, gimg, img.shape[1], img.shape[2], state)
         grads = segment_sum(rows, ctx.pairs)
         return (grads[:, 0:2], grads[:, 2:5], grads[:, 5], grads[:, 6:9], grads[:, 9],
                 None, None, None)

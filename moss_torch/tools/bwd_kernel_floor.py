@@ -1,7 +1,8 @@
 """The backward blend kernel's time, stage by stage, on the GPU.
 
 Counterpart of tools/bwd_kernel_floor.py's main(): it times
-csrc/rasterize_bwd.cu with stages ablated (moss_torch/ops/bwd_stages.py):
+csrc/rasterize_bwd.cu with stages ablated (moss_torch/ops/bwd_stages.py), on
+the tile segments of the production kernel (at most rc.SEGMENT pairs a CTA):
 
   load       the loop, the staging of pair data, the gimg loads, the row
              writes; no blend math, so it walks every pair
@@ -41,24 +42,30 @@ DELTAS = (("loop + staging", None, "load"), ("forward recompute", "load", "recom
 
 
 def floor_inputs(proj, height: int, width: int):
-    """(pairs, gimg) for the tool's cotangent: gimg holds the five constant
-    planes and Qtail = r + g + b + 0.01 depth + alpha (g_T = 0), from the
-    forward blend of proj on a black background (:84-91)."""
+    """(pairs, gimg, state) for the tool's cotangent: gimg holds the five
+    constant planes and Qtail = r + g + b + 0.01 depth + alpha (g_T = 0),
+    from the forward blend of proj on a black background (:84-91); state is
+    the forward kernels' segment state (None on the CPU, whose plain stages
+    need none)."""
     pairs = rc.bin_projected(proj, height, width)
     with torch.no_grad():
-        out = rc.rasterize_cuda(proj, torch.zeros(3, device=proj.mean2d.device), height, width)
-    rgb = out["color"]
-    q_tail = rgb[..., 0] + rgb[..., 1] + rgb[..., 2] + 0.01 * out["depth"] + out["alpha"]
+        if proj.mean2d.device.type == "cuda":
+            img, state = rc.rasterize_pairs(pairs, proj, height, width)
+            rgb, depth, alpha = img[:3].permute(1, 2, 0), img[3], img[4]
+        else:
+            out = rc.rasterize_cuda(proj, torch.zeros(3), height, width)
+            rgb, depth, alpha, state = out["color"], out["depth"], out["alpha"], None
+    q_tail = rgb[..., 0] + rgb[..., 1] + rgb[..., 2] + 0.01 * depth + alpha
     gimg = torch.stack([torch.full_like(q_tail, g) for g in COTANGENT] + [q_tail])
-    return pairs, gimg.contiguous()
+    return pairs, gimg.contiguous(), state
 
 
-def check_against_production(pairs, proj, gimg, height: int, width: int):
+def check_against_production(pairs, proj, gimg, state, height: int, width: int):
     """{stage: max |rows - production rows|} for full and full_soa; raises
     unless both are bitwise equal to rc.rasterize_pairs_bwd's rows."""
-    prod = rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width)
-    full, _ = rasterize_bwd_stage(pairs, proj, gimg, height, width, "full")
-    soa, _ = rasterize_bwd_stage(pairs, proj, gimg, height, width, "full_soa")
+    prod = rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width, state)
+    full, _ = rasterize_bwd_stage(pairs, proj, gimg, height, width, "full", state)
+    soa, _ = rasterize_bwd_stage(pairs, proj, gimg, height, width, "full_soa", state)
     diffs = {}
     for stage, rows in (("full", full), ("full_soa", soa.T)):
         diffs[stage] = float((rows - prod).abs().max()) if rows.numel() else 0.0
@@ -74,17 +81,17 @@ def measure(proj, height: int, width: int):
     """Check, then time every stage and the production kernel on proj."""
     dev = proj.mean2d.device
     time_ms = timer(dev)
-    pairs, gimg = floor_inputs(proj, height, width)
+    pairs, gimg, state = floor_inputs(proj, height, width)
     print(f"{pairs.num_pairs} pairs, {int((pairs.tile_count > 0).sum())} busy tiles, "
-          f"longest {int(pairs.tile_count.max())}")
+          f"longest {int(pairs.tile_count.max())}, segments of at most {rc.SEGMENT} pairs")
     if dev.type == "cuda":
-        diffs = check_against_production(pairs, proj, gimg, height, width)
+        diffs = check_against_production(pairs, proj, gimg, state, height, width)
     else:
         diffs = None
         print("no production kernel on the CPU: the stages run their plain version")
 
-    stage_ms = {s: time_ms(lambda s=s: rasterize_bwd_stage(pairs, proj, gimg, height, width, s),
-                           **TIMING) for s in STAGES}
+    stage_ms = {s: time_ms(lambda s=s: rasterize_bwd_stage(pairs, proj, gimg, height, width, s,
+                                                           state), **TIMING) for s in STAGES}
     for s in STAGES:
         print(f"{s:10s} {stage_ms[s]:8.4f} ms")
     deltas = {}
@@ -94,8 +101,8 @@ def measure(proj, height: int, width: int):
         print(f"  {name:22s} {deltas[name]:8.4f} ms")
     prod_ms = None
     if dev.type == "cuda":
-        prod_ms = time_ms(lambda: rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width),
-                          **TIMING)
+        prod_ms = time_ms(lambda: rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width,
+                                                         state), **TIMING)
         print(f"\nproduction rasterize_bwd {prod_ms:8.4f} ms (the full stage's kernel)")
     return {"pairs": pairs.num_pairs, "busy_tiles": int((pairs.tile_count > 0).sum()),
             "max_tile_pairs": int(pairs.tile_count.max()), "max_abs_diff_to_production": diffs,

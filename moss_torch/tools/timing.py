@@ -1,6 +1,8 @@
 """Timers of the tools and chip_smoke.py: device time on a GPU, host time on the CPU."""
 from __future__ import annotations
 
+import os
+import sys
 import time
 
 import numpy as np
@@ -9,8 +11,18 @@ import torch
 
 _cycles_per_ms = None
 # runs cuda_ms took again because their spin ended before the host had queued
-# them (set to 0 to count a stretch of timings)
+# them (set to 0 to count a stretch of timings), in all and by call site: the
+# `site` a caller names, else its file:line (clear to count a stretch)
 runs_retaken = 0
+retaken_by_site = {}
+
+
+def _caller() -> str:
+    """file:line of the first frame outside this module."""
+    frame = sys._getframe(1)
+    while frame.f_code.co_filename == __file__:
+        frame = frame.f_back
+    return f"{os.path.basename(frame.f_code.co_filename)}:{frame.f_lineno}"
 
 
 def _sleep_ms(ms: float):
@@ -27,7 +39,7 @@ def _sleep_ms(ms: float):
     torch.cuda._sleep(int(min(ms, 1e3) * _cycles_per_ms))
 
 
-def cuda_ms(fn, n=20, reps=10, warmup=3):
+def cuda_ms(fn, n=20, reps=10, warmup=3, site=None):
     """Device ms per call of fn: the median over n samples, each a run of
     `reps` back-to-back calls between two CUDA events, after warm-up. Before
     each run the stream spins for twice the host time it takes to queue a
@@ -38,8 +50,10 @@ def cuda_ms(fn, n=20, reps=10, warmup=3):
     the host: it is taken again, after a spin twice as long, up to n times
     (counted in runs_retaken). A call that synchronizes waits for any spin:
     it is timed with its host work, as it would be without one, and no run
-    of it is taken again."""
+    of it is taken again. A retaken run is also counted under `site` (by
+    default the caller's file:line) in retaken_by_site."""
     global runs_retaken
+    site = site or _caller()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -69,6 +83,7 @@ def cuda_ms(fn, n=20, reps=10, warmup=3):
         if paced and retakes:
             retakes -= 1
             runs_retaken += 1
+            retaken_by_site[site] = retaken_by_site.get(site, 0) + 1
             queue_ms = max(2 * queue_ms, took_ms)
             continue
         times.append(e0.elapsed_time(e1) / reps)

@@ -72,7 +72,7 @@ def test_floor_scene_matches_moss_tpu(jax_scene):
 
 def test_plain_stage_grads_match_jax(jax_scene):
     proj = to_torch(jax_scene)
-    pairs, gimg = bf.floor_inputs(proj, H, H)
+    pairs, gimg, _ = bf.floor_inputs(proj, H, H)
     rows, _ = bwd_stages.rasterize_bwd_stage(pairs, proj, gimg, H, H, "full")
     # (P, 10): d(mean_x, mean_y, conic a, b, c, opacity, r, g, b, depth)
     got = rc.segment_sum(rows, pairs).numpy()
@@ -96,7 +96,7 @@ def test_plain_stage_grads_match_jax(jax_scene):
 @pytest.fixture(scope="module")
 def floor_inputs():
     proj, _ = bench_scene("cpu", H=H, P=P)
-    pairs, gimg = bf.floor_inputs(proj, H, H)
+    pairs, gimg, _ = bf.floor_inputs(proj, H, H)
     return proj, pairs, gimg
 
 

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 blend kernels (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu and its stages,
-csrc/segment_sum.cu) and one training step through them, the sort passes
+csrc/segment_sum.cu), with tiles split into segments against the plain
+segment scheme (ops/split_blend.py) and against the same kernels unsplit,
+and one training step through them, the sort passes
 (csrc/sort_pass.cu), the 3x3 conv's two kernels (csrc/conv3x3.cu: tensor
 cores for bf16, CUDA cores for f32) and the reductions and scans
 (csrc/reduce_scan.cu).
@@ -31,7 +33,7 @@ import pytest
 import torch
 
 from moss_torch.ops import bwd_stages, conv3x3 as conv, rasterize_cuda as rc, reduce_scan as rs, \
-    sort_pass
+    sort_pass, split_blend
 from moss_torch.ops.projection import preprocess
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import build_covariance
@@ -160,6 +162,96 @@ def test_backward_repeats_bit_for_bit(cuda_device):
     second, _ = _grads(proj, bg, H, W, up, rc.rasterize_cuda)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _assert_planes_match(a, b):
+    """The image rule on the six planes r, g, b, depth, alpha, final_T."""
+    for k in range(6):
+        assert_images_match(a[k], b[k], atol=1e-4 if k == 3 else 3e-5)
+
+
+def _gimg(img, up, bg):
+    g_img = torch.stack([up["color"][..., 0], up["color"][..., 1], up["color"][..., 2],
+                         up["depth"], up["alpha"], up["final_T"] + (up["color"] * bg).sum(-1)])
+    return torch.cat([g_img[:5], (g_img * img).sum(0, keepdim=True)]).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", ["every_tile", "some_tiles"])
+@pytest.mark.parametrize("dense", [False, True], ids=["scene", "dense"])
+def test_split_kernels_match_plain_scheme_and_unsplit(cuda_device, dense, cut):
+    """At S = 1 (every tile of more than one pair split, a segment a pair) and
+    at S = 32: the forward's planes against the plain segment scheme and the
+    unsplit kernels (S >= the longest tile) under the image rule, the
+    backward's rows against the plain segment scheme's and its per-Gaussian
+    grads against the unsplit kernels' within the grad rule."""
+    H, W = 64, 77
+    proj = projected(cuda_device, H, W, n=400, dense=dense)
+    pairs = rc.bin_projected(proj, H, W)
+    busy = pairs.tile_count[pairs.tile_count > 0]
+    S = 1 if cut == "every_tile" else 32
+    assert int(busy.max()) > 2 * S
+    bg = torch.tensor([0.2, 0.5, 0.7], device=cuda_device)
+    up = _upstream(cuda_device, H, W)
+    before = (rc.launches, rc.bwd_launches)
+    img, state = rc.rasterize_pairs(pairs, proj, H, W, S)
+    gimg = _gimg(img, up, bg)
+    rows = rc.rasterize_pairs_bwd(pairs, proj, gimg, H, W, state, S)
+    torch.cuda.synchronize()
+    assert (rc.launches, rc.bwd_launches) == (before[0] + 1, before[1] + 1)
+    plain, plain_state = split_blend.blend_split(pairs, proj, H, W, S)
+    _assert_planes_match(img, plain)
+    assert_grad_close(rows, split_blend.blend_split_bwd(pairs, proj, gimg, H, W, plain_state),
+                      "rows vs plain segment scheme")
+    whole = pairs.num_pairs
+    img_u, state_u = rc.rasterize_pairs(pairs, proj, H, W, whole)
+    _assert_planes_match(img, img_u)
+    rows_u = rc.rasterize_pairs_bwd(pairs, proj, gimg, H, W, state_u, whole)
+    assert_grad_close(rc.segment_sum(rows, pairs), rc.segment_sum(rows_u, pairs),
+                      "grads vs unsplit")
+    if dense:
+        assert float(img[5].min()) < 1e-3  # termination exercised
+
+
+@pytest.mark.cuda
+def test_split_kernels_repeat_bit_for_bit(cuda_device):
+    H, W = 64, 64
+    proj = projected(cuda_device, H, W, n=400, dense=True)
+    pairs = rc.bin_projected(proj, H, W)
+    up = _upstream(cuda_device, H, W)
+    bg = torch.zeros(3, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        img, state = rc.rasterize_pairs(pairs, proj, H, W, 8)
+        rows = rc.rasterize_pairs_bwd(pairs, proj, _gimg(img, up, bg), H, W, state, 8)
+        runs.append((img, rows))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_split_on_a_dense_scene_reaching_the_stop(cuda_device):
+    """bench_scene's dense cloud at 64x64: the least final T reaches the
+    1e-4 stop, pixels stop inside and at the start of segments; the split
+    kernels through rasterize_cuda against the plain blend and autograd
+    through it."""
+    from moss_torch.data.synthetic import bench_scene
+
+    H = W = 64
+    proj, _ = bench_scene(cuda_device, dense=True, H=H, P=4000)
+    bg = torch.tensor([0.2, 0.5, 0.7], device=cuda_device)
+    up = _upstream(cuda_device, H, W)
+    g, out = _grads(proj, bg, H, W, up, rc.rasterize_cuda)
+    plain = functools.partial(rasterize_reference, tile_h=rc.TILE, tile_w=rc.TILE)
+    g_ref, ref = _grads(proj, bg, H, W, up, plain)
+    assert float(ref["final_T"].min()) < 2e-4
+    assert int(rc.bin_projected(proj, H, W).tile_count.max()) > 4 * rc.SEGMENT
+    for key in ("color", "alpha", "final_T"):
+        assert_images_match(out[key], ref[key])
+    assert_images_match(out["depth"], ref["depth"], atol=1e-4)
+    for name, a, b in zip(rc._KERNEL_FIELDS, g[:-1], g_ref[:-1]):
+        assert_grad_close(a, b, name)
+    torch.testing.assert_close(g[-1], g_ref[-1], rtol=1e-4, atol=0)
 
 
 @pytest.mark.cuda
@@ -347,16 +439,18 @@ def test_conv3x3_matches_plain_bf16(cuda_device, out_dtype):
 def test_bwd_stages_match_production_and_plain(cuda_device, dense):
     """full and full_soa are the production kernel's rows bit for bit; every
     stage is its plain version (staged rows exactly, observers within 1e-4
-    of the max but for termination flips, full rows within the grad rule)."""
+    of the max but for termination flips, full rows within the grad rule);
+    with the scene's longer tiles split into segments of rc.SEGMENT pairs."""
     from moss_torch.tools.bwd_kernel_floor import floor_inputs
 
     H, W = 64, 77
     proj = projected(cuda_device, H, W, n=400, dense=dense)
-    pairs, gimg = floor_inputs(proj, H, W)
-    prod = rc.rasterize_pairs_bwd(pairs, proj, gimg, H, W)
+    pairs, gimg, state = floor_inputs(proj, H, W)
+    assert int(pairs.tile_count.max()) > 2 * rc.SEGMENT
+    prod = rc.rasterize_pairs_bwd(pairs, proj, gimg, H, W, state)
     before = bwd_stages.launches
     for stage in bwd_stages.STAGES:
-        rows, obs = bwd_stages.rasterize_bwd_stage(pairs, proj, gimg, H, W, stage)
+        rows, obs = bwd_stages.rasterize_bwd_stage(pairs, proj, gimg, H, W, stage, state)
         rows_p, obs_p = bwd_stages.bwd_stage_plain(pairs, proj, gimg, H, W, stage)
         torch.cuda.synchronize()
         if stage in bwd_stages.ABLATED:

@@ -110,6 +110,22 @@ def test_knn(rng):
     close(knn.mean_knn_dist2(t(q)), jknn.mean_knn_dist2(jnp.asarray(q)))
 
 
+def test_knn_ties_fall_in_index_order(rng):
+    """k > 1 on rows with exact ties: refs repeated on an integer grid (every
+    distance exact in f32, so both packages see the same ties), and invalid
+    refs, all at +inf, filling the rows that have fewer than k valid refs.
+    The indices must be moss_tpu's (jax.lax.top_k: lower index first)."""
+    grid = rng.integers(-2, 3, size=(8, 3)).astype(np.float32)
+    r = grid[rng.integers(0, 8, size=64)]  # each point about 8 times
+    q = np.concatenate([grid, rng.integers(-3, 4, size=(24, 3)).astype(np.float32)])
+    for valid in (np.ones(64, bool), rng.uniform(size=64) > 0.5, np.arange(64) < 3):
+        d, i = knn.knn(t(q), t(r), k=5, chunk=16, ref_valid=t(valid))
+        jd, ji = jknn.knn(jnp.asarray(q), jnp.asarray(r), k=5, chunk=16,
+                          ref_valid=jnp.asarray(valid))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+
+
 def projected_inputs(rng, n=300):
     means = np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(-0.6, 0.6, n),
                       rng.uniform(-0.5, 3.0, n)], -1).astype(np.float32)
