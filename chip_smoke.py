@@ -42,11 +42,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              the plain rasterizer; then 2 warm-up and 5 timed steps, with every
              kernel's launch count set to 0 just before and read just after
              (one launch of each per step), and one profiled step; and the
-             backward kernel's stages (phase 9) on the slice's projected input
-  7. tool_sort  the two sort-pass kernels against their plain versions,
+             backward kernel's stages (phase 11) on the slice's projected input
+  7. trainer  the Trainer, the user's entry point for training an avatar:
+             6,890 initial points in the 46,080 capacity, 4 train frames and
+             1 test frame from make_frames at 512x512 (the cloud on the SMPL
+             vertices at TARGET_OPACITY, which the initial cloud does not
+             reproduce), crop 256, SH degree 3, the compressed schedule
+             TRAINER (60 iterations, densify rounds at 20, 30, 40 and 50, an
+             opacity reset at 30, evals at 1, 20, 30, 31 and 60); the loss
+             finite at every step, the live count within the capacity after
+             every round, the evals at 20 and 30 PSNR_GAIN_DB above the one at
+             1 and the last above the one right after the reset (31), the
+             blend kernels and the segment sum launched once per step and eval
+             frame (counts set to 0 just before the run and read just after);
+             a second run bitwise equal in params, valid, moments and metrics;
+             ms per iteration outside densify rounds, per round, per eval frame
+  8. densify  one densify_and_prune round at full width on the train
+             phase's state after its steps (45,695 live in 46,080: the arena
+             at the cap, so one clone turns split and merge off): host-clock ms
+             of the round and of its parts (the k=5 kNN, the k=1 kNN to the
+             SMPL vertices, eigh, the SVD, KL and curvature, the rest), its
+             stats and a profiled round's idle share; rounds on 8,192-slot
+             cuts (4,096 live, room for children) of that state and of the
+             trainer's before each of its rounds, on the card and on the CPU
+             with the same noise and normals: masks agree on all but
+             DENSIFY_MASK_SHARE of the slots, params and moments within
+             DENSIFY_RTOL of the max where they agree, and clone, split and
+             merge each land in them; the share of slots whose curvature mask
+             flips when the card computes its own normals
+  9. tool_sort  the two sort-pass kernels against their plain versions,
              exactly, at every stride of a 2^19-key network; a pass's time
              against R; then moss_torch.tools.sort_micro, counted
-  8. tool_conv  the two 3x3 conv kernels against their plain version: the
+ 10. tool_conv  the two 3x3 conv kernels against their plain version: the
              CUDA-core kernel in f32 (atol 1e-4) at the JAX tool's check()
              shapes and the eight VGG16 layer shapes, the tensor-core kernel
              in bf16 (2e-2 of the max) at the eight layers and at ragged
@@ -55,16 +82,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              equal to their plain versions; then moss_torch.tools.conv_proto,
              counted, which prints per layer the tensor-core kernel's ms,
              TFLOP/s, share of the bound, cuDNN's ms and its stages' ms
-  9. tool_bwd_floor  the backward kernel's stages: full and full_soa bitwise
+ 11. tool_bwd_floor  the backward kernel's stages: full and full_soa bitwise
              equal to the production kernel, every stage held to its plain
              version, with times and bounds; then
              moss_torch.tools.bwd_kernel_floor, counted
- 10. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
+ 12. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
              cores, bf16, split2 and 3xTF32 tensor-core forms): their
              observers bitwise equal across the 256 tiles, a launch's time
              against REPS; then moss_torch.tools.mxu_micro, counted, which
              holds each against its plain version (1e-5 of the max)
- 11. timing  how many runs cuda_ms took again because the host had not
+ 13. timing  how many runs cuda_ms took again because the host had not
              queued them before their spin ended (0: every time above is the
              first run's), by phase and by kernel
 
@@ -85,7 +112,7 @@ import time
 import numpy as np
 import torch
 
-from moss_torch.config import Config, ModelConfig
+from moss_torch.config import Config, ModelConfig, OptimConfig, PipelineConfig
 from moss_torch.data.synthetic import bench_scene, make_camera, make_frames, make_scene, \
     random_pose
 from moss_torch.models import gaussians as G
@@ -93,13 +120,17 @@ from moss_torch.models.lbs_field import LBSField
 from moss_torch.models.pose_refine import PoseRefine
 from moss_torch.ops import bwd_stages, conv3x3 as conv, cuda_build, lpips, \
     rasterize_cuda as rc, reduce_scan as rs, sort_pass, split_blend
+from moss_torch.ops.knn import knn
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import inverse_sigmoid
 from moss_torch.render.render import render_frame
 from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro, timing
 from moss_torch.tools.timing import cuda_ms
+from moss_torch.train import densify as D
 from moss_torch.train.losses import compute_losses, crop_window
+from moss_torch.train.optim import GAUSS_GROUPS, AdamState
 from moss_torch.train.train_step import TrainState, make_train_step
+from moss_torch.train.trainer import Trainer
 
 HW = 512
 MODEL = ModelConfig()
@@ -147,6 +178,25 @@ CROP = 256         # the trainer's crop (moss_tpu/train/trainer.py:139-140)
 TRAIN_FRAMES = 4
 # segment lengths the blend kernels are also timed at, beside rc.SEGMENT
 SEG_LENS = (32, 64, 96, 128, 256)
+# the densify round on the card against the CPU: the clone, split, merge and
+# prune masks may differ on at most this share of the slots (kNN near-ties
+# round differently), params and moments where they agree within this share
+# of their max
+DENSIFY_MASK_SHARE = 1e-3
+DENSIFY_RTOL = 1e-5
+DENSIFY_CUT = 8192
+DENSIFY_MASKS = ("clone", "split", "merge", "prune")
+# the trainer phase's compressed schedule: rounds at 20, 30, 40, 50, a reset at
+# 30. The ground truth is the cloud on the SMPL vertices at opacity
+# TARGET_OPACITY, which the initial cloud (opacity 0.1, other colours) does not
+# reproduce. The evals at 20 and 30 (before the reset) must beat the one at 1
+# by PSNR_GAIN_DB, the one at 60 the one right after the reset (label 31): the
+# reset clamps the opacities to 0.01, which 30 steps at opacity_lr do not undo
+TRAINER = dict(iterations=60, densify_from_iter=10, densify_until_iter=55,
+               densification_interval=10, opacity_reset_interval=30)
+TRAINER_EVALS = (1, 20, 30, 31, 60)
+TARGET_OPACITY = 0.5
+PSNR_GAIN_DB = 0.5
 
 
 def emit(obj):
@@ -718,7 +768,261 @@ def phase_train(dev, H=HW, n_verts=N_VERTS, capacity=CAPACITY, n_live=N_LIVE,
         holder[0], _ = step(holder[0], frames[0], 0, feats[0])
 
     emit({"phase": "profile", "path": "train_step", **device_breakdown(one_step, top=10)})
-    return row, launches
+    return row, launches, (holder[0], scene)
+
+
+def densify_agreement(out, ref):
+    """A densify round against a reference round on the same inputs:
+    (the share of slots where a clone, split, merge or prune mask differs,
+    {field or moment: max |a - b| / max |b|} over the slots live in the
+    reference where the masks and valid agree)."""
+    (params, gstate, opt, stats), (rparams, rgstate, ropt, rstats) = out, ref
+    diff = torch.zeros_like(rgstate.valid)
+    for k in DENSIFY_MASKS:
+        diff |= stats["masks"][k].cpu() != rstats["masks"][k]
+    keep = ~diff & (gstate.valid.cpu() == rgstate.valid) & rgstate.valid
+    errs = {}
+    for f in G.FIELDS:
+        errs[f] = scaled_err(getattr(params, f).cpu()[keep], getattr(rparams, f)[keep])
+        for m in ("mu", "nu"):
+            a, b = getattr(opt[f], m)[f].cpu()[keep], getattr(ropt[f], m)[f][keep]
+            errs[f"{f}.{m}"] = scaled_err(a, b)
+    return float(diff.float().mean()), errs
+
+
+def cut_state(ts, n):
+    """An n-slot arena cut from a TrainState, on the CPU: the n // 2 live
+    Gaussians of least x (a slab of the body, whose neighbourhoods stay whole
+    but at its face) in slot order, then free slots (the state's own, repeated
+    where it has too few), so that a round's children have room; their window
+    statistics and Gaussian moments."""
+    g, gs = ts.params["gauss"], ts.gstate
+    live = torch.nonzero(gs.valid)[:, 0]
+    keep = live[torch.argsort(g.xyz[live, 0], stable=True)[:n // 2]].sort().values
+    free = torch.nonzero(~gs.valid)[:, 0]
+    idx = torch.cat([keep, free[torch.arange(n - keep.numel(), device=free.device) % free.numel()]])
+
+    def cut(x):
+        return x[idx].cpu()
+
+    params = G.GaussianParams(**{f: cut(getattr(g, f)) for f in G.FIELDS})
+    gstate = G.GaussianState(valid=cut(gs.valid), max_radii2d=cut(gs.max_radii2d),
+                             xyz_grad_accum=cut(gs.xyz_grad_accum), denom=cut(gs.denom),
+                             joint_F=gs.joint_F.cpu(), lbs_weight_sum=cut(gs.lbs_weight_sum))
+    opt = {f: AdamState(ts.opt_state[f].count, {f: cut(ts.opt_state[f].mu[f])},
+                        {f: cut(ts.opt_state[f].nu[f])}) for f in GAUSS_GROUPS}
+    return params, gstate, opt
+
+
+def to_device(state, dev):
+    """A cut_state arena on `dev`."""
+    params, gstate, opt = state
+    return (G.GaussianParams(**{f: getattr(params, f).to(dev) for f in G.FIELDS}),
+            G.GaussianState(**{f: getattr(gstate, f).to(dev) for f in (
+                "valid", "max_radii2d", "xyz_grad_accum", "denom", "joint_F",
+                "lbs_weight_sum")}),
+            {g: AdamState(o.count, {k: v.to(dev) for k, v in o.mu.items()},
+                          {k: v.to(dev) for k, v in o.nu.items()}) for g, o in opt.items()})
+
+
+def phase_densify(dev, ts, scene, cuts):
+    """One densification round at full width on the train phase's state,
+    timed by part; rounds on DENSIFY_CUT-slot cuts (cut_state) of that state
+    and of the trainer's states before its rounds (`cuts`: (iteration,
+    state) pairs) held to the CPU's. At full width the arena is at the cap,
+    so a clone stops the split and the merge; the cuts leave room."""
+    cfg = OptimConfig()
+    params, gstate, opt = ts.params["gauss"], ts.gstate, ts.opt_state
+    verts = scene.big_pose_vertices
+    P = params.capacity
+    noise = torch.randn((3, P, 3), generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+
+    def round_():
+        return D.densify_and_prune(params, gstate, opt, noise, cfg, 1.0, verts, False)
+
+    out = round_()
+    stats = {k: float(v) for k, v in out[3].items() if k != "masks"}
+    live = int(out[1].valid.sum())
+    if live > P or not all(bool(torch.isfinite(getattr(out[0], f)[out[1].valid]).all())
+                           for f in G.FIELDS):
+        raise AssertionError(f"the round left {live} live of {P}, or non-finite params")
+    ms = host_ms(round_, n=3, warmup=1)
+
+    # its parts, each a call of densify.py's own functions on the round's
+    # inputs; the rest (the appends, the prune, the masks) is the remainder
+    nbr5 = D.neighbours(params, gstate.valid)
+    normals = D.pca_normals(params.xyz, nbr5)
+    scaling = G.get_scaling(params)
+    nb = nbr5[:, 1].long()
+
+    def kl_and_curvature():
+        D.kl_div_gaussians(params.xyz, params.rotation, scaling, params.xyz[nb],
+                           params.rotation[nb], scaling[nb])
+        D.angle_change_mask(params.xyz, normals, nbr5)
+
+    parts = {name: host_ms(fn, n=3, warmup=1) for name, fn in (
+        ("knn_k5", lambda: D.neighbours(params, gstate.valid)),
+        ("knn_k1_smpl", lambda: knn(params.xyz, verts, k=1)),
+        ("eigh", lambda: D.pca_normals(params.xyz, nbr5)),
+        ("svd", lambda: D.fisher_fields(gstate)),
+        ("kl_and_curvature", kl_and_curvature))}
+    parts["rest"] = ms - sum(parts.values())
+    profile = device_breakdown(round_)
+
+    # the share of slots whose curvature mask flips between the card's
+    # normals and the CPU's, at full width on the same neighbours
+    cpu_normals = D.pca_normals(params.xyz.cpu(), nbr5.cpu()).to(dev)
+    valid = gstate.valid
+    curv_flip_full = float((D.angle_change_mask(params.xyz, normals, nbr5)
+                            != D.angle_change_mask(params.xyz, cpu_normals, nbr5))[valid]
+                           .float().mean())
+    normal_sign_flip_full = float(((normals * cpu_normals).sum(-1) < 0)[valid].float().mean())
+
+    # the cuts' rounds, on the card and on the CPU, with the same noise and
+    # normals; every op must land in them
+    cut_rows = []
+    landed = {"cloned": 0, "split": 0, "merged": 0}
+    for it, state in [(0, cut_state(ts, DENSIFY_CUT))] + list(cuts):
+        p_cpu, gs_cpu, o_cpu = state
+        p_dev, gs_dev, o_dev = to_device(state, dev)
+        cut = p_cpu.capacity
+        noise_cut = torch.randn((3, cut, 3), generator=torch.Generator().manual_seed(it))
+        cut_normals = D.pca_normals(p_cpu.xyz, D.neighbours(p_cpu, gs_cpu.valid))
+        ref = D.densify_and_prune(p_cpu, gs_cpu, o_cpu, noise_cut, cfg, 1.0, verts.cpu(), False,
+                                  normals=cut_normals)
+        card = D.densify_and_prune(p_dev, gs_dev, o_dev, noise_cut.to(dev), cfg, 1.0, verts,
+                                   False, normals=cut_normals.to(dev))
+        share, errs = densify_agreement(card, ref)
+        stats_cpu = {k: float(v) for k, v in ref[3].items() if k != "masks"}
+        stats_card = {k: float(v) for k, v in card[3].items() if k != "masks"}
+        if share > DENSIFY_MASK_SHARE or max(errs.values()) > DENSIFY_RTOL:
+            raise AssertionError(f"densify on the card vs the CPU, round {it}: masks differ on "
+                                 f"{share:.2e} of the slots, scaled errors {errs}")
+        for k in landed:
+            landed[k] += int(stats_cpu[k])
+        own = D.densify_and_prune(p_dev, gs_dev, o_dev, noise_cut.to(dev), cfg, 1.0, verts,
+                                  False)
+        curv_flip = float((own[3]["masks"]["curv"].cpu() != ref[3]["masks"]["curv"])
+                          [gs_cpu.valid].float().mean())
+        cut_rows.append({"round": it or "train", "capacity": cut, "live": int(gs_cpu.valid.sum()),
+                         "mask_disagree_share": share, "max_scaled_err": max(errs.values()),
+                         "scaled_err": errs, "stats_card": stats_card, "stats_cpu": stats_cpu,
+                         "curv_flip_share_own_normals": curv_flip})
+    if min(landed.values()) == 0:
+        raise AssertionError(f"the cut rounds landed {landed}: every op must land")
+    flips = [r["curv_flip_share_own_normals"] for r in cut_rows]
+    print(f"densify round {ms:.2f} ms at {P} capacity, {int(gstate.valid.sum())} live; parts "
+          f"{parts}; cut rounds {[r['round'] for r in cut_rows]} landed {landed}; curvature "
+          f"mask flips with the card's own normals: {flips} of the cuts' live slots, "
+          f"{curv_flip_full:.4f} at full width", flush=True)
+    emit({"phase": "densify", "capacity": P, "live_before": int(gstate.valid.sum()),
+          "stats": stats, "ms": ms, "parts_ms": parts, "profile": profile,
+          "cuts": cut_rows, "cuts_landed": landed,
+          "curv_flip_share_full": curv_flip_full,
+          "normal_sign_flip_share_full": normal_sign_flip_full})
+
+
+def trainer_run(dev, scene, frames, lp, timed=False):
+    """One Trainer run of the TRAINER schedule: (trainer, the rounds' stats,
+    host-clock ms of steps, rounds and eval frames when timed, and each
+    round's iteration with a DENSIFY_CUT cut of the state it started from,
+    cut_state)."""
+    cfg = Config(model=MODEL, optim=OptimConfig(**TRAINER),
+                 pipe=PipelineConfig(test_iterations=TRAINER_EVALS, save_iterations=()))
+    tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], cfg, lp,
+                 crop_hw=(CROP, CROP), device=dev)
+    rounds, cuts, times = [], [], {"step": [], "densify": [], "eval": []}
+
+    def clocked(fn, key):
+        def run(*a, **kw):
+            if timed:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if timed:
+                torch.cuda.synchronize()
+                times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    step, densify = tr.step_fn, clocked(tr.densify, "densify")
+
+    def counted_densify(it):
+        if timed:
+            cuts.append((it, cut_state(tr.ts, DENSIFY_CUT)))
+        stats = densify(it)
+        live = int(tr.ts.gstate.valid.sum())
+        rounds.append({"round": it, "live": live,
+                       **{k: int(v) for k, v in stats.items() if k != "masks"}})
+        if live > cfg.model.capacity or int(stats["count_after"]) != live:
+            raise AssertionError(f"round {it}: {live} live in {cfg.model.capacity}")
+        return stats
+
+    tr.step_fn = clocked(step, "step")
+    tr.densify = counted_densify
+    tr.evaluate = clocked(tr.evaluate, "eval")
+    tr.train()
+    return tr, rounds, times, cuts
+
+
+def phase_trainer(dev, H=HW, n_verts=N_VERTS):
+    """The trainer path end to end, twice; returns the kernels' launches in
+    the first run and its rounds' cuts."""
+    scene = make_scene(n_verts=n_verts, device=dev)
+    frames, _ = make_frames(scene, n_frames=TRAIN_FRAMES + 1, H=H, W=H, crop=CROP,
+                            opacity=TARGET_OPACITY)
+    lp = lpips.init_random(3407, device=dev)
+    rc.launches = rc.bwd_launches = rc.segment_launches = 0
+    tr, rounds, times, cuts = trainer_run(dev, scene, frames, lp, timed=True)
+    launches = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
+                "segment_sum": rc.segment_launches}
+    iters = TRAINER["iterations"]
+    eval_frames = len(TRAINER_EVALS) * (len(frames) - TRAIN_FRAMES)
+    want = {"rasterize_fwd": iters + eval_frames, "rasterize_bwd": iters, "segment_sum": iters}
+    if launches != want:
+        raise AssertionError(f"the trainer launched the kernels {launches} times, not {want}")
+    hist = tr.metrics_history
+    psnr = {m["iteration"]: m["psnr"] for m in hist}
+    if [m["iteration"] for m in hist] != list(TRAINER_EVALS) or \
+            not min(psnr[20], psnr[30]) >= psnr[1] + PSNR_GAIN_DB or \
+            not psnr[60] > psnr[31]:
+        raise AssertionError(f"the trainer's evals: {hist}")
+    if len(rounds) != 4 or sum(r["cloned"] + r["split"] for r in rounds) == 0:
+        raise AssertionError(f"the rounds: {rounds}")
+
+    again, _, _, _ = trainer_run(dev, scene, frames, lp)
+    a, b = tr.ts, again.ts
+    same = {"valid": torch.equal(a.gstate.valid, b.gstate.valid),
+            **{f: torch.equal(getattr(a.params["gauss"], f), getattr(b.params["gauss"], f))
+               for f in G.FIELDS},
+            **{f"{g}.{m}.{n}": torch.equal(getattr(a.opt_state[g], m)[n],
+                                          getattr(b.opt_state[g], m)[n])
+               for g in a.opt_state for m in ("mu", "nu") for n in a.opt_state[g].mu},
+            "mlps": all(torch.equal(x, y) for k in ("pose", "lbs") for x, y in zip(
+                a.params["mlps"][k].parameters(), b.params["mlps"][k].parameters())),
+            "metrics_history": [{k: v for k, v in m.items() if k != "elapsed_s"} for m in hist]
+            == [{k: v for k, v in m.items() if k != "elapsed_s"} for m in again.metrics_history]}
+    if not all(same.values()):
+        raise AssertionError(f"two trainer runs differ: {[k for k, v in same.items() if not v]}")
+    steps = np.array(times["step"])
+    outside = [t for i, t in enumerate(steps, 1) if i not in {r["round"] for r in rounds}]
+    counts = [r["live"] for r in rounds]
+    print(f"trainer: {float(np.median(outside)):.2f} ms per iteration, densify rounds "
+          f"{[round(t, 1) for t in times['densify']]} ms, eval frames "
+          f"{[round(t, 1) for t in times['eval']]} ms, live after the rounds {counts}, "
+          f"psnr {psnr}", flush=True)
+    emit({"phase": "trainer", "hw": H, "crop": CROP, "capacity": MODEL.capacity,
+          "initial_points": N_VERTS, "target_opacity": TARGET_OPACITY, "schedule": TRAINER,
+          "evals": TRAINER_EVALS, "ms_per_iteration": float(np.median(outside)),
+          "step_ms": times["step"], "ms_per_densify_round": times["densify"],
+          "ms_per_eval_frame": float(np.median(times["eval"])), "eval_ms": times["eval"],
+          "live_after_rounds": counts, "rounds": rounds, "metrics_history": hist,
+          "s_to_best_pre_reset_eval": max((m for m in hist if m["iteration"] <= 30),
+                                          key=lambda m: m["psnr"])["elapsed_s"],
+          "launches": launches, "bitwise_repeat": True,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, cuts, scene
 
 
 def phase_tool_sort(dev):
@@ -1039,7 +1343,10 @@ def main():
         phase("kernel", phase_kernel, dev)
         row, serve_launches = phase("slice", phase_slice, dev)
     phase("train_kernel", phase_train_kernel, dev)
-    bwd, train_launches = phase("train", phase_train, dev)
+    bwd, train_launches, (train_ts, train_scene) = phase("train", phase_train, dev)
+    trainer_launches, cuts, _ = phase("trainer", phase_trainer, dev)
+    phase("densify", phase_densify, dev, train_ts, train_scene, cuts)
+    del train_ts, cuts
     sort_rows, sort_launches = phase("tool_sort", phase_tool_sort, dev)
     conv_rows, conv_launches = phase("tool_conv", phase_tool_conv, dev)
     floor_row, floor_launches = phase("tool_bwd_floor", phase_tool_bwd_floor, dev)
@@ -1077,19 +1384,25 @@ def main():
     emit({"kernels": [
         entry("rasterize_fwd", "moss_torch/csrc/rasterize_fwd.cu",
               "moss_tpu/ops/rasterize_tpu.py:288",
-              serve_launches + train_launches["rasterize_fwd"],
-              {"serve": serve_launches, "train": train_launches["rasterize_fwd"]}, row,
+              serve_launches + train_launches["rasterize_fwd"]
+              + trainer_launches["rasterize_fwd"],
+              {"serve": serve_launches, "train": train_launches["rasterize_fwd"],
+               "trainer": trainer_launches["rasterize_fwd"]}, row,
               f"atol {ATOL} (depth {DEPTH_ATOL}); at most {OUTLIER_FRAC} of pixels beyond; "
               "against the plain blend and the plain segment scheme; bitwise repeatable; ms "
               "on the serving input, one call being two launches of the kernel",
               **split(row)),
         entry("rasterize_bwd", "moss_torch/csrc/rasterize_bwd.cu",
-              "moss_tpu/ops/rasterize_tpu.py:383", train_launches["rasterize_bwd"],
-              {"train": train_launches["rasterize_bwd"]}, bwd,
+              "moss_tpu/ops/rasterize_tpu.py:383",
+              train_launches["rasterize_bwd"] + trainer_launches["rasterize_bwd"],
+              {"train": train_launches["rasterize_bwd"],
+               "trainer": trainer_launches["rasterize_bwd"]}, bwd,
               grad_tol + "; rows against the plain segment scheme, grads against the unsplit "
               "kernel, the same; ms on the training input", **split(bwd)),
         entry("segment_sum", "moss_torch/csrc/segment_sum.cu", "moss_tpu/ops/binning.py:51",
-              train_launches["segment_sum"], {"train": train_launches["segment_sum"]},
+              train_launches["segment_sum"] + trainer_launches["segment_sum"],
+              {"train": train_launches["segment_sum"],
+               "trainer": trainer_launches["segment_sum"]},
               bwd["segment"], "1e-5 of the max against index_add_; grads as rasterize_bwd",
               library_ms=bwd["segment"]["library_ms"]),
         entry("sort_lane_pass", "moss_torch/csrc/sort_pass.cu", "tools/sort_micro.py:47",

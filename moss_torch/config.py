@@ -1,14 +1,17 @@
-"""The configuration fields the render path and the training step read.
+"""The configuration fields the render path, the training step, densification
+and the trainer read.
 
-The port's own copies of moss_tpu/config.py:15-70 (ModelConfig,
-OptimConfig), reduced to the fields the port reads. The JAX pipeline's rect cap
-(PipelineConfig.max_tiles_per_gaussian) has no counterpart: the port sizes
-its pair buffers per frame from the live pair count (ops/binning.py), so no
-Gaussian is ever capped.
+The port's own copies of moss_tpu/config.py:15-105 (ModelConfig,
+OptimConfig, PipelineConfig, Config), reduced to the fields the port reads,
+with the same defaults. PipelineConfig has no rasterizer knob: the port picks
+the kernel or its plain version from the tensors' device, and sizes its pair
+buffers per frame from the live pair count (ops/binning.py), so the JAX
+pipeline's rect cap (max_tiles_per_gaussian) has no counterpart either.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,6 +23,7 @@ class ModelConfig:
     # the reference caps densification at 45,695 points; rounded up to a
     # lane-aligned 46,080 (the north-star capacity, bench.py:90-91)
     capacity: int = 46080
+    n_init_points: int = 6890   # the SMPL vertex count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,12 +42,19 @@ class OptimConfig:
     adam_eps: float = 1e-15             # AdamW eps (the reference's gaussian_model.py:226)
     weight_decay: float = 0.01          # torch AdamW default
 
-    # the densify / reset schedule the update skips read (train/optim.py);
-    # densification's own thresholds come with its port
+    percent_dense: float = 0.01
     densification_interval: int = 100
     opacity_reset_interval: int = 4000
     densify_from_iter: int = 400
     densify_until_iter: int = 2000
+    densify_grad_threshold: float = 0.0002
+    min_opacity: float = 0.005
+    kl_threshold: float = 0.4
+    kl_merge_threshold: float = 0.1
+    max_screen_size: int = 20
+    # prune-by-SMPL-distance threshold in meters, euclidean (a 5 cm shell):
+    # train/densify.py compares sqrt(d2) against it
+    smpl_dist_threshold: float = 0.05
 
     # loss weights (the reference's train_ZJU.py:131)
     w_l1: float = 1.0
@@ -55,6 +66,15 @@ class OptimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    # evals and saves fire independently (Trainer.train eval_iters / save_iters)
+    test_iterations: Tuple[int, ...] = (2500, 2700, 3000)
+    save_iterations: Tuple[int, ...] = (2500, 2700, 3000)
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = ModelConfig()
     optim: OptimConfig = OptimConfig()
+    pipe: PipelineConfig = PipelineConfig()
+    seed: int = 3407   # frame order, initial colours, MLP init, densify noise

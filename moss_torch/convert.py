@@ -9,15 +9,19 @@ chkpnt{N}.npz written by moss_tpu's Trainer.save (one array per leaf, keyed
 by jax.tree_util.keystr, moss_tpu/train/checkpoint.py:19-30).
 `train_state_from_jax` carries a whole TrainState (params, the optax
 multi_transform Adam states group by group, GaussianState, step),
-`lpips_params_from_jax` the LPIPS tower, `frame_from_jax` a Frame.
+`lpips_params_from_jax` the LPIPS tower, `frame_from_jax` a Frame and
+`config_from_jax` a Config: with the TrainState, a port Trainer started by
+set_state continues where a moss_tpu Trainer stands.
 """
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
 import torch
 
+from . import config as C
 from . import resolve_device
 from .data.frames import Frame
 from .models.gaussians import FIELDS, GaussianParams, GaussianState
@@ -163,3 +167,15 @@ def frame_from_jax(frame, device=None) -> Frame:
            for f in ("image", "bkgd_mask", "bound_mask", "poses", "shapes", "R", "Th",
                      "pose_rotmats")},
         crop_y0=int(frame.crop_y0), crop_x0=int(frame.crop_x0), pose_id=int(frame.pose_id))
+
+
+def config_from_jax(cfg) -> C.Config:
+    """A moss_tpu Config as the port's: the fields the port has, same values."""
+
+    def fields(cls, src):
+        return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
+
+    return C.Config(model=fields(C.ModelConfig, cfg.model), optim=fields(C.OptimConfig, cfg.optim),
+                    pipe=C.PipelineConfig(test_iterations=tuple(cfg.pipe.test_iterations),
+                                          save_iterations=tuple(cfg.pipe.save_iterations)),
+                    seed=int(cfg.seed))

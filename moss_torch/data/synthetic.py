@@ -5,6 +5,7 @@ bench_scene, bench.py's projected splat cloud.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -63,6 +64,7 @@ def make_frames(
     seed: int = 0,
     crop: int = 96,
     rasterize_fn: Optional[Callable] = None,
+    opacity: Optional[float] = None,
 ) -> Tuple[List[Frame], dict]:
     """Render ground-truth frames of a target cloud deformed by LBS.
 
@@ -70,7 +72,10 @@ def make_frames(
     frame poses it with coarse_deform_c2source (no learned corrections) and
     rasterizes it with `rasterize_fn` (default rasterize_cuda: the kernel on a
     GPU, the plain blend at 16x16 tiles on the CPU; moss_tpu renders with the
-    plain blend at 32x32 tiles). Runs where the scene lies. Returns
+    plain blend at 32x32 tiles). `opacity` sets every target Gaussian's
+    opacity (default create_from_points' 0.1, moss_tpu's target): a cloud
+    seeded on the same vertices starts away from a denser target, so
+    training has work to show. Runs where the scene lies. Returns
     (frames, {"xyz", "colors"}).
     """
     from scipy.spatial.transform import Rotation
@@ -81,6 +86,8 @@ def make_frames(
     verts = scene.big_pose_vertices.cpu().numpy()
     colors = rng.uniform(0.2, 0.9, (verts.shape[0], 3)).astype(np.float32)
     params, _ = G.create_from_points(verts, colors, capacity=verts.shape[0], device=device)
+    if opacity is not None:
+        params.opacity = torch.full_like(params.opacity, math.log(opacity / (1.0 - opacity)))
 
     def t(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)

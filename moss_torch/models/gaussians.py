@@ -79,6 +79,11 @@ def get_opacity(p: GaussianParams):
     return torch.sigmoid(p.opacity)
 
 
+def reset_opacity(p: GaussianParams) -> GaussianParams:
+    """Opacities clamped to <= 0.01 (the reference's reset_opacity)."""
+    return dataclasses.replace(p, opacity=inverse_sigmoid(torch.clamp_max(get_opacity(p), 0.01)))
+
+
 def get_features(p: GaussianParams):
     return torch.cat([p.f_dc, p.f_rest], dim=1)  # (P, 16, 3)
 

@@ -33,6 +33,29 @@ def quat_to_rotmat(q, normalize: bool = True):
     return R.reshape(*q.shape[:-1], 3, 3)
 
 
+def rotmat_to_quat(R, eps: float = 1e-8):
+    """Rotation matrix -> quaternion (w,x,y,z), (..., 3, 3) -> (..., 4).
+
+    Branch-free Shepperd selection of the largest of the four candidate
+    magnitudes (first one on ties), then normalized with w >= 0.
+    """
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    mags = torch.stack(
+        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    best = torch.argmax(mags, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4, 4)
+    q = torch.gather(cands, -2, best[..., None, None].expand(*best.shape, 1, 4))[..., 0, :]
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + eps)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
 def rodrigues(rot_vecs, eps: float = 1e-8):
     """Axis-angle (..., 3) -> rotation matrices (..., 3, 3), angle = |v + 1e-8|."""
     angle = torch.linalg.norm(rot_vecs + eps, dim=-1, keepdim=True)

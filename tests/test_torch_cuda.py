@@ -608,3 +608,79 @@ def test_conv3x3_stage_matches_plain(cuda_device, shape, stage):
             assert torch.equal(got, conv.conv3x3(x, w, b))
         else:
             _bf16_close(got, conv.conv3x3_plain(x, w, b))
+
+
+def _densify_world(device, P=4096, n=2000, seed=11):
+    """A cloud 1 cm around a 300-vertex synthetic body, in scattered slots,
+    100 of its points with a twin 1.5 mm away (merge candidates), with window
+    statistics and Adam moments: (params, gstate, opt, verts)."""
+    from scipy.spatial.transform import Rotation
+
+    from moss_torch.data.synthetic import make_scene
+    from moss_torch.models import gaussians as G
+    from moss_torch.train.optim import AdamState
+
+    rng = np.random.default_rng(seed)
+    verts = make_scene(n_verts=300, device="cpu").big_pose_vertices.numpy()
+    slots = np.sort(rng.permutation(P)[:n])
+    valid = np.zeros(P, bool)
+    valid[slots] = True
+    xyz = np.zeros((P, 3), np.float32)
+    xyz[:, 2] = -1e6
+    xyz[slots] = verts[rng.integers(0, len(verts), n)] + rng.normal(0, 0.01, (n, 3))
+    fields = {"xyz": xyz, "f_dc": rng.normal(size=(P, 1, 3)), "f_rest": rng.normal(size=(P, 15, 3)),
+              "scaling": rng.uniform(np.log(0.002), np.log(0.03), (P, 3)),
+              "rotation": rng.normal(size=(P, 4)), "opacity": rng.normal(0, 2, (P, 1))}
+    a, b = slots[:100], slots[100:200]
+    d = rng.normal(size=(100, 3))
+    xyz[b] = xyz[a] + 0.0015 * d / np.linalg.norm(d, axis=1, keepdims=True)
+    fields["scaling"][a] = rng.uniform(np.log(0.006), np.log(0.0095), (100, 3))
+    fields["scaling"][b], fields["rotation"][b] = fields["scaling"][a], fields["rotation"][a]
+    denom = rng.integers(0, 11, P) * valid
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    params = G.GaussianParams(**{f: t(v) for f, v in fields.items()})
+    gstate = G.GaussianState(
+        valid=torch.as_tensor(valid, device=device), max_radii2d=t(rng.uniform(0, 40, P)),
+        xyz_grad_accum=t(rng.uniform(0, 4e-4, P) * denom), denom=t(denom),
+        joint_F=t(sum(Rotation.random(23, random_state=s).as_matrix() for s in range(10))),
+        lbs_weight_sum=t(rng.dirichlet(np.full(24, 0.3), P) * 10.0 * valid[:, None]))
+    opt = {f: AdamState(7, {f: t(rng.normal(size=v.shape))}, {f: t(rng.uniform(0.1, 1, v.shape))})
+           for f, v in fields.items()}
+    return params, gstate, opt, t(verts)
+
+
+@pytest.mark.cuda
+def test_densify_round_on_the_card_matches_the_cpu(cuda_device):
+    """One densify_and_prune round on the card and on the CPU with the same
+    noise and normals (chip_smoke.py's densify gate): the clone, split, merge
+    and prune masks differ on at most 1e-3 of the slots, params and moments
+    within 1e-5 of their max where masks and valid agree."""
+    from moss_torch.config import OptimConfig
+    from moss_torch.models.gaussians import FIELDS
+    from moss_torch.train import densify as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = _densify_world("cpu")
+    card = _densify_world(cuda_device)
+    P = cpu[0].capacity
+    noise = torch.randn((3, P, 3), generator=torch.Generator().manual_seed(0))
+    normals = D.pca_normals(cpu[0].xyz, D.neighbours(cpu[0], cpu[1].valid))
+    cfg = OptimConfig()
+    ref = D.densify_and_prune(*cpu[:3], noise, cfg, 1.0, cpu[3], False, normals=normals)
+    out = D.densify_and_prune(*card[:3], noise.to(cuda_device), cfg, 1.0, card[3], False,
+                              normals=normals.to(cuda_device))
+    diff = torch.zeros(P, dtype=torch.bool)
+    for k in ("clone", "split", "merge", "prune"):
+        diff |= out[3]["masks"][k].cpu() != ref[3]["masks"][k]
+    assert float(diff.float().mean()) <= 1e-3
+    assert min(int(ref[3][k]) for k in ("cloned", "split", "merged")) > 0
+    keep = ~diff & (out[1].valid.cpu() == ref[1].valid) & ref[1].valid
+    for f in FIELDS:
+        pairs = [(getattr(out[0], f), getattr(ref[0], f))]
+        pairs += [(getattr(out[2][f], m)[f], getattr(ref[2][f], m)[f]) for m in ("mu", "nu")]
+        for a, b in pairs:
+            a, b = a.cpu()[keep], b[keep]
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), f

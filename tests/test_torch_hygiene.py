@@ -18,6 +18,7 @@ from moss_torch.render.camera import Camera
 from moss_torch.render.render import render_frame
 from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro
 from moss_torch.train.train_step import make_train_step
+from moss_torch.train.trainer import Trainer, init_gaussians_and_mlps
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,6 +64,8 @@ def _entry_points():
         "lpips.init_random": lambda: lpips.init_random(),
         "lpips.load_params": lambda: lpips.load_params("missing.npz"),
         "make_train_step": lambda: make_train_step(None, Config(), None, None, 8, 8),
+        "Trainer": lambda: Trainer(None, [], [], Config(), None),
+        "init_gaussians_and_mlps": lambda: init_gaussians_and_mlps(None, Config()),
         "bench_scene": lambda: synthetic.bench_scene(H=32, P=8),
         "tools.sort_micro.main": lambda: sort_micro.main(),
         "tools.conv_proto.main": lambda: conv_proto.main(),
