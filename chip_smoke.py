@@ -42,7 +42,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              the plain rasterizer; then 2 warm-up and 5 timed steps, with every
              kernel's launch count set to 0 just before and read just after
              (one launch of each per step), and one profiled step; and the
-             backward kernel's stages (phase 11) on the slice's projected input
+             backward kernel's stages (phase 12) on the slice's projected input
   7. trainer  the Trainer, the user's entry point for training an avatar:
              6,890 initial points in the 46,080 capacity, 4 train frames and
              1 test frame from make_frames at 512x512 (the cloud on the SMPL
@@ -57,7 +57,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              frame (counts set to 0 just before the run and read just after);
              a second run bitwise equal in params, valid, moments and metrics;
              ms per iteration outside densify rounds, per round, per eval frame
-  8. densify  one densify_and_prune round at full width on the train
+  8. checkpoint  save, resume, reload and serve the trained avatar: the
+             trainer phase's run wrote chkpnt30.npz (the state after step 30,
+             its round and its opacity reset); a fresh Trainer resume_latest's
+             it and trains to 60, bitwise equal to the uninterrupted run in
+             params, valid, moments, MLPs and statistics, with the same evals
+             at 31 and 60; the final state saved as chkpnt npz and as the
+             reference layout, each loaded into a fresh Trainer and compacted
+             (compact_for_eval), the test frame on the full and the cached
+             path held to the in-memory state's frame at full capacity under
+             the image rule, live counts equal; the kernels' launches over the
+             resume and the two serves; the train phase's state (45,695 live in
+             46,080) bitwise through save_checkpoint / restore_checkpoint;
+             host-clock ms of save, load and compact_for_eval, the files' MB,
+             and the serving frame's ms on the trained cloud in the 46,080
+             buffer and compacted, beside nvidia-smi's name and power limit
+  9. densify  one densify_and_prune round at full width on the train
              phase's state after its steps (45,695 live in 46,080: the arena
              at the cap, so one clone turns split and merge off): host-clock ms
              of the round and of its parts (the k=5 kNN, the k=1 kNN to the
@@ -70,10 +85,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              DENSIFY_RTOL of the max where they agree, and clone, split and
              merge each land in them; the share of slots whose curvature mask
              flips when the card computes its own normals
-  9. tool_sort  the two sort-pass kernels against their plain versions,
+ 10. tool_sort  the two sort-pass kernels against their plain versions,
              exactly, at every stride of a 2^19-key network; a pass's time
              against R; then moss_torch.tools.sort_micro, counted
- 10. tool_conv  the two 3x3 conv kernels against their plain version: the
+ 11. tool_conv  the two 3x3 conv kernels against their plain version: the
              CUDA-core kernel in f32 (atol 1e-4) at the JAX tool's check()
              shapes and the eight VGG16 layer shapes, the tensor-core kernel
              in bf16 (2e-2 of the max) at the eight layers and at ragged
@@ -82,16 +97,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              equal to their plain versions; then moss_torch.tools.conv_proto,
              counted, which prints per layer the tensor-core kernel's ms,
              TFLOP/s, share of the bound, cuDNN's ms and its stages' ms
- 11. tool_bwd_floor  the backward kernel's stages: full and full_soa bitwise
+ 12. tool_bwd_floor  the backward kernel's stages: full and full_soa bitwise
              equal to the production kernel, every stage held to its plain
              version, with times and bounds; then
              moss_torch.tools.bwd_kernel_floor, counted
- 12. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
+ 13. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
              cores, bf16, split2 and 3xTF32 tensor-core forms): their
              observers bitwise equal across the 256 tiles, a launch's time
              against REPS; then moss_torch.tools.mxu_micro, counted, which
              holds each against its plain version (1e-5 of the max)
- 13. timing  how many runs cuda_ms took again because the host had not
+ 14. timing  how many runs cuda_ms took again because the host had not
              queued them before their spin ended (0: every time above is the
              first run's), by phase and by kernel
 
@@ -105,6 +120,8 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -126,6 +143,7 @@ from moss_torch.ops.transforms import inverse_sigmoid
 from moss_torch.render.render import render_frame
 from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro, timing
 from moss_torch.tools.timing import cuda_ms
+from moss_torch.train import checkpoint as ckpt
 from moss_torch.train import densify as D
 from moss_torch.train.losses import compute_losses, crop_window
 from moss_torch.train.optim import GAUSS_GROUPS, AdamState
@@ -197,6 +215,13 @@ TRAINER = dict(iterations=60, densify_from_iter=10, densify_until_iter=55,
 TRAINER_EVALS = (1, 20, 30, 31, 60)
 TARGET_OPACITY = 0.5
 PSNR_GAIN_DB = 0.5
+# the checkpoint phase resumes the trainer phase's run from the state after
+# step RESUME_AT (after the round at 30 and the opacity reset), written here
+RESUME_AT = 30
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "checkpoint")
+# rounds of turns of the trained cloud's serving frame, in the buffer and
+# compacted: a host-clock frame spreads by a third from run to run
+FRAME_TURNS = 5
 
 
 def emit(obj):
@@ -923,13 +948,18 @@ def phase_densify(dev, ts, scene, cuts):
           "normal_sign_flip_share_full": normal_sign_flip_full})
 
 
-def trainer_run(dev, scene, frames, lp, timed=False):
+def trainer_config():
+    return Config(model=MODEL, optim=OptimConfig(**TRAINER),
+                  pipe=PipelineConfig(test_iterations=TRAINER_EVALS, save_iterations=()))
+
+
+def trainer_run(dev, scene, frames, lp, timed=False, ckpt_dir=None):
     """One Trainer run of the TRAINER schedule: (trainer, the rounds' stats,
     host-clock ms of steps, rounds and eval frames when timed, and each
     round's iteration with a DENSIFY_CUT cut of the state it started from,
-    cut_state)."""
-    cfg = Config(model=MODEL, optim=OptimConfig(**TRAINER),
-                 pipe=PipelineConfig(test_iterations=TRAINER_EVALS, save_iterations=()))
+    cut_state). With ckpt_dir, its ckpt_fn writes chkpnt{RESUME_AT}.npz
+    there, the state after step RESUME_AT."""
+    cfg = trainer_config()
     tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], cfg, lp,
                  crop_hw=(CROP, CROP), device=dev)
     rounds, cuts, times = [], [], {"step": [], "densify": [], "eval": []}
@@ -962,19 +992,23 @@ def trainer_run(dev, scene, frames, lp, timed=False):
     tr.step_fn = clocked(step, "step")
     tr.densify = counted_densify
     tr.evaluate = clocked(tr.evaluate, "eval")
-    tr.train()
+    tr.train(ckpt_fn=None if ckpt_dir is None else lambda it: tr.save(
+        os.path.join(ckpt_dir, f"chkpnt{it}.npz")) if it == RESUME_AT else None)
     return tr, rounds, times, cuts
 
 
-def phase_trainer(dev, H=HW, n_verts=N_VERTS):
+def phase_trainer(dev, H=HW, n_verts=N_VERTS, ckpt_dir=CKPT_DIR):
     """The trainer path end to end, twice; returns the kernels' launches in
-    the first run and its rounds' cuts."""
+    the first run, its rounds' cuts and (trainer, scene, frames, LPIPS
+    params) of that run, which also wrote chkpnt{RESUME_AT}.npz to ckpt_dir."""
     scene = make_scene(n_verts=n_verts, device=dev)
     frames, _ = make_frames(scene, n_frames=TRAIN_FRAMES + 1, H=H, W=H, crop=CROP,
                             opacity=TARGET_OPACITY)
     lp = lpips.init_random(3407, device=dev)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir)
     rc.launches = rc.bwd_launches = rc.segment_launches = 0
-    tr, rounds, times, cuts = trainer_run(dev, scene, frames, lp, timed=True)
+    tr, rounds, times, cuts = trainer_run(dev, scene, frames, lp, timed=True, ckpt_dir=ckpt_dir)
     launches = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
                 "segment_sum": rc.segment_launches}
     iters = TRAINER["iterations"]
@@ -1022,7 +1056,164 @@ def phase_trainer(dev, H=HW, n_verts=N_VERTS):
                                           key=lambda m: m["psnr"])["elapsed_s"],
           "launches": launches, "bitwise_repeat": True,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return launches, cuts, scene
+    return launches, cuts, (tr, scene, frames, lp)
+
+
+def flat_equal(a, b):
+    """Names of the checkpoint leaves (train/checkpoint.flatten) that differ."""
+    return sorted(k for k in set(a) | set(b) if k not in a or k not in b
+                  or a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]))
+
+
+def clocked_ms(fn):
+    """(fn's result, host-clock ms of the call, ended by a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def serving_images(tr, frame, cache=None):
+    """The test frame through the full path (MLPs + deform) or, with the
+    transforms of an earlier full-path render, the cached path."""
+    ts = tr.ts
+    kw = {} if cache is None else {"cached_transforms": cache["transforms"],
+                                   "cached_translation": cache["translation"]}
+    with torch.no_grad():
+        out = render_frame(ts.params["gauss"], ts.gstate.valid, ts.params["mlps"], tr.scene,
+                           frame.smpl_params, frame.camera, tr.bg, MODEL.sh_degree,
+                           device=tr.device, **kw)
+    return out, {"color": out["render"], "alpha": out["render_alpha"],
+                 "depth": out["render_depth"], "final_T": out["final_T"]}
+
+
+def phase_checkpoint(dev, trained, train_ts, ckpt_dir=CKPT_DIR, smi=""):
+    """Save, resume, reload and serve a trained avatar, at full width.
+
+    Resume: a fresh Trainer resume_latest's the trainer phase's
+    chkpnt{RESUME_AT}.npz and trains to the end; its final state (params,
+    valid, moments, MLPs, statistics) is bitwise the trainer phase's
+    uninterrupted run's, and so are its evals (the one at RESUME_AT + 1 fires
+    again at the resume point). Serve: the final state saved both ways
+    (chkpnt npz, reference layout), each loaded into a fresh Trainer and
+    compacted; the test frame on the full and the cached path held to the same
+    frame rendered from the in-memory state at full capacity (the image rule;
+    compaction reorders slots, so pairs of equal depth may swap), live counts
+    equal. The kernels' launches are counted over these two. Then the train
+    phase's state (45,695 live in 46,080) through save_checkpoint and
+    restore_checkpoint, bitwise; and the host-clock ms of save, load and
+    compact_for_eval, the files' MB, and the serving frame's ms on the trained
+    cloud inside the 46,080 buffer and after compaction (host clock, the
+    median of 2 FRAME_TURNS turns each, and the device-busy ms of a profiled
+    frame)."""
+    tr, scene, frames, lp = trained
+    test = frames[TRAIN_FRAMES]
+
+    def fresh():
+        return Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], trainer_config(), lp,
+                       crop_hw=(CROP, CROP), device=dev)
+
+    # the baseline: the in-memory final state at full capacity, kernel renders
+    _, ref = serving_images(tr, test)
+    final = tr.ts
+    live = int(final.gstate.valid.sum())
+    npz = os.path.join(ckpt_dir, "final.npz")  # not chkpnt*: no resume candidate
+    layout_dir = os.path.join(ckpt_dir, "layout")
+    _, save_ms = clocked_ms(lambda: ckpt.save_checkpoint(npz, final))
+    _, layout_save_ms = clocked_ms(
+        lambda: ckpt.save_reference_layout(layout_dir, TRAINER["iterations"], final))
+
+    # the path, driven once: resume and train to the end, then serve both layouts
+    rc.launches = rc.bwd_launches = rc.segment_launches = 0
+    again = fresh()
+    start = again.resume_latest(ckpt_dir)
+    again.train()
+    resumed = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
+               "segment_sum": rc.segment_launches}
+    served, errs, times = {}, {}, {}
+    for name in ("npz", "reference_layout"):
+        srv = fresh()
+        if name == "npz":
+            _, times["load_ms"] = clocked_ms(lambda: srv.load(npz))
+        else:
+            _, times["layout_load_ms"] = clocked_ms(lambda: srv.set_state(
+                ckpt.load_reference_layout(layout_dir, TRAINER["iterations"], srv.ts)))
+        cap, ms = clocked_ms(srv.compact_for_eval)
+        times.setdefault("compact_ms", ms)
+        full, full_img = serving_images(srv, test)
+        _, cached_img = serving_images(srv, test, full)
+        served[name] = srv
+        errs[name] = {"capacity": cap, "live": int(srv.ts.gstate.valid.sum()),
+                      "max_abs_err_full": check_images(full_img, ref, f"{name} full path"),
+                      "max_abs_err_cached": check_images(cached_img, ref, f"{name} cached path")}
+    launches = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
+                "segment_sum": rc.segment_launches}
+
+    steps = TRAINER["iterations"] - RESUME_AT
+    evals = [i for i in TRAINER_EVALS if i > RESUME_AT]
+    want_resume = {"rasterize_fwd": steps + len(evals), "rasterize_bwd": steps,
+                   "segment_sum": steps}
+    want = {**want_resume, "rasterize_fwd": want_resume["rasterize_fwd"] + 2 * len(served)}
+    if start != RESUME_AT or resumed != want_resume or launches != want:
+        raise AssertionError(f"resumed at {start}, launches {resumed} then {launches}, not "
+                             f"{RESUME_AT}, {want_resume}, {want}")
+    differ = flat_equal(ckpt.flatten(again.ts), ckpt.flatten(final))
+    hist = [{k: v for k, v in m.items() if k != "elapsed_s"} for m in again.metrics_history]
+    ref_hist = [{k: v for k, v in m.items() if k != "elapsed_s"} for m in tr.metrics_history
+                if m["iteration"] in evals]
+    if differ or hist != ref_hist:
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: {differ[:8]}, "
+                             f"evals {hist} against {ref_hist}")
+    if any(e["live"] != live for e in errs.values()):
+        raise AssertionError(f"live counts after loading: {errs}, in memory {live}")
+
+    # the train phase's full-width state through the npz, bitwise
+    wide = os.path.join(ckpt_dir, "wide.npz")
+    _, wide_save_ms = clocked_ms(lambda: ckpt.save_checkpoint(wide, train_ts))
+    back, wide_load_ms = clocked_ms(lambda: ckpt.restore_checkpoint(wide, dev))
+    wide_differ = flat_equal(ckpt.flatten(back), ckpt.flatten(train_ts))
+    if wide_differ:
+        raise AssertionError(f"the full-width round trip differs: {wide_differ[:8]}")
+
+    # the serving frame on the trained cloud, in the 46,080 buffer and
+    # compacted: host clock in FRAME_TURNS rounds of turns (buffer, compacted,
+    # compacted, buffer), and the device-busy ms of a profiled frame
+    srv = served["npz"]
+    caches = {"in_buffer": (tr, serving_images(tr, test)[0]),
+              "compacted": (srv, serving_images(srv, test)[0])}
+    frame_ms, device_ms = {}, {}
+    for path in ("full_path", "cached_path"):
+        for where in ("in_buffer", "compacted", "compacted", "in_buffer") * FRAME_TURNS:
+            t, cache = caches[where]
+            fn = functools.partial(serving_images, t, test,
+                                   cache if path == "cached_path" else None)
+            key = f"{path}_{where}"
+            frame_ms.setdefault(key, []).append(host_ms(fn))
+            if key not in device_ms:
+                device_ms[key] = device_breakdown(fn)["device_busy_ms"]
+    mb = {"trained": os.path.getsize(npz) / 1e6, "train_phase_state": os.path.getsize(wide) / 1e6,
+          "reference_layout": sum(os.path.getsize(os.path.join(d, f))
+                                  for d, _, fs in os.walk(layout_dir) for f in fs) / 1e6}
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"checkpoint ({smi}): save {save_ms:.1f} ms, load {times['load_ms']:.1f} ms, "
+          f"compact {times['compact_ms']:.1f} ms, {mb['trained']:.1f} MB for {live} live in "
+          f"{MODEL.capacity}; frame ms, median of {2 * FRAME_TURNS} turns: "
+          f"{ {k: float(np.median(v)) for k, v in frame_ms.items()} }, device busy ms {device_ms}",
+          flush=True)
+    emit({"phase": "checkpoint", "nvidia_smi": smi, "hw": HW, "capacity": MODEL.capacity,
+          "live": live, "resumed_at": start, "resume_bitwise": True, "resumed_evals": hist,
+          "served": errs, "compacted_capacity": errs["npz"]["capacity"],
+          "save_ms": save_ms, "layout_save_ms": layout_save_ms, **times,
+          "train_phase_state": {"live": int(train_ts.gstate.valid.sum()),
+                                "capacity": train_ts.params["gauss"].capacity,
+                                "save_ms": wide_save_ms, "load_ms": wide_load_ms,
+                                "bitwise": True},
+          "file_mb": mb, "frame_ms": {k: float(np.median(v)) for k, v in frame_ms.items()},
+          "frame_ms_turns": frame_ms, "frame_device_busy_ms": device_ms,
+          "launches_resume": resumed,
+          "launches": launches})
+    return launches
 
 
 def phase_tool_sort(dev):
@@ -1344,7 +1535,9 @@ def main():
         row, serve_launches = phase("slice", phase_slice, dev)
     phase("train_kernel", phase_train_kernel, dev)
     bwd, train_launches, (train_ts, train_scene) = phase("train", phase_train, dev)
-    trainer_launches, cuts, _ = phase("trainer", phase_trainer, dev)
+    trainer_launches, cuts, trained = phase("trainer", phase_trainer, dev)
+    ckpt_launches = phase("checkpoint", phase_checkpoint, dev, trained, train_ts, CKPT_DIR, smi)
+    del trained
     phase("densify", phase_densify, dev, train_ts, train_scene, cuts)
     del train_ts, cuts
     sort_rows, sort_launches = phase("tool_sort", phase_tool_sort, dev)
@@ -1384,25 +1577,28 @@ def main():
     emit({"kernels": [
         entry("rasterize_fwd", "moss_torch/csrc/rasterize_fwd.cu",
               "moss_tpu/ops/rasterize_tpu.py:288",
-              serve_launches + train_launches["rasterize_fwd"]
-              + trainer_launches["rasterize_fwd"],
+              serve_launches + sum(p["rasterize_fwd"] for p in (
+                  train_launches, trainer_launches, ckpt_launches)),
               {"serve": serve_launches, "train": train_launches["rasterize_fwd"],
-               "trainer": trainer_launches["rasterize_fwd"]}, row,
+               "trainer": trainer_launches["rasterize_fwd"],
+               "checkpoint": ckpt_launches["rasterize_fwd"]}, row,
               f"atol {ATOL} (depth {DEPTH_ATOL}); at most {OUTLIER_FRAC} of pixels beyond; "
               "against the plain blend and the plain segment scheme; bitwise repeatable; ms "
               "on the serving input, one call being two launches of the kernel",
               **split(row)),
         entry("rasterize_bwd", "moss_torch/csrc/rasterize_bwd.cu",
               "moss_tpu/ops/rasterize_tpu.py:383",
-              train_launches["rasterize_bwd"] + trainer_launches["rasterize_bwd"],
+              sum(p["rasterize_bwd"] for p in (train_launches, trainer_launches, ckpt_launches)),
               {"train": train_launches["rasterize_bwd"],
-               "trainer": trainer_launches["rasterize_bwd"]}, bwd,
+               "trainer": trainer_launches["rasterize_bwd"],
+               "checkpoint": ckpt_launches["rasterize_bwd"]}, bwd,
               grad_tol + "; rows against the plain segment scheme, grads against the unsplit "
               "kernel, the same; ms on the training input", **split(bwd)),
         entry("segment_sum", "moss_torch/csrc/segment_sum.cu", "moss_tpu/ops/binning.py:51",
-              train_launches["segment_sum"] + trainer_launches["segment_sum"],
+              sum(p["segment_sum"] for p in (train_launches, trainer_launches, ckpt_launches)),
               {"train": train_launches["segment_sum"],
-               "trainer": trainer_launches["segment_sum"]},
+               "trainer": trainer_launches["segment_sum"],
+               "checkpoint": ckpt_launches["segment_sum"]},
               bwd["segment"], "1e-5 of the max against index_add_; grads as rasterize_bwd",
               library_ms=bwd["segment"]["library_ms"]),
         entry("sort_lane_pass", "moss_torch/csrc/sort_pass.cu", "tools/sort_micro.py:47",

@@ -1,0 +1,164 @@
+"""Serve trained avatars with the port: render the ZJU-MoCap-Refine test
+split from a checkpoint (the counterpart of the repository's render_zju.py,
+after the reference's render_ZJU.py).
+
+Per subject: read the test split and the saved cfg.json (which decides the
+model fields), resolve --iterations -1 to the newest checkpoint on disk,
+load chkpnt{N}.npz or else the reference layout (point_cloud/iteration_N/ +
+mlp_ckpt/iteration_N/), fit the capacity to the live cloud unless
+--keep_capacity, cache each pose's transforms once (written to
+smpl_rot/iteration_N/smpl_rot.pickle as numpy), time the cached MLP-free
+render of every test frame and print one JSON line: subject, iteration, fps,
+psnr, ssim, lpips_x1000 and the LPIPS backbone. Runs on the GPU; --device
+cpu runs the plain PyTorch path.
+
+    python -m moss_torch.cli.render_zju --data_root /data/zju_mocap --subjects 377 \\
+        --iterations -1
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import glob
+import json
+import os
+import pickle
+import re
+import time
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import Config, ModelConfig, load_json
+from ..data.readers import imageio, read_monocap, read_zju_mocap_refine
+from ..ops import lpips
+from ..ops.ssim import psnr as psnr_fn
+from ..ops.ssim import ssim as ssim_fn
+from ..render.render import render_frame
+from ..train.checkpoint import load_reference_layout
+from ..train.trainer import Trainer
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--data_root", required=True)
+    p.add_argument("--smpl", default=None)
+    p.add_argument("--subjects", nargs="+", default=["377", "386", "387", "392", "393", "394"])
+    p.add_argument("--iterations", nargs="+", type=int, default=[2700, 2700, 3000, 3000, 2500, 2700],
+                   help="the iteration per subject (the reference's best); -1: the newest")
+    p.add_argument("--output", default="output/zju_mocap_refine")
+    p.add_argument("--save_images", action="store_true")
+    p.add_argument("--white_background", action="store_true")
+    p.add_argument("--reader", default="zju", choices=["zju", "monocap"])
+    p.add_argument("--keep_capacity", action="store_true",
+                   help="render inside the training capacity (no compact_for_eval)")
+    p.add_argument("--lpips_weights", default=None,
+                   help="LPIPS weights (.npz, ops/lpips.load_params); else a random backbone, "
+                        "whose values are marked as not comparable")
+    p.add_argument("--device", default=None, help="torch device (default: the GPU)")
+    return p.parse_args(argv)
+
+
+def latest_iteration(model_path: str) -> int:
+    """The newest iteration of either layout under model_path."""
+    cands = glob.glob(os.path.join(model_path, "chkpnt*.npz"))
+    cands += glob.glob(os.path.join(model_path, "point_cloud", "iteration_*"))
+    if not cands:
+        raise FileNotFoundError(f"no checkpoints under {model_path}")
+    return max(int(re.findall(r"(\d+)", os.path.basename(p))[0]) for p in cands)
+
+
+def render_subject(args, subject: str, iteration: int, device):
+    zju = args.reader == "zju"
+    reader = read_zju_mocap_refine if zju else read_monocap
+    name = f"my_{subject}" if zju else subject
+    scene, test_specs = reader(os.path.join(args.data_root, name), "test",
+                               args.white_background, smpl_path=args.smpl, device=device)
+    test_frames = [s.load(None, device) for s in test_specs]
+    model_path = os.path.join(args.output, name)
+    cfg_json = os.path.join(model_path, "cfg.json")
+    # the saved training config decides the model fields (capacity, SH degree, MLPs)
+    cfg = load_json(cfg_json) if os.path.exists(cfg_json) else Config(
+        model=ModelConfig(white_background=args.white_background))
+    cfg = dataclasses.replace(cfg, model_path=model_path)
+    lp, kind, note = lpips.backbone(args.lpips_weights, device)
+    trainer = Trainer(scene, test_frames[:1], test_frames, cfg, lp, device=device)
+    if iteration < 0:
+        iteration = latest_iteration(model_path)
+        print(f"[{subject}] loading latest iteration {iteration}")
+    ckpt_path = os.path.join(model_path, f"chkpnt{iteration}.npz")
+    if os.path.exists(ckpt_path):
+        trainer.load(ckpt_path)
+    else:
+        trainer.set_state(load_reference_layout(model_path, iteration, trainer.ts))
+    if not args.keep_capacity:
+        cap = trainer.compact_for_eval()
+        print(f"[{subject}] eval capacity fit: {int(trainer.ts.gstate.valid.sum())} live "
+              f"points in {cap}-slot buffer")
+
+    # 1. each pose's transforms, once (the MLP-free eval path)
+    smpl_rot = {}
+    for frame in test_frames:
+        if frame.pose_id not in smpl_rot:
+            out = trainer.render_eval(frame)
+            smpl_rot[frame.pose_id] = (out["transforms"], out["translation"])
+    cache_dir = os.path.join(model_path, "smpl_rot", f"iteration_{iteration}")
+    os.makedirs(cache_dir, exist_ok=True)
+    with open(os.path.join(cache_dir, "smpl_rot.pickle"), "wb") as f:
+        pickle.dump({k: tuple(None if t is None else t.cpu().numpy() for t in v)
+                     for k, v in smpl_rot.items()}, f)
+
+    # 2. the cached render of every test frame, timed, then the metrics
+    ts, bg = trainer.ts, trainer.bg
+
+    def cached_render(frame):
+        transforms, translation = smpl_rot[frame.pose_id]
+        return render_frame(ts.params["gauss"], ts.gstate.valid, ts.params.get("mlps"), scene,
+                            frame.smpl_params, frame.camera, bg, cfg.model.sh_degree,
+                            cached_transforms=transforms, cached_translation=translation,
+                            motion_offset=cfg.model.motion_offset,
+                            static_scene=cfg.model.static_scene, device=device)["render"]
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with torch.no_grad():
+        cached_render(test_frames[0])  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        renders = [cached_render(frame) for frame in test_frames]
+        sync()
+        fps = len(test_frames) / (time.perf_counter() - t0)
+        img_dir = os.path.join(model_path, "renders", f"iteration_{iteration}")
+        if args.save_images:
+            os.makedirs(img_dir, exist_ok=True)
+        sums = np.zeros(3)
+        for i, (frame, img) in enumerate(zip(test_frames, renders)):
+            img = torch.clamp(img, 0.0, 1.0)
+            gt = torch.clamp(frame.image, 0.0, 1.0)
+            sums += [float(psnr_fn(img, gt)), float(ssim_fn(img, gt)),
+                     float(lpips.lpips(lp, img, gt))]
+            if args.save_images:
+                imageio.imwrite(os.path.join(img_dir, f"{i:05d}.png"),
+                                (img.cpu().numpy() * 255).astype(np.uint8))
+    n = len(test_frames)
+    result = {"subject": subject, "iteration": iteration, "fps": fps, "psnr": sums[0] / n,
+              "ssim": sums[1] / n, "lpips_x1000": sums[2] / n * 1000, "lpips_backbone": kind}
+    if note:
+        result["lpips_note"] = note
+    print(json.dumps(result))
+    return result
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    return [render_subject(args, subject, iteration, device)
+            for subject, iteration in zip(args.subjects, args.iterations)]
+
+
+if __name__ == "__main__":
+    main()

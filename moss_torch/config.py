@@ -1,22 +1,27 @@
-"""The configuration fields the render path, the training step, densification
-and the trainer read.
+"""The configuration fields the render path, the training step, densification,
+the trainer and the drivers read.
 
-The port's own copies of moss_tpu/config.py:15-105 (ModelConfig,
-OptimConfig, PipelineConfig, Config), reduced to the fields the port reads,
-with the same defaults. PipelineConfig has no rasterizer knob: the port picks
-the kernel or its plain version from the tensors' device, and sizes its pair
-buffers per frame from the live pair count (ops/binning.py), so the JAX
-pipeline's rect cap (max_tiles_per_gaussian) has no counterpart either.
+The port's own copies of moss_tpu/config.py (ModelConfig, OptimConfig,
+PipelineConfig, Config, the presets and the JSON round trip), with the same
+defaults. PipelineConfig has no rasterizer knob: the port picks the kernel or
+its plain version from the tensors' device, and sizes its pair buffers per
+frame from the live pair count (ops/binning.py), so the JAX pipeline's rect
+cap (max_tiles_per_gaussian) has no counterpart either; load_json drops both
+from a cfg.json that moss_tpu wrote (JAX_ONLY_KEYS).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     sh_degree: int = 3
+    smpl_type: str = "smpl"      # the port reads only SMPL ("smplx": the DNA-Rendering slice)
+    actor_gender: str = "neutral"
     motion_offset: bool = True   # pose-correction MLPs + LBS-weight field
     static_scene: bool = False   # vanilla 3DGS: no body model, no deform
     white_background: bool = False
@@ -78,3 +83,49 @@ class Config:
     optim: OptimConfig = OptimConfig()
     pipe: PipelineConfig = PipelineConfig()
     seed: int = 3407   # frame order, initial colours, MLP init, densify noise
+    source_path: str = ""
+    model_path: str = "output/default"
+    exp_name: str = "default"
+
+
+# keys of a moss_tpu cfg.json that only its JAX/TPU path reads
+JAX_ONLY_KEYS = {"pipe": ("rasterizer", "max_tiles_per_gaussian")}
+
+
+def zju_preset(subject: str = "377") -> Config:
+    return dataclasses.replace(Config(), exp_name=f"zju_mocap_refine/my_{subject}")
+
+
+def monocap_preset(seq: str = "olek_images0812") -> Config:
+    return dataclasses.replace(Config(), exp_name=f"monocap/{seq}")
+
+
+def save_json(cfg: Config, path: str) -> None:
+    """The experiment config as JSON (moss_tpu's cfg.json layout), which the
+    render drivers read back with load_json."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
+
+
+def load_json(path: str) -> Config:
+    """A Config from save_json's output, the port's or moss_tpu's. The keys
+    of JAX_ONLY_KEYS are dropped; any other unknown key is rejected."""
+    with open(path) as f:
+        raw = json.load(f)
+    sections = {}
+    for name in ("model", "optim", "pipe"):
+        sec = dict(raw.get(name, {}))
+        for k in JAX_ONLY_KEYS.get(name, ()):
+            sec.pop(k, None)
+        sections[name] = sec
+    pipe = sections["pipe"]
+    for k in ("test_iterations", "save_iterations"):
+        if k in pipe:
+            pipe[k] = tuple(pipe[k])
+    return Config(
+        model=ModelConfig(**sections["model"]),
+        optim=OptimConfig(**sections["optim"]),
+        pipe=PipelineConfig(**pipe),
+        **{k: v for k, v in raw.items() if k not in ("model", "optim", "pipe")},
+    )

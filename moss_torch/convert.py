@@ -6,7 +6,8 @@ MLP dicts ({"w": (in, out), "b": (out,)} per linear layer, the fused pose
 heads as heads_w / heads_b), and the SMPLModel arrays. Mappings and objects
 with attributes are both accepted. `load_jax_checkpoint` reads a
 chkpnt{N}.npz written by moss_tpu's Trainer.save (one array per leaf, keyed
-by jax.tree_util.keystr, moss_tpu/train/checkpoint.py:19-30).
+by jax.tree_util.keystr, moss_tpu/train/checkpoint.py:19-30) through
+train/checkpoint.py, which reads and writes the whole TrainState.
 `train_state_from_jax` carries a whole TrainState (params, the optax
 multi_transform Adam states group by group, GaussianState, step),
 `lpips_params_from_jax` the LPIPS tower, `frame_from_jax` a Frame and
@@ -31,11 +32,10 @@ from .models.smpl import SMPLModel
 from .ops import lpips
 from .render.camera import Camera
 from .render.render import SceneContext
+from .train import checkpoint
 from .train.optim import GAUSS_GROUPS, AdamState
 from .train.train_step import TrainState
 
-_POSE_LINEARS = ("trunk0", "trunk1", "trunk2")
-_LBS_LINEARS = ("l0", "l1", "l2", "l3", "fc", "query", "key", "value")
 
 
 def _get(tree, name):
@@ -55,7 +55,7 @@ def _mlp_state(sub, group: str, device):
     """One MLP's JAX tree (weights or Adam moments) keyed by the torch
     module's parameter names; linear weights transposed to (out, in)."""
     out = {}
-    for name in (_POSE_LINEARS if group == "pose" else _LBS_LINEARS):
+    for name in (checkpoint.POSE_LINEARS if group == "pose" else checkpoint.LBS_LINEARS):
         out[f"{name}.weight"] = _tensor(_get(_get(sub, name), "w"), device).T.contiguous()
         out[f"{name}.bias"] = _tensor(_get(_get(sub, name), "b"), device)
     if group == "pose":
@@ -89,26 +89,7 @@ def scene_from_jax(smpl, big_pose_params, big_pose_vertices, device=None) -> Sce
 
 def load_jax_checkpoint(path: str, device=None):
     """(params, valid, mlps or None) from a moss_tpu chkpnt{N}.npz."""
-    device = resolve_device(device)
-    prefix = ".params['mlps']"
-    with np.load(path, allow_pickle=False) as data:
-        params = gaussians_from_jax(
-            {f: data[f".params['gauss'].{f}"] for f in FIELDS}, device)
-        valid = torch.as_tensor(data[".gstate.valid"], device=device)
-        if not any(k.startswith(prefix) for k in data.files):
-            return params, valid, None
-
-        def leaf(*path):
-            return data[prefix + "".join(f"['{p}']" for p in path)]
-
-        tree = {
-            "pose": {**{n: {"w": leaf("pose", n, "w"), "b": leaf("pose", n, "b")}
-                        for n in _POSE_LINEARS},
-                     "heads_w": leaf("pose", "heads_w"), "heads_b": leaf("pose", "heads_b")},
-            "lbs": {n: {"w": leaf("lbs", n, "w"), "b": leaf("lbs", n, "b")}
-                    for n in _LBS_LINEARS},
-        }
-    return params, valid, mlps_from_jax(tree, device)
+    return checkpoint.load_params(path, device)
 
 
 def gstate_from_jax(gs, device=None) -> GaussianState:
@@ -122,11 +103,14 @@ def gstate_from_jax(gs, device=None) -> GaussianState:
 def adam_states_from_jax(opt_state, device=None):
     """{group: AdamState} from moss_tpu's optax multi_transform state: each
     group's MaskedState holds (ScaleByAdamState(count, mu, nu), ...) over the
-    whole params tree, its own leaves unmasked."""
+    whole params tree, its own leaves unmasked. The MLP groups of a static
+    scene (no MLPs) have no leaves, and the port no state for them."""
     device = resolve_device(device)
     out = {}
     for group, masked in opt_state.inner_states.items():
         adam = masked.inner_state[0]
+        if group not in GAUSS_GROUPS and adam.mu.get("mlps") is None:
+            continue
 
         def leaves(tree, group=group):
             if group in GAUSS_GROUPS:

@@ -2,8 +2,9 @@
 
 The synthetic rig is drawn with numpy in the JAX package's order, so the same
 seed rebuilds the identical model. The 24-joint kinematic chain is an
-unrolled loop of 4x4 matmuls (parents are static). The pickle / SMPL-X
-loaders are not ported yet.
+unrolled loop of 4x4 matmuls (parents are static). load_smpl_pickle reads the
+real SMPL asset (moss_tpu/models/smpl.py:72); the SMPL-X loader comes with
+the DNA-Rendering reader.
 """
 from __future__ import annotations
 
@@ -77,6 +78,32 @@ def synthetic_smpl(
         posedirs=t_(posedirs), J_regressor=t_(J_reg), weights=t_(w),
         faces=t_(faces), parents=tuple(parents),
     )
+
+
+def load_smpl_pickle(path: str, device=None) -> SMPLModel:
+    """A real SMPL pickle (the reference's SMPL_to_tensor keys), read with the
+    latin-1 unpickler its Python 2 arrays need. A scipy-sparse J_regressor
+    becomes dense; a kintree_table root of 2^32 - 1 becomes -1."""
+    import pickle
+
+    device = resolve_device(device)
+    with open(path, "rb") as f:
+        u = pickle._Unpickler(f)
+        u.encoding = "latin1"
+        params = u.load()
+    J_reg = params["J_regressor"]
+    if hasattr(J_reg, "toarray"):
+        J_reg = J_reg.toarray()
+    parents_row = np.asarray(params["kintree_table"])[0].astype(np.int64)
+    parents = (-1,) + tuple(int(p) if p < 2**31 else -1 for p in parents_row[1:])
+
+    def t_(x, dtype=np.float32):
+        return torch.as_tensor(np.ascontiguousarray(np.asarray(x), dtype=dtype), device=device)
+
+    return SMPLModel(
+        v_template=t_(params["v_template"]), shapedirs=t_(params["shapedirs"]),
+        posedirs=t_(params["posedirs"]), J_regressor=t_(J_reg), weights=t_(params["weights"]),
+        faces=t_(np.asarray(params["f"]).astype(np.int64), np.int32), parents=parents)
 
 
 def big_pose_params(n_shapes: int = 10, device=None):

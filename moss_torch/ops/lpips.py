@@ -11,7 +11,9 @@ of tensors: conv weights (Cout, Cin, 3, 3), as torch's conv2d takes them.
 :50-86); `init_random(seed)` makes the same He-initialized random backbone and
 uniform heads as moss_tpu's init_random from the same numpy seed, and
 `load_params` reads the same npz schema. The backbone is frozen: its
-tensors take no grad.
+tensors take no grad. `backbone(path)` is the drivers' choice: the weights at
+`path`, or the random backbone with RANDOM_NOTE (moss_tpu's result note);
+there is no environment lookup.
 
 The convs are torch.nn.functional.conv2d: moss_tpu computes them in XLA, not
 in a Pallas kernel. `dtype` is the towers' activation type: bf16 for the
@@ -20,7 +22,7 @@ that leave this module (gt_features) are (1, H', W', C), moss_tpu's layout.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +77,20 @@ def load_params(path: str, device=None) -> Dict:
             "lins": [data[f"lin{i}"] for i in range(len(_VGG_CFG))],
         }
         return params_from_numpy(params, device)
+
+
+# marks values from the random backbone, which are not comparable to the
+# reference's pretrained-VGG numbers (moss_tpu's lpips_jax.result_note)
+RANDOM_NOTE = ("LPIPS from random fallback backbone — not comparable to reference "
+               "(pass --lpips_weights)")
+
+
+def backbone(path: Optional[str], device=None) -> Tuple[Dict, str, Optional[str]]:
+    """(params, "pretrained" or "random", note): load_params(path), or
+    init_random(3407) with RANDOM_NOTE when no path is given."""
+    if path:
+        return load_params(path, device), "pretrained", None
+    return init_random(3407, device), "random", RANDOM_NOTE
 
 
 def _features(params, x, dtype) -> List[torch.Tensor]:

@@ -1,4 +1,4 @@
-"""Pinhole camera (port of moss_tpu/render/camera.py:22-89).
+"""Pinhole camera (port of moss_tpu/render/camera.py:22-89, 119-153).
 
 Host math in float64 numpy, stored as f32 tensors, exactly as the JAX camera
 does. Row-vector convention:
@@ -9,6 +9,8 @@ does. Row-vector convention:
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -84,3 +86,30 @@ class Camera:
     @property
     def focal_y(self):
         return self.height / (2.0 * self.tan_fovy)
+
+
+def camera_to_json(cam_id: int, cam: Camera, img_name: str = "") -> dict:
+    """The SIBR viewer's cameras.json entry (the reference's
+    utils/camera_utils.py:77-99): camera-to-world position and rotation rows
+    and the focal lengths in pixels, as moss_tpu writes it."""
+    w2v = cam.world_view.detach().cpu().numpy().astype(np.float64).T
+    c2w = np.linalg.inv(w2v)
+    return {
+        "id": int(cam_id),
+        "img_name": str(img_name),
+        "width": int(cam.width),
+        "height": int(cam.height),
+        "position": c2w[:3, 3].tolist(),
+        "rotation": [row.tolist() for row in c2w[:3, :3]],
+        "fy": float(cam.focal_y),
+        "fx": float(cam.focal_x),
+    }
+
+
+def dump_cameras_json(path: str, cameras, img_names=None) -> None:
+    """The cameras.json a fresh run writes for external viewers."""
+    names = img_names if img_names is not None else ["" for _ in cameras]
+    entries = [camera_to_json(i, c, n) for i, (c, n) in enumerate(zip(cameras, names))]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(entries, f)

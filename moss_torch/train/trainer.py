@@ -17,11 +17,18 @@ loop needs no queue and no segmenting; moss_tpu's pair-budget probe, resize
 and heal machinery and its queued and scan engines (XLA's static shapes and
 the TPU relay) have no counterpart. Densify noise comes from a torch
 Generator seeded with (cfg.seed, iteration), so a resumed run replays it.
+
+save / load / resume_latest write and read chkpnt{N}.npz in moss_tpu's
+schema (train/checkpoint.py); compact_for_eval keeps moss_tpu's rule for the
+serving capacity.
 """
 from __future__ import annotations
 
 import dataclasses
+import glob
 import math
+import os
+import re
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -31,6 +38,7 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..data.frames import Frame
+from ..data.prefetch import iter_frames
 from ..models import gaussians as G
 from ..models.lbs_field import LBSField
 from ..models.pose_refine import PoseRefine
@@ -38,7 +46,7 @@ from ..ops import lpips
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn
 from ..render.render import SceneContext, render_frame
-from . import optim
+from . import checkpoint, optim
 from .densify import densify_and_prune, densify_and_prune_static
 from .losses import crop_window
 from .train_step import TrainState, active_sh_degree, make_train_step
@@ -103,6 +111,62 @@ class Trainer:
     def set_state(self, ts: TrainState):
         """Replace the train state (a converted moss_tpu state, a checkpoint)."""
         self.ts = ts
+
+    def save(self, path: str):
+        """The whole train state as a chkpnt{N}.npz (moss_tpu's schema)."""
+        checkpoint.save_checkpoint(path, self.ts)
+
+    def load(self, path: str):
+        """Restore a chkpnt{N}.npz written by either package. The config's
+        capacity follows the file's (a compacted state), and the step
+        function is rebuilt for it."""
+        ts = checkpoint.restore_checkpoint(path, self.device)
+        if (ts.params["mlps"] is None) == self.cfg.model.motion_offset:
+            raise ValueError(f"{path}: MLPs {'absent' if ts.params['mlps'] is None else 'present'}"
+                             f" but motion_offset={self.cfg.model.motion_offset}")
+        self._set_capacity(ts.params["gauss"].capacity)
+        self.ts = ts
+
+    def _set_capacity(self, capacity: int):
+        if capacity != self.cfg.model.capacity:
+            self.cfg = dataclasses.replace(
+                self.cfg, model=dataclasses.replace(self.cfg.model, capacity=capacity))
+            _, self.step_fn = self._make_step()
+
+    def compact_for_eval(self, granularity: int = 2048) -> int:
+        """Shrink the capacity to the live cloud, for serving: live slots to
+        the front in their order (np.argsort(~valid, kind="stable")), cut to
+        the next multiple of `granularity` (at least one), the optimizer state
+        re-initialized at the new shape and the step function rebuilt. The
+        densify statistics and headroom do not survive, and a per-Gaussian
+        cache built before (cached transforms) no longer lines up. Returns the
+        new capacity (the old one when the cloud already fills it)."""
+        valid = self.ts.gstate.valid
+        n = int(valid.sum())
+        cap2 = max(granularity, -(-n // granularity) * granularity)
+        g = self.ts.params["gauss"]
+        if cap2 >= g.capacity:
+            return g.capacity
+        perm = torch.as_tensor(np.argsort(~valid.cpu().numpy(), kind="stable")[:cap2],
+                               device=self.device)
+        gs = self.ts.gstate
+        params = {**self.ts.params,
+                  "gauss": G.GaussianParams(**{f: getattr(g, f)[perm] for f in G.FIELDS})}
+        gstate = G.GaussianState(
+            valid=gs.valid[perm], max_radii2d=gs.max_radii2d[perm],
+            xyz_grad_accum=gs.xyz_grad_accum[perm], denom=gs.denom[perm], joint_F=gs.joint_F,
+            lbs_weight_sum=gs.lbs_weight_sum[perm])
+        self._set_capacity(cap2)
+        self.ts = TrainState(params, optim.init_state(params), gstate, self.ts.step)
+        return cap2
+
+    def resume_latest(self, model_path: str) -> int:
+        """Load the newest chkpnt{N}.npz under model_path; its step, 0 if none."""
+        cands = glob.glob(os.path.join(model_path, "chkpnt*.npz"))
+        if not cands:
+            return 0
+        self.load(max(cands, key=lambda p: int(re.findall(r"(\d+)", os.path.basename(p))[0])))
+        return int(self.ts.step)
 
     def _gt_lpips_features(self):
         """Every train frame's ground-truth LPIPS tower at its crop, once: the
@@ -227,15 +291,16 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, frames=None, sh_it: Optional[int] = None) -> Dict:
         """Mean PSNR, SSIM and LPIPS (f32) over `frames` (default the test
-        split) on the full image, the render and ground truth clipped to
-        [0, 1]; SH at the degree of iteration sh_it (default ts.step).
-        raster_overflow is the pairs dropped, always 0 in the port."""
+        split; Frames, or FrameSpecs decoded on a prefetch thread) on the
+        full image, the render and ground truth clipped to [0, 1]; SH at the
+        degree of iteration sh_it (default ts.step). raster_overflow is the
+        pairs dropped, always 0 in the port."""
         cfg = self.cfg
         frames = frames if frames is not None else self.test_frames
         deg = active_sh_degree(int(self.ts.step) if sh_it is None else int(sh_it),
                                cfg.model.sh_degree)
         per_frame = []
-        for frame in frames:
+        for frame in iter_frames(frames, None, device=self.device):
             out = render_frame(self.ts.params["gauss"], self.ts.gstate.valid,
                                self.ts.params.get("mlps"), self.scene, frame.smpl_params,
                                frame.camera, self.bg, cfg.model.sh_degree,

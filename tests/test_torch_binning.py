@@ -15,6 +15,7 @@ from moss_torch.ops.rasterize_cuda import TILE, bin_projected
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from test_rasterize_tpu import assert_images_match, make_camera
 from test_torch_rasterize import jax_projected, to_torch
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 def jax_tile_counts(jproj, H, W, tile_h, tile_w):

@@ -39,6 +39,7 @@ from moss_torch.tools import bwd_kernel_floor as bf
 from test_torch_ops import close
 from test_torch_raster_bwd import assert_grad_close, sequential_blend_bwd
 from test_torch_rasterize import to_torch
+from _torch_threads import two_torch_threads  # noqa: F401
 
 H, P = 64, 1000
 

@@ -14,6 +14,7 @@ import torch
 
 from moss_torch.ops import conv3x3 as conv
 from moss_torch.ops.conv3x3 import conv3x3, tc_tile
+from _torch_threads import two_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -2,7 +2,9 @@
 blend kernels (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu and its stages,
 csrc/segment_sum.cu), with tiles split into segments against the plain
 segment scheme (ops/split_blend.py) and against the same kernels unsplit,
-and one training step through them, the sort passes
+and one training step through them, a Trainer resumed from its checkpoint
+(bitwise the uninterrupted run) and a saved avatar loaded, compacted and
+rendered, the sort passes
 (csrc/sort_pass.cu), the 3x3 conv's two kernels (csrc/conv3x3.cu: tensor
 cores for bf16, CUDA cores for f32) and the reductions and scans
 (csrc/reduce_scan.cu).
@@ -684,3 +686,81 @@ def test_densify_round_on_the_card_matches_the_cpu(cuda_device):
         for a, b in pairs:
             a, b = a.cpu()[keep], b[keep]
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), f
+
+
+def _small_trainer(device):
+    """A 12-iteration Trainer at 64x64 from 300 points (rounds at 4 and 8, a
+    reset at 6, evals at 6, 7 and 12)."""
+    from moss_torch.config import Config, ModelConfig, OptimConfig, PipelineConfig
+    from moss_torch.data.synthetic import make_frames, make_scene
+    from moss_torch.ops import lpips
+    from moss_torch.train.trainer import Trainer
+
+    scene = make_scene(n_verts=300, device=device)
+    frames, _ = make_frames(scene, n_frames=3, H=64, W=64, crop=48, opacity=0.5)
+    cfg = Config(model=ModelConfig(sh_degree=1, capacity=1024, n_init_points=300),
+                 optim=OptimConfig(iterations=12, densify_from_iter=3, densify_until_iter=10,
+                                   densification_interval=4, opacity_reset_interval=6),
+                 pipe=PipelineConfig(test_iterations=(6, 7, 12), save_iterations=()))
+    return Trainer(scene, frames[:2], frames[2:], cfg, lpips.init_random(3407, device),
+                   crop_hw=(48, 48), device=device)
+
+
+@pytest.mark.cuda
+def test_resume_on_the_card_is_bitwise_equal(cuda_device, tmp_path):
+    """12 iterations against 6, resume_latest, 6 more (chip_smoke.py's
+    checkpoint gate at a small size): every checkpoint leaf and the evals at
+    7 and 12 bitwise equal."""
+    from moss_torch.train import checkpoint as ckpt
+
+    tr = _small_trainer(cuda_device)
+    tr.train(ckpt_fn=lambda it: tr.save(str(tmp_path / f"chkpnt{it}.npz")) if it == 6 else None)
+    again = _small_trainer(cuda_device)
+    assert again.resume_latest(str(tmp_path)) == 6
+    again.train()
+    a, b = ckpt.flatten(tr.ts), ckpt.flatten(again.ts)
+    assert sorted(a) == sorted(b)
+    assert [k for k in a if not np.array_equal(a[k], b[k])] == []
+
+    def strip(hist):
+        return [{k: v for k, v in m.items() if k != "elapsed_s"} for m in hist]
+
+    assert strip(again.metrics_history) == strip(tr.metrics_history[1:])
+
+
+@pytest.mark.cuda
+def test_loaded_compacted_avatar_renders_as_the_plain_version(cuda_device, tmp_path):
+    """A trained state saved, loaded into a fresh Trainer and compacted: its
+    frame on the full and the cached path through the forward kernel against
+    the same renders through the plain blend (the image rule)."""
+    from moss_torch.render.render import render_frame
+
+    tr = _small_trainer(cuda_device)
+    tr.train(eval_iters=[])
+    path = str(tmp_path / "final.npz")
+    tr.save(path)
+    srv = _small_trainer(cuda_device)
+    srv.load(path)
+    live = int(tr.ts.gstate.valid.sum())
+    assert srv.compact_for_eval(granularity=128) == -(-live // 128) * 128 < 1024
+    assert int(srv.ts.gstate.valid.sum()) == live
+    ts, frame = srv.ts, srv.test_frames[0]
+    plain = functools.partial(rasterize_reference, tile_h=rc.TILE, tile_w=rc.TILE)
+
+    def render(cache=None, **kw):
+        extra = {} if cache is None else {"cached_transforms": cache["transforms"],
+                                          "cached_translation": cache["translation"]}
+        with torch.no_grad():
+            return render_frame(ts.params["gauss"], ts.gstate.valid, ts.params["mlps"],
+                                srv.scene, frame.smpl_params, frame.camera, srv.bg, 1,
+                                device=cuda_device, **extra, **kw)
+
+    before = rc.launches
+    full = render()
+    cached = render(full)
+    assert rc.launches == before + 2
+    for out, ref in ((full, render(rasterize_fn=plain)), (cached, render(full, rasterize_fn=plain))):
+        assert float(out["render_alpha"].max()) > 0.1
+        for key in ("render", "render_alpha", "final_T"):
+            assert_images_match(out[key], ref[key])
+        assert_images_match(out["render_depth"], ref["render_depth"], atol=1e-4)

@@ -37,6 +37,7 @@ from moss_torch.ops.knn import knn
 from moss_torch.train import densify as D
 from moss_torch.train.optim import AdamState
 from test_densify import numpy_kl
+from _torch_threads import two_torch_threads  # noqa: F401
 
 CPU = "cpu"
 ATOL = 1e-5
@@ -44,17 +45,6 @@ ATOL = 1e-5
 
 def t(x, dtype=np.float32):
     return torch.as_tensor(np.array(x, dtype=dtype))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads: the Tier-1 command runs six pytest-xdist workers,
-    and PyTorch's default of a thread a core oversubscribes the cores
-    (test_torch_trainer.py's run against JAX took 296 s instead of 34 s)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_cfg(jopt):

@@ -26,6 +26,7 @@ from moss_torch.models import gaussians as G
 from moss_torch.render.render import render_frame
 from test_torch_raster_bwd import assert_grad_close
 from test_torch_render import H, W, jax_raster, port_inputs, setup  # noqa: F401  (fixture)
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 def _loss(out, target, xp):

@@ -1,5 +1,13 @@
-"""moss_torch stands alone: no jax, no moss_tpu, and no silent CPU fallback."""
+"""moss_torch stands alone: no jax, no moss_tpu, and no silent CPU fallback.
+
+Every module, the drivers under moss_torch/cli/ included, imports neither jax
+nor moss_tpu; cv2 and imageio only in data/readers.py and the drivers; every
+entry point, the slice's loaders and the drivers without --device among them,
+raises where there is no CUDA device.
+"""
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -11,14 +19,18 @@ import moss_torch
 from moss_torch import convert
 from moss_torch.data import synthetic
 from moss_torch.models import gaussians, smpl
+from moss_torch.cli import render_monocap, render_zju, train_zju
 from moss_torch.config import Config
+from moss_torch.data import readers
 from moss_torch.ops import lpips, rasterize_cuda as rc
 from moss_torch.ops.projection import Projected
 from moss_torch.render.camera import Camera
 from moss_torch.render.render import render_frame
 from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro
+from moss_torch.train import checkpoint
 from moss_torch.train.train_step import make_train_step
 from moss_torch.train.trainer import Trainer, init_gaussians_and_mlps
+from _torch_threads import two_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,8 +44,12 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in set(sys.modules) - before
                 if m.split(".")[0] in ("jax", "jaxlib", "moss_tpu"))
-print(len(names), leaked)
-sys.exit(1 if leaked or len(names) < 15 else 0)
+missing = {"moss_torch.cli.train_zju", "moss_torch.cli.render_zju",
+           "moss_torch.cli.render_monocap", "moss_torch.data.readers",
+           "moss_torch.data.prefetch", "moss_torch.data.ply",
+           "moss_torch.train.checkpoint", "moss_torch.train.observability"} - set(names)
+print(len(names), leaked, missing)
+sys.exit(1 if leaked or missing or len(names) < 15 else 0)
 """
 
 
@@ -42,6 +58,20 @@ def test_imports_neither_jax_nor_moss_tpu():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the host-side image libraries, allowed only where frames are decoded or written
+IMAGE_IO = re.compile(r"^\s*(import|from)\s+(cv2|imageio)\b", re.M)
+IMAGE_IO_ALLOWED = {"data/readers.py", "cli/train_zju.py", "cli/render_zju.py",
+                    "cli/render_monocap.py"}
+
+
+def test_cv2_and_imageio_only_in_the_readers_and_drivers():
+    root = os.path.join(REPO, "moss_torch")
+    users = {os.path.relpath(p, root) for p in glob.glob(os.path.join(root, "**", "*.py"),
+                                                         recursive=True)
+             if IMAGE_IO.search(open(p).read())}
+    assert users and users <= IMAGE_IO_ALLOWED, users
 
 
 def _entry_points():
@@ -71,6 +101,20 @@ def _entry_points():
         "tools.conv_proto.main": lambda: conv_proto.main(),
         "tools.bwd_kernel_floor.main": lambda: bwd_kernel_floor.main(),
         "tools.mxu_micro.main": lambda: mxu_micro.main(),
+        "checkpoint.restore_checkpoint (Trainer.load)":
+            lambda: checkpoint.restore_checkpoint("missing.npz"),
+        "checkpoint.load_params": lambda: checkpoint.load_params("missing.npz"),
+        "checkpoint.convert_torch_mlp_state":
+            lambda: checkpoint.convert_torch_mlp_state({}, {}),
+        "smpl.load_smpl_pickle": lambda: smpl.load_smpl_pickle("missing.pkl"),
+        "readers.read_zju_mocap_refine": lambda: readers.read_zju_mocap_refine("missing"),
+        "readers.read_monocap": lambda: readers.read_monocap("missing"),
+        "readers.FrameSpec.load": lambda: readers.FrameSpec(
+            "missing.jpg", "missing.png", K, None, np.eye(3), np.zeros((3, 1)), {},
+            np.zeros((2, 3)), 0, 1.0, False).load(),
+        "cli.train_zju.main": lambda: train_zju.main(["--data_root", "missing"]),
+        "cli.render_zju.main": lambda: render_zju.main(["--data_root", "missing"]),
+        "cli.render_monocap.main": lambda: render_monocap.main(["--data_root", "missing"]),
     }
 
 

@@ -24,6 +24,7 @@ from moss_torch import convert
 from moss_torch.ops import fisher, lpips, ssim
 from moss_torch.train.losses import LossWeights, compute_losses
 from test_torch_raster_bwd import assert_grad_close
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 def value_and_grad_torch(fn, *arrays):

@@ -24,6 +24,7 @@ from jax.experimental import pallas as pl
 
 from moss_torch.ops import reduce_scan as rs
 from moss_torch.tools import mxu_micro
+from _torch_threads import two_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -30,6 +30,7 @@ from moss_torch.models import deform, gaussians as G, smpl
 from moss_torch.ops import knn, projection, sh
 from moss_torch.ops import transforms as tf
 from moss_torch.render.camera import Camera
+from _torch_threads import two_torch_threads  # noqa: F401
 
 CPU = "cpu"
 

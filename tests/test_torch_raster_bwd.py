@@ -32,6 +32,7 @@ from moss_torch.ops.rasterize_ref import rasterize_reference
 from test_rasterize_tpu import make_camera, random_scene
 from test_torch_binning import sequential_blend
 from test_torch_rasterize import jax_projected, to_torch
+from _torch_threads import two_torch_threads  # noqa: F401
 
 GRAD_ATOL = 5e-4  # after dividing by max|g_ref|, tests/test_rasterize_tpu.py:150
 

@@ -30,6 +30,7 @@ from moss_torch.ops import binning, rasterize_cuda as rc, split_blend as sb
 from test_rasterize_tpu import assert_images_match, make_camera
 from test_torch_raster_bwd import assert_grad_close
 from test_torch_rasterize import jax_projected, to_torch
+from _torch_threads import two_torch_threads  # noqa: F401
 
 FIELDS = ("mean2d", "conic", "opacity", "color", "depth")
 

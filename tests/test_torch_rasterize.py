@@ -24,6 +24,7 @@ from moss_torch.ops import rasterize_cuda as rc
 from moss_torch.ops.projection import Projected
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from test_rasterize_tpu import assert_images_match, make_camera, random_scene
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 def to_torch(jproj, device="cpu"):

@@ -37,6 +37,7 @@ from moss_torch.models import gaussians as G
 from moss_torch.ops import rasterize_cuda as rc
 from moss_torch.render.render import render_frame
 from test_rasterize_tpu import assert_images_match
+from _torch_threads import two_torch_threads  # noqa: F401
 
 H = W = 64
 CPU = torch.device("cpu")

@@ -13,6 +13,7 @@ from moss_tpu.ops.binning import _gather_rows
 from moss_torch.data.synthetic import bench_scene
 from moss_torch.ops import rasterize_cuda as rc
 from _segment_order import CASES, kernel_order, pair_list
+from _torch_threads import two_torch_threads  # noqa: F401
 
 ATOL = 1e-5
 

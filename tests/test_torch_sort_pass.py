@@ -15,6 +15,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from moss_torch.ops import sort_pass
+from _torch_threads import two_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

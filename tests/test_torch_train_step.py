@@ -47,6 +47,7 @@ from moss_torch.models import gaussians as G
 from moss_torch.train import optim
 from moss_torch.train.train_step import make_train_step
 from test_torch_raster_bwd import GRAD_ATOL, assert_grad_close
+from _torch_threads import two_torch_threads  # noqa: F401
 
 H = W = 64
 CROP = 48

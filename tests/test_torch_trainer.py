@@ -41,21 +41,11 @@ from moss_torch.train import densify as D
 from moss_torch.train.train_step import active_sh_degree
 from moss_torch.train.trainer import Trainer
 from test_torch_densify import jax_densify_noise
+from _torch_threads import two_torch_threads  # noqa: F401
 
 CPU = "cpu"
 RTOL = 2e-3
 METRICS = ("psnr", "ssim", "lpips", "iteration")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads: the Tier-1 command runs six pytest-xdist workers,
-    and PyTorch's default of a thread a core oversubscribes the cores
-    (test_torch_trainer.py's run against JAX took 296 s instead of 34 s)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_pca_normals(xyz, nbr_idx):
