@@ -42,7 +42,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              the plain rasterizer; then 2 warm-up and 5 timed steps, with every
              kernel's launch count set to 0 just before and read just after
              (one launch of each per step), and one profiled step; and the
-             backward kernel's stages (phase 12) on the slice's projected input
+             backward kernel's stages (phase 15) on the slice's projected input
   7. trainer  the Trainer, the user's entry point for training an avatar:
              6,890 initial points in the 46,080 capacity, 4 train frames and
              1 test frame from make_frames at 512x512 (the cloud on the SMPL
@@ -85,10 +85,44 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              DENSIFY_RTOL of the max where they agree, and clone, split and
              merge each land in them; the share of slots whose curvature mask
              flips when the card computes its own normals
- 10. tool_sort  the two sort-pass kernels against their plain versions,
+ 10. smplx  the SMPL-X scene family (DNA-Rendering's body, J = 55) at full
+             width: synthetic_smplx's 10,475 vertices (the SMPL-X mesh's count)
+             in the big pose, every one a seed in the 46,080 capacity, SH
+             degree 3, motion_offset=False; 4 train and 1 test frame at
+             1224x1024 (DNA-Rendering's capture at the reader's 0.5 scale)
+             rendered by the forward kernel from a target cloud on the body at
+             random 165-dim poses, bound masks from the posed vertices, the crop
+             autosize_crop's rule takes; the Trainer over SLICE_TRAINER (two
+             densify rounds whose k=1 kNN runs to the SMPL-X vertices and whose
+             Fisher fields are SVDs of zero matrices, one opacity reset), the
+             eval at 20 above the one at 1, the kernels launched once per step
+             and eval frame, a second run bitwise equal; 7 more steps timed and
+             one profiled (host ms, device-busy ms, idle share, launches, syncs);
+             the trained avatar's test frame served on the full path against
+             the plain blend (the image rule); rows 1, 2 and 2b on that frame's
+             projected input (measure_rows: each plain version once), with
+             segments and the longest tile
+ 11. static  the static family (a NeRF-synthetic Blender scene, no body) at
+             full width: transforms_{train,test}.json with 4 and 1 cameras at
+             800x800 written and read back through read_blender_scene (which
+             needs neither imageio nor h5py), the extent from nerfpp_norm;
+             100,000 seeds uniform in [-1.3, 1.3]^3 in a 131,072 capacity
+             (static_scene_context); ground truth rendered by the forward kernel
+             from a target cloud on the seeds, put into Frames directly; the
+             Trainer with static_scene=True (densify_and_prune_static rounds)
+             and everything else as in phase 10
+ 12. dna     where h5py imports: a DNA-Rendering capture pair of 2 poses at
+             2448x2048 (JPEG colour, PNG masks, calibration, the SMPL-X block)
+             and an SMPL-X asset (.npz, 400 shape columns) written from phase
+             10's rig and target, read back through read_dna_rendering and
+             load_smplx_npz: the rig bitwise, a loaded frame bitwise the same
+             bytes decoded in memory by the reader's steps, the camera within
+             1e-5; 3 training steps from the loaded frames. Elsewhere one line
+             says h5py does not import
+ 13. tool_sort  the two sort-pass kernels against their plain versions,
              exactly, at every stride of a 2^19-key network; a pass's time
              against R; then moss_torch.tools.sort_micro, counted
- 11. tool_conv  the two 3x3 conv kernels against their plain version: the
+ 14. tool_conv  the two 3x3 conv kernels against their plain version: the
              CUDA-core kernel in f32 (atol 1e-4) at the JAX tool's check()
              shapes and the eight VGG16 layer shapes, the tensor-core kernel
              in bf16 (2e-2 of the max) at the eight layers and at ragged
@@ -97,16 +131,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              equal to their plain versions; then moss_torch.tools.conv_proto,
              counted, which prints per layer the tensor-core kernel's ms,
              TFLOP/s, share of the bound, cuDNN's ms and its stages' ms
- 12. tool_bwd_floor  the backward kernel's stages: full and full_soa bitwise
+ 15. tool_bwd_floor  the backward kernel's stages: full and full_soa bitwise
              equal to the production kernel, every stage held to its plain
              version, with times and bounds; then
              moss_torch.tools.bwd_kernel_floor, counted
- 13. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
+ 16. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
              cores, bf16, split2 and 3xTF32 tensor-core forms): their
              observers bitwise equal across the 256 tiles, a launch's time
              against REPS; then moss_torch.tools.mxu_micro, counted, which
              holds each against its plain version (1e-5 of the max)
- 14. timing  how many runs cuda_ms took again because the host had not
+ 17. timing  how many runs cuda_ms took again because the host had not
              queued them before their spin ended (0: every time above is the
              first run's), by phase and by kernel
 
@@ -118,6 +152,7 @@ Needs a CUDA device and nvcc; builds into build/moss_torch/.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import os
@@ -130,9 +165,12 @@ import numpy as np
 import torch
 
 from moss_torch.config import Config, ModelConfig, OptimConfig, PipelineConfig
+from moss_torch.data import colmap, dna, readers
+from moss_torch.data.frames import Frame
 from moss_torch.data.synthetic import bench_scene, make_camera, make_frames, make_scene, \
-    random_pose
+    orbit_krt, random_pose
 from moss_torch.models import gaussians as G
+from moss_torch.models import smpl as S
 from moss_torch.models.lbs_field import LBSField
 from moss_torch.models.pose_refine import PoseRefine
 from moss_torch.ops import bwd_stages, conv3x3 as conv, cuda_build, lpips, \
@@ -140,14 +178,15 @@ from moss_torch.ops import bwd_stages, conv3x3 as conv, cuda_build, lpips, \
 from moss_torch.ops.knn import knn
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import inverse_sigmoid
-from moss_torch.render.render import render_frame
+from moss_torch.render.camera import Camera
+from moss_torch.render.render import SceneContext, render_frame
 from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro, timing
 from moss_torch.tools.timing import cuda_ms
 from moss_torch.train import checkpoint as ckpt
 from moss_torch.train import densify as D
 from moss_torch.train.losses import compute_losses, crop_window
 from moss_torch.train.optim import GAUSS_GROUPS, AdamState
-from moss_torch.train.train_step import TrainState, make_train_step
+from moss_torch.train.train_step import TrainState, active_sh_degree, make_train_step
 from moss_torch.train.trainer import Trainer
 
 HW = 512
@@ -222,6 +261,31 @@ CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ch
 # rounds of turns of the trained cloud's serving frame, in the buffer and
 # compacted: a host-clock frame spreads by a third from run to run
 FRAME_TURNS = 5
+# the SMPL-X family (DNA-Rendering): the SMPL-X mesh's 10,475 vertices, every
+# one a seed in the 46,080 capacity; frames of DNA-Rendering's 2448 x 2048
+# capture at the reader's 0.5 scale (moss_tpu/data/dna.py:125), (H, W)
+SMPLX_VERTS = 10475
+SMPLX_HW = (1024, 1224)
+# the static family (a NeRF-synthetic Blender scene): 800 x 800 frames, the
+# lego scene's camera_angle_x, cameras on a sphere of radius 4.0311; 3DGS's
+# random init for such a scene, 100,000 points uniform in [-1.3, 1.3]^3, in a
+# 131,072 capacity
+STATIC_HW = 800
+STATIC_FOVX = 0.6911112070083618
+STATIC_RADIUS = 4.0311
+STATIC_SEEDS = 100_000
+STATIC_CAPACITY = 131_072
+# both families' trainer: 40 iterations, densify rounds at 20 and 30, an
+# opacity reset after the round at 30 (so no round prunes by screen size,
+# which would thin a cloud seen at 1224 x 1024), evals at 1, 20, 30 (before
+# the round and the reset), 31 (after them) and 40; the eval at 20 must beat
+# the one at 1
+SLICE_TRAINER = dict(iterations=40, densify_from_iter=10, densify_until_iter=35,
+                     densification_interval=10, opacity_reset_interval=30)
+SLICE_EVALS = (1, 20, 30, 31, 40)
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+STATIC_DIR = os.path.join(BUILD, "blender_scene")
+DNA_DIR = os.path.join(BUILD, "dna_capture")
 
 
 def emit(obj):
@@ -299,36 +363,50 @@ def device_breakdown(fn, top=6):
             "top_host_self_ms": [h[:2] for h in sorted(host, key=lambda h: -h[1])[:top]]}
 
 
-def blend_work(proj, pairs, height, width):
+def blend_work(proj, pairs, height, width, max_pairs=1 << 17):
     """(evaluations, contributions) that these inputs need: each pixel walks
     its tile's depth-ordered pairs until it stops (the stopping pair
-    included); a contribution is an evaluation that is blended."""
+    included); a contribution is an evaluation that is blended. Tiles are
+    taken in groups of at most max_pairs pairs (a longer tile alone), so the
+    (pair, pixel) tensors stay small on a large frame."""
     tile = rc.TILE
     grid_w = -(-width // tile)
     counts = pairs.tile_count.long()
-    t = torch.repeat_interleave(torch.arange(counts.numel(), device=counts.device), counts)
-    g = pairs.pair_gaussian.long()
+    offsets = pairs.tile_offsets.long()
     lane = torch.arange(tile * tile, device=counts.device)
-    px = ((t % grid_w) * tile)[:, None] + lane % tile
-    py = ((t // grid_w) * tile)[:, None] + lane // tile
-    inside = (px < width) & (py < height)
-    dx = proj.mean2d[g, 0:1] - px
-    dy = proj.mean2d[g, 1:2] - py
-    a, b, c = proj.conic[g, 0:1], proj.conic[g, 1:2], proj.conic[g, 2:3]
-    power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-    alpha = torch.clamp_max(proj.opacity[g, None] * torch.exp(power), 0.99)
-    m = (power <= 0) & (alpha >= 1.0 / 255.0) & inside
-    start = pairs.tile_offsets[:-1].long()
-    log_T = bwd_stages.seg_cumsum(torch.where(m, torch.log1p(-alpha.double()), 0.0), start, t)
-    fired = m & (log_T < math.log(1e-4))
-    before = bwd_stages.seg_cumsum(fired.int(), start, t) - fired.int()
-    evaluated = (before == 0) & inside
-    contrib = evaluated & m & ~fired
-    return int(evaluated.sum()), int(contrib.sum())
+    evals = contribs = 0
+    t0, n_tiles = 0, counts.numel()
+    while t0 < n_tiles:
+        t1 = int(torch.searchsorted(offsets, offsets[t0] + max_pairs, right=True)) - 1
+        t1 = min(max(t1, t0 + 1), n_tiles)
+        lo, hi = int(offsets[t0]), int(offsets[t1])
+        if hi > lo:
+            t = torch.repeat_interleave(torch.arange(t1 - t0, device=counts.device),
+                                        counts[t0:t1])
+            g = pairs.pair_gaussian[lo:hi].long()
+            px = (((t + t0) % grid_w) * tile)[:, None] + lane % tile
+            py = (((t + t0) // grid_w) * tile)[:, None] + lane // tile
+            inside = (px < width) & (py < height)
+            dx = proj.mean2d[g, 0:1] - px
+            dy = proj.mean2d[g, 1:2] - py
+            a, b, c = proj.conic[g, 0:1], proj.conic[g, 1:2], proj.conic[g, 2:3]
+            power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+            alpha = torch.clamp_max(proj.opacity[g, None] * torch.exp(power), 0.99)
+            m = (power <= 0) & (alpha >= 1.0 / 255.0) & inside
+            start = offsets[t0:t1] - lo
+            log_T = bwd_stages.seg_cumsum(torch.where(m, torch.log1p(-alpha.double()), 0.0),
+                                          start, t)
+            fired = m & (log_T < math.log(1e-4))
+            before = bwd_stages.seg_cumsum(fired.int(), start, t) - fired.int()
+            evaluated = (before == 0) & inside
+            evals += int(evaluated.sum())
+            contribs += int((evaluated & m & ~fired).sum())
+        t0 = t1
+    return evals, contribs
 
 
-def kernel_bound(proj, pairs, height, width):
-    evals, contribs = blend_work(proj, pairs, height, width)
+def kernel_bound(proj, pairs, height, width, work=None):
+    evals, contribs = work or blend_work(proj, pairs, height, width)
     P = proj.mean2d.shape[0]
     bytes_ = 4 * (pairs.num_pairs + pairs.tile_offsets.numel() + 10 * P + 6 * height * width)
     flops = OPS_PER_EVAL * evals + OPS_PER_CONTRIB * contribs
@@ -1216,6 +1294,518 @@ def phase_checkpoint(dev, trained, train_ts, ckpt_dir=CKPT_DIR, smi=""):
     return launches
 
 
+# ---- the SMPL-X and static scene families ------------------------------------------
+
+
+def smplx_frames(scene, dev, H=SMPLX_HW[0], W=SMPLX_HW[1], n_frames=TRAIN_FRAMES + 1, seed=0):
+    """Ground truth for the SMPL-X phase, as make_frames makes SMPL's (which
+    is SMPL-only: 72-dim poses): a target cloud on the big-pose vertices
+    (random colours, opacity TARGET_OPACITY) posed at random 165-dim full
+    poses by the deform (no MLPs) and rendered by the forward kernel, one
+    orbit camera a frame; each frame's bound mask from its posed vertices
+    (+- 5 cm, the DNA reader's, data/dna.py) and its crop window centred on
+    the bound rect. Returns (frames, crop (h, w), (target, valid)): the crop
+    autosize_crop's rule takes for these rects, the target cloud."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    model = scene.smpl
+    verts = scene.big_pose_vertices.cpu().numpy()
+    target, valid = G.create_from_points(verts, rng.uniform(0.2, 0.9, (verts.shape[0], 3)),
+                                         verts.shape[0], device=dev)
+    target.opacity = torch.full_like(target.opacity, math.log(TARGET_OPACITY / (1 - TARGET_OPACITY)))
+    shots = []
+    for i in range(n_frames):
+        poses = np.zeros(165, np.float32)
+        poses[3:] = rng.normal(0, 0.25, 162)
+        sp = {"poses": torch.as_tensor(poses, device=dev)[None],
+              "shapes": torch.zeros((1, 20), device=dev), "R": torch.eye(3, device=dev),
+              "Th": torch.zeros((1, 3), device=dev)}
+        K, R, T = orbit_krt(H, W, 2.5, 2 * np.pi * i / n_frames)
+        cam = Camera.from_KRT(K, R.T, T, H, W, device=dev)
+        with torch.no_grad():
+            out = render_frame(target, valid, None, scene, sp, cam, torch.zeros(3, device=dev), 0,
+                               motion_offset=False, device=dev)
+        v, _ = S.lbs_vertices(model, sp["poses"][0], sp["shapes"][0])
+        v = v.cpu().numpy()
+        bound = np.stack([v.min(0) - 0.05, v.max(0) + 0.05])
+        bound_mask = readers.get_bound_2d_mask(bound, K, np.concatenate([R, T[:, None]], 1), H, W)
+        ys, xs = np.nonzero(bound_mask)
+        rots = Rotation.from_rotvec(poses.reshape(-1, 3)[1:] + 1e-8).as_matrix()
+        shots.append((cam, out, bound_mask, (ys.min(), ys.max(), xs.min(), xs.max()), sp, rots))
+    crop = readers.crop_for_rects([(y1 - y0 + 1, x1 - x0 + 1) for _, _, _, (y0, y1, x0, x1), _, _
+                                   in shots], (H, W))
+    frames = []
+    for i, (cam, out, bound_mask, (y0, y1, x0, x1), sp, rots) in enumerate(shots):
+        frames.append(Frame(
+            camera=cam, image=out["render"], bkgd_mask=out["render_alpha"],
+            bound_mask=torch.as_tensor(bound_mask.astype(np.float32), device=dev), **sp,
+            pose_rotmats=torch.as_tensor(rots.astype(np.float32), device=dev),
+            crop_y0=int(np.clip((y0 + y1) // 2 - crop[0] // 2, 0, H - crop[0])),
+            crop_x0=int(np.clip((x0 + x1) // 2 - crop[1] // 2, 0, W - crop[1])), pose_id=i))
+    return frames, crop, (target, valid)
+
+
+def blender_scene(root, n_train=TRAIN_FRAMES, n_test=1, seed=0):
+    """A NeRF-synthetic scene's transforms_{train,test}.json (no images):
+    cameras on a sphere of radius STATIC_RADIUS at random azimuths and
+    elevations in [10, 60] degrees, looking at the origin, OpenGL axes, z up,
+    camera_angle_x STATIC_FOVX."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for split, n in (("train", n_train), ("test", n_test)):
+        frames = []
+        for i in range(n):
+            az, el = rng.uniform(0, 2 * np.pi), np.deg2rad(rng.uniform(10, 60))
+            back = np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)])
+            right = np.cross([0.0, 0.0, 1.0], back)
+            right /= np.linalg.norm(right)
+            c2w = np.eye(4)
+            c2w[:3, :3] = np.stack([right, np.cross(back, right), back], axis=1)
+            c2w[:3, 3] = STATIC_RADIUS * back
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": c2w.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": STATIC_FOVX, "frames": frames}, f)
+
+
+def static_frames(scene, specs, dev, seed=1):
+    """Ground truth for the static phase, put into Frames directly (nothing
+    is decoded): a target cloud on the seeds (other colours, opacity
+    TARGET_OPACITY) rendered by the forward kernel for each Blender spec's
+    camera (K from camera_angle_x, as colmap.frame_from_spec builds it), all-
+    ones masks, zero SMPL fields and the crop at (0, 0), as frame_from_spec
+    gives them."""
+    rng = np.random.default_rng(seed)
+    seeds = scene.big_pose_vertices
+    target, valid = G.create_from_points(seeds.cpu().numpy(),
+                                         rng.uniform(0.1, 0.9, (seeds.shape[0], 3)),
+                                         seeds.shape[0], device=dev)
+    target.opacity = torch.full_like(target.opacity, math.log(TARGET_OPACITY / (1 - TARGET_OPACITY)))
+    H = W = STATIC_HW
+    frames = []
+    for spec in specs:
+        f = 0.5 * W / np.tan(0.5 * spec["fovx"])
+        K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]])
+        cam = Camera.from_KRT(K, spec["R_w2c"].T, spec["T_w2c"][:, 0], H, W, device=dev)
+        with torch.no_grad():
+            out = render_frame(target, valid, None, scene, None, cam, torch.zeros(3, device=dev),
+                               0, motion_offset=False, static_scene=True, device=dev)
+        ones = torch.ones((H, W), device=dev)
+        frames.append(Frame(
+            camera=cam, image=out["render"], bkgd_mask=ones, bound_mask=ones,
+            poses=torch.zeros((1, 72), device=dev), shapes=torch.zeros((1, 10), device=dev),
+            R=torch.eye(3, device=dev), Th=torch.zeros((1, 3), device=dev),
+            pose_rotmats=torch.zeros((23, 3, 3), device=dev), crop_y0=0, crop_x0=0,
+            pose_id=len(frames)))
+    return frames
+
+
+def measure_rows(proj, bg, height, width, ref, plain_ms, seed=0):
+    """Rows 1, 2 and 2b on a full-size input, where the plain blend takes
+    seconds: the forward kernel against `ref` (the plain blend of the same
+    input, its call took plain_ms), the backward kernel + segment sum against
+    autograd through the plain blend (remat, one call timed), the segment sum
+    against its plain version and index_add_, each kernel bitwise repeatable;
+    the kernels' times split and unsplit, bounds (kernel_bound, bwd_bound,
+    segment_bound), segments and the longest tile."""
+    pairs = rc.bin_projected(proj, height, width)
+    img, state = rc.rasterize_pairs(pairs, proj, height, width)
+    if not torch.equal(img, rc.rasterize_pairs(pairs, proj, height, width)[0]):
+        raise AssertionError("two forward passes on the same input differ")
+    err_fwd = check_images(as_images(img, bg), ref, "kernel vs plain")
+    gen = torch.Generator(device=bg.device).manual_seed(seed)
+    up = {k: torch.randn(s, generator=gen, device=bg.device)
+          for k, s in (("color", (height, width, 3)), ("depth", (height, width)),
+                       ("alpha", (height, width)), ("final_T", (height, width)))}
+    plain = functools.partial(rasterize_reference, tile_h=rc.TILE, tile_w=rc.TILE, remat=True)
+    g, _ = blend_grads(proj, bg, height, width, up, rc.rasterize_cuda)
+    again, _ = blend_grads(proj, bg, height, width, up, rc.rasterize_cuda)
+    if not all(torch.equal(a, b) for a, b in zip(g, again)):
+        raise AssertionError("two backward passes on the same input differ")
+    (g_ref, _), fwd_bwd_ms = clocked_ms(lambda: blend_grads(proj, bg, height, width, up, plain))
+    errs = {f: scaled_err(a, b) for f, a, b in zip(rc._KERNEL_FIELDS, g[:-1], g_ref[:-1])}
+    bg_rel = float(((g[-1] - g_ref[-1]).abs() / g_ref[-1].abs()).max())
+    if max(errs.values()) > GRAD_ATOL or bg_rel > BG_RTOL or \
+            not all(torch.isfinite(x).all() for x in g):
+        raise AssertionError(f"backward kernel vs plain: scaled errors {errs}, bg rel {bg_rel:.2e}")
+    gimg = torch.stack([up["color"][..., 0], up["color"][..., 1], up["color"][..., 2],
+                        up["depth"], up["alpha"], up["final_T"] + (up["color"] * bg).sum(-1)])
+    gimg = torch.cat([gimg[:5], (gimg * img).sum(0, keepdim=True)]).contiguous()
+    rows = rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width, state)
+    seg = rc.segment_sum(rows, pairs)
+    if not torch.equal(seg, rc.segment_sum(rows, pairs)):
+        raise AssertionError("two segment sums of the same rows differ")
+    P = proj.mean2d.shape[0]
+    index = pairs.pair_gaussian.long()
+
+    def library():
+        return torch.zeros((P, rc.GRAD_COLS), device=rows.device).index_add_(0, index, rows)
+
+    seg_plain = rc.segment_sum_plain(rows, pairs)
+    seg_errs = {"plain": scaled_err(seg, seg_plain), "index_add_": scaled_err(seg, library())}
+    if max(seg_errs.values()) > SEGMENT_RTOL:
+        raise AssertionError(f"segment sum vs plain and index_add_: scaled errors {seg_errs}")
+    whole = unsplit_len(pairs)
+    _, whole_state = rc.rasterize_pairs(pairs, proj, height, width, whole)
+    work = blend_work(proj, pairs, height, width)
+    return {
+        "pairs": pairs.num_pairs, "max_tile_pairs": int(pairs.tile_count.max()),
+        "busy_tiles": int((pairs.tile_count > 0).sum()), **segments(pairs),
+        "rasterize_fwd": {
+            "max_abs_err": err_fwd, "bitwise_repeat": True,
+            "ms": cuda_ms(lambda: rc.rasterize_pairs(pairs, proj, height, width),
+                          site="rasterize_fwd"),
+            "ms_unsplit": cuda_ms(lambda: rc.rasterize_pairs(pairs, proj, height, width, whole),
+                                  site="rasterize_fwd unsplit"),
+            "plain_ms": plain_ms, **kernel_bound(proj, pairs, height, width, work)},
+        "rasterize_bwd": {
+            "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(g[:-1], g_ref[:-1])),
+            "scaled_err": errs, "bg_rel_err": bg_rel, "bitwise_repeat": True,
+            "ms": cuda_ms(lambda: rc.rasterize_pairs_bwd(pairs, proj, gimg, height, width, state),
+                          site="rasterize_bwd"),
+            "ms_unsplit": cuda_ms(lambda: rc.rasterize_pairs_bwd(
+                pairs, proj, gimg, height, width, whole_state, whole),
+                site="rasterize_bwd unsplit"),
+            "plain_ms": fwd_bwd_ms - plain_ms, "plain_fwd_bwd_ms": fwd_bwd_ms,
+            **bwd_bound(proj, pairs, height, width, work=work)},
+        "segment_sum": {
+            "max_abs_err": float((seg - seg_plain).abs().max()), "scaled_err": seg_errs,
+            "bitwise_repeat": True,
+            "ms": cuda_ms(lambda: rc.segment_sum(rows, pairs), site="segment_sum"),
+            "library_ms": cuda_ms(library, site="segment_sum index_add_"),
+            "plain_ms": cuda_ms(lambda: rc.segment_sum_plain(rows, pairs),
+                                site="segment_sum plain"),
+            "lengths": segment_lengths(pairs), **segment_bound(pairs, P)},
+    }
+
+
+def slice_trainer_config(model, **optim):
+    return Config(model=model, optim=OptimConfig(**SLICE_TRAINER, **optim),
+                  pipe=PipelineConfig(test_iterations=SLICE_EVALS, save_iterations=()))
+
+
+def counted(fn):
+    """fn's result and the three kernels' launches in its run (counts set to 0 just before)."""
+    rc.launches = rc.bwd_launches = rc.segment_launches = 0
+    out = fn()
+    return out, {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
+                 "segment_sum": rc.segment_launches}
+
+
+def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, steps=5, warmup=2):
+    """A scene family's main path at full width: the Trainer over
+    SLICE_TRAINER (two rounds, one opacity reset, evals at SLICE_EVALS), a
+    second run bitwise equal; training steps timed and one profiled; the
+    trained avatar's test frame served on the full path, the kernel against
+    the plain blend; rows 1, 2 and 2b on that frame's projected input.
+    Returns ({path: launches}, the rows)."""
+    H, W = frames[0].camera.height, frames[0].camera.width
+    model = cfg.model
+
+    def run(timed):
+        tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], cfg, lp, crop_hw=crop,
+                     extent=extent, device=dev)
+        rounds, times = [], {"step": [], "densify": [], "eval": []}
+
+        def clocked(fn, key):
+            def go(*a, **kw):
+                out, ms = clocked_ms(lambda: fn(*a, **kw)) if timed else (fn(*a, **kw), None)
+                if timed:
+                    times[key].append(ms)
+                return out
+            return go
+
+        densify = clocked(tr.densify, "densify")
+
+        def counted_densify(it):
+            stats = densify(it)
+            live = int(tr.ts.gstate.valid.sum())
+            rounds.append({"round": it, "live": live,
+                           **{k: int(v) for k, v in stats.items() if k != "masks"}})
+            if live > model.capacity or int(stats["count_after"]) != live:
+                raise AssertionError(f"{name} round {it}: {live} live in {model.capacity}")
+            return stats
+
+        tr.step_fn, tr.densify = clocked(tr.step_fn, "step"), counted_densify
+        tr.evaluate = clocked(tr.evaluate, "eval")
+        tr.train()
+        return tr, rounds, times
+
+    # the Fisher fields of a body's rounds: at J=55 with no pose MLPs, SVDs
+    # (cuSOLVER) of 23 zero matrices weighted by zero LBS sums, which must
+    # come out zero and finite
+    fields, fisher = [], D.fisher_fields
+    D.fisher_fields = lambda gs: fields.append(fisher(gs)) or fields[-1]
+    try:
+        (tr, rounds, times), trainer_launches = counted(lambda: run(True))
+    finally:
+        D.fisher_fields = fisher
+    fisher_max = [max(float(x.abs().max()) for x in f) for f in fields]
+    if not all(bool(torch.isfinite(x).all()) for f in fields for x in f) or any(fisher_max) or \
+            len(fields) != (0 if model.static_scene else 2):
+        raise AssertionError(f"{name}: the rounds' Fisher fields: max |.| {fisher_max}")
+    iters = SLICE_TRAINER["iterations"]
+    want = {"rasterize_fwd": iters + len(SLICE_EVALS) * (len(frames) - TRAIN_FRAMES),
+            "rasterize_bwd": iters, "segment_sum": iters}
+    if trainer_launches != want:
+        raise AssertionError(f"{name}: the trainer launched {trainer_launches}, not {want}")
+    hist = tr.metrics_history
+    psnr = {m["iteration"]: m["psnr"] for m in hist}
+    if [m["iteration"] for m in hist] != list(SLICE_EVALS) or \
+            not all(math.isfinite(v) for m in hist for v in (m["psnr"], m["ssim"], m["lpips"])) \
+            or not psnr[20] > psnr[1]:
+        raise AssertionError(f"{name}: the trainer's evals {hist}")
+    if [r["round"] for r in rounds] != [20, 30] or sum(r["cloned"] + r["split"]
+                                                       for r in rounds) == 0:
+        raise AssertionError(f"{name}: the rounds {rounds}")
+    again, _, _ = run(False)
+    a, b = tr.ts, again.ts
+    same = {"valid": torch.equal(a.gstate.valid, b.gstate.valid),
+            **{f: torch.equal(getattr(a.params["gauss"], f), getattr(b.params["gauss"], f))
+               for f in G.FIELDS},
+            **{f"{g}.{m}.{n}": torch.equal(getattr(a.opt_state[g], m)[n],
+                                          getattr(b.opt_state[g], m)[n])
+               for g in a.opt_state for m in ("mu", "nu") for n in a.opt_state[g].mu},
+            "metrics_history": [{k: v for k, v in m.items() if k != "elapsed_s"} for m in hist]
+            == [{k: v for k, v in m.items() if k != "elapsed_s"} for m in again.metrics_history]}
+    if not all(same.values()):
+        raise AssertionError(f"{name}: two trainer runs differ: "
+                             f"{[k for k, v in same.items() if not v]}")
+
+    # training steps on the second run's final state: host clock, launches,
+    # one profiled step
+    feats = again._gt_lpips_features()
+    holder = [again.ts]
+
+    def one_step(k=0):
+        holder[0], logs = again.step_fn(holder[0], frames[k], active_sh_degree(1, model.sh_degree),
+                                        None if feats is None else feats[k])
+        return logs
+
+    def timed_steps():
+        out = []
+        for i in range(warmup + steps):
+            logs, ms = clocked_ms(lambda i=i: one_step(i % TRAIN_FRAMES))
+            out.append(ms)
+            if not math.isfinite(float(logs["loss"])):
+                raise AssertionError(f"{name}: non-finite loss {logs}")
+        return out
+
+    step_ms, step_launches = counted(timed_steps)
+    if any(n != warmup + steps for n in step_launches.values()):
+        raise AssertionError(f"{name}: {warmup + steps} steps launched {step_launches}")
+    profile = device_breakdown(one_step, top=10)
+
+    # the trained avatar served: the test frame on the full path
+    test = frames[TRAIN_FRAMES]
+    seen = []
+
+    def serve(raster=None):
+        with torch.no_grad():
+            return render_frame(tr.ts.params["gauss"], tr.ts.gstate.valid, None, scene,
+                                test.smpl_params, test.camera, tr.bg, model.sh_degree,
+                                rasterize_fn=raster, motion_offset=False,
+                                static_scene=model.static_scene, device=dev)
+
+    full, serve_launches = counted(lambda: serve(
+        lambda proj, *a: seen.append(proj) or rc.rasterize_cuda(proj, *a)))
+    if serve_launches["rasterize_fwd"] != 1:
+        raise AssertionError(f"{name}: the served frame launched {serve_launches}")
+    proj = seen[0]
+    with torch.no_grad():
+        ref, plain_ms = clocked_ms(lambda: rasterize_reference(proj, tr.bg, H, W, tile_h=rc.TILE,
+                                                               tile_w=rc.TILE))
+    images = {"color": full["render"], "alpha": full["render_alpha"],
+              "depth": full["render_depth"], "final_T": full["final_T"]}
+    err_served = check_images(images, ref, f"{name} served frame")
+    if float(full["render_alpha"].max()) <= 0:
+        raise AssertionError(f"{name}: the served frame is empty")
+    serve_ms = host_ms(serve, n=5, warmup=1)
+    rows = measure_rows(proj, tr.bg, H, W, ref, plain_ms)
+    steps_outside = [t for i, t in enumerate(times["step"], 1)
+                     if i not in {r["round"] for r in rounds}]
+    launches = {"trainer": trainer_launches, "steps": step_launches, "serve": serve_launches}
+    row_line = {k: {f: rows[k][f] for f in ("ms", "ms_unsplit", "plain_ms", "bound_ms",
+                                            "bound_by") if f in rows[k]}
+                for k in ("rasterize_fwd", "rasterize_bwd", "segment_sum")}
+    print(f"{name} ({smi}): {W}x{H}, crop {crop}, {model.capacity} capacity; trainer "
+          f"{float(np.median(steps_outside)):.2f} ms per iteration, rounds "
+          f"{[round(t, 1) for t in times['densify']]} ms, eval frames "
+          f"{[round(t, 1) for t in times['eval']]} ms, live after the rounds "
+          f"{[r['live'] for r in rounds]}, psnr {psnr}; step {float(np.median(step_ms[warmup:])):.2f}"
+          f" ms, device busy {profile['device_busy_ms']:.2f} ms, idle "
+          f"{profile['idle_share']:.3f}, {profile['kernel_launches']} launches, "
+          f"{profile['host_syncs']} syncs; served frame {serve_ms:.2f} ms; pairs {rows['pairs']}, "
+          f"longest tile {rows['max_tile_pairs']}, segments {rows['segments']}; rows {row_line}",
+          flush=True)
+    emit({"phase": name, "nvidia_smi": smi, "hw": [H, W], "crop": list(crop),
+          "capacity": model.capacity, "initial_points": model.n_init_points,
+          "sh_degree": model.sh_degree, "extent": extent, "schedule": SLICE_TRAINER,
+          "evals": SLICE_EVALS, "ms_per_iteration": float(np.median(steps_outside)),
+          "step_ms_trainer": times["step"], "ms_per_densify_round": times["densify"],
+          "eval_ms": times["eval"], "live_after_rounds": [r["live"] for r in rounds],
+          "rounds": rounds, "fisher_fields_max_abs": fisher_max, "metrics_history": hist,
+          "bitwise_repeat": True,
+          "ms_per_step": float(np.median(step_ms[warmup:])), "step_ms": step_ms,
+          "profile_step": profile, "served_ms_per_frame": serve_ms,
+          "max_abs_err_served": err_served, "launches": launches,
+          "kernel_rows": rows, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {k: sum(p[k] for p in launches.values()) for k in trainer_launches}, rows
+
+
+def phase_smplx(dev, smi, n_verts=SMPLX_VERTS, hw=SMPLX_HW):
+    """The SMPL-X family at full width (module docstring, phase 10)."""
+    model = S.synthetic_smplx(n_verts=n_verts, n_shapes=20, device=dev)
+    big = S.big_pose_params_smplx(device=dev)
+    v_big, _ = S.lbs_vertices(model, big["poses"][0], big["shapes"][0])
+    scene = SceneContext(smpl=model, big_pose_params=big, big_pose_vertices=v_big)
+    frames, crop, target = smplx_frames(scene, dev, *hw)
+    cfg = slice_trainer_config(ModelConfig(smpl_type="smplx", motion_offset=False,
+                                           n_init_points=n_verts))
+    print(f"smplx: crop {crop} (autosize_crop's rule on the frames' bound rects)", flush=True)
+    out = phase_scene_family("smplx", dev, scene, frames, cfg, lpips.init_random(3407, device=dev),
+                             crop, 1.0, smi)
+    return out, (scene, frames, target)
+
+
+def phase_static(dev, smi, root=STATIC_DIR, n_seeds=STATIC_SEEDS, capacity=STATIC_CAPACITY):
+    """The static family at full width (module docstring, phase 11)."""
+    shutil.rmtree(root, ignore_errors=True)
+    blender_scene(root)
+    specs = colmap.read_blender_scene(root, "train") + colmap.read_blender_scene(root, "test")
+    extent = colmap.nerfpp_norm(specs)["radius"]
+    rng = np.random.default_rng(0)
+    scene = colmap.static_scene_context(rng.uniform(-1.3, 1.3, (n_seeds, 3)), device=dev)
+    frames = static_frames(scene, specs, dev)
+    cfg = slice_trainer_config(ModelConfig(static_scene=True, motion_offset=False,
+                                           capacity=capacity, n_init_points=n_seeds), w_mask=0.0)
+    crop = (min(STATIC_HW, CROP), min(STATIC_HW, CROP))
+    out = phase_scene_family("static", dev, scene, frames, cfg,
+                             lpips.init_random(3407, device=dev), crop, extent, smi)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def write_smplx_asset(path, model):
+    """The rig as an SMPL-X .npz of the real asset's layout: (V, 3, 400)
+    shapedirs with the betas in columns [:10] and the expressions in
+    [300:310], parents in kintree_table (load_smplx_npz reads it back)."""
+    sd = model.shapedirs.cpu().numpy()
+    full = np.zeros(sd.shape[:2] + (400,), np.float32)
+    full[..., :10], full[..., 300:310] = sd[..., :10], sd[..., 10:20]
+    parents = np.array(model.parents, np.int64)
+    np.savez(path, v_template=model.v_template.cpu().numpy(), shapedirs=full,
+             posedirs=model.posedirs.cpu().numpy(), J_regressor=model.J_regressor.cpu().numpy(),
+             weights=model.weights.cpu().numpy(), f=model.faces.cpu().numpy().astype(np.uint32),
+             kintree_table=np.stack([parents, np.arange(len(parents))]))
+
+
+def phase_dna(dev, smi, world, root=DNA_DIR, n_poses=2):
+    """The DNA-Rendering reader on the card's machine (module docstring,
+    phase 12), where h5py imports; otherwise one line says it does not."""
+    try:
+        import h5py
+    except ImportError:
+        print("dna: h5py does not import on this machine: no DNA-Rendering capture is read here "
+              "(data/smc.py and data/dna.py are checked on the CPU only)", flush=True)
+        emit({"phase": "dna", "skipped": "h5py does not import"})
+        return None
+    import cv2
+
+    scene, frames, (target, valid) = world
+    h, w = SMPLX_HW
+    H, W = 2 * h, 2 * w  # the 5-megapixel capture; the reader halves it
+    K, R, T = orbit_krt(h, w, 2.5, 0.0)
+    cam = Camera.from_KRT(K, R.T, T, h, w, device=dev)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    asset = os.path.join(root, "SMPLX_NEUTRAL.npz")
+    write_smplx_asset(asset, scene.smpl)
+    main = os.path.join(root, "0007_01_main.smc")
+    annots = os.path.join(root, "0007_01_annotations_annots.smc")
+    poses = np.stack([f.poses[0].cpu().numpy() for f in frames[:n_poses]])
+    jpgs, sources = [], []
+    with h5py.File(main, "w") as fm, h5py.File(annots, "w") as fa:
+        g = fa.create_group("Camera_Parameter/26")
+        Kc = K.copy()
+        Kc[:2] *= 2
+        c2w = np.linalg.inv(np.vstack([np.concatenate([R, T[:, None]], 1), [0, 0, 0, 1]]))
+        for k, v in (("K", Kc), ("D", np.zeros(5)), ("RT", c2w), ("Color_Calibration", np.eye(3))):
+            g.create_dataset(k, data=v)
+        for i in range(n_poses):
+            sp = {"poses": torch.as_tensor(poses[i:i + 1], device=dev),
+                  "shapes": torch.zeros((1, 20), device=dev), "R": torch.eye(3, device=dev),
+                  "Th": torch.zeros((1, 3), device=dev)}
+            with torch.no_grad():
+                out = render_frame(target, valid, None, scene, sp, cam, torch.zeros(3, device=dev),
+                                   0, motion_offset=False, device=dev)
+            sources.append(out["render"])
+            rgb = (out["render"].clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+            big = cv2.resize(rgb[..., ::-1], (W, H), interpolation=cv2.INTER_LINEAR)
+            msk = ((out["render_alpha"] > 0.05).to(torch.uint8) * 255).cpu().numpy()
+            msk = cv2.resize(np.repeat(msk[..., None], 3, 2), (W, H),
+                             interpolation=cv2.INTER_NEAREST)
+            jpgs.append(cv2.imencode(".jpg", big)[1])
+            fm.create_dataset(f"Camera_5mp/26/color/{i}",
+                              data=np.frombuffer(jpgs[-1].tobytes(), np.uint8))
+            fa.create_dataset(f"Mask/26/mask/{i}",
+                              data=np.frombuffer(cv2.imencode(".png", msk)[1].tobytes(), np.uint8))
+        sx = fa.create_group("SMPLx")
+        for k, v in (("betas", np.zeros((n_poses, 10))), ("expression", np.zeros((n_poses, 10))),
+                     ("fullpose", poses), ("transl", np.zeros((n_poses, 3)))):
+            sx.create_dataset(k, data=v.astype(np.float32))
+        sx.create_dataset("scale", data=np.float32(1.0))
+
+    (read_scene, specs), read_ms = clocked_ms(lambda: dna.read_dna_rendering(
+        main, "train", smplx_path=asset, device=dev))
+    if [s.frame_id for s in specs] != list(range(n_poses)) or not all(
+            torch.equal(getattr(read_scene.smpl, f), getattr(scene.smpl, f))
+            for f in ("v_template", "shapedirs", "posedirs", "J_regressor", "weights")):
+        raise AssertionError(f"dna: the reader's specs {[s.frame_id for s in specs]} or rig differ")
+    crop = (min(h, CROP), min(w, CROP))
+    loaded, load_ms = clocked_ms(lambda: [s.load(crop, device=dev) for s in specs])
+
+    # the frame in memory: the same bytes through the reader's steps
+    img = cv2.cvtColor(cv2.imdecode(jpgs[0], cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
+    img = cv2.undistort(img.astype(np.float32) / 255.0, Kc, np.zeros(5))
+    with h5py.File(annots, "r") as fa:
+        m = np.max(cv2.imdecode(fa["Mask/26/mask/0"][()], cv2.IMREAD_COLOR), axis=2)
+    m = cv2.undistort((m != 0).astype(np.float32), Kc, np.zeros(5))
+    img[m == 0] = 0.0
+    img = cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)
+    f0 = loaded[0]
+    cam_err = max(float((getattr(f0.camera, k) - getattr(cam, k)).abs().max()
+                        / (getattr(cam, k).abs().max() + 1e-12))
+                  for k in ("world_view", "full_proj", "cam_center"))
+    psnr_vs_render = float(-10 * torch.log10(((f0.image - sources[0]) ** 2).mean()))
+    if not np.array_equal(f0.image.cpu().numpy(), img) or cam_err > 1e-5 or \
+            not np.array_equal(f0.poses.cpu().numpy(), poses[:1]) or \
+            tuple(f0.image.shape) != (h, w, 3) or f0.pose_rotmats.shape != (54, 3, 3):
+        raise AssertionError(f"dna: the loaded frame differs from the one in memory "
+                             f"(camera {cam_err:.2e})")
+
+    # three training steps from the loaded frames
+    cfg = slice_trainer_config(ModelConfig(smpl_type="smplx", motion_offset=False,
+                                           n_init_points=SMPLX_VERTS))
+    tr = Trainer(read_scene, loaded, loaded[-1:], cfg, lpips.init_random(3407, device=dev),
+                 crop_hw=crop, device=dev)
+    losses = []
+    tr.log_fn = lambda it, logs: losses.append(logs["loss"])
+    _, launches = counted(lambda: tr.train(3, eval_iters=[]))
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses) or \
+            any(n != 3 for n in launches.values()):
+        raise AssertionError(f"dna: three steps gave losses {losses}, launches {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"dna ({smi}): a {W}x{H} capture pair of {n_poses} poses read in {read_ms:.1f} ms, "
+          f"frames decoded in {load_ms:.1f} ms, {w}x{h} frames bitwise the in-memory decode, "
+          f"PSNR {psnr_vs_render:.2f} dB against the source render (JPEG and the 2x resizes); "
+          f"3 steps, losses {losses}", flush=True)
+    emit({"phase": "dna", "nvidia_smi": smi, "capture_hw": [H, W], "frame_hw": [h, w],
+          "poses": n_poses, "read_ms": read_ms, "load_ms": load_ms, "camera_rel_err": cam_err,
+          "psnr_vs_source_render": psnr_vs_render, "losses": losses, "launches": launches})
+    return launches
+
+
 def phase_tool_sort(dev):
     """The sort passes against their plain versions at every stride of the
     tool's 2^19-key network, a pass's time against R, then the tool."""
@@ -1523,7 +2113,11 @@ def main():
     by_phase = {}
 
     def phase(name, fn, *args):
-        """fn(*args), with the runs cuda_ms retook in it counted by site."""
+        """fn(*args), with the runs cuda_ms retook in it counted by site; the
+        card's memory of earlier phases (trainers hold reference cycles)
+        freed first."""
+        gc.collect()
+        torch.cuda.empty_cache()
         before = dict(timing.retaken_by_site)
         out = fn(*args)
         by_phase[name] = {k: v - before.get(k, 0) for k, v in timing.retaken_by_site.items()
@@ -1540,6 +2134,23 @@ def main():
     del trained
     phase("densify", phase_densify, dev, train_ts, train_scene, cuts)
     del train_ts, cuts
+    (smplx_launches, smplx_rows), smplx_world = phase("smplx", phase_smplx, dev, smi)
+    static_launches, static_rows = phase("static", phase_static, dev, smi)
+    dna_launches = phase("dna", phase_dna, dev, smi, smplx_world)
+    del smplx_world
+    # the scene families' launches by path, and rows 1, 2 and 2b on their inputs
+    families = {"smplx": smplx_launches, "static": static_launches,
+                **({"dna": dna_launches} if dna_launches else {})}
+    by_input = {f"smplx_{SMPLX_HW[1]}x{SMPLX_HW[0]}": smplx_rows,
+                f"static_{STATIC_HW}x{STATIC_HW}": static_rows}
+
+    def family_rows(kernel):
+        keep = ("ms", "ms_unsplit", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "library_ms", "runs_retaken")
+        return {name: {"pairs": r["pairs"], "max_tile_pairs": r["max_tile_pairs"],
+                       "segments": r["segments"], "split_tiles": r["split_tiles"],
+                       **{k: v for k, v in r[kernel].items() if k in keep}}
+                for name, r in by_input.items()}
     sort_rows, sort_launches = phase("tool_sort", phase_tool_sort, dev)
     conv_rows, conv_launches = phase("tool_conv", phase_tool_conv, dev)
     floor_row, floor_launches = phase("tool_bwd_floor", phase_tool_bwd_floor, dev)
@@ -1578,29 +2189,35 @@ def main():
         entry("rasterize_fwd", "moss_torch/csrc/rasterize_fwd.cu",
               "moss_tpu/ops/rasterize_tpu.py:288",
               serve_launches + sum(p["rasterize_fwd"] for p in (
-                  train_launches, trainer_launches, ckpt_launches)),
+                  train_launches, trainer_launches, ckpt_launches, *families.values())),
               {"serve": serve_launches, "train": train_launches["rasterize_fwd"],
                "trainer": trainer_launches["rasterize_fwd"],
-               "checkpoint": ckpt_launches["rasterize_fwd"]}, row,
+               "checkpoint": ckpt_launches["rasterize_fwd"],
+               **{k: v["rasterize_fwd"] for k, v in families.items()}}, row,
               f"atol {ATOL} (depth {DEPTH_ATOL}); at most {OUTLIER_FRAC} of pixels beyond; "
               "against the plain blend and the plain segment scheme; bitwise repeatable; ms "
               "on the serving input, one call being two launches of the kernel",
-              **split(row)),
+              **split(row), by_input=family_rows("rasterize_fwd")),
         entry("rasterize_bwd", "moss_torch/csrc/rasterize_bwd.cu",
               "moss_tpu/ops/rasterize_tpu.py:383",
-              sum(p["rasterize_bwd"] for p in (train_launches, trainer_launches, ckpt_launches)),
+              sum(p["rasterize_bwd"] for p in (train_launches, trainer_launches, ckpt_launches,
+                                               *families.values())),
               {"train": train_launches["rasterize_bwd"],
                "trainer": trainer_launches["rasterize_bwd"],
-               "checkpoint": ckpt_launches["rasterize_bwd"]}, bwd,
+               "checkpoint": ckpt_launches["rasterize_bwd"],
+               **{k: v["rasterize_bwd"] for k, v in families.items()}}, bwd,
               grad_tol + "; rows against the plain segment scheme, grads against the unsplit "
-              "kernel, the same; ms on the training input", **split(bwd)),
+              "kernel, the same; ms on the training input", **split(bwd),
+              by_input=family_rows("rasterize_bwd")),
         entry("segment_sum", "moss_torch/csrc/segment_sum.cu", "moss_tpu/ops/binning.py:51",
-              sum(p["segment_sum"] for p in (train_launches, trainer_launches, ckpt_launches)),
+              sum(p["segment_sum"] for p in (train_launches, trainer_launches, ckpt_launches,
+                                             *families.values())),
               {"train": train_launches["segment_sum"],
                "trainer": trainer_launches["segment_sum"],
-               "checkpoint": ckpt_launches["segment_sum"]},
+               "checkpoint": ckpt_launches["segment_sum"],
+               **{k: v["segment_sum"] for k, v in families.items()}},
               bwd["segment"], "1e-5 of the max against index_add_; grads as rasterize_bwd",
-              library_ms=bwd["segment"]["library_ms"]),
+              library_ms=bwd["segment"]["library_ms"], by_input=family_rows("segment_sum")),
         entry("sort_lane_pass", "moss_torch/csrc/sort_pass.cu", "tools/sort_micro.py:47",
               sort_launches["lane"], {"tools": sort_launches["lane"]}, sort_rows["lane"],
               "exact, every stride; ms per launch of R = 64 passes at s = 64"),

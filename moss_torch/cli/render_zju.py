@@ -26,12 +26,13 @@ import pickle
 import re
 import time
 
+import imageio.v2 as imageio
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..config import Config, ModelConfig, load_json
-from ..data.readers import imageio, read_monocap, read_zju_mocap_refine
+from ..data.readers import read_monocap, read_zju_mocap_refine
 from ..ops import lpips
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn

@@ -20,7 +20,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     sh_degree: int = 3
-    smpl_type: str = "smpl"      # the port reads only SMPL ("smplx": the DNA-Rendering slice)
+    smpl_type: str = "smpl"      # 'smpl' | 'smplx' (DNA-Rendering, J=55, motion_offset=False)
     actor_gender: str = "neutral"
     motion_offset: bool = True   # pose-correction MLPs + LBS-weight field
     static_scene: bool = False   # vanilla 3DGS: no body model, no deform

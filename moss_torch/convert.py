@@ -74,8 +74,13 @@ def mlps_from_jax(tree, device=None):
 
 
 def scene_from_jax(smpl, big_pose_params, big_pose_vertices, device=None) -> SceneContext:
-    """SceneContext from the JAX SMPLModel arrays, big-pose dict and vertices."""
+    """SceneContext from the JAX SMPLModel arrays, big-pose dict and vertices.
+    A static scene (moss_tpu/data/colmap.py:260) has no body: smpl and
+    big_pose_params None, its seed points as big_pose_vertices."""
     device = resolve_device(device)
+    if smpl is None:
+        return SceneContext(smpl=None, big_pose_params=None,
+                            big_pose_vertices=_tensor(big_pose_vertices, device))
     model = SMPLModel(
         **{f: _tensor(_get(smpl, f), device)
            for f in ("v_template", "shapedirs", "posedirs", "J_regressor", "weights")},

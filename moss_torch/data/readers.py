@@ -11,8 +11,11 @@ FrameSpec.load(crop_hw, device), which returns the port's Frame on `device`
 (the GPU unless the caller asks for the CPU).
 
 The SMPL asset is proprietary: pass its path when there is one, else the
-synthetic rig of the same structure is used. DNA-Rendering (.smc), COLMAP and
-Blender scenes are not read yet.
+synthetic rig of the same structure is used. detect_and_read sends a
+DNA-Rendering capture (.smc) to data/dna.py; COLMAP and Blender scenes are
+read by data/colmap.py. imageio is imported where a frame is decoded, so the
+module (and data/dna.py, which shares its bound mask) imports on a machine
+without it.
 """
 from __future__ import annotations
 
@@ -35,10 +38,6 @@ try:
 except ImportError:  # pragma: no cover
     cv2 = None
 
-try:
-    import imageio.v2 as imageio
-except ImportError:  # pragma: no cover
-    import imageio  # type: ignore
 
 
 def get_bound_corners(bounds):
@@ -135,6 +134,8 @@ class FrameSpec:
 
     def load(self, crop_hw: Optional[Tuple[int, int]] = None, device=None) -> Frame:
         """Decode the frame; its tensors on `device` (default: the GPU)."""
+        import imageio.v2 as imageio
+
         device = resolve_device(device)
         image = np.asarray(imageio.imread(self.image_path), np.float32) / 255.0
         msk = imageio.imread(self.mask_path)
@@ -205,10 +206,17 @@ def autosize_crop(specs: List[FrameSpec], image_hw: Optional[Tuple[int, int]] = 
     if not specs:
         return (min_crop, min_crop)
     H, W = image_hw if image_hw is not None else specs[0].image_size()
-    mh = mw = 1
-    for s in specs:
-        rh, rw = s.bound_rect_hw(H, W)
-        mh, mw = max(mh, rh), max(mw, rw)
+    return crop_for_rects([s.bound_rect_hw(H, W) for s in specs], (H, W), bucket, min_crop)
+
+
+def crop_for_rects(rects_hw, image_hw: Tuple[int, int], bucket: int = 64,
+                   min_crop: int = 128) -> Tuple[int, int]:
+    """autosize_crop's rule on bound rects given as (height, width): the
+    largest, at least min_crop, rounded up to a multiple of bucket, clamped
+    to the image."""
+    H, W = image_hw
+    mh = max([1] + [int(h) for h, _ in rects_hw])
+    mw = max([1] + [int(w) for _, w in rects_hw])
     ch = min(H, -(-max(mh, min_crop) // bucket) * bucket)
     cw = min(W, -(-max(mw, min_crop) // bucket) * bucket)
     return ch, cw
@@ -330,14 +338,20 @@ def read_monocap(path: str, split: str = "train", white_background: bool = False
     return scene, specs
 
 
-READERS = {"zju_mocap_refine": read_zju_mocap_refine, "monocap": read_monocap}
+def _read_dna(*a, **kw):
+    from .dna import read_dna_rendering
+
+    return read_dna_rendering(*a, **kw)
+
+
+READERS = {"zju_mocap_refine": read_zju_mocap_refine, "monocap": read_monocap,
+           "dna_rendering": _read_dna}
 
 
 def detect_and_read(path: str, split: str = "train", **kw):
     """Dispatch on the path as the reference's Scene does (scene/__init__.py:42-57)."""
     if path.endswith(".smc") or "dna_rendering" in path.lower():
-        raise ValueError(f"{path}: DNA-Rendering (.smc) is read by a later slice of the port "
-                         "(moss_tpu/data/dna.py, smc.py)")
+        return _read_dna(path, split, **kw)
     if "zju" in path.lower() or "my_" in os.path.basename(os.path.normpath(path)):
         return read_zju_mocap_refine(path, split, **kw)
     if "monocap" in path.lower() or any(

@@ -32,9 +32,8 @@ def make_scene(n_verts: int = 800, seed: int = 3407, device=None) -> SceneContex
     return SceneContext(smpl=model, big_pose_params=big, big_pose_vertices=v_big)
 
 
-def make_camera(H: int = 128, W: int = 128, dist: float = 2.5, angle: float = 0.0,
-                device=None) -> Camera:
-    """Camera on a circle around the origin, looking at it."""
+def orbit_krt(H: int = 128, W: int = 128, dist: float = 2.5, angle: float = 0.0):
+    """(K, R_w2c, T_w2c) of a camera on a circle around the origin, looking at it."""
     fx = 0.9 * max(H, W)
     K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
     c, s = np.cos(angle), np.sin(angle)
@@ -45,7 +44,13 @@ def make_camera(H: int = 128, W: int = 128, dist: float = 2.5, angle: float = 0.
     right /= np.linalg.norm(right)
     up2 = np.cross(fwd, right)
     R_w2c = np.stack([right, up2, fwd], axis=0)  # rows
-    T = -R_w2c @ eye
+    return K, R_w2c, -R_w2c @ eye
+
+
+def make_camera(H: int = 128, W: int = 128, dist: float = 2.5, angle: float = 0.0,
+                device=None) -> Camera:
+    """Camera on a circle around the origin, looking at it."""
+    K, R_w2c, T = orbit_krt(H, W, dist, angle)
     # reference convention: CameraInfo stores R transposed
     return Camera.from_KRT(K, R_w2c.T, T, H, W, device=device)
 

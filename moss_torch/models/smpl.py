@@ -1,10 +1,12 @@
-"""SMPL body model (port of moss_tpu/models/smpl.py:54-70, 146-310).
+"""SMPL and SMPL-X body models (port of moss_tpu/models/smpl.py).
 
-The synthetic rig is drawn with numpy in the JAX package's order, so the same
-seed rebuilds the identical model. The 24-joint kinematic chain is an
-unrolled loop of 4x4 matmuls (parents are static). load_smpl_pickle reads the
-real SMPL asset (moss_tpu/models/smpl.py:72); the SMPL-X loader comes with
-the DNA-Rendering reader.
+The synthetic rigs are drawn with numpy in the JAX package's order, so the
+same seed rebuilds the identical model: SMPL (J=24) and SMPL-X (J=55,
+SMPLX_PARENTS, 20 shape values: 10 betas then 10 expression values, the
+DNA-Rendering convention). The kinematic chain is an unrolled loop of 4x4
+matmuls over the model's parents (static), so the same code poses either
+rig. load_smpl_pickle reads the real SMPL asset (moss_tpu/models/smpl.py:72),
+load_smplx_npz the SMPL-X one (:97).
 """
 from __future__ import annotations
 
@@ -24,6 +26,16 @@ SMPL_PARENTS: Tuple[int, ...] = (
 NUM_JOINTS = 24
 NUM_VERTS = 6890
 
+# SMPL-X kinematic tree: 55 joints, 22 body + jaw/leye/reye + 2x15 hand
+# (moss_tpu/models/smpl.py:45-51, the asset's kintree_table)
+SMPLX_PARENTS: Tuple[int, ...] = (
+    -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19,
+    15, 15, 15,                                                  # jaw, left_eye, right_eye
+    20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34, 35, 20, 37, 38,  # left hand
+    21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50, 21, 52, 53,  # right hand
+)
+NUM_JOINTS_SMPLX = 55
+
 
 @dataclasses.dataclass(frozen=True)
 class SMPLModel:
@@ -34,6 +46,10 @@ class SMPLModel:
     weights: torch.Tensor      # (V, J) skinning weights
     faces: torch.Tensor        # (F, 3) int32
     parents: Tuple[int, ...] = SMPL_PARENTS
+
+    @property
+    def num_joints(self) -> int:
+        return len(self.parents)
 
 
 def synthetic_smpl(
@@ -80,6 +96,13 @@ def synthetic_smpl(
     )
 
 
+def synthetic_smplx(n_verts: int = 2000, n_shapes: int = 20, seed: int = 3407,
+                    device=None) -> SMPLModel:
+    """Random SMPL-X-shaped model (J=55, 20 shape values, posedirs over the
+    54 non-root joints), identical to moss_tpu's for the same seed."""
+    return synthetic_smpl(n_verts, n_shapes, seed, parents=SMPLX_PARENTS, device=device)
+
+
 def load_smpl_pickle(path: str, device=None) -> SMPLModel:
     """A real SMPL pickle (the reference's SMPL_to_tensor keys), read with the
     latin-1 unpickler its Python 2 arrays need. A scipy-sparse J_regressor
@@ -104,6 +127,51 @@ def load_smpl_pickle(path: str, device=None) -> SMPLModel:
         v_template=t_(params["v_template"]), shapedirs=t_(params["shapedirs"]),
         posedirs=t_(params["posedirs"]), J_regressor=t_(J_reg), weights=t_(params["weights"]),
         faces=t_(np.asarray(params["f"]).astype(np.int64), np.int32), parents=parents)
+
+
+def load_smplx_npz(path: str, num_betas: int = 10, num_expr: int = 10,
+                   device=None) -> SMPLModel:
+    """A real SMPL-X .npz. Its (V, 3, 400) shapedirs hold the betas in
+    columns [:num_betas] and the expressions in [300:300 + num_expr]; the
+    model keeps those, betas first, the DNA-Rendering reader's 'shapes'
+    layout (an asset with fewer columns gives its first num_betas +
+    num_expr). The parents come from kintree_table, the root as -1."""
+    device = resolve_device(device)
+    params = dict(np.load(path, allow_pickle=True))
+    sd = np.asarray(params["shapedirs"], np.float32)
+    if sd.shape[-1] >= 300 + num_expr:
+        shapedirs = np.concatenate([sd[..., :num_betas], sd[..., 300:300 + num_expr]], axis=-1)
+    else:
+        shapedirs = sd[..., :num_betas + num_expr]
+    parents_row = np.asarray(params["kintree_table"])[0].astype(np.int64)
+    parents = (-1,) + tuple(int(p) for p in parents_row[1:])
+
+    def t_(x, dtype=np.float32):
+        return torch.as_tensor(np.ascontiguousarray(np.asarray(x), dtype=dtype), device=device)
+
+    return SMPLModel(
+        v_template=t_(params["v_template"]), shapedirs=t_(shapedirs),
+        posedirs=t_(params["posedirs"]), J_regressor=t_(params["J_regressor"]),
+        weights=t_(params["weights"]),
+        faces=t_(np.asarray(params["f"]).astype(np.int64), np.int32), parents=parents)
+
+
+def big_pose_params_smplx(n_shapes: int = 20, device=None):
+    """The big pose for SMPL-X (the reference's dataset_readers.py:769-785):
+    SMPL's four body angles in the 165-dim full pose [global 3 | body 63 |
+    jaw 3 | leye 3 | reye 3 | lhand 45 | rhand 45]."""
+    device = resolve_device(device)
+    poses = np.zeros((1, 165), np.float32)
+    poses[0, 3 + 2] = np.deg2rad(45.0)
+    poses[0, 3 + 5] = np.deg2rad(-45.0)
+    poses[0, 3 + 20] = np.deg2rad(-30.0)
+    poses[0, 3 + 23] = np.deg2rad(30.0)
+    return {
+        "poses": torch.as_tensor(poses, device=device),
+        "shapes": torch.zeros((1, n_shapes), device=device),
+        "R": torch.eye(3, device=device),
+        "Th": torch.zeros((1, 3), device=device),
+    }
 
 
 def big_pose_params(n_shapes: int = 10, device=None):
@@ -160,7 +228,7 @@ def shaped_vertices(model: SMPLModel, shapes):
 def transform_params(model: SMPLModel, params, rot_mats=None, correct_Rs=None):
     """(A, R, Th, joints, rot_mats) for LBS.
 
-    params: dict with 'poses' (B,72), 'shapes' (B,S), 'R' (3,3), 'Th'.
+    params: dict with 'poses' (B, 3 J), 'shapes' (B, S), 'R' (3, 3), 'Th'.
     correct_Rs: optional (B, J-1, 3, 3) corrections right-multiplied into the
     non-root joint rotations.
     """

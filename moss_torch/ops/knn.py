@@ -29,7 +29,9 @@ def knn(queries, refs, k: int = 1, chunk: int = 4096, ref_valid=None):
             d, i = torch.min(d2, dim=-1, keepdim=True)
         else:
             d, i = torch.sort(d2, dim=-1, stable=True)
-            d, i = d[:, :k], i[:, :k]
+            # copies: a slice would keep the chunk's whole sorted block alive
+            # until the cat (49 blocks of 2.4 GB for 100,000 points)
+            d, i = d[:, :k].clone(), i[:, :k].clone()
         d2s.append(d)
         idxs.append(i)
     d2 = torch.clamp_min(torch.cat(d2s), 0.0)

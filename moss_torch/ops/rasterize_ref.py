@@ -53,7 +53,10 @@ def _composite_chunk(T_in, done_in, alpha, feat):
     T_excl = T_in[None] * torch.cat([torch.ones_like(cum2[:1]), cum2[:-1]], dim=0)
     w = a * T_excl  # (K, N)
     acc = w.T @ feat
-    return T_in * cum2[-1], fired[-1], acc
+    # a copy: the view fired[-1] would keep the whole (K, N) mask alive as
+    # long as `done` lives, through every later chunk's remat (at 800x800
+    # and 131,072 Gaussians, 1,024 chunks of 82 MB)
+    return T_in * cum2[-1], fired[-1].clone(), acc
 
 
 def _blend_chunk(T, done, mean2d, conic, opacity, valid, rect, feat, px, py, pt_y, pt_x):

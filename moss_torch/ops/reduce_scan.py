@@ -139,9 +139,26 @@ def full_f32():
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
+@contextmanager
+def one_cpu_thread(t):
+    """CPU products on one thread. The CPU BLAS splits a long contraction
+    (moments' K = 1024) over its threads, so its sums' order, and their last
+    bits, follow the thread count: on one thread a plain version gives the
+    same bits in every call, whatever the process's thread setting."""
+    if t.device.type != "cpu":
+        yield
+        return
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def _mm(a, b, mode):
     """a @ b with the operands rounded as `mode` rounds them, f32 sums."""
-    with full_f32():
+    with full_f32(), one_cpu_thread(a):
         if mode == "cuda":
             return a @ b
         if mode == "bf16":

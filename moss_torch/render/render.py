@@ -25,11 +25,13 @@ from .camera import Camera
 
 @dataclasses.dataclass(frozen=True)
 class SceneContext:
-    """Per-sequence constants: body model + canonical big pose."""
+    """Per-sequence constants: body model + canonical big pose. A static
+    scene has no body (smpl and big_pose_params None) and its seed points
+    as big_pose_vertices (data/colmap.static_scene_context)."""
 
-    smpl: SMPLModel
-    big_pose_params: Dict        # poses/shapes/R/Th tensors
-    big_pose_vertices: torch.Tensor  # (V, 3) big-pose world vertices
+    smpl: Optional[SMPLModel]
+    big_pose_params: Optional[Dict]  # poses/shapes/R/Th tensors
+    big_pose_vertices: torch.Tensor  # (V, 3) big-pose world vertices, or a static scene's points
 
 
 def render_frame(

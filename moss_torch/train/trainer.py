@@ -53,15 +53,17 @@ from .train_step import TrainState, active_sh_degree, make_train_step
 
 
 # the scene's spatial scale: the monocular reference forces the camera
-# radius to 1 (dataset_readers.py:714), so every user of moss_tpu trains at 1
+# radius to 1 (dataset_readers.py:714), so every body scene trains at 1; a
+# static COLMAP/Blender scene passes its nerfpp_norm radius (data/colmap.py)
 EXTENT = 1.0
 
 
 def init_gaussians_and_mlps(scene: SceneContext, cfg: Config, device=None):
-    """(params, gstate, mlps or None): the cloud seeded on the big-pose SMPL
-    vertices (an even subsample when n_init_points is smaller), random
-    colours from cfg.seed, and the correction MLPs from a Generator seeded
-    with cfg.seed."""
+    """(params, gstate, mlps or None): the cloud seeded on the big-pose body
+    vertices, SMPL's or SMPL-X's (a static scene's points), an even subsample
+    when n_init_points is smaller, random colours from cfg.seed, and the
+    correction MLPs from a Generator seeded with cfg.seed (None without
+    motion_offset, as for SMPL-X and static scenes)."""
     device = resolve_device(device)
     verts = scene.big_pose_vertices.detach().cpu().numpy()
     if cfg.model.n_init_points < verts.shape[0]:
@@ -81,16 +83,17 @@ class Trainer:
     """Trains one avatar. train_frames and test_frames are Frames on the
     trainer's device; lpips_params are the LPIPS tower's weights
     (ops/lpips.py). Renders go through rasterize_cuda: the blend kernels for
-    CUDA tensors, their plain version for CPU ones. log_fn(it, logs) gets
-    each iteration's logs as Python numbers."""
+    CUDA tensors, their plain version for CPU ones. extent is the scene's
+    spatial scale: the xyz learning rate's factor and densification's size
+    unit. log_fn(it, logs) gets each iteration's logs as Python numbers."""
 
     def __init__(self, scene: SceneContext, train_frames: List[Frame], test_frames: List[Frame],
-                 cfg: Config, lpips_params, crop_hw=None,
+                 cfg: Config, lpips_params, crop_hw=None, extent: float = EXTENT,
                  log_fn: Optional[Callable[[int, Dict], None]] = None, device=None):
         self.device = resolve_device(device)
         if cfg.model.static_scene and cfg.model.motion_offset:
             raise ValueError("static_scene has no body model: set motion_offset=False")
-        self.scene, self.cfg = scene, cfg
+        self.scene, self.cfg, self.extent = scene, cfg, extent
         self.train_frames, self.test_frames = train_frames, test_frames
         self.lpips_params = lpips_params
         self.log_fn = log_fn
@@ -106,7 +109,7 @@ class Trainer:
 
     def _make_step(self):
         return make_train_step(self.scene, self.cfg, None, self.lpips_params, *self.crop_hw,
-                               spatial_lr_scale=EXTENT, device=self.device)
+                               spatial_lr_scale=self.extent, device=self.device)
 
     def set_state(self, ts: TrainState):
         """Replace the train state (a converted moss_tpu state, a checkpoint)."""
@@ -264,10 +267,11 @@ class Trainer:
         ts = self.ts
         if cfg.model.static_scene:
             params, gstate, opt_state, stats = densify_and_prune_static(
-                ts.params["gauss"], ts.gstate, ts.opt_state, noise, cfg.optim, EXTENT, use_size)
+                ts.params["gauss"], ts.gstate, ts.opt_state, noise, cfg.optim, self.extent,
+                use_size)
         else:
             params, gstate, opt_state, stats = densify_and_prune(
-                ts.params["gauss"], ts.gstate, ts.opt_state, noise, cfg.optim, EXTENT,
+                ts.params["gauss"], ts.gstate, ts.opt_state, noise, cfg.optim, self.extent,
                 self.scene.big_pose_vertices, use_size)
         self.ts = TrainState({**ts.params, "gauss": params}, opt_state, gstate, ts.step)
         return stats

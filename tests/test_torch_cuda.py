@@ -4,7 +4,8 @@ csrc/segment_sum.cu), with tiles split into segments against the plain
 segment scheme (ops/split_blend.py) and against the same kernels unsplit,
 and one training step through them, a Trainer resumed from its checkpoint
 (bitwise the uninterrupted run) and a saved avatar loaded, compacted and
-rendered, the sort passes
+rendered, a ragged frame (W no multiple of the tile) with split tiles and a
+J=55 (SMPL-X) frame, the sort passes
 (csrc/sort_pass.cu), the 3x3 conv's two kernels (csrc/conv3x3.cu: tensor
 cores for bf16, CUDA cores for f32) and the reductions and scans
 (csrc/reduce_scan.cu).
@@ -764,3 +765,85 @@ def test_loaded_compacted_avatar_renders_as_the_plain_version(cuda_device, tmp_p
         for key in ("render", "render_alpha", "final_T"):
             assert_images_match(out[key], ref[key])
         assert_images_match(out["render_depth"], ref["render_depth"], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernels_on_a_ragged_frame_with_split_tiles(cuda_device):
+    """W = 120 = 7.5 tiles (DNA-Rendering's 1224 is 76.5): the last tile
+    column half outside the frame, tiles of more than rc.SEGMENT pairs split
+    into segments. The forward kernel against the plain blend under the
+    image rule, the backward kernel + segment sum against autograd through
+    it within the grad rule, one launch of each."""
+    H, W = 64, 120
+    proj = projected(cuda_device, H, W, n=1500)
+    # the cloud moved 45 px right, so it straddles the frame's right edge
+    proj = proj._replace(mean2d=proj.mean2d + torch.tensor([45.0, 0.0], device=cuda_device))
+    pairs = rc.bin_projected(proj, H, W)
+    assert int(pairs.tile_count.max()) > 2 * rc.SEGMENT
+    last_col = pairs.tile_count.reshape(-1, -(-W // rc.TILE))[:, -1]
+    assert int(last_col.sum()) > 0  # pairs in the partial tiles
+    bg = torch.tensor([0.2, 0.5, 0.7], device=cuda_device)
+    up = _upstream(cuda_device, H, W)
+    before = (rc.launches, rc.bwd_launches, rc.segment_launches)
+    g, out = _grads(proj, bg, H, W, up, rc.rasterize_cuda)
+    torch.cuda.synchronize()
+    assert (rc.launches, rc.bwd_launches, rc.segment_launches) == tuple(b + 1 for b in before)
+    plain = functools.partial(rasterize_reference, tile_h=rc.TILE, tile_w=rc.TILE)
+    g_ref, ref = _grads(proj, bg, H, W, up, plain)
+    assert out["color"].shape == (H, W, 3)
+    for key in ("color", "alpha", "final_T"):
+        assert_images_match(out[key], ref[key])
+    assert_images_match(out["depth"], ref["depth"], atol=1e-4)
+    for name, a, b in zip(rc._KERNEL_FIELDS, g[:-1], g_ref[:-1]):
+        assert_grad_close(a, b, name)
+    torch.testing.assert_close(g[-1], g_ref[-1], rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_smplx_frame_on_the_card(cuda_device):
+    """A J=55 frame (synthetic_smplx, motion_offset=False) at 48x72 through
+    render_frame: the kernel's render against the plain blend's, and the
+    Gaussian grads of a random image loss through both within the grad rule."""
+    from moss_torch.models import gaussians as G
+    from moss_torch.models import smpl as S
+    from moss_torch.render.render import SceneContext, render_frame
+
+    model = S.synthetic_smplx(n_verts=500, device=cuda_device)
+    big = S.big_pose_params_smplx(device=cuda_device)
+    v_big, _ = S.lbs_vertices(model, big["poses"][0], big["shapes"][0])
+    scene = SceneContext(smpl=model, big_pose_params=big, big_pose_vertices=v_big)
+    rng = np.random.default_rng(3)
+    params, valid = G.create_from_points(v_big.cpu().numpy(), rng.uniform(size=(500, 3)), 640,
+                                         sh_degree=1, device=cuda_device)
+    params.opacity = torch.where(valid[:, None], 0.0, params.opacity)  # opacity 0.5
+    H, W = 48, 72
+    cam = Camera.from_KRT(np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1.0]]),
+                          np.eye(3), np.array([0, 0, 2.5]), H, W, device=cuda_device)
+    sp = {"poses": torch.as_tensor(rng.normal(0, 0.2, (1, 165)).astype(np.float32),
+                                   device=cuda_device),
+          "shapes": torch.zeros((1, 20), device=cuda_device),
+          "R": torch.eye(3, device=cuda_device), "Th": torch.zeros((1, 3), device=cuda_device)}
+    up = _upstream(cuda_device, H, W)
+    plain = functools.partial(rasterize_reference, tile_h=rc.TILE, tile_w=rc.TILE)
+
+    def grads(raster):
+        leaves = G.GaussianParams(**{f: getattr(params, f).clone().requires_grad_()
+                                     for f in G.FIELDS})
+        out = render_frame(leaves, valid, None, scene, sp, cam, torch.zeros(3, device=cuda_device),
+                           1, rasterize_fn=raster, motion_offset=False, device=cuda_device)
+        loss = (out["render"] * up["color"]).sum() + (out["render_alpha"] * up["alpha"]).sum()
+        return out, torch.autograd.grad(loss, [getattr(leaves, f) for f in G.FIELDS],
+                                        allow_unused=True)
+
+    before = rc.launches
+    out, g = grads(None)
+    assert rc.launches == before + 1
+    ref, g_ref = grads(plain)
+    assert out["pose_out"] is None and out["lbs_weights"].shape == (640, 55)
+    assert float(out["render_alpha"].detach().max()) > 0.1
+    for key in ("render", "render_alpha", "final_T"):
+        assert_images_match(out[key].detach(), ref[key].detach())
+    assert_images_match(out["render_depth"].detach(), ref["render_depth"].detach(), atol=1e-4)
+    for name, a, b in zip(G.FIELDS, g, g_ref):
+        if b is not None and float(b.abs().max()) > 0:
+            assert_grad_close(a, b, name)

@@ -1,8 +1,10 @@
 """moss_torch stands alone: no jax, no moss_tpu, and no silent CPU fallback.
 
 Every module, the drivers under moss_torch/cli/ included, imports neither jax
-nor moss_tpu; cv2 and imageio only in data/readers.py and the drivers; every
-entry point, the slice's loaders and the drivers without --device among them,
+nor moss_tpu; cv2 and imageio only in the readers (data/readers.py, smc.py,
+dna.py, colmap.py) and the drivers; the readers import h5py and imageio only
+inside functions, so they import on a machine without them; every entry
+point, the slice's loaders and the drivers without --device among them,
 raises where there is no CUDA device.
 """
 import glob
@@ -21,7 +23,7 @@ from moss_torch.data import synthetic
 from moss_torch.models import gaussians, smpl
 from moss_torch.cli import render_monocap, render_zju, train_zju
 from moss_torch.config import Config
-from moss_torch.data import readers
+from moss_torch.data import colmap, dna, readers
 from moss_torch.ops import lpips, rasterize_cuda as rc
 from moss_torch.ops.projection import Projected
 from moss_torch.render.camera import Camera
@@ -47,7 +49,8 @@ leaked = sorted(m for m in set(sys.modules) - before
 missing = {"moss_torch.cli.train_zju", "moss_torch.cli.render_zju",
            "moss_torch.cli.render_monocap", "moss_torch.data.readers",
            "moss_torch.data.prefetch", "moss_torch.data.ply",
-           "moss_torch.train.checkpoint", "moss_torch.train.observability"} - set(names)
+           "moss_torch.train.checkpoint", "moss_torch.train.observability",
+           "moss_torch.data.smc", "moss_torch.data.dna", "moss_torch.data.colmap"} - set(names)
 print(len(names), leaked, missing)
 sys.exit(1 if leaked or missing or len(names) < 15 else 0)
 """
@@ -62,8 +65,10 @@ def test_imports_neither_jax_nor_moss_tpu():
 
 # the host-side image libraries, allowed only where frames are decoded or written
 IMAGE_IO = re.compile(r"^\s*(import|from)\s+(cv2|imageio)\b", re.M)
-IMAGE_IO_ALLOWED = {"data/readers.py", "cli/train_zju.py", "cli/render_zju.py",
-                    "cli/render_monocap.py"}
+IMAGE_IO_ALLOWED = {"data/readers.py", "data/smc.py", "data/dna.py", "data/colmap.py",
+                    "cli/train_zju.py", "cli/render_zju.py", "cli/render_monocap.py"}
+# h5py and imageio at a module's top level (an import inside a function is indented)
+TOP_LEVEL_H5PY_IMAGEIO = re.compile(r"^(import|from)\s+(h5py|imageio)\b", re.M)
 
 
 def test_cv2_and_imageio_only_in_the_readers_and_drivers():
@@ -72,6 +77,17 @@ def test_cv2_and_imageio_only_in_the_readers_and_drivers():
                                                          recursive=True)
              if IMAGE_IO.search(open(p).read())}
     assert users and users <= IMAGE_IO_ALLOWED, users
+
+
+def test_the_readers_import_h5py_and_imageio_inside_functions_only():
+    """The card's machine may lack h5py and has no imageio: the readers and
+    the modules that import them must still import there."""
+    data = os.path.join(REPO, "moss_torch", "data")
+    for name in ("readers.py", "smc.py", "dna.py", "colmap.py", "prefetch.py"):
+        src = open(os.path.join(data, name)).read()
+        assert not TOP_LEVEL_H5PY_IMAGEIO.search(src), name
+    assert "import h5py" in open(os.path.join(data, "smc.py")).read()
+    assert "import imageio" in open(os.path.join(data, "colmap.py")).read()
 
 
 def _entry_points():
@@ -107,6 +123,18 @@ def _entry_points():
         "checkpoint.convert_torch_mlp_state":
             lambda: checkpoint.convert_torch_mlp_state({}, {}),
         "smpl.load_smpl_pickle": lambda: smpl.load_smpl_pickle("missing.pkl"),
+        "smpl.synthetic_smplx": lambda: smpl.synthetic_smplx(n_verts=50),
+        "smpl.big_pose_params_smplx": lambda: smpl.big_pose_params_smplx(),
+        "smpl.load_smplx_npz": lambda: smpl.load_smplx_npz("missing.npz"),
+        "dna.read_dna_rendering": lambda: dna.read_dna_rendering("missing_main.smc"),
+        "dna.DNAFrameSpec.load": lambda: dna.DNAFrameSpec(
+            "missing_main.smc", "missing_annots.smc", 26, 0, 0.5, False, {},
+            np.zeros((2, 3))).load(),
+        "readers.detect_and_read (.smc)": lambda: readers.detect_and_read("missing_main.smc"),
+        "colmap.static_scene_context": lambda: colmap.static_scene_context(pts),
+        "colmap.frame_from_spec": lambda: colmap.frame_from_spec(
+            {"image_path": "missing.png", "R_w2c": np.eye(3), "T_w2c": np.zeros((3, 1)),
+             "fovx": 0.8}),
         "readers.read_zju_mocap_refine": lambda: readers.read_zju_mocap_refine("missing"),
         "readers.read_monocap": lambda: readers.read_monocap("missing"),
         "readers.FrameSpec.load": lambda: readers.FrameSpec(

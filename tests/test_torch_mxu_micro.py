@@ -165,6 +165,25 @@ def test_wrappers_on_cpu_tensors_launch_nothing(data):
 
 
 @pytest.mark.parametrize("name", list(PALLAS))
+def test_plain_is_bitwise_the_same_at_any_thread_count(data, name):
+    """The card test that compares rs.run with rs.run_plain on CPU tensors
+    once found two calls unequal: the CPU BLAS orders a long contraction's
+    sums by its thread count (moments differed by up to 192 at 2 and 8
+    threads against 1). The plain products now run on one thread."""
+    x, s = torch.as_tensor(data["x"]), torch.as_tensor(data["s"])
+    before = torch.get_num_threads()
+    outs = []
+    try:
+        for n in (1, 2, 3, 8):
+            torch.set_num_threads(n)
+            outs.append(rs.run_plain(name, x, s, reps=3))
+            assert torch.get_num_threads() == n
+    finally:
+        torch.set_num_threads(before)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("name", list(PALLAS))
 def test_plain_on_a_stack_of_chunks(data, plain_out, name):
     """The plain versions on (T, K, 8, 128), as a launch's TILES copies are
     timed, give each chunk's output."""

@@ -5,7 +5,7 @@ against no remat, and the backward kernel's algorithm against autograd.
     preprocess) and the bg grad against jax.grad through moss_tpu's plain
     blend at the same 16x16 tiles: the cases of tests/test_rasterize_tpu.py:
     117-166 with its tolerance (divide by max|g_ref|, atol 5e-4; bg rtol 1e-4);
-  * remat=True gives the grads of remat=False;
+  * remat=True gives the grads of remat=False, and keeps no chunk-sized tensor;
   * sequential_blend_bwd walks each tile's pairs in csrc/rasterize_bwd.cu's
     order (forward-order prefix, per-pair tile sums, then the Gaussian-order
     segment sum through the kept sort permutation) and must give autograd's
@@ -112,6 +112,27 @@ def test_remat_matches_no_remat(rng):
     for name, a, b in zip(rc._KERNEL_FIELDS, _plain_grads(proj, bg, H, W, up, remat=True),
                           _plain_grads(proj, bg, H, W, up)):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+def test_remat_keeps_no_chunk_sized_tensor(rng):
+    """remat=True keeps, per chunk, the chunk's inputs and the carried
+    (H*W,) state, never a (chunk, H*W) tensor: the carried stop mask was a
+    view of the chunk's whole mask, and 1,024 of them (82 MB each at
+    800x800) filled an 80 GB card."""
+    H = W = 48
+    proj = to_torch(jax_projected(rng, make_camera(H, W), n=100))
+    leaves = [getattr(proj, f).clone().requires_grad_() for f in rc._KERNEL_FIELDS]
+    p = proj._replace(**dict(zip(rc._KERNEL_FIELDS, leaves)))
+    storages = {}
+
+    def pack(t):
+        storages[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        rasterize_reference(p, torch.zeros(3), H, W, tile_h=rc.TILE, tile_w=rc.TILE, chunk=32,
+                            remat=True)
+    assert storages and max(storages.values()) < 32 * H * W  # a (32, H*W) bool mask is that
 
 
 def sequential_blend_bwd(pairs, proj: Projected, H, W, gimg):

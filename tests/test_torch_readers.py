@@ -14,8 +14,10 @@
   * load_smpl_pickle on a pickle of synthetic_smpl's arrays with a
     scipy-sparse J_regressor and a uint32 kintree_table (root 2^32 - 1),
     against moss_tpu's loader, and the posed vertices on it.
-  * load_json reads a cfg.json that moss_tpu's save_json wrote, drops its
-    JAX-only keys and rejects any other unknown key.
+  * load_json reads a cfg.json that moss_tpu's save_json wrote (SMPL,
+    SMPL-X and static configs), drops its JAX-only keys and rejects any
+    other unknown key; config_from_jax agrees.
+  * detect_and_read sends a .smc path to the DNA-Rendering reader.
   * iter_frames, the counterparts of tests/test_prefetch.py's: loaded frames
     pass through, specs decode in order onto the given device, an early
     break stops the decoding, a decode error reaches the consumer.
@@ -37,7 +39,7 @@ from moss_tpu import config as jconfig
 from moss_tpu.data import readers as jreaders
 from moss_tpu.models import smpl as jsmpl
 from moss_tpu.render.camera import dump_cameras_json as jax_dump_cameras_json
-from moss_torch import config
+from moss_torch import config, convert
 from moss_torch.data import readers
 from moss_torch.data.prefetch import iter_frames
 from moss_torch.models import smpl
@@ -168,9 +170,24 @@ def test_cameras_json_matches_moss_tpu(datasets, tmp_path):
     assert len(json.load(open(tmp_path / "port.json"))) == 68
 
 
-def test_detect_and_read_refuses_dna_rendering():
-    with pytest.raises(ValueError, match="later slice"):
-        readers.detect_and_read("/data/subject.smc", device=CPU)
+def test_detect_and_read_refuses_dna_rendering(tmp_path):
+    """Once a refusal, now the dispatch: detect_and_read sends a .smc path
+    (and a path naming dna_rendering) to the DNA-Rendering reader, as
+    moss_tpu's does (moss_tpu/data/readers.py:395-411)."""
+    pytest.importorskip("h5py")
+    from moss_torch.data.dna import DNAFrameSpec
+    from test_smplx_dna import _write_smc_fixture
+
+    main = _write_smc_fixture(str(tmp_path), n_frames=2)
+    for split, views in (("train", [26, 26]), ("test", [24, 25, 27, 28])):
+        scene, specs = readers.detect_and_read(main, split, device=CPU)
+        _, jspecs = jreaders.detect_and_read(main, split)
+        assert all(isinstance(s, DNAFrameSpec) for s in specs)
+        assert [s.camera_id for s in specs] == [s.camera_id for s in jspecs] == views
+        assert scene.smpl.num_joints == 55
+    assert readers.READERS["dna_rendering"](main, "train", device=CPU)[1][1].frame_id == 1
+    with pytest.raises(ValueError, match="cannot detect"):
+        readers.detect_and_read("/data/subject.h5", device=CPU)
 
 
 def test_load_smpl_pickle_matches_moss_tpu(tmp_path):
@@ -222,6 +239,15 @@ def test_load_json_reads_moss_tpus_cfg(tmp_path):
     assert config.load_json(str(tmp_path / "port.json")) == cfg
     assert jconfig.load_json(str(tmp_path / "port.json")).model == jcfg.model
     assert config.monocap_preset("lan").exp_name == jconfig.monocap_preset("lan").exp_name
+
+    # an SMPL-X config (DNA-Rendering) and a static one (COLMAP/Blender)
+    for model in (jconfig.ModelConfig(smpl_type="smplx", motion_offset=False),
+                  jconfig.ModelConfig(static_scene=True, motion_offset=False)):
+        jcfg2 = dataclasses.replace(jcfg, model=model)
+        jconfig.save_json(jcfg2, path)
+        cfg2 = config.load_json(path)
+        assert dataclasses.asdict(cfg2.model) == dataclasses.asdict(model)
+        assert convert.config_from_jax(jcfg2).model == cfg2.model
 
     raw = json.load(open(path))
     raw["model"]["tile_budget"] = 3
