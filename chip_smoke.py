@@ -42,7 +42,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              the plain rasterizer; then 2 warm-up and 5 timed steps, with every
              kernel's launch count set to 0 just before and read just after
              (one launch of each per step), and one profiled step; and the
-             backward kernel's stages (phase 15) on the slice's projected input
+             backward kernel's stages (phase 19) on the slice's projected input
   7. trainer  the Trainer, the user's entry point for training an avatar:
              6,890 initial points in the 46,080 capacity, 4 train frames and
              1 test frame from make_frames at 512x512 (the cloud on the SMPL
@@ -119,10 +119,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              bytes decoded in memory by the reader's steps, the camera within
              1e-5; 3 training steps from the loaded frames. Elsewhere one line
              says h5py does not import
- 13. tool_sort  the two sort-pass kernels against their plain versions,
+ 13. novel_view  render_zju --novel_view's path on the trainer phase's
+             avatar, compacted: the test frame's pose (its transforms cached by
+             one full-path render) through ORBIT_VIEWS ZJU orbit cameras at
+             512x512 and as many MonoCap ones at 1024x1024
+             (render/novel_view.py), the subject moved to each orbit's centre
+             by its SMPL translation; every view with alpha > 0.5 somewhere and
+             its subject within a quarter of the frame of the centre, the views
+             ORBIT_CHECKED against the plain blend; ms per orbit frame, every
+             view's pairs and longest tile, row 1 on view 0
+ 14. viewer  the SIBR remote viewer (train/network_gui.py) on localhost while a
+             Trainer trains VIEWER_ITERS iterations: a client thread sends three
+             cameras (one at scale_modifier 0.5), one a poll; the bytes it gets
+             equal the uint8 quantization of render_frame at the same camera and
+             state; a viewer frame against the plain blend; ms of a serving
+             poll, the round trip, and a poll's cost with no viewer
+ 15. sharded  parallel/sharded.py on two ranks of the one card (two processes
+             on cuda:0 in a gloo group, the band gather a SUM all-reduce):
+             meshes 1 x 2 (two 256-row bands) and 2 x 1 (two frames a step),
+             SHARDED_STEPS steps each from the train phase's state, held to the
+             same steps on one process (losses, first grads, params, densify
+             statistics; tests/test_parallel.py's tolerances); each band's rows
+             1, 2 and 2b; ms per step on each rank
+ 16. monocap  phase 10's path at MonoCap's 1024x1024 on a 6,890-vertex SMPL
+             scene (the MLPs on), 46,080 capacity, the autosized crop, evals at
+             MONOCAP_EVALS, a TBWriter where tensorboardX imports, and five
+             steps under observability.profile_trace, whose trace must name
+             both blend kernels
+ 17. tool_sort  the two sort-pass kernels against their plain versions,
              exactly, at every stride of a 2^19-key network; a pass's time
              against R; then moss_torch.tools.sort_micro, counted
- 14. tool_conv  the two 3x3 conv kernels against their plain version: the
+ 18. tool_conv  the two 3x3 conv kernels against their plain version: the
              CUDA-core kernel in f32 (atol 1e-4) at the JAX tool's check()
              shapes and the eight VGG16 layer shapes, the tensor-core kernel
              in bf16 (2e-2 of the max) at the eight layers and at ragged
@@ -131,16 +158,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              equal to their plain versions; then moss_torch.tools.conv_proto,
              counted, which prints per layer the tensor-core kernel's ms,
              TFLOP/s, share of the bound, cuDNN's ms and its stages' ms
- 15. tool_bwd_floor  the backward kernel's stages: full and full_soa bitwise
+ 19. tool_bwd_floor  the backward kernel's stages: full and full_soa bitwise
              equal to the production kernel, every stage held to its plain
              version, with times and bounds; then
              moss_torch.tools.bwd_kernel_floor, counted
- 16. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
+ 20. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
              cores, bf16, split2 and 3xTF32 tensor-core forms): their
              observers bitwise equal across the 256 tiles, a launch's time
              against REPS; then moss_torch.tools.mxu_micro, counted, which
              holds each against its plain version (1e-5 of the max)
- 17. timing  how many runs cuda_ms took again because the host had not
+ 21. timing  how many runs cuda_ms took again because the host had not
              queued them before their spin ended (0: every time above is the
              first run's), by phase and by kernel
 
@@ -151,14 +178,18 @@ Needs a CUDA device and nvcc; builds into build/moss_torch/.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
+import glob
 import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -178,14 +209,20 @@ from moss_torch.ops import bwd_stages, conv3x3 as conv, cuda_build, lpips, \
 from moss_torch.ops.knn import knn
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import inverse_sigmoid
+from moss_torch.parallel.distributed import initialize_distributed
+from moss_torch.parallel.sharded import make_mesh, make_sharded_train_step
+from moss_torch.render import novel_view as nv
 from moss_torch.render.camera import Camera
 from moss_torch.render.render import SceneContext, render_frame
 from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro, timing
 from moss_torch.tools.timing import cuda_ms
 from moss_torch.train import checkpoint as ckpt
 from moss_torch.train import densify as D
+from moss_torch.train import observability as obs
+from moss_torch.train import optim
 from moss_torch.train.losses import compute_losses, crop_window
 from moss_torch.train.optim import GAUSS_GROUPS, AdamState
+from moss_torch.train.network_gui import NetworkGUI, quantize
 from moss_torch.train.train_step import TrainState, active_sh_degree, make_train_step
 from moss_torch.train.trainer import Trainer
 
@@ -286,6 +323,29 @@ SLICE_EVALS = (1, 20, 30, 31, 40)
 BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 STATIC_DIR = os.path.join(BUILD, "blender_scene")
 DNA_DIR = os.path.join(BUILD, "dna_capture")
+# the orbits of render_zju --novel_view (render/novel_view.py): views an orbit,
+# frame sizes (ZJU's 512x512 after the reader's 0.5 scale, MonoCap's 1024x1024),
+# the focal length in image heights (the synthetic body fits in view at either
+# orbit's radius), and the views held against the plain blend
+ORBIT_VIEWS = 36
+MONOCAP_HW = 1024
+ORBIT_HW = {"zju": HW, "monocap": MONOCAP_HW}
+ORBIT_FOCAL = 1.0
+ORBIT_CHECKED = (0, 9, 18, 27)
+# the viewer phase's iterations (one poll each; the first three serve a camera)
+VIEWER_ITERS = 10
+# MonoCap's trainer: SLICE_TRAINER with evals at 1, 20 and 40
+MONOCAP_EVALS = (1, 20, 40)
+# the sharded phase: meshes (n_data, n_tile) of its two ranks, steps each,
+# tests/test_parallel.py's tolerances, and the ranks' time limit in seconds
+SHARDED_MESHES = ((1, 2), (2, 1))
+SHARDED_STEPS = 5
+SHARDED_LOSS_RTOL, SHARDED_LOSS_ATOL = 1e-4, 1e-5
+SHARDED_GRAD_RTOL, SHARDED_GRAD_ATOL = 1e-3, 1e-5
+SHARDED_PARAM_ATOL = 2e-5
+SHARDED_TIMEOUT = 600
+SHARDED_DIR = os.path.join(BUILD, "sharded")
+STAT_FIELDS = ("xyz_grad_accum", "denom", "max_radii2d")
 
 
 def emit(obj):
@@ -1492,19 +1552,24 @@ def counted(fn):
                  "segment_sum": rc.segment_launches}
 
 
-def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, steps=5, warmup=2):
+def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, steps=5, warmup=2,
+                       tb=None, trace_dir=None):
     """A scene family's main path at full width: the Trainer over
-    SLICE_TRAINER (two rounds, one opacity reset, evals at SLICE_EVALS), a
-    second run bitwise equal; training steps timed and one profiled; the
-    trained avatar's test frame served on the full path, the kernel against
-    the plain blend; rows 1, 2 and 2b on that frame's projected input.
-    Returns ({path: launches}, the rows)."""
+    SLICE_TRAINER (two rounds, one opacity reset, evals at the config's
+    test_iterations), a second run bitwise equal; training steps timed and
+    one profiled; the trained avatar's test frame served on the full path,
+    the kernel against the plain blend; rows 1, 2 and 2b on that frame's
+    projected input. A body without pose MLPs has zero Fisher fields, which
+    must come out zero. tb: the first run's TBWriter. trace_dir: five more
+    steps under observability.profile_trace there, whose trace must name
+    both blend kernels. Returns ({path: launches}, the rows)."""
     H, W = frames[0].camera.height, frames[0].camera.width
     model = cfg.model
+    evals = tuple(cfg.pipe.test_iterations)
 
     def run(timed):
         tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], cfg, lp, crop_hw=crop,
-                     extent=extent, device=dev)
+                     extent=extent, tb=tb if timed else None, device=dev)
         rounds, times = [], {"step": [], "densify": [], "eval": []}
 
         def clocked(fn, key):
@@ -1541,17 +1606,18 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
     finally:
         D.fisher_fields = fisher
     fisher_max = [max(float(x.abs().max()) for x in f) for f in fields]
-    if not all(bool(torch.isfinite(x).all()) for f in fields for x in f) or any(fisher_max) or \
+    if not all(bool(torch.isfinite(x).all()) for f in fields for x in f) or \
+            (any(fisher_max) and not model.motion_offset) or \
             len(fields) != (0 if model.static_scene else 2):
         raise AssertionError(f"{name}: the rounds' Fisher fields: max |.| {fisher_max}")
     iters = SLICE_TRAINER["iterations"]
-    want = {"rasterize_fwd": iters + len(SLICE_EVALS) * (len(frames) - TRAIN_FRAMES),
+    want = {"rasterize_fwd": iters + len(evals) * (len(frames) - TRAIN_FRAMES),
             "rasterize_bwd": iters, "segment_sum": iters}
     if trainer_launches != want:
         raise AssertionError(f"{name}: the trainer launched {trainer_launches}, not {want}")
     hist = tr.metrics_history
     psnr = {m["iteration"]: m["psnr"] for m in hist}
-    if [m["iteration"] for m in hist] != list(SLICE_EVALS) or \
+    if [m["iteration"] for m in hist] != list(evals) or \
             not all(math.isfinite(v) for m in hist for v in (m["psnr"], m["ssim"], m["lpips"])) \
             or not psnr[20] > psnr[1]:
         raise AssertionError(f"{name}: the trainer's evals {hist}")
@@ -1595,6 +1661,20 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
     if any(n != warmup + steps for n in step_launches.values()):
         raise AssertionError(f"{name}: {warmup + steps} steps launched {step_launches}")
     profile = device_breakdown(one_step, top=10)
+    trace = None
+    if trace_dir is not None:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with obs.profile_trace(trace_dir):
+            for i in range(5):
+                one_step(i % TRAIN_FRAMES)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        trace = {"file_mb": os.path.getsize(files[0]) / 1e6 if files else 0,
+                 **{k: k in text for k in ("rasterize_fwd_kernel", "rasterize_bwd_kernel")}}
+        if not all(trace[k] for k in ("rasterize_fwd_kernel", "rasterize_bwd_kernel")):
+            raise AssertionError(f"{name}: profile_trace wrote {files}, naming {trace}")
+        shutil.rmtree(trace_dir, ignore_errors=True)
 
     # the trained avatar served: the test frame on the full path
     test = frames[TRAIN_FRAMES]
@@ -1602,9 +1682,10 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
 
     def serve(raster=None):
         with torch.no_grad():
-            return render_frame(tr.ts.params["gauss"], tr.ts.gstate.valid, None, scene,
-                                test.smpl_params, test.camera, tr.bg, model.sh_degree,
-                                rasterize_fn=raster, motion_offset=False,
+            return render_frame(tr.ts.params["gauss"], tr.ts.gstate.valid,
+                                tr.ts.params.get("mlps"), scene, test.smpl_params, test.camera,
+                                tr.bg, model.sh_degree, rasterize_fn=raster,
+                                motion_offset=model.motion_offset,
                                 static_scene=model.static_scene, device=dev)
 
     full, serve_launches = counted(lambda: serve(
@@ -1641,13 +1722,13 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
     emit({"phase": name, "nvidia_smi": smi, "hw": [H, W], "crop": list(crop),
           "capacity": model.capacity, "initial_points": model.n_init_points,
           "sh_degree": model.sh_degree, "extent": extent, "schedule": SLICE_TRAINER,
-          "evals": SLICE_EVALS, "ms_per_iteration": float(np.median(steps_outside)),
+          "evals": evals, "ms_per_iteration": float(np.median(steps_outside)),
           "step_ms_trainer": times["step"], "ms_per_densify_round": times["densify"],
           "eval_ms": times["eval"], "live_after_rounds": [r["live"] for r in rounds],
           "rounds": rounds, "fisher_fields_max_abs": fisher_max, "metrics_history": hist,
           "bitwise_repeat": True,
           "ms_per_step": float(np.median(step_ms[warmup:])), "step_ms": step_ms,
-          "profile_step": profile, "served_ms_per_frame": serve_ms,
+          "profile_step": profile, "profile_trace": trace, "served_ms_per_frame": serve_ms,
           "max_abs_err_served": err_served, "launches": launches,
           "kernel_rows": rows, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return {k: sum(p[k] for p in launches.values()) for k in trainer_launches}, rows
@@ -1804,6 +1885,605 @@ def phase_dna(dev, smi, world, root=DNA_DIR, n_poses=2):
           "poses": n_poses, "read_ms": read_ms, "load_ms": load_ms, "camera_rel_err": cam_err,
           "psnr_vs_source_render": psnr_vs_render, "losses": losses, "launches": launches})
     return launches
+
+
+# ---- orbits, the viewer, MonoCap and the sharded step ---------------------------------
+
+
+def orbit_frames(scene, base, dataset, H, dev, n=None):
+    """The n orbit views of `dataset` (render/novel_view.py) about base's
+    pose at H x H, the subject moved to the orbit's centre by its SMPL
+    translation (the posed body's mean vertex onto it): base's Frame with
+    the orbit's camera and that Th."""
+    fn = nv.orbit_w2c_zju if dataset == "zju" else nv.orbit_w2c_monocap
+    n = n or ORBIT_VIEWS
+    v, _ = S.lbs_vertices(scene.smpl, base.poses[0], base.shapes[0])
+    world = v @ base.R.T + base.Th
+    Th = base.Th + (torch.tensor(nv.ORBIT_CENTER[dataset], device=dev) - world.mean(0))
+    K = np.array([[ORBIT_FOCAL * H, 0, H / 2], [0, ORBIT_FOCAL * H, H / 2], [0, 0, 1.0]])
+    frames = []
+    for i in range(n):
+        w2c = fn(i, n)
+        frames.append(dataclasses.replace(base, Th=Th, camera=Camera.from_KRT(
+            K, w2c[:3, :3].T, w2c[:3, 3], H, H, device=dev)))
+    return frames
+
+
+def cached_render(tr, frame, cache, raster=None):
+    """render_zju's serving render: the MLP-free path on a pose's cached transforms."""
+    ts = tr.ts
+    with torch.no_grad():
+        return render_frame(ts.params["gauss"], ts.gstate.valid, ts.params["mlps"], tr.scene,
+                            frame.smpl_params, frame.camera, tr.bg, MODEL.sh_degree,
+                            cached_transforms=cache["transforms"],
+                            cached_translation=cache["translation"], rasterize_fn=raster,
+                            device=tr.device)
+
+
+def plane_images(out):
+    return {"color": out["render"], "alpha": out["render_alpha"], "depth": out["render_depth"],
+            "final_T": out["final_T"]}
+
+
+def phase_novel_view(dev, trained, smi):
+    """Orbit views of the trained avatar, compacted, as render_zju
+    --novel_view serves them: the test frame's pose, its transforms cached
+    once by a full-path render, ORBIT_VIEWS ZJU views at 512x512 and as many
+    MonoCap views at 1024x1024 on the cached path. Every view has alpha > 0.5
+    somewhere and its subject within a quarter of the frame of the centre
+    (tests/test_novel_view.py:147-187); the views ORBIT_CHECKED of each orbit
+    against the plain blend (the image rule). Host-clock ms per orbit frame,
+    the pairs and longest tile of every view, and row 1 on view 0: the
+    kernel's ms, its bound and the plain blend's ms. Returns ({orbit:
+    launches}, {input: row})."""
+    tr, scene, frames, _ = trained
+    cap = tr.compact_for_eval()
+    live = int(tr.ts.gstate.valid.sum())
+    base = frames[TRAIN_FRAMES]
+    launches, rows, lines = {}, {}, {}
+    for dataset in ("zju", "monocap"):
+        H = ORBIT_HW[dataset]
+        views = orbit_frames(scene, base, dataset, H, dev)
+        seen = {}
+
+        def drive():
+            full, _ = serving_images(tr, views[0])
+            cache = {"transforms": full["transforms"], "translation": full["translation"]}
+            outs = [cached_render(tr, f, cache, lambda proj, *a, i=i: seen.__setitem__(i, proj)
+                                  or rc.rasterize_cuda(proj, *a)) for i, f in enumerate(views)]
+            return cache, outs
+
+        (cache, outs), n = counted(drive)
+        if n != {"rasterize_fwd": 1 + len(views), "rasterize_bwd": 0, "segment_sum": 0}:
+            raise AssertionError(f"novel_view {dataset}: launches {n}")
+        launches[dataset] = n
+        offsets = []
+        for i, out in enumerate(outs):
+            alpha = out["render_alpha"]
+            ys, xs = torch.nonzero(alpha > 0.1, as_tuple=True)
+            if float(alpha.max()) <= 0.5 or not len(ys):
+                raise AssertionError(f"novel_view {dataset} view {i}: subject not visible")
+            off = max(abs(float(ys.float().mean()) - H / 2), abs(float(xs.float().mean()) - H / 2))
+            offsets.append(off / H)
+            if off > 0.25 * H:
+                raise AssertionError(f"novel_view {dataset} view {i}: subject {off:.0f} px off "
+                                     "the centre")
+        errs, plain_ms = {}, []
+        for i in ORBIT_CHECKED:
+            ref, ms = clocked_ms(lambda i=i: rasterize_reference(
+                seen[i], tr.bg, H, H, tile_h=rc.TILE, tile_w=rc.TILE))
+            plain_ms.append(ms)
+            errs[i] = check_images(plane_images(outs[i]), ref, f"novel_view {dataset} view {i}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in views:
+            cached_render(tr, f, cache)
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3 / len(views)
+        bins = [rc.bin_projected(seen[i], H, H) for i in range(len(views))]
+        pairs = [p.num_pairs for p in bins]
+        longest = [int(p.tile_count.max()) for p in bins]
+        p0, proj0 = bins[0], seen[0]
+        rows[f"orbit_{dataset}_{H}x{H}"] = {
+            "pairs": p0.num_pairs, "max_tile_pairs": int(p0.tile_count.max()), **segments(p0),
+            "rasterize_fwd": {
+                "max_abs_err": max(errs.values()), "plain_ms": plain_ms[0],
+                "ms": cuda_ms(lambda: rc.rasterize_pairs(p0, proj0, H, H),
+                              site="rasterize_fwd orbit"),
+                "ms_unsplit": cuda_ms(lambda: rc.rasterize_pairs(p0, proj0, H, H,
+                                                                 unsplit_len(p0)),
+                                      site="rasterize_fwd orbit unsplit"),
+                **kernel_bound(proj0, p0, H, H)}}
+        lines[dataset] = {"hw": H, "views": len(views), "ms_per_frame": frame_ms,
+                          "pairs": pairs, "max_tile_pairs": longest,
+                          "subject_offset_share_max": max(offsets), "max_abs_err": errs,
+                          "plain_ms": plain_ms, "launches": n}
+        print(f"novel_view {dataset} ({smi}): {len(views)} views at {H}x{H}, {frame_ms:.2f} ms "
+              f"per orbit frame (cached path, host clock), pairs {min(pairs)}-{max(pairs)} "
+              f"(median {int(np.median(pairs))}), longest tile {min(longest)}-{max(longest)}; "
+              f"view 0's forward {rows[f'orbit_{dataset}_{H}x{H}']['rasterize_fwd']['ms']:.4f} ms, "
+              f"bound {rows[f'orbit_{dataset}_{H}x{H}']['rasterize_fwd']['bound_ms']:.4f} ms",
+              flush=True)
+    emit({"phase": "novel_view", "nvidia_smi": smi, "live": live, "capacity": cap,
+          "orbit_focal_heights": ORBIT_FOCAL, **lines})
+    return launches, rows
+
+
+def phase_viewer(dev, trained, smi, iters=VIEWER_ITERS):
+    """The SIBR remote viewer on localhost while a Trainer (the trainer
+    phase's scene and frames) trains `iters` iterations: a client thread
+    speaks the protocol, one message a poll, the first three with a camera
+    (a train view, the test view, the train view at scale_modifier 0.5), the
+    rest idle (resolution 0). The bytes it gets must equal the uint8
+    quantization of render_frame at the same camera and state, rendered
+    outside the viewer's path; one viewer frame against the plain blend.
+    Host-clock ms of a poll that serves a camera, the client's round trip
+    (which waits for the next poll, one iteration), and the poll's cost with
+    no client. Returns the kernels' launches in the run."""
+    _, scene, frames, lp = trained
+    gui = NetworkGUI(port=0)
+    gui.init()
+    port = gui.listener.getsockname()[1]
+    tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], trainer_config(), lp,
+                 crop_hw=(CROP, CROP), gui=gui, source_path="synthetic", device=dev)
+    cams = [(frames[0].camera, 1.0), (frames[TRAIN_FRAMES].camera, 1.0), (frames[0].camera, 0.5)]
+    expected, seen, poll_ms = [], [], []
+    render = tr._gui_render
+
+    def gui_render(spec):
+        counts = (rc.launches, rc.bwd_launches, rc.segment_launches)
+        with torch.no_grad():
+            out = render_frame(tr.ts.params["gauss"], tr.ts.gstate.valid, tr.ts.params["mlps"],
+                               scene, frames[0].smpl_params,
+                               Camera.from_viewer_spec(spec, device=dev), tr.bg,
+                               MODEL.sh_degree, scaling_modifier=float(spec["scale_modifier"]),
+                               rasterize_fn=lambda proj, *a: seen.append(proj)
+                               or rc.rasterize_cuda(proj, *a), device=dev)
+        expected.append(quantize(out["render"]))
+        rc.launches, rc.bwd_launches, rc.segment_launches = counts  # a comparison: not counted
+        return render(spec)
+
+    tr._gui_render = gui_render
+    poll = gui.poll
+
+    def timed_poll(*a, **kw):
+        out, ms = clocked_ms(lambda: poll(*a, **kw))
+        poll_ms.append(ms)
+        return out
+
+    gui.poll = timed_poll
+    got, rtt, err = [], [], []
+    # connected before training starts: the first poll accepts it
+    c = socket.create_connection(("127.0.0.1", port), timeout=120)
+    c.settimeout(120)
+
+    def client():
+        try:
+            for i in range(iters):
+                cam, scale = cams[i] if i < len(cams) else (None, 1.0)
+                H, W = (cam.height, cam.width) if cam is not None else (0, 0)
+                msg = {"resolution_x": W, "resolution_y": H, "train": True,
+                       "fov_y": 2 * math.atan(float(cam.tan_fovy)) if cam else 0.0,
+                       "fov_x": 2 * math.atan(float(cam.tan_fovx)) if cam else 0.0,
+                       "z_near": 0.01, "z_far": 100.0, "shs_python": False,
+                       "rot_scale_python": False, "keep_alive": False, "scale_modifier": scale,
+                       "view_matrix": (cam.world_view.cpu().numpy().reshape(-1).tolist()
+                                       if cam else [0.0] * 16),
+                       "view_projection_matrix": (cam.full_proj.cpu().numpy().reshape(-1)
+                                                  .tolist() if cam else [0.0] * 16)}
+                body = json.dumps(msg).encode()
+                t0 = time.perf_counter()
+                c.sendall(len(body).to_bytes(4, "little") + body)
+                img = recv_exact(c, H * W * 3)
+                n = int.from_bytes(recv_exact(c, 4), "little")
+                if recv_exact(c, n) != b"synthetic":
+                    raise AssertionError("the viewer's source path")
+                rtt.append((time.perf_counter() - t0) * 1e3)
+                if cam is not None:
+                    got.append(np.frombuffer(img, np.uint8).reshape(H, W, 3))
+            c.close()
+        except Exception as e:  # raised below
+            err.append(e)
+
+    thread = threading.Thread(target=client)
+    thread.start()
+    try:
+        _, launches = counted(lambda: tr.train(iters, eval_iters=[]))
+    finally:
+        thread.join(timeout=600)
+        gui.close()
+    want = {"rasterize_fwd": iters + len(cams), "rasterize_bwd": iters, "segment_sum": iters}
+    if err or len(got) != len(cams) or launches != want:
+        raise AssertionError(f"viewer: client {err}, {len(got)} images, launches {launches} "
+                             f"(want {want})")
+    for i, (a, b) in enumerate(zip(got, expected)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"viewer: camera {i}'s bytes differ from the quantized render "
+                                 f"({int((a != b).sum())} bytes)")
+    if np.array_equal(got[0], got[2]):
+        raise AssertionError("viewer: scale_modifier 0.5 rendered the same bytes")
+    cam0 = cams[0][0]
+    ref = rasterize_reference(seen[0], tr.bg, cam0.height, cam0.width, tile_h=rc.TILE,
+                              tile_w=rc.TILE)
+    err_fwd = check_images(rc.rasterize_cuda(seen[0], tr.bg, cam0.height, cam0.width), ref,
+                           "viewer frame")
+    idle = NetworkGUI(port=0)
+    idle.init()
+    n_idle = 2000
+    t0 = time.perf_counter()
+    for _ in range(n_idle):
+        idle.poll(None, "synthetic", training_done=False)
+    idle_us = (time.perf_counter() - t0) * 1e6 / n_idle
+    idle.close()
+    served = [poll_ms[i] for i in range(len(cams))]
+    print(f"viewer ({smi}): {len(cams)} cameras served during {iters} iterations, bytes equal "
+          f"to the quantized render; a serving poll {[round(x, 2) for x in served]} ms, client "
+          f"round trip {[round(x, 2) for x in rtt[:len(cams)]]} ms (waits for the next poll); "
+          f"a poll with no viewer {idle_us:.2f} us", flush=True)
+    emit({"phase": "viewer", "nvidia_smi": smi, "hw": HW, "iterations": iters,
+          "cameras": len(cams), "bytes_equal": True, "max_abs_err_vs_plain": err_fwd,
+          "serving_poll_ms": served, "idle_poll_ms": poll_ms[len(cams):],
+          "round_trip_ms": rtt, "poll_without_viewer_us": idle_us, "launches": launches})
+    return launches
+
+
+def recv_exact(sock, n):
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("the viewer server hung up")
+        buf += chunk
+    return buf
+
+
+def monocap_frames(scene, dev, H=None, n_frames=TRAIN_FRAMES + 1):
+    """make_frames at MonoCap's H x H (the target on the SMPL vertices at
+    TARGET_OPACITY), with the crop autosize_crop's rule takes for the
+    subjects' rects (alpha > 0.05), each frame's window centred on its rect."""
+    H = H or MONOCAP_HW
+    frames, _ = make_frames(scene, n_frames=n_frames, H=H, W=H, crop=CROP, opacity=TARGET_OPACITY)
+    rects = []
+    for f in frames:
+        ys, xs = np.nonzero((f.bkgd_mask > 0.05).cpu().numpy())
+        rects.append((ys.min(), ys.max(), xs.min(), xs.max()))
+    crop = readers.crop_for_rects([(y1 - y0 + 1, x1 - x0 + 1) for y0, y1, x0, x1 in rects], (H, H))
+    return [dataclasses.replace(
+        f, crop_y0=int(np.clip((y0 + y1) // 2 - crop[0] // 2, 0, H - crop[0])),
+        crop_x0=int(np.clip((x0 + x1) // 2 - crop[1] // 2, 0, H - crop[1])))
+        for f, (y0, y1, x0, x1) in zip(frames, rects)], crop
+
+
+def phase_monocap(dev, smi):
+    """MonoCap's frame size through the Trainer: phase_scene_family on a
+    6,890-vertex SMPL scene at 1024x1024 (the MLPs on), 46,080 capacity,
+    the autosized crop, SLICE_TRAINER with evals at MONOCAP_EVALS and a
+    TBWriter where tensorboardX imports, five steps under profile_trace."""
+    scene = make_scene(n_verts=N_VERTS, device=dev)
+    frames, crop = monocap_frames(scene, dev)
+    cfg = Config(model=MODEL, optim=OptimConfig(**SLICE_TRAINER),
+                 pipe=PipelineConfig(test_iterations=MONOCAP_EVALS, save_iterations=()))
+    logdir = os.path.join(BUILD, "monocap_tb")
+    shutil.rmtree(logdir, ignore_errors=True)
+    tb = obs.TBWriter(logdir)
+    tb_on = tb.writer is not None
+    print(f"monocap: {MONOCAP_HW}x{MONOCAP_HW}, crop {crop}; tensorboardX "
+          f"{'imports: TBWriter on' if tb_on else 'does not import: TBWriter off'}", flush=True)
+    out = phase_scene_family("monocap", dev, scene, frames, cfg,
+                             lpips.init_random(3407, device=dev), crop, 1.0, smi, tb=tb,
+                             trace_dir=os.path.join(BUILD, "monocap_trace"))
+    tb.close()
+    events = glob.glob(os.path.join(logdir, "events.out.tfevents.*"))
+    if tb_on and not events:
+        raise AssertionError("monocap: the TBWriter wrote no event file")
+    shutil.rmtree(logdir, ignore_errors=True)
+    emit({"phase": "monocap_tensorboard", "tensorboardx": tb_on, "event_files": len(events)})
+    return out
+
+
+def reference_batch_step(step, ts, frames, idx, feats):
+    """The data-parallel step on one process, the plain reference of the
+    sharded one: the grads of each frame's loss (TrainStep.grads) averaged,
+    AdamW with the step's skips, and each frame's densify statistics
+    summed. Returns (TrainState, mean loss, grads)."""
+    runs = [step.grads(ts, frames[i], 0, feats[i]) for i in idx]
+    grads = {g: {n: sum(r[3][g][n] for r in runs) / len(runs) for n in runs[0][3][g]}
+             for g in runs[0][3]}
+    cfg = step.cfg
+    skip = optim.skipped_groups(cfg.optim, cfg.model.white_background, ts.step + 1)
+    opt_state = optim.adamw_step(cfg.optim, ts.params, grads, ts.opt_state, skip)
+    gs = ts.gstate
+    with torch.no_grad():
+        for i, (_, _, out, _, off) in zip(idx, runs):
+            cam = frames[i].camera
+            gnorm = torch.linalg.norm(off * torch.tensor([cam.width * 0.5, cam.height * 0.5],
+                                                         device=off.device), dim=-1)
+            vis = out["visibility_filter"]
+            gs = dataclasses.replace(
+                gs, xyz_grad_accum=gs.xyz_grad_accum + torch.where(vis, gnorm, 0.0),
+                denom=gs.denom + vis.to(torch.float32),
+                max_radii2d=torch.maximum(gs.max_radii2d, torch.where(
+                    vis, out["radii"].to(torch.float32), 0.0)),
+                joint_F=gs.joint_F + out["pose_out"]["Rs"].detach(),
+                lbs_weight_sum=gs.lbs_weight_sum + out["lbs_weights"].detach())
+    loss = float(sum(float(r[0]) for r in runs) / len(runs))
+    return TrainState(ts.params, opt_state, gs, ts.step + 1), loss, grads
+
+
+def flat_params(params):
+    """{group.name: tensor} of the trained tensors, the grads' keys."""
+    out = {f"{f}.{f}": getattr(params["gauss"], f).detach() for f in G.FIELDS}
+    out.update({f"{k}.{n}": t.detach() for k, m in params["mlps"].items()
+                for n, t in m.named_parameters()})
+    return out
+
+
+def sharded_inputs(dev):
+    """What both the ranks and the reference start from: the train phase's
+    scene and frames (rebuilt, bitwise, from their seeds), the seeded LPIPS
+    backbone, the frames' ground-truth LPIPS towers, and the step."""
+    scene = make_scene(n_verts=N_VERTS, device=dev)
+    frames, _ = make_frames(scene, n_frames=TRAIN_FRAMES, H=HW, W=HW, crop=CROP)
+    lp = lpips.init_random(3407, device=dev)
+    feats = [lpips.gt_features(lp, crop_window(f.image, f.crop_y0, f.crop_x0, CROP, CROP))
+             for f in frames]
+    return scene, frames, lp, feats, Config(model=MODEL)
+
+
+def mesh_indices(k, n_data):
+    """The frames of step k's data rows."""
+    return [(k * n_data + d) % TRAIN_FRAMES for d in range(n_data)]
+
+
+def sharded_rank(rank, port, outdir, device):
+    """One of the sharded phase's two ranks (`python chip_smoke.py
+    --sharded-rank R PORT DIR DEVICE`): both on DEVICE in a gloo group; for each
+    mesh of SHARDED_MESHES, SHARDED_STEPS steps of make_sharded_train_step
+    from the train phase's state (DIR/start.npz), timed, counted; rank 0
+    writes the losses, the first step's grads, the params after the first and
+    the last step and the densify statistics; on the 1 x 2 mesh each rank
+    measures rows 1, 2 and 2b on its band's input (one rank at a time)."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    probe = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(probe)  # gloo takes CUDA tensors for all_reduce
+    if not torch.equal(probe, torch.full((4,), 3.0, device=dev)):
+        raise AssertionError(f"gloo's all_reduce of a CUDA tensor gave {probe}")
+    scene, frames, lp, feats, cfg = sharded_inputs(dev)
+    report = {"rank": rank, "gloo_cuda_all_reduce": True, "meshes": {}}
+    for n_data, n_tile in SHARDED_MESHES:
+        name = f"{n_data}x{n_tile}"
+        mesh = make_mesh(n_data, n_tile, [0, 1], device=dev)
+        bands = []
+        _, step = make_sharded_train_step(
+            scene, cfg, mesh, CROP, CROP, lp,
+            rasterize=lambda proj, *a: bands.append(proj) or rc.rasterize_cuda(proj, *a))
+        ts = ckpt.restore_checkpoint(os.path.join(outdir, "start.npz"), dev)
+        first = {}
+        grads_of = step.mesh_grads
+
+        def mesh_grads(*a, **k):
+            out = grads_of(*a, **k)
+            first.setdefault("r", out)
+            return out
+
+        step.mesh_grads = mesh_grads
+        losses, times = [], []
+        rc.launches = rc.bwd_launches = rc.segment_launches = 0
+        for k in range(SHARDED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, logs = step(ts, frames, mesh_indices(k, n_data), 0, feats)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(logs["loss"]))
+            if k == 0:
+                after_first = {k2: v.clone() for k2, v in flat_params(ts.params).items()}
+                stats_first = {f: getattr(ts.gstate, f).clone() for f in STAT_FIELDS}
+        launches = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
+                    "segment_sum": rc.segment_launches}
+        row = None
+        if n_tile > 1:
+            hb = HW // n_tile
+            band = rc.Projected(*(t.detach() if torch.is_tensor(t) else t for t in bands[0]))
+            for r in range(2):
+                dist.barrier()
+                if r == rank:
+                    ref, plain_ms = clocked_ms(lambda: rasterize_reference(
+                        band, step.bg, hb, HW, tile_h=rc.TILE, tile_w=rc.TILE))
+                    row = measure_rows(band, step.bg, hb, HW, ref, plain_ms)
+            dist.barrier()
+        report["meshes"][name] = {"mesh": [mesh.data_index, mesh.tile_index], "losses": losses,
+                                  "step_ms": times, "launches": launches, "band_rows": row}
+        if rank == 0:
+            arrays = {f"first.{k2}": v.cpu().numpy() for k2, v in after_first.items()}
+            arrays.update({f"last.{k2}": v.cpu().numpy()
+                           for k2, v in flat_params(ts.params).items()})
+            arrays.update({f"grad.{g}.{n}": t.cpu().numpy()
+                           for g, gr in first["r"][2].items() for n, t in gr.items()})
+            arrays.update({f"stats_first.{f}": v.cpu().numpy() for f, v in stats_first.items()})
+            arrays.update({f"stats_last.{f}": getattr(ts.gstate, f).cpu().numpy()
+                           for f in STAT_FIELDS})
+            np.savez(os.path.join(outdir, f"{name}.npz"), **arrays)
+        del step, ts, bands
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def assert_sharded_params(name, got, ref, grads, lr_steps, cfg):
+    """Params within PARAM_ATOL, but where a reference grad of some step lay
+    within the grad rule's atol of zero: there up to 2 lr a step (at eps
+    1e-15 an Adam step is about lr sign(g), and such a sign is not fixed by
+    the rule; tests/test_torch_parallel.py)."""
+    worst = 0.0
+    for k, v in ref.items():
+        group, pname = k.split(".", 1)
+        diff = np.abs(got[k] - v)
+        lr = optim.group_lr(cfg.optim, group, 0)
+        bad = (diff > SHARDED_PARAM_ATOL) & ~(grads[k] & (diff <= 2 * lr * lr_steps
+                                                          + SHARDED_PARAM_ATOL))
+        if bad.any():
+            raise AssertionError(f"sharded {name}: {k} differs in {int(bad.sum())} slots, "
+                                 f"max {float(diff.max()):.3e}")
+        worst = max(worst, float(np.where(grads[k], 0.0, diff).max()) if diff.size else 0.0)
+    return worst
+
+
+def phase_sharded(dev, train_ts, smi):
+    """Training over pixel bands and frames on two ranks of the one card
+    (parallel/sharded.py): two processes, both on cuda:0, in a gloo group
+    (NCCL refuses two ranks on one device), the band gather a SUM all-reduce
+    of zero-padded bands. Each mesh of SHARDED_MESHES (1 x 2: two bands of
+    256 rows; 2 x 1: two frames a step) runs SHARDED_STEPS steps from the
+    train phase's state; held to the same steps on one process
+    (TrainStep for one frame a step, reference_batch_step for two): each
+    step's loss (rtol 1e-4, atol 1e-5), the first step's grads (rtol 1e-3,
+    atol 1e-5), the params after the first and the last step (atol 2e-5,
+    assert_sharded_params), the densify denom exactly and accum to the grad
+    rule. Each band's rows 1, 2 and 2b (its input against the plain
+    versions), each rank's step ms. Returns ({mesh: launches}, the band
+    rows of rank 0)."""
+    outdir = SHARDED_DIR
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    ckpt.save_checkpoint(os.path.join(outdir, "start.npz"), train_ts)
+    scene, frames, lp, feats, cfg = sharded_inputs(dev)
+    _, step = make_train_step(scene, cfg, None, lp, CROP, CROP, device=dev)
+    refs = {}
+    for n_data, n_tile in SHARDED_MESHES:
+        ts = ckpt.restore_checkpoint(os.path.join(outdir, "start.npz"), dev)
+        losses, undecided = [], None
+        for k in range(SHARDED_STEPS):
+            idx = mesh_indices(k, n_data)
+            if n_data == 1:
+                _, _, _, grads, _ = step.grads(ts, frames[idx[0]], 0, feats[idx[0]])
+                ts, logs = step(ts, frames[idx[0]], 0, feats[idx[0]])
+                loss = float(logs["loss"])
+            else:
+                ts, loss, grads = reference_batch_step(step, ts, frames, idx, feats)
+            flat_g = {f"{g}.{n}": t for g, gr in grads.items() for n, t in gr.items()}
+            small = {kk: (v.abs() <= SHARDED_GRAD_ATOL).cpu().numpy() for kk, v in flat_g.items()}
+            undecided = small if undecided is None else {kk: undecided[kk] | small[kk]
+                                                         for kk in small}
+            losses.append(loss)
+            if k == 0:
+                # copies: the step updates the params in place
+                first = {kk: v.cpu().numpy().copy() for kk, v in flat_params(ts.params).items()}
+                stats_first = {f: getattr(ts.gstate, f).cpu().numpy().copy() for f in STAT_FIELDS}
+                first_grads = {kk: v.cpu().numpy().copy() for kk, v in flat_g.items()}
+                first_small = small
+        refs[n_data, n_tile] = dict(
+            losses=losses, first=first, grads=first_grads, first_small=first_small,
+            undecided=undecided, last={kk: v.cpu().numpy() for kk, v in flat_params(
+                ts.params).items()}, stats_first=stats_first,
+            stats_last={f: getattr(ts.gstate, f).cpu().numpy() for f in STAT_FIELDS})
+    del step, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    logs = [open(os.path.join(outdir, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                               str(r), str(port), outdir, str(dev)], stdout=logs[r],
+                              stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(
+                                  __file__))) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=SHARDED_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(rcs):
+        tails = [open(os.path.join(outdir, f"rank{r}.log")).read()[-3000:] for r in range(2)]
+        raise AssertionError(f"sharded: the ranks exited {rcs}:\n" + "\n".join(tails))
+    reports = [json.load(open(os.path.join(outdir, f"rank{r}.json"))) for r in range(2)]
+    launches, lines, band_rows = {}, {}, {}
+    for n_data, n_tile in SHARDED_MESHES:
+        name = f"{n_data}x{n_tile}"
+        ref = refs[n_data, n_tile]
+        got = dict(np.load(os.path.join(outdir, f"{name}.npz")))
+        ranks = [r["meshes"][name] for r in reports]
+        for r in ranks:
+            np.testing.assert_allclose(r["losses"], ref["losses"], rtol=SHARDED_LOSS_RTOL,
+                                       atol=SHARDED_LOSS_ATOL, err_msg=f"sharded {name} losses")
+        grad_err = 0.0
+        for kk, g_ref in ref["grads"].items():
+            g = got[f"grad.{kk}"]
+            np.testing.assert_allclose(g, g_ref, rtol=SHARDED_GRAD_RTOL, atol=SHARDED_GRAD_ATOL,
+                                       err_msg=f"sharded {name} grad {kk}")
+            grad_err = max(grad_err, float(np.abs(g - g_ref).max()))
+        err_first = assert_sharded_params(name, {kk: got[f"first.{kk}"] for kk in ref["first"]},
+                                          ref["first"], ref["first_small"], 1, cfg)
+        err_last = assert_sharded_params(name, {kk: got[f"last.{kk}"] for kk in ref["last"]},
+                                         ref["last"], ref["undecided"], SHARDED_STEPS, cfg)
+        # the densify statistics: after the first step as tests/test_parallel.py
+        # holds them; after the last, denom exactly, and accum's spread only
+        # reported (a slot whose Adam sign flipped moves its splat by 2 lr, and
+        # that splat's screen-space grads in the later steps with it)
+        for when in ("stats_first", "stats_last"):
+            np.testing.assert_array_equal(got[f"{when}.denom"], ref[when]["denom"],
+                                          err_msg=f"sharded {name} {when} denom")
+        np.testing.assert_allclose(got["stats_first.xyz_grad_accum"],
+                                   ref["stats_first"]["xyz_grad_accum"], rtol=SHARDED_GRAD_RTOL,
+                                   atol=SHARDED_GRAD_ATOL,
+                                   err_msg=f"sharded {name} first step's xyz_grad_accum")
+        np.testing.assert_array_equal(got["stats_first.max_radii2d"],
+                                      ref["stats_first"]["max_radii2d"],
+                                      err_msg=f"sharded {name} first step's max_radii2d")
+        a, b = got["stats_last.xyz_grad_accum"], ref["stats_last"]["xyz_grad_accum"]
+        beyond = np.abs(a - b) > SHARDED_GRAD_ATOL + SHARDED_GRAD_RTOL * np.abs(b)
+        accum_last = {"slots_beyond_grad_rule": int(beyond.sum()),
+                      "max_rel_err": float((np.abs(a - b) / np.maximum(np.abs(b), 1e-12))[
+                          b != 0].max()) if (b != 0).any() else 0.0}
+        per = {"rasterize_fwd": SHARDED_STEPS, "rasterize_bwd": SHARDED_STEPS,
+               "segment_sum": SHARDED_STEPS}
+        if any(r["launches"] != per for r in ranks):
+            raise AssertionError(f"sharded {name}: launches {[r['launches'] for r in ranks]}")
+        launches[name] = {k: 2 * v for k, v in per.items()}
+        lines[name] = {"losses": ranks[0]["losses"], "reference_losses": ref["losses"],
+                       "step_ms": [r["step_ms"] for r in ranks],
+                       "ms_per_step": [float(np.median(r["step_ms"][1:])) for r in ranks],
+                       "grad_max_abs_err": grad_err, "param_max_abs_err_first": err_first,
+                       "param_max_abs_err_last": err_last, "denom_exact": True,
+                       "accum_after_last_step": accum_last,
+                       "launches_per_rank": per}
+        if n_tile > 1:
+            for r, rank in zip(ranks, range(2)):
+                band_rows[f"band{rank}_{HW // n_tile}x{HW}"] = r["band_rows"]
+            lines[name]["bands"] = {
+                f"band{rank}": {k: {f: r["band_rows"][k][f] for f in (
+                    "ms", "ms_unsplit", "plain_ms", "bound_ms", "bound_by") if f in
+                    r["band_rows"][k]} for k in ("rasterize_fwd", "rasterize_bwd",
+                                                  "segment_sum")}
+                for r, rank in zip(ranks, range(2))}
+        print(f"sharded {name} ({smi}): {SHARDED_STEPS} steps from the train state on 2 ranks "
+              f"of {dev} (gloo): step ms per rank {lines[name]['ms_per_step']}; losses "
+              f"{ranks[0]['losses']} against one process's {ref['losses']}; grads max abs err "
+              f"{grad_err:.2e}, params {err_first:.2e} after one step, {err_last:.2e} after "
+              f"{SHARDED_STEPS}; denom exact; accum after {SHARDED_STEPS} steps {accum_last}"
+              + (f"; bands {lines[name]['bands']}" if n_tile > 1 else ""), flush=True)
+    shutil.rmtree(outdir, ignore_errors=True)
+    emit({"phase": "sharded", "nvidia_smi": smi, "hw": HW, "capacity": CAPACITY,
+          "backend": "gloo", "ranks_on_one_device": 2, "gloo_cuda_all_reduce": all(
+              r["gloo_cuda_all_reduce"] for r in reports), "steps": SHARDED_STEPS, **lines,
+          "nccl": "not run: NCCL takes one rank a device, and this card is one device"})
+    return launches, band_rows
 
 
 def phase_tool_sort(dev):
@@ -2085,6 +2765,8 @@ def phase_tool_mxu(dev):
 
 
 def main():
+    if len(sys.argv) == 6 and sys.argv[1] == "--sharded-rank":
+        return sharded_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     dev = torch.device("cuda", 0)
@@ -2131,18 +2813,28 @@ def main():
     bwd, train_launches, (train_ts, train_scene) = phase("train", phase_train, dev)
     trainer_launches, cuts, trained = phase("trainer", phase_trainer, dev)
     ckpt_launches = phase("checkpoint", phase_checkpoint, dev, trained, train_ts, CKPT_DIR, smi)
+    orbit_launches, orbit_rows = phase("novel_view", phase_novel_view, dev, trained, smi)
+    viewer_launches = phase("viewer", phase_viewer, dev, trained, smi)
     del trained
     phase("densify", phase_densify, dev, train_ts, train_scene, cuts)
+    sharded_launches, band_rows = phase("sharded", phase_sharded, dev, train_ts, smi)
     del train_ts, cuts
     (smplx_launches, smplx_rows), smplx_world = phase("smplx", phase_smplx, dev, smi)
     static_launches, static_rows = phase("static", phase_static, dev, smi)
     dna_launches = phase("dna", phase_dna, dev, smi, smplx_world)
     del smplx_world
-    # the scene families' launches by path, and rows 1, 2 and 2b on their inputs
+    monocap_launches, monocap_rows = phase("monocap", phase_monocap, dev, smi)
+    # the later paths' launches, and rows 1, 2 and 2b on their inputs
+    zero = {"rasterize_fwd": 0, "rasterize_bwd": 0, "segment_sum": 0}
     families = {"smplx": smplx_launches, "static": static_launches,
-                **({"dna": dna_launches} if dna_launches else {})}
+                **({"dna": dna_launches} if dna_launches else {}),
+                "novel_view": {k: sum(n[k] for n in orbit_launches.values()) for k in zero},
+                "viewer": viewer_launches, "monocap": monocap_launches,
+                "sharded": {k: sum(n[k] for n in sharded_launches.values()) for k in zero}}
     by_input = {f"smplx_{SMPLX_HW[1]}x{SMPLX_HW[0]}": smplx_rows,
-                f"static_{STATIC_HW}x{STATIC_HW}": static_rows}
+                f"static_{STATIC_HW}x{STATIC_HW}": static_rows,
+                f"monocap_{MONOCAP_HW}x{MONOCAP_HW}": monocap_rows, **orbit_rows,
+                **band_rows}
 
     def family_rows(kernel):
         keep = ("ms", "ms_unsplit", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -2150,7 +2842,7 @@ def main():
         return {name: {"pairs": r["pairs"], "max_tile_pairs": r["max_tile_pairs"],
                        "segments": r["segments"], "split_tiles": r["split_tiles"],
                        **{k: v for k, v in r[kernel].items() if k in keep}}
-                for name, r in by_input.items()}
+                for name, r in by_input.items() if kernel in r}
     sort_rows, sort_launches = phase("tool_sort", phase_tool_sort, dev)
     conv_rows, conv_launches = phase("tool_conv", phase_tool_conv, dev)
     floor_row, floor_launches = phase("tool_bwd_floor", phase_tool_bwd_floor, dev)

@@ -1,6 +1,7 @@
 """Serve trained MonoCap avatars with the port (the counterpart of the
 repository's render_monocap.py): render_zju with the MonoCap reader, its
-sequences and their best iterations, unless the arguments name others.
+sequences and their best iterations, unless the arguments name others; the
+other flags (--novel_view N among them) pass through.
 
     python -m moss_torch.cli.render_monocap --data_root /data/monocap --iterations -1 -1 -1 -1
 """

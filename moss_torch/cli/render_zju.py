@@ -9,8 +9,12 @@ mlp_ckpt/iteration_N/), fit the capacity to the live cloud unless
 --keep_capacity, cache each pose's transforms once (written to
 smpl_rot/iteration_N/smpl_rot.pickle as numpy), time the cached MLP-free
 render of every test frame and print one JSON line: subject, iteration, fps,
-psnr, ssim, lpips_x1000 and the LPIPS backbone. Runs on the GPU; --device
-cpu runs the plain PyTorch path.
+psnr, ssim, lpips_x1000 and the LPIPS backbone. --novel_view N renders
+instead N orbit views about each test pose (render/novel_view.py: each pose
+decoded once, its camera swapped for the orbit's), writes them all to
+renders/novel_view_iteration_N/ and prints subject, iteration, fps,
+novel_views and img_dir (no ground truth exists at those viewpoints). Runs
+on the GPU; --device cpu runs the plain PyTorch path.
 
     python -m moss_torch.cli.render_zju --data_root /data/zju_mocap --subjects 377 \\
         --iterations -1
@@ -26,7 +30,6 @@ import pickle
 import re
 import time
 
-import imageio.v2 as imageio
 import numpy as np
 import torch
 
@@ -36,6 +39,7 @@ from ..data.readers import read_monocap, read_zju_mocap_refine
 from ..ops import lpips
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn
+from ..render.novel_view import novel_view_specs
 from ..render.render import render_frame
 from ..train.checkpoint import load_reference_layout
 from ..train.trainer import Trainer
@@ -58,6 +62,9 @@ def parse_args(argv=None):
     p.add_argument("--lpips_weights", default=None,
                    help="LPIPS weights (.npz, ops/lpips.load_params); else a random backbone, "
                         "whose values are marked as not comparable")
+    p.add_argument("--novel_view", type=int, default=0, metavar="N",
+                   help="render N orbit views evenly spaced over the whole circle about each "
+                        "test pose instead of the test views (no metrics; PNGs always saved)")
     p.add_argument("--device", default=None, help="torch device (default: the GPU)")
     return p.parse_args(argv)
 
@@ -77,7 +84,20 @@ def render_subject(args, subject: str, iteration: int, device):
     name = f"my_{subject}" if zju else subject
     scene, test_specs = reader(os.path.join(args.data_root, name), "test",
                                args.white_background, smpl_path=args.smpl, device=device)
-    test_frames = [s.load(None, device) for s in test_specs]
+    if args.novel_view:
+        # camera_view_num = N: N views over the whole orbit (36, the reference's)
+        test_specs = novel_view_specs(test_specs, dataset=args.reader, n_views=args.novel_view,
+                                      camera_view_num=args.novel_view)
+        # decode each pose once; its orbit views only swap the camera
+        loaded, test_frames = {}, []
+        for s in test_specs:
+            if s.pose_id not in loaded:
+                loaded[s.pose_id] = s.load(None, device)
+            f = loaded[s.pose_id]
+            test_frames.append(dataclasses.replace(
+                f, camera=s.make_camera((f.camera.height, f.camera.width), device)))
+    else:
+        test_frames = [s.load(None, device) for s in test_specs]
     model_path = os.path.join(args.output, name)
     cfg_json = os.path.join(model_path, "cfg.json")
     # the saved training config decides the model fields (capacity, SH degree, MLPs)
@@ -133,18 +153,22 @@ def render_subject(args, subject: str, iteration: int, device):
         renders = [cached_render(frame) for frame in test_frames]
         sync()
         fps = len(test_frames) / (time.perf_counter() - t0)
+        if args.novel_view:
+            img_dir = os.path.join(model_path, "renders", f"novel_view_iteration_{iteration}")
+            write_pngs(img_dir, renders)
+            result = {"subject": subject, "iteration": iteration, "fps": fps,
+                      "novel_views": len(test_frames), "img_dir": img_dir}
+            print(json.dumps(result))
+            return result
         img_dir = os.path.join(model_path, "renders", f"iteration_{iteration}")
-        if args.save_images:
-            os.makedirs(img_dir, exist_ok=True)
         sums = np.zeros(3)
-        for i, (frame, img) in enumerate(zip(test_frames, renders)):
+        for frame, img in zip(test_frames, renders):
             img = torch.clamp(img, 0.0, 1.0)
             gt = torch.clamp(frame.image, 0.0, 1.0)
             sums += [float(psnr_fn(img, gt)), float(ssim_fn(img, gt)),
                      float(lpips.lpips(lp, img, gt))]
-            if args.save_images:
-                imageio.imwrite(os.path.join(img_dir, f"{i:05d}.png"),
-                                (img.cpu().numpy() * 255).astype(np.uint8))
+        if args.save_images:
+            write_pngs(img_dir, renders)
     n = len(test_frames)
     result = {"subject": subject, "iteration": iteration, "fps": fps, "psnr": sums[0] / n,
               "ssim": sums[1] / n, "lpips_x1000": sums[2] / n * 1000, "lpips_backbone": kind}
@@ -152,6 +176,16 @@ def render_subject(args, subject: str, iteration: int, device):
         result["lpips_note"] = note
     print(json.dumps(result))
     return result
+
+
+def write_pngs(img_dir: str, renders):
+    """Each render, clipped to [0, 1], as <img_dir>/<index:05d>.png."""
+    import imageio.v2 as imageio
+
+    os.makedirs(img_dir, exist_ok=True)
+    for i, img in enumerate(renders):
+        imageio.imwrite(os.path.join(img_dir, f"{i:05d}.png"),
+                        (torch.clamp(img, 0.0, 1.0).cpu().numpy() * 255).astype(np.uint8))
 
 
 def main(argv=None):

@@ -1,4 +1,4 @@
-"""Pinhole camera (port of moss_tpu/render/camera.py:22-89, 119-153).
+"""Pinhole camera (port of moss_tpu/render/camera.py:22-109, 119-153).
 
 Host math in float64 numpy, stored as f32 tensors, exactly as the JAX camera
 does. Row-vector convention:
@@ -77,6 +77,30 @@ class Camera:
             tan_fovy=f32(H / (2.0 * K[1, 1])),
             height=int(H),
             width=int(W),
+        )
+
+    @staticmethod
+    def from_viewer_spec(spec: dict, device=None) -> "Camera":
+        """A Camera from a SIBR remote-viewer message (train/network_gui.py
+        NetworkGUI.receive): the viewer sends the row-vector world_view and
+        full_proj matrices themselves (the reference's MiniCam, its
+        network_gui.py:70-84); the centre comes from world_view's inverse."""
+        device = resolve_device(device)
+        wv = np.asarray(spec["world_view_transform"], np.float64).reshape(4, 4)
+        fp = np.asarray(spec["full_proj_transform"], np.float64).reshape(4, 4)
+        cam_center = np.linalg.inv(wv)[3, :3]
+
+        def f32(x):
+            return torch.tensor(np.asarray(x, np.float32), device=device)
+
+        return Camera(
+            world_view=f32(wv),
+            full_proj=f32(fp),
+            cam_center=f32(cam_center),
+            tan_fovx=f32(np.tan(spec["fovx"] * 0.5)),
+            tan_fovy=f32(np.tan(spec["fovy"] * 0.5)),
+            height=int(spec["height"]),
+            width=int(spec["width"]),
         )
 
     @property

@@ -1,13 +1,19 @@
-"""The drivers' logging (port of the parts of moss_tpu/train/observability.py
-they call): timestamped stdout, EMA-smoothed losses and the result-file
-lines. TensorBoard and the profiler trace are not ported yet.
+"""Observability (port of moss_tpu/train/observability.py): timestamped
+stdout, EMA-smoothed losses, the result-file lines, TensorBoard scalars,
+images and histograms (tensorboardX, the reference's train_ZJU.py:220-291),
+a torch.profiler trace where moss_tpu takes a jax.profiler one, and section
+timing that waits for the device.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
 from typing import Dict, Optional
+
+import numpy as np
+import torch
 
 
 class TimestampedStdout:
@@ -70,3 +76,100 @@ def append_result_line(path: str, iteration: int, psnr: float, ssim: float, lpip
     suffix = f"  # {note}" if note else ""
     with open(path, "a") as f:
         f.write(f"{iteration} {psnr} {ssim} {lpips * 1000}{suffix}\n")
+
+
+def _host(x) -> np.ndarray:
+    """A tensor on any device, or an array, as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class TBWriter:
+    """A thin tensorboardX writer; it writes nothing when logdir is empty or
+    tensorboardX does not import (as moss_tpu's: a logging choice)."""
+
+    def __init__(self, logdir: Optional[str]):
+        self.writer = None
+        if logdir:
+            try:
+                from tensorboardX import SummaryWriter
+
+                os.makedirs(logdir, exist_ok=True)
+                self.writer = SummaryWriter(logdir)
+            except ImportError:
+                pass
+
+    def scalar(self, tag: str, value, step: int):
+        if self.writer is not None:
+            self.writer.add_scalar(tag, float(value), step)
+
+    def scalars(self, logs: Dict, step: int, prefix: str = "train/"):
+        for k, v in logs.items():
+            try:
+                self.scalar(prefix + k, float(v), step)
+            except (TypeError, ValueError):
+                pass
+
+    def image(self, tag: str, img_hwc, step: int):
+        if self.writer is not None:
+            self.writer.add_image(tag, np.clip(_host(img_hwc), 0, 1), step, dataformats="HWC")
+
+    def histogram(self, tag: str, values, step: int):
+        if self.writer is not None:
+            self.writer.add_histogram(tag, _host(values), step)
+
+    def close(self):
+        if self.writer is not None:
+            self.writer.close()
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: Optional[str]):
+    """A torch.profiler trace of the block, CPU and (where there is one) CUDA
+    activities, written under logdir as a Chrome trace
+    (trace_<pid>_<ns>.json); nothing when logdir is empty. The profile object
+    is yielded."""
+    if not logdir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class Timer:
+    """Host-clock section timing; a section with a sync_value waits for the
+    device its tensors lie on before it stops the clock (moss_tpu's
+    block_until_ready)."""
+
+    def __init__(self):
+        self.sections: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def section(self, name: str, sync_value=None):
+        t0 = time.time()
+        yield
+        if sync_value is not None:
+            _synchronize(sync_value)
+        self.sections[name] = self.sections.get(name, 0.0) + time.time() - t0
+
+
+def _synchronize(value):
+    """Wait for every CUDA device the tensors in `value` (a tensor, or a
+    list, tuple or dict of them) lie on."""
+    if isinstance(value, torch.Tensor):
+        if value.device.type == "cuda":
+            torch.cuda.synchronize(value.device)
+    elif isinstance(value, dict):
+        for v in value.values():
+            _synchronize(v)
+    elif isinstance(value, (list, tuple)):
+        for v in value:
+            _synchronize(v)

@@ -59,8 +59,17 @@ class TrainStep:
         self.bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0,
                              device=self.device)
 
+    # what the gradient is taken of: total * loss_scale (the sharded step
+    # differentiates its data mean)
+    loss_scale = 1.0
+
     def init(self, params: Dict) -> Dict[str, optim.AdamState]:
         return optim.init_state(params)
+
+    def loss_inputs(self, out: Dict) -> Dict:
+        """The render output the loss reads (the sharded step lets the
+        Fisher NLL's gradient through on one band's rank only)."""
+        return out
 
     def grads(self, ts: TrainState, frame: Frame, sh_degree: int, gt_lpips_feats=None):
         """(total, logs, render out, {group: {name: grad}}, mean2d-offset grad)."""
@@ -76,14 +85,15 @@ class TrainStep:
             mean2d_offset=offset, motion_offset=cfg.model.motion_offset,
             active_sh=sh_degree, static_scene=cfg.model.static_scene, device=self.device)
         total, logs = compute_losses(
-            out, frame.image, frame.bkgd_mask, frame.bound_mask, frame.pose_rotmats,
-            frame.crop_y0, frame.crop_x0, self.crop_h, self.crop_w,
+            self.loss_inputs(out), frame.image, frame.bkgd_mask, frame.bound_mask,
+            frame.pose_rotmats, frame.crop_y0, frame.crop_x0, self.crop_h, self.crop_w,
             lpips_params=self.lpips_params, weights=self.weights,
             gt_lpips_feats=gt_lpips_feats)
         groups = optim.param_groups({"gauss": leaves, "mlps": mlps})
         names = [(g, n) for g, tensors in groups.items() for n in tensors]
-        flat = torch.autograd.grad(
-            total, [groups[g][n] for g, n in names] + [offset], allow_unused=True)
+        scaled = total if self.loss_scale == 1.0 else total * self.loss_scale
+        flat = torch.autograd.grad(scaled, [groups[g][n] for g, n in names] + [offset],
+                                   allow_unused=True)
         grads: Dict[str, Dict[str, torch.Tensor]] = {g: {} for g in groups}
         for (g, n), gr in zip(names, flat[:-1]):
             grads[g][n] = torch.zeros_like(groups[g][n]) if gr is None else gr

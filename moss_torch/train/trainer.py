@@ -21,6 +21,15 @@ Generator seeded with (cfg.seed, iteration), so a resumed run replays it.
 save / load / resume_latest write and read chkpnt{N}.npz in moss_tpu's
 schema (train/checkpoint.py); compact_for_eval keeps moss_tpu's rule for the
 serving capacity.
+
+Options, as moss_tpu's: a TBWriter (`tb`) gets the eval-time dump; a
+NetworkGUI (`gui`, the SIBR remote viewer) is polled after every iteration,
+as the reference polls it (train_ZJU.py:67-80; moss_tpu polls only at its
+host boundaries because its dispatch is queued); a parallel Mesh (`mesh`)
+trains over pixel bands and frames on several ranks (parallel/sharded.py),
+n_data frames a step from the same epoch-shuffled order, evals on the full
+image on every rank alike, and resume_latest's step checked uniform across
+ranks. The callers write files on rank 0 only.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ from ..models.pose_refine import PoseRefine
 from ..ops import lpips
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn
+from ..render.camera import Camera
 from ..render.render import SceneContext, render_frame
 from . import checkpoint, optim
 from .densify import densify_and_prune, densify_and_prune_static
@@ -85,18 +95,24 @@ class Trainer:
     (ops/lpips.py). Renders go through rasterize_cuda: the blend kernels for
     CUDA tensors, their plain version for CPU ones. extent is the scene's
     spatial scale: the xyz learning rate's factor and densification's size
-    unit. log_fn(it, logs) gets each iteration's logs as Python numbers."""
+    unit. log_fn(it, logs) gets each iteration's logs as Python numbers.
+    tb, gui, source_path and mesh: the module docstring; with a mesh the
+    trainer runs on the mesh's device."""
 
     def __init__(self, scene: SceneContext, train_frames: List[Frame], test_frames: List[Frame],
                  cfg: Config, lpips_params, crop_hw=None, extent: float = EXTENT,
-                 log_fn: Optional[Callable[[int, Dict], None]] = None, device=None):
-        self.device = resolve_device(device)
+                 log_fn: Optional[Callable[[int, Dict], None]] = None, tb=None, mesh=None,
+                 gui=None, source_path: str = "", device=None):
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
         if cfg.model.static_scene and cfg.model.motion_offset:
             raise ValueError("static_scene has no body model: set motion_offset=False")
         self.scene, self.cfg, self.extent = scene, cfg, extent
         self.train_frames, self.test_frames = train_frames, test_frames
         self.lpips_params = lpips_params
         self.log_fn = log_fn
+        self.tb, self.mesh, self.gui, self.source_path = tb, mesh, gui, source_path
+        self._tb_gt_logged = False
         H, W = train_frames[0].camera.height, train_frames[0].camera.width
         self.crop_hw = crop_hw if crop_hw is not None else (min(H, 256), min(W, 256))
         self.bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0,
@@ -108,6 +124,11 @@ class Trainer:
         self.metrics_history: List[Dict] = []
 
     def _make_step(self):
+        if self.mesh is not None:
+            from ..parallel.sharded import make_sharded_train_step
+
+            return make_sharded_train_step(self.scene, self.cfg, self.mesh, *self.crop_hw,
+                                           self.lpips_params, spatial_lr_scale=self.extent)
         return make_train_step(self.scene, self.cfg, None, self.lpips_params, *self.crop_hw,
                                spatial_lr_scale=self.extent, device=self.device)
 
@@ -164,12 +185,18 @@ class Trainer:
         return cap2
 
     def resume_latest(self, model_path: str) -> int:
-        """Load the newest chkpnt{N}.npz under model_path; its step, 0 if none."""
+        """Load the newest chkpnt{N}.npz under model_path; its step, 0 if
+        none. On several ranks the step must be the same on each
+        (parallel.distributed.assert_uniform_across_processes raises if not)."""
+        from ..parallel.distributed import assert_uniform_across_processes
+
         cands = glob.glob(os.path.join(model_path, "chkpnt*.npz"))
-        if not cands:
-            return 0
-        self.load(max(cands, key=lambda p: int(re.findall(r"(\d+)", os.path.basename(p))[0])))
-        return int(self.ts.step)
+        step = 0
+        if cands:
+            self.load(max(cands, key=lambda p: int(re.findall(r"(\d+)", os.path.basename(p))[0])))
+            step = int(self.ts.step)
+        assert_uniform_across_processes(step, what="resume checkpoint step")
+        return step
 
     def _gt_lpips_features(self):
         """Every train frame's ground-truth LPIPS tower at its crop, once: the
@@ -208,9 +235,11 @@ class Trainer:
 
         eval_at, save_at = fire_map(eval_iters), fire_map(save_iters)
         ckpt_at = {i for i in eval_iters if i <= iters}
+        # epoch-shuffled frames; a mesh's step takes n_data of them
+        n_data = 1 if self.mesh is None else self.mesh.n_data
         rng = np.random.default_rng(cfg.seed)
         order: List[int] = []
-        while len(order) < iters:
+        while len(order) < iters * n_data:
             order.extend(rng.permutation(len(self.train_frames)).tolist())
         feats = self._gt_lpips_features()
         t0 = time.time()
@@ -218,7 +247,7 @@ class Trainer:
         def fire_eval_save(it):
             lbl = eval_at.get(it)
             if lbl is not None:
-                m = self.evaluate(sh_it=lbl)
+                m = self.evaluate(tb_step=lbl, sh_it=lbl)
                 m["iteration"] = lbl
                 m["elapsed_s"] = time.time() - t0
                 self.metrics_history.append(m)
@@ -229,10 +258,14 @@ class Trainer:
             fire_eval_save(start)
         o = cfg.optim
         for it in range(start + 1, iters + 1):
-            idx = order[it - 1]
-            self.ts, logs = self.step_fn(self.ts, self.train_frames[idx],
-                                         active_sh_degree(it, cfg.model.sh_degree),
-                                         None if feats is None else feats[idx])
+            deg = active_sh_degree(it, cfg.model.sh_degree)
+            if self.mesh is None:
+                idx = order[it - 1]
+                self.ts, logs = self.step_fn(self.ts, self.train_frames[idx], deg,
+                                             None if feats is None else feats[idx])
+            else:
+                self.ts, logs = self.step_fn(self.ts, self.train_frames,
+                                             order[(it - 1) * n_data:it * n_data], deg, feats)
             logs = _to_host(logs)
             if not math.isfinite(logs["loss"]):
                 raise FloatingPointError(f"non-finite loss {logs['loss']} at iteration {it}")
@@ -248,6 +281,8 @@ class Trainer:
             fire_eval_save(it)
             if ckpt_fn is not None and it in ckpt_at:
                 ckpt_fn(it)
+            if self.gui is not None:
+                self.gui.poll(self._gui_render, self.source_path, training_done=it >= iters)
         return self.metrics_history
 
     def densify_noise(self, it: int):
@@ -285,6 +320,22 @@ class Trainer:
                              ts.step)
 
     @torch.no_grad()
+    def _gui_render(self, spec: dict):
+        """The current cloud from a viewer's camera. A render needs a pose:
+        the viewer watches the first train frame's (moss_tpu's rule; the
+        reference's hook is off for want of one, train_ZJU.py:327)."""
+        cam = Camera.from_viewer_spec(spec, device=self.device)
+        frame = self.train_frames[0]
+        out = render_frame(self.ts.params["gauss"], self.ts.gstate.valid,
+                           self.ts.params.get("mlps"), self.scene, frame.smpl_params, cam,
+                           self.bg, self.cfg.model.sh_degree,
+                           motion_offset=self.cfg.model.motion_offset,
+                           static_scene=self.cfg.model.static_scene,
+                           scaling_modifier=float(spec.get("scale_modifier", 1.0)),
+                           device=self.device)
+        return out["render"]
+
+    @torch.no_grad()
     def render_eval(self, frame: Frame, sh_degree=None):
         deg = sh_degree if sh_degree is not None else self.cfg.model.sh_degree
         return render_frame(self.ts.params["gauss"], self.ts.gstate.valid,
@@ -293,18 +344,23 @@ class Trainer:
                             static_scene=self.cfg.model.static_scene, device=self.device)
 
     @torch.no_grad()
-    def evaluate(self, frames=None, sh_it: Optional[int] = None) -> Dict:
+    def evaluate(self, frames=None, tb_step: Optional[int] = None,
+                 sh_it: Optional[int] = None) -> Dict:
         """Mean PSNR, SSIM and LPIPS (f32) over `frames` (default the test
         split; Frames, or FrameSpecs decoded on a prefetch thread) on the
         full image, the render and ground truth clipped to [0, 1]; SH at the
         degree of iteration sh_it (default ts.step). raster_overflow is the
-        pairs dropped, always 0 in the port."""
+        pairs dropped, always 0 in the port. With tb_step and a TBWriter:
+        the first five renders, their ground truth at the first such eval,
+        the live opacities' histogram and the live count (moss_tpu's dump,
+        the reference's training_report, train_ZJU.py:249-263)."""
         cfg = self.cfg
         frames = frames if frames is not None else self.test_frames
         deg = active_sh_degree(int(self.ts.step) if sh_it is None else int(sh_it),
                                cfg.model.sh_degree)
         per_frame = []
-        for frame in iter_frames(frames, None, device=self.device):
+        log_tb = tb_step is not None and self.tb is not None
+        for i, frame in enumerate(iter_frames(frames, None, device=self.device)):
             out = render_frame(self.ts.params["gauss"], self.ts.gstate.valid,
                                self.ts.params.get("mlps"), self.scene, frame.smpl_params,
                                frame.camera, self.bg, cfg.model.sh_degree,
@@ -313,8 +369,18 @@ class Trainer:
                                device=self.device)
             img = torch.clamp(out["render"], 0.0, 1.0)
             gt = torch.clamp(frame.image, 0.0, 1.0)
+            if log_tb and i < 5:
+                self.tb.image(f"test/view_{i}/render", img, tb_step)
+                if not self._tb_gt_logged:
+                    self.tb.image(f"test/view_{i}/ground_truth", frame.image, tb_step)
             per_frame.append(torch.stack([psnr_fn(img, gt), ssim_fn(img, gt),
                                           lpips.lpips(self.lpips_params, img, gt)]))
+        if log_tb:
+            valid = self.ts.gstate.valid
+            opacity = torch.sigmoid(self.ts.params["gauss"].opacity[:, 0])
+            self.tb.histogram("scene/opacity_histogram", opacity[valid], tb_step)
+            self.tb.scalar("scene/total_points", int(valid.sum()), tb_step)
+            self._tb_gt_logged = True
         n = max(len(per_frame), 1)
         sums = [0.0, 0.0, 0.0]
         for row in (torch.stack(per_frame).tolist() if per_frame else []):

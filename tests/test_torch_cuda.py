@@ -5,7 +5,10 @@ segment scheme (ops/split_blend.py) and against the same kernels unsplit,
 and one training step through them, a Trainer resumed from its checkpoint
 (bitwise the uninterrupted run) and a saved avatar loaded, compacted and
 rendered, a ragged frame (W no multiple of the tile) with split tiles and a
-J=55 (SMPL-X) frame, the sort passes
+J=55 (SMPL-X) frame, an orbit camera's frame (render/novel_view.py), a
+1024x1024 frame, and a pixel band of a shifted mean2d (parallel/sharded.py:
+bitwise the full frame's rows, the bands' grads summing to the full
+frame's), the sort passes
 (csrc/sort_pass.cu), the 3x3 conv's two kernels (csrc/conv3x3.cu: tensor
 cores for bf16, CUDA cores for f32) and the reductions and scans
 (csrc/reduce_scan.cu).
@@ -51,10 +54,11 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def projected(device, H, W, n=128, dense=False, seed=3407):
-    """tests/test_rasterize_tpu.py's random scene (dense: its :76-90 variant)."""
+def projected(device, H, W, n=128, dense=False, seed=3407, fx=None):
+    """tests/test_rasterize_tpu.py's random scene (dense: its :76-90 variant);
+    fx scales it to a larger frame."""
     rng = np.random.default_rng(seed)
-    fx = 60.0 if dense else 80.0
+    fx = fx or (60.0 if dense else 80.0)
     cam = Camera.from_KRT(np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]]),
                           np.eye(3), np.zeros(3), H, W, device=device)
     means = np.stack([rng.uniform(-0.5, 0.5, n), rng.uniform(-0.5, 0.5, n),
@@ -847,3 +851,90 @@ def test_smplx_frame_on_the_card(cuda_device):
     for name, a, b in zip(G.FIELDS, g, g_ref):
         if b is not None and float(b.abs().max()) > 0:
             assert_grad_close(a, b, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["zju", "monocap"])
+def test_orbit_frame_matches_plain(cuda_device, name):
+    """A blob at the orbit's centre through orbit view 5's camera (128x128):
+    the kernel against the plain blend, the subject in view."""
+    from moss_torch.render import novel_view as nv
+
+    fn = nv.orbit_w2c_zju if name == "zju" else nv.orbit_w2c_monocap
+    rng = np.random.default_rng(4)
+    H = W = 128
+    n = 2000
+    w2c = fn(5)
+    K = np.array([[1.1 * H, 0, W / 2], [0, 1.1 * H, H / 2], [0, 0, 1.0]])
+    cam = Camera.from_KRT(K, w2c[:3, :3].T, w2c[:3, 3], H, W, device=cuda_device)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=cuda_device)
+
+    means = rng.normal(0, [0.15, 0.4, 0.15], (n, 3)) + nv.ORBIT_CENTER[name]
+    proj = preprocess(t(means), build_covariance(t(rng.uniform(0.01, 0.04, (n, 3))),
+                                                 t(rng.normal(size=(n, 4)))),
+                      t(rng.uniform(size=(n, 3))), t(rng.uniform(0.3, 0.9, n)), cam)
+    bg = torch.zeros(3, device=cuda_device)
+    before = rc.launches
+    with torch.inference_mode():
+        out = rc.rasterize_cuda(proj, bg, H, W)
+        ref = rasterize_reference(proj, bg, H, W, tile_h=rc.TILE, tile_w=rc.TILE)
+    assert rc.launches == before + 1
+    assert float(out["alpha"].max()) > 0.5
+    for key in ("color", "alpha", "final_T"):
+        assert_images_match(out[key], ref[key])
+    assert_images_match(out["depth"], ref["depth"], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_1024_frame_matches_plain(cuda_device):
+    """MonoCap's frame size, 1024x1024, four times the 512x512 paths' pixels."""
+    H = W = 1024
+    proj = projected(cuda_device, H, W, n=4096, fx=1100.0)
+    bg = torch.tensor([0.2, 0.5, 0.7], device=cuda_device)
+    with torch.inference_mode():
+        out = rc.rasterize_cuda(proj, bg, H, W)
+        ref = rasterize_reference(proj, bg, H, W, tile_h=rc.TILE, tile_w=rc.TILE)
+    assert float(ref["alpha"].max()) > 0.5
+    for key in ("color", "alpha", "final_T"):
+        assert_images_match(out[key], ref[key])
+    assert_images_match(out["depth"], ref["depth"], atol=1e-4)
+
+
+def _band(proj, t, hb):
+    shift = torch.tensor([0.0, float(t * hb)], device=proj.mean2d.device)
+    return proj._replace(mean2d=proj.mean2d - shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tile", [2, 4])
+def test_band_of_a_shifted_mean2d_is_the_full_frames_rows(cuda_device, n_tile):
+    H, W = 128, 96
+    proj = projected(cuda_device, H, W, n=400, fx=110.0)
+    bg = torch.tensor([0.2, 0.5, 0.7], device=cuda_device)
+    hb = H // n_tile
+    with torch.inference_mode():
+        full = rc.rasterize_cuda(proj, bg, H, W)
+        for t in range(n_tile):
+            band = rc.rasterize_cuda(_band(proj, t, hb), bg, hb, W)
+            for key in ("color", "depth", "alpha", "final_T"):
+                assert torch.equal(band[key], full[key][t * hb:(t + 1) * hb]), (t, key)
+
+
+@pytest.mark.cuda
+def test_band_grads_sum_to_the_full_frames(cuda_device):
+    H, W, n_tile = 128, 96, 2
+    proj = projected(cuda_device, H, W, n=400, fx=110.0)
+    bg = torch.tensor([0.2, 0.5, 0.7], device=cuda_device)
+    up = _upstream(cuda_device, H, W)
+    g_full, _ = _grads(proj, bg, H, W, up, rc.rasterize_cuda)
+    hb = H // n_tile
+    total = None
+    for t in range(n_tile):
+        rows = slice(t * hb, (t + 1) * hb)
+        g, _ = _grads(_band(proj, t, hb), bg, hb, W, {k: v[rows] for k, v in up.items()},
+                      rc.rasterize_cuda)
+        total = g if total is None else [a + b for a, b in zip(total, g)]
+    for name, a, b in zip(rc._KERNEL_FIELDS, total, g_full):
+        assert_grad_close(a, b, name)

@@ -9,17 +9,28 @@ the artifacts (chkpnt20.npz, point_cloud.ply and the reference layout,
 cfg.json, cameras.json, the result lines with the random-backbone note),
 the render's JSON line and its smpl_rot cache; then a render from the
 reference layout alone, with LPIPS weights passed by --lpips_weights.
+
+moss_torch.cli.train_monocap (the counterpart of train_monocap.py) trains 10
+iterations on tests/test_torch_readers.py's MonoCap fixture at its full
+resolution, with --tensorboard, --gui_port (no viewer connects) and
+--debug_nans, then render_zju --reader monocap --novel_view 4 renders four
+orbit views about each of the 17 test poses.
 """
+import glob
 import json
 import os
+import socket
 
 import numpy as np
 
 from moss_tpu.ops import lpips_jax
-from moss_torch.cli import render_monocap, render_zju, train_zju
+import torch
+
+from moss_torch.cli import render_monocap, render_zju, train_monocap, train_zju
 from moss_torch.ops import lpips
 from moss_torch.train import checkpoint as ckpt
 from test_readers import _write_zju_fixture
+from test_torch_readers import write_monocap_fixture
 from _torch_threads import two_torch_threads  # noqa: F401
 
 
@@ -84,3 +95,38 @@ def test_render_monocap_fills_in_the_monocap_defaults(monkeypatch):
     assert list(zip(args.subjects, args.iterations)) == [
         ("olek_images0812", 3000), ("lan_images620", 3000), ("marc_images35000", 2500),
         ("vlad_images1011", 2500)]
+
+
+def test_train_monocap_then_render_novel_views(tmp_path, capsys):
+    seq = "olek_images0812"
+    data_root, out = tmp_path / "monocap", tmp_path / "out"
+    result_file = tmp_path / "result" / "monocap.txt"
+    write_monocap_fixture(str(data_root / seq))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    train_monocap.main(["--data_root", str(data_root), "--sequences", seq, "--iterations", "10",
+                        "--test_iterations", "10", "--save_iterations", "10", "--capacity", "512", "--n_init", "100", "--output", str(out),
+                        "--result_file", str(result_file), "--tensorboard", "--gui_port",
+                        str(port), "--debug_nans", "--device", "cpu"])
+    assert not torch.is_anomaly_enabled()  # the driver restores the anomaly mode
+    model_path = out / seq
+    for rel in ("chkpnt10.npz", "point_cloud.ply", "cfg.json", "cameras.json",
+                "point_cloud/iteration_10/point_cloud.ply", "mlp_ckpt/iteration_10/ckpt.npz"):
+        assert (model_path / rel).exists(), rel
+    assert glob.glob(str(model_path / "events.out.tfevents.*"))
+    lines = [line for line in open(result_file).read().splitlines() if line.strip()]
+    assert lines[0] == seq and int(lines[1].split()[0]) == 10
+    assert lines[1].endswith(lpips.RANDOM_NOTE)
+    capsys.readouterr()
+
+    render_zju.main(["--data_root", str(data_root), "--reader", "monocap", "--subjects", seq,
+                     "--iterations", "-1", "--output", str(out), "--novel_view", "4",
+                     "--device", "cpu"])
+    result = last_json(capsys.readouterr().out)
+    assert result["subject"] == seq and result["iteration"] == 10 and result["fps"] > 0
+    assert result["novel_views"] == 17 * 4
+    img_dir = model_path / "renders" / "novel_view_iteration_10"
+    assert result["img_dir"] == str(img_dir)
+    assert len(list(img_dir.glob("*.png"))) == 17 * 4

@@ -1,11 +1,14 @@
 """moss_torch stands alone: no jax, no moss_tpu, and no silent CPU fallback.
 
 Every module, the drivers under moss_torch/cli/ included, imports neither jax
-nor moss_tpu; cv2 and imageio only in the readers (data/readers.py, smc.py,
-dna.py, colmap.py) and the drivers; the readers import h5py and imageio only
-inside functions, so they import on a machine without them; every entry
-point, the slice's loaders and the drivers without --device among them,
-raises where there is no CUDA device.
+nor moss_tpu (parallel/, render/novel_view.py and train/network_gui.py, whose
+moss_tpu counterparts import no jax, by their source too); cv2 and imageio
+only in the readers (data/readers.py, smc.py, dna.py, colmap.py) and the
+drivers; the readers import h5py and imageio only inside functions, so they
+import on a machine without them; tensorboardX only inside
+train/observability.py's TBWriter; every entry point, the slice's loaders,
+the drivers without --device, global_mesh without a device and
+Trainer(mesh=...) among them, raises where there is no CUDA device.
 """
 import glob
 import os
@@ -21,11 +24,12 @@ import moss_torch
 from moss_torch import convert
 from moss_torch.data import synthetic
 from moss_torch.models import gaussians, smpl
-from moss_torch.cli import render_monocap, render_zju, train_zju
+from moss_torch.cli import render_monocap, render_zju, train_monocap, train_zju
 from moss_torch.config import Config
 from moss_torch.data import colmap, dna, readers
 from moss_torch.ops import lpips, rasterize_cuda as rc
 from moss_torch.ops.projection import Projected
+from moss_torch.parallel import distributed
 from moss_torch.render.camera import Camera
 from moss_torch.render.render import render_frame
 from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro
@@ -50,7 +54,10 @@ missing = {"moss_torch.cli.train_zju", "moss_torch.cli.render_zju",
            "moss_torch.cli.render_monocap", "moss_torch.data.readers",
            "moss_torch.data.prefetch", "moss_torch.data.ply",
            "moss_torch.train.checkpoint", "moss_torch.train.observability",
-           "moss_torch.data.smc", "moss_torch.data.dna", "moss_torch.data.colmap"} - set(names)
+           "moss_torch.data.smc", "moss_torch.data.dna", "moss_torch.data.colmap",
+           "moss_torch.cli.train_monocap", "moss_torch.parallel.distributed",
+           "moss_torch.parallel.sharded", "moss_torch.render.novel_view",
+           "moss_torch.train.network_gui"} - set(names)
 print(len(names), leaked, missing)
 sys.exit(1 if leaked or missing or len(names) < 15 else 0)
 """
@@ -88,6 +95,27 @@ def test_the_readers_import_h5py_and_imageio_inside_functions_only():
         assert not TOP_LEVEL_H5PY_IMAGEIO.search(src), name
     assert "import h5py" in open(os.path.join(data, "smc.py")).read()
     assert "import imageio" in open(os.path.join(data, "colmap.py")).read()
+
+
+JAX_OR_MOSS_TPU = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|moss_tpu)\b|\bmoss_tpu\.", re.M)
+
+
+@pytest.mark.parametrize("rel", ["parallel/__init__.py", "parallel/distributed.py",
+                                 "parallel/sharded.py", "render/novel_view.py",
+                                 "train/network_gui.py", "cli/train_monocap.py"])
+def test_the_slice_modules_name_neither_jax_nor_moss_tpu(rel):
+    src = open(os.path.join(REPO, "moss_torch", rel)).read()
+    assert not JAX_OR_MOSS_TPU.search(src), rel
+
+
+def test_tensorboardx_only_inside_observability():
+    root = os.path.join(REPO, "moss_torch")
+    users = {os.path.relpath(p, root) for p in glob.glob(os.path.join(root, "**", "*.py"),
+                                                         recursive=True)
+             if re.search(r"^\s*(import|from)\s+tensorboardX\b", open(p).read(), re.M)}
+    assert users == {"train/observability.py"}
+    src = open(os.path.join(root, "train", "observability.py")).read()
+    assert not re.search(r"^(import|from)\s+tensorboardX\b", src, re.M)  # inside a function
 
 
 def _entry_points():
@@ -143,6 +171,14 @@ def _entry_points():
         "cli.train_zju.main": lambda: train_zju.main(["--data_root", "missing"]),
         "cli.render_zju.main": lambda: render_zju.main(["--data_root", "missing"]),
         "cli.render_monocap.main": lambda: render_monocap.main(["--data_root", "missing"]),
+        "cli.train_monocap.main": lambda: train_monocap.main(["--data_root", "missing"]),
+        "cli.render_zju.main --novel_view": lambda: render_zju.main(
+            ["--data_root", "missing", "--novel_view", "4"]),
+        "distributed.global_mesh": lambda: distributed.global_mesh(),
+        "distributed.make_mesh": lambda: distributed.make_mesh(1, 1),
+        "Trainer(mesh=...)": lambda: Trainer(None, [], [], Config(), None, mesh=distributed.Mesh(
+            1, 1, 0, 0, 0, None, None, None)),
+        "Camera.from_viewer_spec": lambda: Camera.from_viewer_spec({}),
     }
 
 
