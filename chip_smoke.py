@@ -2551,14 +2551,19 @@ def phase_tool_conv(dev):
             raise AssertionError(f"conv3x3 took the wrong route: launches {before} -> {after}")
         return y
 
-    def check_f32(x, w, b):
-        y = routed(lambda: conv.conv3x3(x, w, b), False)
-        ref = conv.conv3x3_plain(x, w, b)
-        exact = torch.relu(torch.nn.functional.conv2d(
-            x.double().permute(2, 0, 1)[None], w.double().permute(3, 2, 0, 1), padding=1)[0]
-            .permute(1, 2, 0) + b.double())
+    def check_f32(x, w, b, relu=True):
+        """The CUDA-core kernel in f32 against its plain version and an f64
+        conv; a second call bitwise the first."""
+        y = routed(lambda: conv.conv3x3(x, w, b, relu=relu), False)
+        ref = conv.conv3x3_plain(x, w, b, relu=relu)
+        exact = torch.nn.functional.conv2d(
+            x.double().permute(2, 0, 1)[None], w.double().permute(3, 2, 0, 1), padding=1)[0] \
+            .permute(1, 2, 0) + b.double()
+        exact = torch.relu(exact) if relu else exact
         for k, v in (("kernel", y), ("plain", ref)):
             vs_f64[k] = max(vs_f64[k], float((v.double() - exact).abs().max()))
+        repeat[f"f32 {tuple(x.shape)}->{w.shape[3]}"] = torch.equal(
+            y, conv.conv3x3(x, w, b, relu=relu))
         return float((y - ref).abs().max())
 
     def check_bf16(x, w, b, relu=True, tensor_cores=True):
@@ -2577,9 +2582,9 @@ def phase_tool_conv(dev):
             torch.equal(v, conv.conv3x3_stage_plain(x, w, b, s, relu=False))
             for s, v in out.items())
 
+    repeat, stages_exact = {}, {}
     for _, x, w, b in conv_proto.check_inputs(dev):
         f32_err = max(f32_err, check_f32(x, w, b))
-    repeat, stages_exact = {}, {}
     for layer, x, w, b in conv_proto.layer_inputs(dev):
         f32_err = max(f32_err, check_f32(x, w, b))
         xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
@@ -2591,9 +2596,11 @@ def phase_tool_conv(dev):
     # The stages there, with a bias that is not zero
     rng = np.random.default_rng(2)
     for H, W, cin, cout in ((13, 29, 5, 70), (13, 29, 48, 72)):
-        x, w, b = (torch.as_tensor(a.astype(np.float32), device=dev).to(torch.bfloat16)
+        x, w, b = (torch.as_tensor(a.astype(np.float32), device=dev)
                    for a in (rng.normal(size=(H, W, cin)), rng.normal(0, 0.1, (3, 3, cin, cout)),
                              rng.normal(0, 0.1, cout)))
+        f32_err = max(f32_err, check_f32(x, w, b, relu=False))
+        x, w, b = x.to(torch.bfloat16), w.to(torch.bfloat16), b.to(torch.bfloat16)
         y = check_bf16(x, w, b, False, tensor_cores=cin % 8 == 0)
         repeat[str((H, W, cin, cout))] = torch.equal(y, conv.conv3x3(x, w, b, relu=False))
         if cin % 8 == 0:
@@ -2623,15 +2630,27 @@ def phase_tool_conv(dev):
                                                            "bound_ms")},
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes", "max_abs_err": err}
 
+    def by_shape(rows):
+        return {"x".join(map(str, r["shape"])): {k: r[k] for k in (
+            "ms", "library_ms", "bound_ms", "max_abs_err", "bitwise_repeat")} | {
+            "tile": {k: r["tile"][k] for k in ("code", "rows", "channels", "split", "ctas")}}
+            for r in rows}
+
+    f32_layers = summed(res["f32_layers"], PEAK_F32,
+                        max(r["max_abs_err"] for r in res["f32_layers"]))
     kernels = {"conv3x3": {**summed(res["layers"], PEAK_BF16, bf16_abs),
                            "stage_ms": {s: sum(r["stage_ms"][s] for r in res["layers"])
                                         for s in conv.STAGES}},
-               "conv3x3_f32": summed(res["checks"], PEAK_F32,
-                                     max(r["max_abs_err"] for r in res["checks"]))}
+               "conv3x3_f32": {**summed(res["checks"], PEAK_F32,
+                                        max(r["max_abs_err"] for r in res["checks"])),
+                               "by_shape": by_shape(res["checks"]),
+                               "f32_layers": f32_layers,
+                               "f32_layers_by_shape": by_shape(res["f32_layers"])}}
     emit({"phase": "tool_conv", "f32_max_abs_err": f32_err, "f32_max_abs_err_vs_f64": vs_f64,
           "bf16_scaled_err": bf16_err, "bf16_max_abs_err": bf16_abs, "bitwise_repeat": repeat,
           "stages_exact": stages_exact, "launches": launches, "tiles": res["tiles"],
-          "checks": res["checks"],
+          "f32_tiles": conv.f32_tiles(dev), "checks": res["checks"],
+          "f32_layers": res["f32_layers"], "sum_over_f32_layers": f32_layers,
           "layers": res["layers"], "sum_over_layers": kernels["conv3x3"],
           "sum_over_checks": kernels["conv3x3_f32"]})
     return kernels, launches
@@ -2722,9 +2741,11 @@ MXU_KERNELS = (
 
 def phase_tool_mxu(dev):
     """The twelve reduction and scan runs: their observers across tiles and a
-    launch's time against REPS; then the tool, counted, which holds each run
-    to its plain version (raising past mxu_micro.RTOL) and times it. Returns
-    ({kernel: row summed over its runs}, {kernel: launches})."""
+    launch's time against REPS; the log-space cumprod's card test three
+    times over; then the tool, counted, which holds each run to its plain
+    version (raising past mxu_micro.RTOL) and times it, with the SFU bound
+    and the cumprod kernel's stages. Returns ({kernel: row summed over its
+    runs}, {kernel: launches}, the stages' launches)."""
     x, s = mxu_micro.inputs(dev)
     checks = {}
     for name, *_ in rs.RUNS:
@@ -2739,10 +2760,24 @@ def phase_tool_mxu(dev):
                                  "folded")
         checks[name] = {"observers_equal": True, "observer_shape": list(obs.shape),
                         "ms_vs_reps": vs_reps}
+    # the card test's case tests/test_torch_cuda.py::test_reduce_scan_matches_plain
+    # [cumprod_logsplit2-*], three times over: kernel within RTOL of plain, observers equal
+    repeats = []
+    for _ in range(3):
+        for reps in (rs.REPS, 3):
+            out, obs = rs.run("cumprod_logsplit2", x, s, reps=reps)
+            err = mxu_micro.scaled_err(out, rs.run_plain("cumprod_logsplit2", x, s, reps=reps))
+            if not (err <= mxu_micro.RTOL and torch.equal(obs, obs[:1].expand_as(obs))):
+                raise AssertionError(f"cumprod_logsplit2 at reps {reps}: {err:.2e} of the max, "
+                                     "or the tiles' observers differ")
+            repeats.append({"reps": reps, "scaled_err": err})
+    checks["cumprod_logsplit2"]["repeated_card_test"] = repeats
 
     rs.reset_launch_counts()
     res = mxu_micro.main(dev)
     launches = rs.launch_counts()
+    if rs.stage_launches < len(rs.SCAN_STAGES):
+        raise AssertionError(f"the mxu tool launched the scan stages {rs.stage_launches} times")
     if min(launches.values()) == 0:
         raise AssertionError(f"the mxu tool launched the kernels {launches} times")
     rows = res["runs"]
@@ -2757,11 +2792,19 @@ def phase_tool_mxu(dev):
             "bound_ms": bound_ms, "bound_by": "operations" if by_ops >= bound_ms / 2 else "bytes",
             "max_abs_err": max(rows[n]["max_abs_err"] for n in names),
             "variants": {n: {k: rows[n][k] for k in ("ms", "ns_per_chunk_op", "bound_ms",
-                                                      "plain_ms", "library_ms", "max_abs_err")}
+                                                      "plain_ms", "library_ms", "max_abs_err",
+                                                      "sfu_bound_ms") if k in rows[n]}
                          for n in names}}
+    kernels["mxu_scan"]["cumprod_stage_ms"] = {k: v["ms"] for k, v in res["scan_stages"].items()}
+    # the tensor-core scans' static instructions (cuobjdump -sass): what a
+    # rep's body of 32 elements a thread issues, the cumprod's stages beside it
+    sass = cuda_build.sass_opcodes("reduce_scan", "scan_tc_kernel")
+    for kernel, ops in sass.items():
+        print(f"sass reduce_scan: {kernel}: " + ", ".join(f"{k} {v}" for k, v in
+                                                          list(ops.items())[:12]), flush=True)
     emit({"phase": "tool_mxu", "reps": rs.REPS, "tiles": rs.TILES, "checks": checks,
-          "launches": launches, **res})
-    return kernels, {k[0]: launches[k[1]] for k in MXU_KERNELS}
+          "launches": launches, **res, "sass": sass})
+    return kernels, {k[0]: launches[k[1]] for k in MXU_KERNELS}, rs.stage_launches
 
 
 def main():
@@ -2846,7 +2889,7 @@ def main():
     sort_rows, sort_launches = phase("tool_sort", phase_tool_sort, dev)
     conv_rows, conv_launches = phase("tool_conv", phase_tool_conv, dev)
     floor_row, floor_launches = phase("tool_bwd_floor", phase_tool_bwd_floor, dev)
-    mxu_rows, mxu_launches = phase("tool_mxu", phase_tool_mxu, dev)
+    mxu_rows, mxu_launches, mxu_stage_launches = phase("tool_mxu", phase_tool_mxu, dev)
     by_kernel = {}
     for site, n in timing.retaken_by_site.items():
         key = site.split(":")[0].split()[0]
@@ -2925,9 +2968,11 @@ def main():
                           "layers, library cuDNN bf16",
                {"stage_launches": conv_launches["conv3x3_stages"],
                 "stage_ms": conv_rows["conv3x3"]["stage_ms"]}),
-              ("conv3x3_f32", f"f32 on the CUDA cores: atol {conv_proto.F32_ATOL}; ms summed "
-                              "over check()'s three shapes, library cuDNN f32 (TF32 off), "
-                              "which is the plain version too", {}))),
+              ("conv3x3_f32", f"f32 on the CUDA cores: atol {conv_proto.F32_ATOL}, bitwise "
+                              "repeatable; ms summed over check()'s three shapes, library cuDNN "
+                              "f32 (TF32 off), which is the plain version too",
+               {k: conv_rows["conv3x3_f32"][k] for k in ("by_shape", "f32_layers",
+                                                           "f32_layers_by_shape")}))),
         entry("rasterize_bwd_stages", "moss_torch/csrc/rasterize_bwd.cu",
               "tools/bwd_kernel_floor.py:97", floor_launches, {"tools": floor_launches},
               floor_row, "full, full_soa bitwise equal to rasterize_bwd; rows vs plain "
@@ -2937,7 +2982,9 @@ def main():
                 {"tools": mxu_launches[kname]}, mxu_rows[kname], mxu_tol,
                 library_ms=mxu_rows[kname]["library_ms"],
                 replaces_all=f"tools/mxu_micro.py: {all_}",
-                variants=mxu_rows[kname]["variants"])
+                variants=mxu_rows[kname]["variants"],
+                **({"cumprod_stage_ms": mxu_rows[kname]["cumprod_stage_ms"],
+                    "stage_launches": mxu_stage_launches} if kname == "mxu_scan" else {}))
           for kname, _, _, replaces, all_ in MXU_KERNELS),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

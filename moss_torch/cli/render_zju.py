@@ -105,7 +105,8 @@ def render_subject(args, subject: str, iteration: int, device):
         model=ModelConfig(white_background=args.white_background))
     cfg = dataclasses.replace(cfg, model_path=model_path)
     lp, kind, note = lpips.backbone(args.lpips_weights, device)
-    trainer = Trainer(scene, test_frames[:1], test_frames, cfg, lp, device=device)
+    trainer = Trainer(scene, test_frames[:1], test_frames, cfg, lp, lpips_backbone=kind,
+                      device=device)
     if iteration < 0:
         iteration = latest_iteration(model_path)
         print(f"[{subject}] loading latest iteration {iteration}")

@@ -119,7 +119,7 @@ def train_scene(args, name: str, path: str, reader, exp_name: str, device, mesh=
         save_json(cfg, os.path.join(cfg.model_path, "cfg.json"))
         dump_cameras_json(os.path.join(cfg.model_path, "cameras.json"),
                           test_cameras + [f.camera for f in train_frames])
-    lp, _, note = lpips.backbone(args.lpips_weights, device)
+    lp, kind, note = lpips.backbone(args.lpips_weights, device)
     tb = TBWriter(cfg.model_path if args.tensorboard and is_main else None)
     ema, t0 = EMALogger(), time.time()
 
@@ -136,7 +136,8 @@ def train_scene(args, name: str, path: str, reader, exp_name: str, device, mesh=
         gui = NetworkGUI(port=args.gui_port)
         gui.init()
     trainer = Trainer(scene, train_frames, test_specs, cfg, lp, crop_hw=crop_hw, log_fn=log,
-                      tb=tb, mesh=mesh, gui=gui, source_path=path, device=device)
+                      tb=tb, mesh=mesh, gui=gui, source_path=path, lpips_backbone=kind,
+                      device=device)
     try:
         if args.resume:
             resumed = trainer.resume_latest(cfg.model_path)

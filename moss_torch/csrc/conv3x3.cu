@@ -57,16 +57,32 @@
 // The f32 path stays on the CUDA cores: its gate is an absolute 1e-4
 // (tools/conv_pallas_proto.py:102), which one-pass TF32 cannot meet at
 // K = 576, and 3xTF32 lost to the CUDA cores at small K on this card
-// (tools/mxu_micro.py's port). conv3x3_kernel: a block owns an 8 x 16 pixel
-// tile and 64 output channels; for each chunk of 8 input channels it stages
-// the tile with its halo and the chunk's 3 x 3 x 8 x 64 weights in shared
-// memory as f32; each thread keeps 4 pixels x 8 output channels in
-// registers and does 96 FMAs per 30 shared loads.
+// (tools/mxu_micro.py's port). conv3x3_kernel: a CTA owns rows x 16 pixels
+// and 8-64 output channels (kF32Tiles); each thread keeps 4 pixels x 4 or 8
+// channels in registers and does 16-32 FMAs per shared-memory weight load.
+// What bounds it: at check()'s shapes (2,048-4,096 pixels, K = 72-576) the
+// f32 operations take 2.5 us at the CUDA cores' peak, but one 8 x 16 x 64
+// CTA per pixel tile is 16-32 CTAs on 132 SMs, each walking all of K alone:
+// latency and occupancy, not operations or bytes. So the host picks, per
+// shape, the tile whose channels fit Cout (no FMAs on zero weights) and
+// splits the K walk over the `split` CTAs of a thread-block cluster
+// (ops/conv3x3.py::f32_tile) until the grid covers the SMs. K is walked in
+// steps of 8 input channels and all three kernel rows, or one row where the
+// CTAs of a cluster cannot share the chunks of 8 channels evenly; each CTA
+// sums its contiguous run of steps, copying the next step's halo and
+// weights by cp.async (zero filled at the edges) while it does this step's
+// FMAs. The partials meet in distributed shared memory: CTA rank q adds the
+// q-th slice of the tile over ranks 0, 1, ... in that order, then the bias,
+// relu and one rounding. One launch, no atomics and no second pass; every
+// output element is summed in an order fixed by the shape, so two calls
+// give the same bits. Large layers get a split of 1: one CTA per tile, as
+// before, with the copies overlapped and a third of the steps.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (moss_torch/ops/cuda_build.py)
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -87,34 +103,140 @@ template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) {
 // CUDA-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kTileH = 8, kTileW = 16;  // output pixels of a block
-constexpr int kCo = 64;                 // output channels of a block
-constexpr int kCi = 8;                  // input channels staged per round
-constexpr int kPix = 4;                 // pixels of a thread (one row)
-constexpr int kCoT = 8;                 // output channels of a thread
-constexpr int kThreads = (kTileH * kTileW / kPix) * (kCo / kCoT);  // 256
-constexpr int kInH = kTileH + 2, kInW = kTileW + 2;
+constexpr int kPix = 4;       // pixels of a thread (one row)
+constexpr int kTileW = 16;    // pixels of a tile row
+constexpr int kCi = 8;        // input channels of a step
+constexpr int kInW = kTileW + 2;
+constexpr int kMaxSplit = 8;  // CTAs of a cluster (the portable limit)
+constexpr int kMaxThreads = 256;
 
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(kThreads)
+// A CTA tile: rows x 16 pixels x `channels` output channels, each thread
+// kPix pixels x `per_thread` channels
+struct F32Tile {
+  int rows, channels, per_thread;
+  __host__ __device__ constexpr int threads() const {
+    return rows * (kTileW / kPix) * (channels / per_thread);
+  }
+  // one step's halo (rows + ky - 1 rows x 18 pixels x 8 channels) and its
+  // ky kernel rows' weights (ky x 3 x 8 x channels), f32
+  __host__ __device__ constexpr int stage_floats(int ky) const {
+    return (rows + ky - 1) * kInW * kCi + ky * 3 * kCi * channels;
+  }
+  __host__ __device__ constexpr int partial_floats() const { return rows * kTileW * channels; }
+  constexpr int smem_bytes(int split, int ky) const {
+    const int stages = 2 * stage_floats(ky);
+    return 4 * (split > 1 && partial_floats() > stages ? partial_floats() : stages);
+  }
+  // kernel rows a step takes: all three where the split's CTAs can share
+  // the chunks of 8 input channels evenly (fewer steps, the halo copied
+  // once per chunk), else one, so that the K walk cuts finely enough
+  static constexpr int ky_per_step(int cin, int split) {
+    return ((cin + kCi - 1) / kCi) % split == 0 ? 3 : 1;
+  }
+};
+
+// by tile code (ops/conv3x3.py::f32_tile picks one per shape)
+constexpr F32Tile kF32Tiles[] = {{8, 64, 8}, {4, 64, 8}, {8, 32, 8}, {4, 32, 8}, {8, 16, 4},
+                                 {4, 16, 4}, {2, 16, 4}, {8, 8, 4},  {4, 8, 4}};
+constexpr int kF32TileCount = sizeof(kF32Tiles) / sizeof(kF32Tiles[0]);
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// *dst = ok ? float(*src) : 0. f32: a 4-byte cp.async, zero-filled (no
+// read) where !ok; bf16 (elements of 2 bytes, which cp.async does not take
+// one by one): a load and a store
+__device__ __forceinline__ void stage_elem(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src),
+                  "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void stage_elem(float* dst, const bf16* src, bool ok) {
+  *dst = ok ? __bfloat162float(*src) : 0.0f;
+}
+// four f32 at once (dst and src 16-byte aligned), zero-filled where !ok
+__device__ __forceinline__ void stage_vec4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src),
+                  "r"(ok ? 16 : 0) : "memory");
+}
+
+// grid (tiles x split, channel tiles), clusters of `split` CTAs along x.
+// The n = (3 / kKy) ceil(Cin / 8) steps are (chunk of 8 input channels, kKy
+// kernel rows) in that order; cluster rank r sums steps [r n / split,
+// (r + 1) n / split) in order, each from a double-buffered copy of its halo
+// and weights. vec_w: the weights go by 16-byte copies (f32, Cout % 4 == 0,
+// w 16-byte aligned); `channels` is a power of two
+template <typename Tin, typename Tout, int kCoT, int kKy>
+__global__ void __launch_bounds__(kMaxThreads)
 conv3x3_kernel(const Tin* __restrict__ x,    // (H, W, cin)
                const Tin* __restrict__ w,    // (3, 3, cin, cout)
                const Tin* __restrict__ b,    // (cout,)
                Tout* __restrict__ out,       // (H, W, cout)
-               int H, int W, int cin, int cout, int relu)
+               int H, int W, int cin, int cout, int relu, int rows, int channels, int split,
+               int vec_w)
 {
-  __shared__ float s_in[kCi][kInH][kInW];
-  __shared__ __align__(16) float s_w[9][kCi][kCo];
-
+  extern __shared__ __align__(16) float smem[];
+  const int ch_shift = __ffs(channels) - 1;
+  const int strips = rows * (kTileW / kPix);
+  const int halo_rows = rows + kKy - 1;
+  const int halo_floats = halo_rows * kInW * kCi;
+  const int stage_floats = halo_floats + kKy * 3 * kCi * channels;
   const int tiles_w = (W + kTileW - 1) / kTileW;
-  const int y0 = (blockIdx.x / tiles_w) * kTileH;
-  const int x0 = (blockIdx.x % tiles_w) * kTileW;
-  const int co0 = blockIdx.y * kCo;
-  const int t = threadIdx.x;
-  const int strip = t & 31;             // a warp's 32 strips cover the tile
-  const int cg = t >> 5;                // the warp's 8 output channels
+  const int tile = blockIdx.x / split, rank = blockIdx.x % split;
+  const int y0 = (tile / tiles_w) * rows;
+  const int x0 = (tile % tiles_w) * kTileW;
+  const int co0 = blockIdx.y * channels;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int strip = t % strips, cg = t / strips;  // a warp's strips share their channels
   const int sy = strip / (kTileW / kPix);
   const int sx = (strip % (kTileW / kPix)) * kPix;
+  constexpr int kRowSteps = 3 / kKy;  // steps of a chunk
+  const int steps = kRowSteps * ((cin + kCi - 1) / kCi);
+  const int s0 = rank * steps / split, s1 = (rank + 1) * steps / split;
+
+  auto stage = [&](int s, float* buf) {
+    const int ci0 = (s / kRowSteps) * kCi, ky0 = (s % kRowSteps) * kKy;
+    for (int i = t; i < halo_floats; i += nt) {
+      const int c = i % kCi, p = i / kCi;
+      const int iy = p / kInW, ix = p % kInW;
+      const int yy = y0 - 1 + ky0 + iy, xx = x0 - 1 + ix;
+      const bool ok = ci0 + c < cin && yy >= 0 && yy < H && xx >= 0 && xx < W;
+      stage_elem(&buf[(c * halo_rows + iy) * kInW + ix],
+                 x + (ok ? (static_cast<size_t>(yy) * W + xx) * cin + ci0 + c : 0), ok);
+    }
+    // (kKy x 3 taps, 8 channels c, channels): row = tap * 8 + c, the tap
+    // (ky0 + tap / 3, tap % 3) of w
+    float* s_w = buf + halo_floats;
+    if constexpr (sizeof(Tin) == 4) {
+      if (vec_w) {
+        for (int i = t; i < kKy * 3 * kCi * channels / 4; i += nt) {
+          const int co = (i << 2) & (channels - 1), row = (i << 2) >> ch_shift;
+          const int c = row & (kCi - 1), tap = ky0 * 3 + (row >> 3);
+          const bool ok = ci0 + c < cin && co0 + co < cout;
+          stage_vec4(&s_w[i << 2],
+                     w + (ok ? (static_cast<size_t>(tap) * cin + ci0 + c) * cout + co0 + co : 0),
+                     ok);
+        }
+        cp_async_commit();
+        return;
+      }
+    }
+    for (int i = t; i < kKy * 3 * kCi * channels; i += nt) {
+      const int co = i & (channels - 1), row = i >> ch_shift;
+      const int c = row & (kCi - 1), tap = ky0 * 3 + (row >> 3);
+      const bool ok = ci0 + c < cin && co0 + co < cout;
+      stage_elem(&s_w[i],
+                 w + (ok ? (static_cast<size_t>(tap) * cin + ci0 + c) * cout + co0 + co : 0),
+                 ok);
+    }
+    cp_async_commit();
+  };
 
   float acc[kPix][kCoT];
 #pragma unroll
@@ -122,38 +244,36 @@ conv3x3_kernel(const Tin* __restrict__ x,    // (H, W, cin)
 #pragma unroll
     for (int o = 0; o < kCoT; ++o) acc[p][o] = 0.0f;
 
-  for (int ci0 = 0; ci0 < cin; ci0 += kCi) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = t; i < kCi * kInH * kInW; i += kThreads) {
-      const int c = i % kCi, p = i / kCi;
-      const int iy = p / kInW, ix = p % kInW;
-      const int yy = y0 - 1 + iy, xx = x0 - 1 + ix;
-      float v = 0.0f;
-      if (ci0 + c < cin && yy >= 0 && yy < H && xx >= 0 && xx < W)
-        v = to_float(x[(static_cast<size_t>(yy) * W + xx) * cin + ci0 + c]);
-      s_in[c][iy][ix] = v;
-    }
-    for (int i = t; i < 9 * kCi * kCo; i += kThreads) {
-      const int co = i % kCo, c = (i / kCo) % kCi, k = i / (kCo * kCi);
-      float v = 0.0f;
-      if (ci0 + c < cin && co0 + co < cout)
-        v = to_float(w[(static_cast<size_t>(k) * cin + ci0 + c) * cout + co0 + co]);
-      s_w[k][c][co] = v;
+  if (s0 < s1) stage(s0, smem);
+  for (int s = s0; s < s1; ++s) {
+    const float* buf = smem + ((s - s0) & 1) * stage_floats;
+    if (s + 1 < s1) {
+      stage(s + 1, smem + ((s + 1 - s0) & 1) * stage_floats);
+      cp_async_wait<1>();  // step s has landed; s + 1 stays in flight
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
+    const float* s_w = buf + halo_floats + cg * kCoT;
 #pragma unroll 2
     for (int c = 0; c < kCi; ++c) {
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
+      for (int ky = 0; ky < kKy; ++ky) {
         float in[kPix + 2];
 #pragma unroll
-        for (int j = 0; j < kPix + 2; ++j) in[j] = s_in[c][sy + ky][sx + j];
+        for (int j = 0; j < kPix + 2; ++j) in[j] = buf[(c * halo_rows + sy + ky) * kInW + sx + j];
 #pragma unroll
         for (int kx = 0; kx < 3; ++kx) {
-          const float4* wp = reinterpret_cast<const float4*>(&s_w[ky * 3 + kx][c][cg * kCoT]);
-          const float4 wa = wp[0], wb = wp[1];
-          const float wv[kCoT] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+          float wv[kCoT];
+#pragma unroll
+          for (int q = 0; q < kCoT / 4; ++q) {
+            const float4 v4 = reinterpret_cast<const float4*>(
+                &s_w[((ky * 3 + kx) * kCi + c) * channels])[q];
+            wv[4 * q] = v4.x;
+            wv[4 * q + 1] = v4.y;
+            wv[4 * q + 2] = v4.z;
+            wv[4 * q + 3] = v4.w;
+          }
 #pragma unroll
           for (int p = 0; p < kPix; ++p)
 #pragma unroll
@@ -161,35 +281,103 @@ conv3x3_kernel(const Tin* __restrict__ x,    // (H, W, cin)
         }
       }
     }
+    __syncthreads();  // the stage two steps on overwrites this buffer
   }
 
-  const int yy = y0 + sy;
-  if (yy >= H) return;
+  if (split == 1) {
+    const int yy = y0 + sy;
+    if (yy >= H) return;
 #pragma unroll
-  for (int o = 0; o < kCoT; ++o) {
-    const int co = co0 + cg * kCoT + o;
-    if (co >= cout) continue;
-    const float bias = to_float(b[co]);
+    for (int o = 0; o < kCoT; ++o) {
+      const int co = co0 + cg * kCoT + o;
+      if (co >= cout) continue;
+      const float bias = to_float(b[co]);
 #pragma unroll
-    for (int p = 0; p < kPix; ++p) {
-      const int xx = x0 + sx + p;
-      if (xx >= W) continue;
-      float y = acc[p][o] + bias;
+      for (int p = 0; p < kPix; ++p) {
+        const int xx = x0 + sx + p;
+        if (xx >= W) continue;
+        float y = acc[p][o] + bias;
+        if (relu) y = fmaxf(y, 0.0f);
+        out[(static_cast<size_t>(yy) * W + xx) * cout + co] = from_float<Tout>(y);
+      }
+    }
+    return;
+  }
+
+  // Split K: each CTA's partial sums into its shared memory; rank q then
+  // finishes the q-th slice of the tile, adding the partials of ranks 0, 1,
+  // ... in that order through distributed shared memory
+  namespace cg_ = cooperative_groups;
+  cg_::cluster_group cluster = cg_::this_cluster();
+  float* part = smem;  // (rows x 16 pixels, channels); every copy has landed
+#pragma unroll
+  for (int p = 0; p < kPix; ++p)
+#pragma unroll
+    for (int q = 0; q < kCoT / 4; ++q)
+      reinterpret_cast<float4*>(&part[((sy * kTileW + sx + p) * channels) + cg * kCoT])[q] =
+          make_float4(acc[p][4 * q], acc[p][4 * q + 1], acc[p][4 * q + 2], acc[p][4 * q + 3]);
+  cluster.sync();
+  const int n = rows * kTileW * channels;
+  for (int e = rank * n / split + t; e < (rank + 1) * n / split; e += nt) {
+    float p[kMaxSplit];  // every rank's partial in flight at once, then added in rank order
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r)
+      p[r] = r < split ? cluster.map_shared_rank(part, r)[e] : 0.f;
+    float v = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r)
+      if (r < split) v += p[r];
+    const int pix = e >> ch_shift, co = co0 + (e & (channels - 1));
+    const int yy = y0 + pix / kTileW, xx = x0 + pix % kTileW;
+    if (co < cout && yy < H && xx < W) {
+      float y = v + to_float(b[co]);
       if (relu) y = fmaxf(y, 0.0f);
       out[(static_cast<size_t>(yy) * W + xx) * cout + co] = from_float<Tout>(y);
     }
   }
+  cluster.sync();  // no CTA leaves while another still reads its partials
+}
+
+template <typename Tin, typename Tout, int kCoT, int kKy>
+int launch_f32_tile(const F32Tile& tl, const void* x, const void* w, const void* b, void* out,
+                    int H, int W, int cin, int cout, int relu, int split, cudaStream_t stream) {
+  const int vec_w =
+      sizeof(Tin) == 4 && cout % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  auto kernel = conv3x3_kernel<Tin, Tout, kCoT, kKy>;
+  const int tiles = ((H + tl.rows - 1) / tl.rows) * ((W + kTileW - 1) / kTileW);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * split, (cout + tl.channels - 1) / tl.channels);
+  cfg.blockDim = dim3(tl.threads());
+  cfg.dynamicSmemBytes = tl.smem_bytes(split, kKy);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<const Tin*>(x), static_cast<const Tin*>(w),
+                         static_cast<const Tin*>(b), static_cast<Tout*>(out), H, W, cin, cout,
+                         relu, tl.rows, tl.channels, split, vec_w);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Tin, typename Tout>
 int launch(const void* x, const void* w, const void* b, void* out, int H, int W, int cin,
-           int cout, int relu, cudaStream_t stream) {
-  const dim3 grid(((H + kTileH - 1) / kTileH) * ((W + kTileW - 1) / kTileW),
-                  (cout + kCo - 1) / kCo);
-  conv3x3_kernel<Tin, Tout><<<grid, kThreads, 0, stream>>>(
-      static_cast<const Tin*>(x), static_cast<const Tin*>(w), static_cast<const Tin*>(b),
-      static_cast<Tout*>(out), H, W, cin, cout, relu);
-  return static_cast<int>(cudaGetLastError());
+           int cout, int relu, int tile, int split, cudaStream_t stream) {
+  if (tile < 0 || tile >= kF32TileCount || split < 1 || split > kMaxSplit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const F32Tile& tl = kF32Tiles[tile];
+  const bool rows3 = F32Tile::ky_per_step(cin, split) == 3;
+  const auto args = [&](auto kernel_launch) {
+    return kernel_launch(tl, x, w, b, out, H, W, cin, cout, relu, split, stream);
+  };
+  if (tl.per_thread == 8)
+    return rows3 ? args(launch_f32_tile<Tin, Tout, 8, 3>) : args(launch_f32_tile<Tin, Tout, 8, 1>);
+  return rows3 ? args(launch_f32_tile<Tin, Tout, 4, 3>) : args(launch_f32_tile<Tin, Tout, 4, 1>);
 }
 
 // ---------------------------------------------------------------------------
@@ -567,18 +755,34 @@ int launch_tc(const void* x, const void* w, const void* b, void* out, int H, int
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // The CUDA-core kernel: x, w, b are f32 (in_bf16 = 0) or bf16 (1); out f32
-// (out_bf16 = 0) or bf16.
+// (out_bf16 = 0) or bf16; tile a code of kF32Tiles, split the CTAs of a
+// cluster that share the K walk, 1-8 (cudaErrorInvalidValue otherwise).
 extern "C" int moss_conv3x3(const void* x, const void* w, const void* b, void* out, int H,
                             int W, int cin, int cout, int relu, int in_bf16, int out_bf16,
-                            void* stream) {
+                            int tile, int split, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (H <= 0 || W <= 0 || cin <= 0 || cout <= 0) return 0;
   if (in_bf16) {
-    return out_bf16 ? launch<bf16, bf16>(x, w, b, out, H, W, cin, cout, relu, s)
-                    : launch<bf16, float>(x, w, b, out, H, W, cin, cout, relu, s);
+    return out_bf16 ? launch<bf16, bf16>(x, w, b, out, H, W, cin, cout, relu, tile, split, s)
+                    : launch<bf16, float>(x, w, b, out, H, W, cin, cout, relu, tile, split, s);
   }
-  return out_bf16 ? launch<float, bf16>(x, w, b, out, H, W, cin, cout, relu, s)
-                  : launch<float, float>(x, w, b, out, H, W, cin, cout, relu, s);
+  return out_bf16 ? launch<float, bf16>(x, w, b, out, H, W, cin, cout, relu, tile, split, s)
+                  : launch<float, float>(x, w, b, out, H, W, cin, cout, relu, tile, split, s);
+}
+
+// the CUDA-core kernel's tile `tile`: info = output rows (of 16 pixels),
+// output channels, channels a thread, threads, the most dynamic shared
+// memory it takes at a split of 1 and above 1; -1 past the last tile
+extern "C" int moss_conv3x3_f32_tile(int tile, int* info) {
+  if (tile < 0 || tile >= kF32TileCount) return -1;
+  const F32Tile& tl = kF32Tiles[tile];
+  info[0] = tl.rows;
+  info[1] = tl.channels;
+  info[2] = tl.per_thread;
+  info[3] = tl.threads();
+  info[4] = tl.smem_bytes(1, 3);
+  info[5] = tl.smem_bytes(2, 3);
+  return 0;
 }
 
 // The tensor-core kernel: x, w, b bf16 with cin % 8 == 0, cout % 8 == 0 and

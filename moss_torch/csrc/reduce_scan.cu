@@ -49,13 +49,22 @@
 // product of a tensor-core scan is 36 of the 64 16x16 blocks of L (128 x
 // 128) against 1024 pixels, 18.9 MFLOP a pass, 72x the scan's adds: the
 // bound of a scan is its own f32 work, which the tensor-core forms do with
-// 72x the operations. The log-space cumprod adds a log1pf and an expf per
-// element and rep.
+// 72x the operations. The log-space cumprod adds a logarithm and an
+// exponential per element and rep: 1.07e9 a launch, each one op in the bound
+// (moss_torch/tools/mxu_micro.py OPS), beside which the tool also gives their
+// time at the MUFU rate (16 a clock an SM). What held it: the libm log1pf and
+// expf, several dozen FMA-pipe instructions each, so the kernel issued
+// instructions for them and not for its tensor-core product (stage times,
+// enum ScanStage). It now works in base 2: a degree-7 polynomial log2 on the
+// FMA pipe (log2_1m_near, log2_1m_far: within the error a term may take; the exponent of 1 - a
+// only in the reps where some alpha exceeds 0.5) and one MUFU ex2.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (moss_torch/ops/cuda_build.py)
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -474,6 +483,62 @@ __device__ __forceinline__ float rep_scale(int i) {
   return static_cast<float>(0.01 * static_cast<double>(i + 1));
 }
 
+// alpha_of in two instructions: a saturating multiply (the clip at 0; NaN
+// to 0 as fmaxf does) and the min
+__device__ __forceinline__ float alpha_sat(float xv, float ci) {
+  float a;
+  asm("mul.sat.f32 %0, %1, %2;" : "=f"(a) : "f"(xv), "f"(ci));
+  return fminf(a, 0.9f);
+}
+
+// c ? x : y as a select, never a branch
+__device__ __forceinline__ float select(bool c, float x, float y) {
+  float r;
+  asm("{\n.reg .pred p;\nsetp.ne.s32 p, %3, 0;\nselp.f32 %0, %1, %2, p;\n}"
+      : "=f"(r) : "f"(x), "f"(y), "r"(static_cast<int>(c)));
+  return r;
+}
+
+// log2(1 - a) for a in (0, 0.9] on the FMA pipe, no libm call and no
+// MUFU. 1 - a = 2^e (1 + f) with f in [-0.5, 0): for a <= 0.5, e = 0 and
+// f = -a exactly (1 - a itself would be rounded); above, 1 - a is exact and
+// e and 1 + f in [0.5, 1) are its exponent and mantissa. log2(1 + f) =
+// f P(f), P the degree-7 polynomial kLog2Poly fitted to log2(1 + f) / f on
+// [-0.5, 0], in Horner form. Error against float64 over a in (0.003, 0.9],
+// modelled in float32 arithmetic (tests/test_torch_mxu_micro.py): times
+// 1 - a, the most a term can move a cumprod, within the 8e-8 a term may take
+// for 128 terms to stay within RTOL = 1e-5 of the max
+// (moss_torch/tools/mxu_micro.py). The coefficients are
+// ops/reduce_scan.py::LOG2_POLY, which the test reads from the table in
+// log2_poly.
+__device__ __forceinline__ float log2_poly(float f) {  // P(f)
+  constexpr float kLog2Poly[8] = {1.4426864f, -0.7218736f, 0.4700032f, -0.46861637f,
+                                  -0.29185253f, -1.9971113f, -2.669445f, -2.283522f};
+  float p = kLog2Poly[7];
+#pragma unroll
+  for (int j = 6; j >= 0; --j) p = fmaf(p, f, kLog2Poly[j]);
+  return p;
+}
+
+// log2(1 - a) for a in [0, 0.5]: f = -a, f P(f)
+__device__ __forceinline__ float log2_1m_near(float a) { return -a * log2_poly(-a); }
+
+// log2(1 - a) for a in [0.5, 0.9]: the exponent e of the exact 1 - a, then
+// e + f P(f) in one rounding
+__device__ __forceinline__ float log2_1m_far(float a) {
+  const int bits = __float_as_int(1.f - a);
+  const float e = __int_as_float(0x4b000000 | (bits >> 23)) - 8388734.f;  // exponent - 126
+  const float f = __int_as_float((bits & 0x007fffff) | 0x3f000000) - 1.f;
+  return fmaf(f, log2_poly(f), e);
+}
+
+// 2^v, one MUFU op (ex2.approx: 2 ulp; flushes results below 2^-126 to 0)
+__device__ __forceinline__ float exp2_fast(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
 // CUDA cores: a thread per pixel walks K = 128 in order; the CTA's 64
 // columns of x sit in shared memory, read again in every rep, and the
 // thread's 128 sums in registers.
@@ -523,14 +588,28 @@ __device__ __forceinline__ uint32_t tri_pair(int r, int c) {
   return pack_bf16(c <= r ? 1.f : 0.f, c + 1 <= r ? 1.f : 0.f);
 }
 
+// Stages of the log-space cumprod (scan_tc_kernel<kMul, kSplit2>), for
+// timing what holds it back: kScanFull the production kernel; kScanProducts
+// the split2 L product of the masked -a, no log, no exp (out = its sum);
+// kScanLogs the masked log2(1 - a) summed, no product, no exp; kScanExps
+// 2^(masked -a) summed, no log, no product. The ablated stages keep the
+// alpha, the mask, the sums over reps, the stores and the observer, so the
+// compiler drops nothing; kScanLogs and kScanExps leave each value where
+// its operand lies (the B fragment), as out (splat, pixel).
+enum ScanStage { kScanFull = 0, kScanProducts = 1, kScanLogs = 2, kScanExps = 3 };
+
 // Tensor cores: out (128 x 64 pixels of a CTA) = L (128 x 128) @ g. A warp
 // takes 8 pixels (one n-tile) and all 8 m-tiles; L is exact in bf16 and made
 // in registers; blocks above the diagonal are zero and skipped (36 of 64
 // remain). kMode kBf16: one pass of bf16(g); kSplit2: hi and lo passes.
-template <int kOp, int kMode>
+// kMul works in base 2: g = log2(1 - a) by log2_1m_* on the FMA pipe, the
+// cumprod 2^(L @ g) by one ex2 (MUFU) per element; the libm log1pf and expf
+// it replaces were several dozen instructions each.
+template <int kOp, int kMode, int kStage = kScanFull>
 __global__ void __launch_bounds__(kScanTcThreads)
 scan_tc_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
                int reps) {
+  constexpr bool kProducts = kStage == kScanFull || kStage == kScanProducts;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int pb = blockIdx.x * 64 + warp * 8;  // the warp's first pixel
@@ -549,15 +628,35 @@ scan_tc_kernel(const float* __restrict__ x, float* __restrict__ out, float* __re
   const uint32_t diag[4] = {tri_pair(g, 2 * t), tri_pair(g + 8, 2 * t),
                             tri_pair(g, 2 * t + 8), tri_pair(g + 8, 2 * t + 8)};
   const uint32_t full[4] = {ones, ones, ones, ones};
-  float acc[8][4];
+  float acc[8][4];  // C fragments; B fragments for kScanLogs and kScanExps
 #pragma unroll
   for (int m = 0; m < 8; ++m)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[m][e] = 0.f;
-  for (int i = 0; i < reps; ++i) {
-    uint32_t hi[8][2], lo[8][2];
+  // the largest x of the thread: a rep's alphas reach past 0.5 only where
+  // xmax ci does (the clip and the rounding of x ci keep the order)
+  float xmax = xv[0][0];
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xmax = fmaxf(xmax, xv[s][e]);
+  float c[8][4];
+  // One rep. kFar: some lane's alpha exceeds 0.5, so its log needs the
+  // exponent of 1 - a (log2_1m_far); a warp-uniform choice between two
+  // straight-line bodies, the far one taken in few reps (none below c_i =
+  // 0.5 / max x)
+  auto rep = [&](int i, auto far) {
+    constexpr bool kFar = decltype(far)::value;
     const float fi = static_cast<float>(i);
     const float ci = rep_scale(i);
+    // slab s (splats 16 s ... 16 s + 15) of the operand, then its products
+    // into the sums c[m] of every m >= s: the tensor cores work on slab s
+    // while the FMA pipe makes slab s + 1. Each c[m] still adds s = 0, 1,
+    // ..., m in order, hi before lo
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[m][e] = 0.f;
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
       float v[4];
@@ -566,45 +665,71 @@ scan_tc_kernel(const float* __restrict__ x, float* __restrict__ out, float* __re
         if constexpr (kOp == kAdd) {
           v[e] = xv[s][e] + fi;
         } else {
-          const float a = alpha_of(xv[s][e], ci);
-          v[e] = a > 0.003f ? log1pf(-a) : 0.f;
+          const float a = alpha_sat(xv[s][e], ci);
+          float g;  // log2(1 - a), or -a for the stages without logs
+          if constexpr (kStage == kScanFull || kStage == kScanLogs) {
+            g = log2_1m_near(a);
+            if constexpr (kFar) g = select(a > 0.5f, log2_1m_far(a), g);
+          } else {
+            g = -a;
+          }
+          v[e] = select(a > 0.003f, g, 0.f);
+          if constexpr (kStage == kScanLogs) acc[s][e] += v[e];
+          if constexpr (kStage == kScanExps) acc[s][e] += exp2_fast(v[e]);
         }
       }
-      if constexpr (kMode == kSplit2) {
-        float h[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) h[e] = bf16_round(v[e]);
-        hi[s][0] = pack_bf16(h[0], h[1]);
-        hi[s][1] = pack_bf16(h[2], h[3]);
-        lo[s][0] = pack_bf16(v[0] - h[0], v[1] - h[1]);
-        lo[s][1] = pack_bf16(v[2] - h[2], v[3] - h[3]);
-      } else {
-        hi[s][0] = pack_bf16(v[0], v[1]);
-        hi[s][1] = pack_bf16(v[2], v[3]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 8; ++m) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int s = 0; s <= m; ++s) {
-        mma_bf16(c, s == m ? diag : full, hi[s][0], hi[s][1]);
-        if constexpr (kMode == kSplit2) mma_bf16(c, s == m ? diag : full, lo[s][0], lo[s][1]);
+      if constexpr (!kProducts) continue;
+      uint32_t hi[2], lo[2];
+      hi[0] = pack_bf16(v[0], v[1]);
+      hi[1] = pack_bf16(v[2], v[3]);
+      if constexpr (kMode == kSplit2) {  // lo = bf16(v - bf16(v)), bf16(v) from hi's halves
+        lo[0] = pack_bf16(v[0] - __uint_as_float(hi[0] << 16),
+                          v[1] - __uint_as_float(hi[0] & 0xffff0000u));
+        lo[1] = pack_bf16(v[2] - __uint_as_float(hi[1] << 16),
+                          v[3] - __uint_as_float(hi[1] & 0xffff0000u));
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][e] += kOp == kMul ? expf(c[e]) : c[e];
+      for (int m = s; m < 8; ++m) {
+        mma_bf16(c[m], s == m ? diag : full, hi[0], hi[1]);
+        if constexpr (kMode == kSplit2) mma_bf16(c[m], s == m ? diag : full, lo[0], lo[1]);
+      }
     }
+    if constexpr (kProducts) {
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[m][e] += kOp == kMul && kStage == kScanFull ? exp2_fast(c[m][e]) : c[m][e];
+    }
+  };
+  for (int i = 0; i < reps; ++i) {
+    const bool far = kOp == kMul && (kStage == kScanFull || kStage == kScanLogs) &&
+                     __any_sync(kFull, xmax * rep_scale(i) > 0.5f);
+    if (far)
+      rep(i, std::true_type{});
+    else
+      rep(i, std::false_type{});
   }
-  // c[0], c[1]: splat 16 m + g, pixels pb + 2t, +1; c[2], c[3]: splat + 8
   float sum = 0.f;
 #pragma unroll
   for (int m = 0; m < 8; ++m) {
-    const int r = 16 * m + g;
-    if (blockIdx.y == 0) {
-      out[r * kPix + pb + 2 * t] = acc[m][0];
-      out[r * kPix + pb + 2 * t + 1] = acc[m][1];
-      out[(r + 8) * kPix + pb + 2 * t] = acc[m][2];
-      out[(r + 8) * kPix + pb + 2 * t + 1] = acc[m][3];
+    if constexpr (kProducts) {
+      // c[0], c[1]: splat 16 m + g, pixels pb + 2t, +1; c[2], c[3]: splat + 8
+      const int r = 16 * m + g;
+      if (blockIdx.y == 0) {
+        out[r * kPix + pb + 2 * t] = acc[m][0];
+        out[r * kPix + pb + 2 * t + 1] = acc[m][1];
+        out[(r + 8) * kPix + pb + 2 * t] = acc[m][2];
+        out[(r + 8) * kPix + pb + 2 * t + 1] = acc[m][3];
+      }
+    } else {  // splats 16 m + 2t, +1, +8, +9, pixel pb + g, as xv
+      const int k0 = 16 * m + 2 * t;
+      if (blockIdx.y == 0) {
+        out[k0 * kPix + pb + g] = acc[m][0];
+        out[(k0 + 1) * kPix + pb + g] = acc[m][1];
+        out[(k0 + 8) * kPix + pb + g] = acc[m][2];
+        out[(k0 + 9) * kPix + pb + g] = acc[m][3];
+      }
     }
     sum += ((acc[m][0] + acc[m][1]) + acc[m][2]) + acc[m][3];
   }
@@ -701,4 +826,27 @@ extern "C" int moss_mxu_scan(const float* x, float* out, float* obs, int reps, i
     return launch(scan_tc_kernel<kMul, kSplit2>, parts, kScanTcThreads, tiles, s, x, out, obs,
                   reps);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Stage `stage` (enum ScanStage) of the log-space cumprod, launched as
+// moss_mxu_scan(op 1, mode 3) is, with its observer (tiles, its parts);
+// cudaErrorInvalidValue for an unknown stage.
+extern "C" int moss_mxu_scan_stage(const float* x, float* out, float* obs, int reps, int tiles,
+                                   int stage, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case kScanFull:
+      return launch(scan_tc_kernel<kMul, kSplit2, kScanFull>, kScanParts, kScanTcThreads, tiles,
+                    s, x, out, obs, reps);
+    case kScanProducts:
+      return launch(scan_tc_kernel<kMul, kSplit2, kScanProducts>, kScanParts, kScanTcThreads,
+                    tiles, s, x, out, obs, reps);
+    case kScanLogs:
+      return launch(scan_tc_kernel<kMul, kSplit2, kScanLogs>, kScanParts, kScanTcThreads, tiles,
+                    s, x, out, obs, reps);
+    case kScanExps:
+      return launch(scan_tc_kernel<kMul, kSplit2, kScanExps>, kScanParts, kScanTcThreads, tiles,
+                    s, x, out, obs, reps);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

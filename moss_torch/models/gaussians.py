@@ -94,6 +94,10 @@ def get_covariance(p: GaussianParams, transform=None, scaling_modifier: float = 
     )
 
 
+def num_sh_coeffs(sh_degree: int) -> int:
+    return (sh_degree + 1) ** 2
+
+
 def create_from_points(points, colors, capacity: int, sh_degree: int = 3, device=None):
     """Initialize the cloud from a point set: scales from the mean-3NN
     distance, identity rotations, opacity 0.1. Dead capacity slots are
@@ -107,7 +111,7 @@ def create_from_points(points, colors, capacity: int, sh_degree: int = 3, device
     n = points.shape[0]
     if n > capacity:
         raise ValueError(f"{n} init points exceed capacity {capacity}")
-    n_rest = (sh_degree + 1) ** 2 - 1
+    n_rest = num_sh_coeffs(sh_degree) - 1
     pad = capacity - n
 
     dist2 = torch.clamp_min(mean_knn_dist2(points), 1e-7)

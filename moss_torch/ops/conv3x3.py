@@ -13,7 +13,8 @@ Routes, by the tensors' device and type:
     kernel (wgmma), counted in `tc_launches`; an x or w that does not start
     on 16 bytes, as TMA needs, is copied to one that does first;
   * f32 on a CUDA device, and bf16 with Cin or Cout not a multiple of 8:
-    the CUDA-core kernel, counted in `launches`.
+    the CUDA-core kernel, counted in `launches`, at the tile and cluster
+    split that f32_tile picks for the shape.
 A CUDA call launches one of the two kernels or raises. conv3x3_tc_stage runs
 the stages of the tensor-core kernel, for timing what holds it back.
 """
@@ -36,14 +37,17 @@ stage_launches = 0  # its stages, conv3x3_tc_stage
 STAGES = ("full", "copy", "operands", "products", "mma")
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# x, w, b, out; H, W, cin, cout, relu, in_bf16, out_bf16
-_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+# x, w, b, out; H, W, cin, cout, relu, in_bf16, out_bf16, tile, split
+_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
 # x, w, b, out; H, W, cin, cout, relu, out_bf16, tile
 _TC_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
 # stage; x, w, b, out; H, W, cin, cout, relu, tile
 _STAGE_SIGNATURE = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
 _TILE_KEYS = ("rows", "channels", "threads", "smem_bytes", "ctas_per_sm")
+_F32_TILE_KEYS = ("rows", "channels", "per_thread", "threads", "smem_bytes", "smem_bytes_split")
+MAX_SPLIT = 8  # CTAs of a cluster that share the K walk (csrc/conv3x3.cu kMaxSplit)
 _tc_tiles = {}
+_f32_tiles = {}
 
 
 @contextmanager
@@ -71,26 +75,78 @@ def conv3x3_plain(x, w, b, relu: bool = True, out_dtype=None):
     return y.to(out_dtype)
 
 
+def _query_tiles(symbol, keys, device):
+    """The tiles the C library reports through `symbol`, by tile code."""
+    fn = getattr(cuda_build.load("conv3x3"), symbol)
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    tiles = []
+    with torch.cuda.device(device):
+        while True:
+            info = (ctypes.c_int * len(keys))()
+            err = fn(len(tiles), info)
+            if err == -1:
+                break
+            if err != 0:
+                raise RuntimeError(f"conv3x3 tile query failed: cudaError {err}")
+            tiles.append(dict(zip(keys, info)))
+    return tuple(tiles)
+
+
 def tc_tiles(device) -> tuple:
     """The tensor-core kernel's CTA tiles on a CUDA device, by tile code,
     largest first: {rows (of 16 pixels), channels, threads, smem_bytes
     (dynamic), ctas_per_sm}, as the C library reports them."""
     device = torch.device(device)
     if device not in _tc_tiles:
-        fn = cuda_build.load("conv3x3").moss_conv3x3_tc_tile
-        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
-        tiles = []
-        with torch.cuda.device(device):
-            while True:
-                info = (ctypes.c_int * len(_TILE_KEYS))()
-                err = fn(len(tiles), info)
-                if err == -1:
-                    break
-                if err != 0:
-                    raise RuntimeError(f"conv3x3 tile query failed: cudaError {err}")
-                tiles.append(dict(zip(_TILE_KEYS, info)))
-        _tc_tiles[device] = tuple(tiles)
+        _tc_tiles[device] = _query_tiles("moss_conv3x3_tc_tile", _TILE_KEYS, device)
     return _tc_tiles[device]
+
+
+def f32_tiles(device) -> tuple:
+    """The CUDA-core kernel's CTA tiles, by tile code: {rows (of 16 pixels),
+    channels, per_thread (channels of a thread), threads, smem_bytes and
+    smem_bytes_split (the most dynamic shared memory it takes at a split of
+    1 and above 1)}, as the C library reports them."""
+    device = torch.device(device)
+    if device not in _f32_tiles:
+        _f32_tiles[device] = _query_tiles("moss_conv3x3_f32_tile", _F32_TILE_KEYS, device)
+    return _f32_tiles[device]
+
+
+def f32_tile(H: int, W: int, cin: int, cout: int, tiles, sms: int) -> tuple:
+    """(tile code, split) of the CUDA-core kernel for an (H, W, cin) image
+    and cout output channels on a card with `sms` SMs. The tile's channels
+    are the fewest that hold cout (64 above 64), so no FMA is spent on zero
+    weights. The K walk (3 ceil(cin / 8) kernel rows of 8 input channels)
+    stays in one CTA where a tile of those channels covers half the SMs
+    without a split: there a split buys at most twice the CTAs, and the
+    partials' sum would leave the sequential order of the plain version's
+    sums at the layers whose K makes its rounding largest. Else the walk is
+    split over 1-8 CTAs of a cluster. Among the candidates, the grids of at
+    least one CTA per SM first, then those of half the SMs; then the
+    smallest estimate of the busiest SM's time: a thread's FMAs (a split
+    above 1 costs about one step more, the partials' exchange) times the
+    larger of its SM's warps over its four schedulers and 2 (a warp alone
+    issues at about half rate); ties to the smaller split, then the larger
+    tile."""
+    steps = 3 * -(-cin // 8)
+    fit = [t["channels"] for t in tiles if t["channels"] >= min(cout, 64)]
+    channels = min(fit) if fit else max(t["channels"] for t in tiles)
+    cands = []
+    for code, t in enumerate(tiles):
+        if t["channels"] != channels:
+            continue
+        pixel_tiles = -(-H // t["rows"]) * -(-W // 16) * -(-cout // channels)
+        for split in range(1, min(MAX_SPLIT, steps) + 1):
+            ctas = pixel_tiles * split
+            cover = 0 if ctas >= sms else 1 if 2 * ctas >= sms else 2
+            warps = -(-ctas // sms) * -(-t["threads"] // 32)
+            fmas = 4 * t["per_thread"] * 24 * (-(-steps // split) + (split > 1))
+            cands.append(((cover, fmas * max(warps / 4, 2), split, -t["rows"]), code, split))
+    if any(split == 1 and key[0] <= 1 for key, _, split in cands):
+        cands = [c for c in cands if c[2] == 1]
+    _, code, split = min(cands)
+    return code, split
 
 
 def tc_tile(H: int, W: int, cout: int, tiles, sms: int) -> int:
@@ -160,8 +216,9 @@ def conv3x3(x, w, b, relu: bool = True, out_dtype=None):
                           out_bf16, tile)
         tc_launches += 1
     else:
+        tile, split = f32_tile(H, W, cin, cout, f32_tiles(x.device), _sms(x.device))
         cuda_build.launch("conv3x3", "moss_conv3x3", _SIGNATURE, x.device, *args,
-                          int(x.dtype == torch.bfloat16), out_bf16)
+                          int(x.dtype == torch.bfloat16), out_bf16, tile, split)
         launches += 1
     return out
 

@@ -129,6 +129,33 @@ def ptxas_report(name: str):
     return out
 
 
+_SASS_FUNCTION = re.compile(r"\n\s*Function : (\S+)")
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def sass_opcodes(name: str, kernel: str):
+    """Static instruction counts of library `name`'s kernels whose short name
+    (see ptxas_report) starts with `kernel`, from the toolkit's cuobjdump
+    -sass: {kernel: {"total": n, opcode: n, ...}}, opcodes without their
+    modifiers, most frequent first."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build_all([name])[name])], check=True,
+                          capture_output=True, text=True).stdout
+    heads = list(_SASS_FUNCTION.finditer(sass))
+    out = {}
+    for i, head in enumerate(heads):
+        short = _short(head.group(1))
+        if not short.startswith(kernel):
+            continue
+        body = sass[head.end():heads[i + 1].start() if i + 1 < len(heads) else len(sass)]
+        ops = {}
+        for m in _SASS_OP.finditer(body):
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+        out[short] = {"total": sum(ops.values()),
+                      **dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built if needed, loaded once per process."""
     if name not in _libs:

@@ -107,6 +107,13 @@ log_mf_norm_constant = LogMFNormConstant.apply
 proper_singular_values = ProperSingularValues.apply
 
 
+def proper_svd3(F_):
+    """(U, S, V, S_proper) of (B, 3, 3): U, S, V detached (torch.linalg.svd,
+    V = Vh^T); the grads flow through S_proper only."""
+    U, S, Vh = torch.linalg.svd(F_.detach(), full_matrices=False)
+    return U, S, Vh.transpose(-1, -2), proper_singular_values(F_)
+
+
 def matrix_fisher_nll(pred_F, target_R, overreg: float = 1.005):
     """NLL of target rotations under MF(pred_F); (..., 3, 3) -> (...,)."""
     shape = pred_F.shape[:-2]

@@ -93,6 +93,17 @@ def backbone(path: Optional[str], device=None) -> Tuple[Dict, str, Optional[str]
     return init_random(3407, device), "random", RANDOM_NOTE
 
 
+def gt_feature_bytes(h: int, w: int, dtype_bytes: int = 2) -> int:
+    """Bytes of one frame's cached ground-truth tower (gt_features, bf16) at
+    input size (h, w): every conv stage's output (moss_tpu's
+    lpips_jax.gt_feature_bytes)."""
+    total = 0
+    for out_ch, _ in _VGG_CFG:
+        total += h * w * out_ch * dtype_bytes
+        h, w = max(h // 2, 1), max(w // 2, 1)
+    return total
+
+
 def _features(params, x, dtype) -> List[torch.Tensor]:
     """x: (N, 3, H, W) normalized -> the five stage features (N, C, H', W')."""
     feats = []

@@ -107,6 +107,13 @@ def conic_and_radius(cov2d):
     return conic, radius, det
 
 
+def mark_visible(means3d, world_view, full_proj):
+    """(P,) bool frustum visibility: the reference's markVisible, a check of
+    the near plane only (rasterizer_impl.cu:141-153, auxiliary.h:139-152)."""
+    depth, _ = project_points(means3d, world_view, full_proj)
+    return depth > NEAR_Z
+
+
 def preprocess(means3d, cov3d_packed, color, opacity, camera, valid_mask=None) -> Projected:
     """Culling + projection + conic for all P Gaussians.
 

@@ -29,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .binning import tile_rect
+from .projection import preprocess
 
 ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
@@ -130,3 +131,12 @@ def rasterize_reference(proj, bg_color, height: int, width: int,
         "alpha": acc[:, C + 1].reshape(height, width),
         "final_T": T.reshape(height, width),
     }
+
+
+def render_reference(means3d, cov3d_packed, color, opacity, camera, bg_color, valid_mask=None,
+                     tile_h: int = 16, tile_w: int = 16):
+    """preprocess + rasterize_reference in one call, the plain end-to-end
+    forward: (images, proj)."""
+    proj = preprocess(means3d, cov3d_packed, color, opacity, camera, valid_mask)
+    return rasterize_reference(proj, bg_color, camera.height, camera.width, tile_h=tile_h,
+                               tile_w=tile_w), proj

@@ -32,6 +32,11 @@ of their f32 sums. The CUDA-core scans are per-pixel sequential loops, not
 the TPU's two-level Hillis-Steele scan: against it they differ by the order
 of the sums, within 1e-5 of the max.
 
+The log-space cumprod's kernel works in base 2 (log2(1 - a) by a polynomial,
+LOG2_POLY, and 2^x), its plain version in natural logs as the JAX kernel
+does; scan_stage runs the kernel's stages (SCAN_STAGES: products, logs and
+exps alone), for timing what holds it back.
+
 A kernel launch runs TILES identical copies of the chunk (the TPU's grid
 of TILES = 256 programs); only tile 0 stores the output, and every CTA
 writes a checksum of its part into an observer (TILES, parts), which must be
@@ -44,6 +49,7 @@ is how a launch's TILES copies are timed on their own.
 from __future__ import annotations
 
 import ctypes
+import math
 from contextlib import contextmanager
 
 import torch
@@ -59,6 +65,15 @@ moments_launches = 0  # moss_mxu_moments
 reshape_launches = 0  # moss_mxu_reshape
 acc_launches = 0      # moss_mxu_acc
 scan_launches = 0     # moss_mxu_scan
+stage_launches = 0    # moss_mxu_scan_stage
+
+# the log-space cumprod kernel's stages, by their code in csrc/reduce_scan.cu
+# (enum ScanStage)
+SCAN_STAGES = ("full", "products", "logs", "exps")
+# log2(1 + f) / f on [-0.5, 0] in float32, constant term first: the table
+# kLog2Poly of csrc/reduce_scan.cu::log2_poly
+LOG2_POLY = (1.4426864, -0.7218736, 0.4700032, -0.46861637, -0.29185253, -1.9971113, -2.669445,
+             -2.283522)
 
 MODES = ("cuda", "bf16", "tf32x3")
 SCAN_MODES = {"add": ("cuda", "bf16", "split2"), "mul": ("cuda", "split2")}
@@ -90,6 +105,7 @@ _SIGNATURES = {  # pointers, then reps, tiles, [op,] [mode]
     "moss_mxu_reshape": [_PTR] * 3 + [_INT] * 2,
     "moss_mxu_acc": [_PTR] * 4 + [_INT] * 3,
     "moss_mxu_scan": [_PTR] * 3 + [_INT] * 4,
+    "moss_mxu_scan_stage": [_PTR] * 3 + [_INT] * 3,
 }
 
 
@@ -346,6 +362,51 @@ def scan(x, reps: int = REPS, op: str = "add", mode: str = "cuda"):
     return res
 
 
+def scan_stage_plain(x, stage: str, reps: int = REPS):
+    """What stage `stage` of the log-space cumprod kernel returns, summed over
+    the reps, with a the rep's alpha masked to 0 where a <= 0.003: "full" the
+    cumprod (scan_plain); "products" the split2 cumsum of -a; "logs"
+    log2(1 - a); "exps" 2^-a."""
+    if stage not in SCAN_STAGES:
+        raise ValueError(f"stage {stage!r}: expected one of {SCAN_STAGES}")
+    if stage == "full":
+        return scan_plain(x, reps, "mul", "split2")
+    g0, lead = _rows(x)
+    L = tri(x.device)
+    acc = torch.zeros((*lead, K, PIX), device=x.device)
+    for i in range(reps):
+        a = rep_alpha(g0, i)
+        a = torch.where(a > 0.003, a, 0.0)
+        if stage == "products":
+            acc = acc + _mm(L, -a, "split2")
+        elif stage == "logs":
+            acc = acc + torch.log1p(-a) / math.log(2.0)
+        else:
+            acc = acc + torch.exp2(-a)
+    return acc.reshape(*lead, K, H, W)
+
+
+def scan_stage(x, stage: str, reps: int = REPS):
+    """(out (K, 8, 128), observer) of stage `stage` of the log-space cumprod
+    kernel (scan op "mul", mode "split2"): "full" is that kernel, the others
+    leave out part of its work, so their times say what holds it back.
+    Counted in `stage_launches`; on a CPU tensor, scan_stage_plain."""
+    global stage_launches
+    _check(x, reps, "scan_stage")
+    if stage not in SCAN_STAGES:
+        raise ValueError(f"stage {stage!r}: expected one of {SCAN_STAGES}")
+    if x.device.type == "cpu":
+        return scan_stage_plain(x, stage, reps), None
+    out = torch.empty((K, H, W), dtype=torch.float32, device=x.device)
+    obs = torch.empty((TILES, _parts("moss_mxu_scan", _OP_CODE["mul"], _MODE_CODE["split2"])),
+                      dtype=torch.float32, device=x.device)
+    cuda_build.launch("reduce_scan", "moss_mxu_scan_stage", _SIGNATURES["moss_mxu_scan_stage"],
+                      x.device, x.data_ptr(), out.data_ptr(), obs.data_ptr(), reps, TILES,
+                      SCAN_STAGES.index(stage))
+    stage_launches += 1
+    return out, obs
+
+
 # ---- the twelve runs by name ----------------------------------------------------
 
 def _scan_op(family):
@@ -383,5 +444,5 @@ def launch_counts():
 
 
 def reset_launch_counts():
-    global moments_launches, reshape_launches, acc_launches, scan_launches
-    moments_launches = reshape_launches = acc_launches = scan_launches = 0
+    global moments_launches, reshape_launches, acc_launches, scan_launches, stage_launches
+    moments_launches = reshape_launches = acc_launches = scan_launches = stage_launches = 0

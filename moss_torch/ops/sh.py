@@ -42,6 +42,11 @@ def rgb_to_sh(rgb):
     return (rgb - 0.5) / SH_C0
 
 
+def sh_to_rgb(sh):
+    """Inverse of rgb_to_sh."""
+    return sh * SH_C0 + 0.5
+
+
 def eval_sh(deg: int, sh, dirs):
     """SH-weighted sum at unit directions: sh (..., K, C), dirs (..., 3) -> (..., C)."""
     if not 0 <= deg <= 4:

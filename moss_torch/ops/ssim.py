@@ -99,3 +99,11 @@ def psnr(img1, img2):
     """20 log10(1 / rmse), mean over pixels."""
     mse = torch.mean((img1 - img2) ** 2)
     return 20.0 * torch.log10(1.0 / torch.sqrt(mse + 1e-12))
+
+
+def l1_loss(a, b):
+    return torch.mean(torch.abs(a - b))
+
+
+def l2_loss(a, b):
+    return torch.mean((a - b) ** 2)

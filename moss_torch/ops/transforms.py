@@ -33,6 +33,16 @@ def quat_to_rotmat(q, normalize: bool = True):
     return R.reshape(*q.shape[:-1], 3, 3)
 
 
+def quat_multiply(a, b):
+    """Hamilton product of (w, x, y, z) quaternions, broadcasting over batch dims."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([aw * bw - ax * bx - ay * by - az * bz,
+                        aw * bx + ax * bw + ay * bz - az * by,
+                        aw * by - ax * bz + ay * bw + az * bx,
+                        aw * bz + ax * by - ay * bx + az * bw], dim=-1)
+
+
 def rotmat_to_quat(R, eps: float = 1e-8):
     """Rotation matrix -> quaternion (w,x,y,z), (..., 3, 3) -> (..., 4).
 
@@ -151,3 +161,16 @@ def fold_cov6(cov6, transform):
     o12 = u10 * t20 + u11 * t21 + u12 * t22
     o22 = u20 * t20 + u21 * t21 + u22 * t22
     return torch.stack([o00, o01, o02, o11, o12, o22], dim=-1)
+
+
+def pack_cov3d(cov):
+    """(..., 3, 3) symmetric -> (..., 6) [xx, xy, xz, yy, yz, zz]."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], dim=-1)
+
+
+def unpack_cov3d(packed):
+    """(..., 6) -> (..., 3, 3) symmetric."""
+    xx, xy, xz, yy, yz, zz = (packed[..., i] for i in range(6))
+    return torch.stack([torch.stack([xx, xy, xz], dim=-1), torch.stack([xy, yy, yz], dim=-1),
+                        torch.stack([xz, yz, zz], dim=-1)], dim=-2)

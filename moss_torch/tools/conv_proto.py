@@ -2,9 +2,10 @@
 
 Counterpart of tools/conv_pallas_proto.py's check() and bench(): the
 CUDA-core kernel against its plain version at check()'s three f32 shapes
-(atol 1e-4, :102), then the tensor-core kernel at each of bench()'s eight
-VGG16 layer shapes (:123-124) in bf16, with bench()'s inputs (x N(0, 1),
-w N(0, 0.05), b = 0). Each beside its FLOPs (2 H W Cin Cout 9), its bound
+(atol 1e-4, :102), each with the tile and cluster split the wrapper picks
+and a bitwise repeat, and at the eight VGG16 layer shapes (:123-124) in f32;
+then the tensor-core kernel at each of those layers in bf16, with bench()'s
+inputs (x N(0, 1), w N(0, 0.05), b = 0). Each beside its FLOPs (2 H W Cin Cout 9), its bound
 (the larger of the FLOPs at the H100's peak for the unit, 989 TFLOP/s bf16
 on the tensor cores or 67 TFLOP/s f32 on the CUDA cores, and the bytes at
 3.35 TB/s), the plain version, and one cuDNN call as the library yardstick
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.conv3x3 import STAGES, _full_f32, conv3x3, conv3x3_plain, conv3x3_tc_stage, \
-    tc_tile, tc_tiles
+    f32_tile, f32_tiles, tc_tile, tc_tiles
 from .timing import device_name, timer
 
 CHECK_SHAPES = ((16, 128, 8, 16), (8, 256, 64, 64), (32, 128, 16, 8))  # (H, W, Cin, Cout)
@@ -90,28 +91,54 @@ def library_conv(x, w, b):
     return call
 
 
+def f32_choice(H, W, cin, cout, dev):
+    """The CUDA-core kernel's tile (the C library's dict) and cluster split
+    for a shape, and its grid's CTAs; None off the card."""
+    if dev.type != "cuda":
+        return None
+    tiles = f32_tiles(dev)
+    code, split = f32_tile(H, W, cin, cout, tiles,
+                           torch.cuda.get_device_properties(dev).multi_processor_count)
+    t = tiles[code]
+    ctas = -(-H // t["rows"]) * -(-W // 16) * -(-cout // t["channels"]) * split
+    return {"code": code, **t, "split": split, "ctas": ctas}
+
+
+def f32_row(shape, x, w, b, time_ms):
+    """One f32 shape (H, W, Cin, Cout) on the CUDA-core kernel: its error
+    against the plain version (raising past F32_ATOL), a bitwise repeat,
+    its ms and cuDNN f32's (TF32 off, which is the plain version too, timed
+    once), FLOPs, bytes and bound on the CUDA cores, tile and split."""
+    H, W, cin, cout = shape
+    y = conv3x3(x, w, b)
+    err = float((y - conv3x3_plain(x, w, b)).abs().max())
+    if not err <= F32_ATOL:
+        raise AssertionError(f"conv3x3 f32 at {shape}: max abs err {err}")
+    repeat = bool(torch.equal(y, conv3x3(x, w, b)))
+    flops, bytes_, bound_ms, bound_by = layer_bound(H, cin, cout, W, 4, PEAK_F32)
+    ms = time_ms(lambda: conv3x3(x, w, b), **TIMING)
+    library_ms = time_ms(library_conv(x, w, b), **TIMING)
+    choice = f32_choice(H, W, cin, cout, x.device)
+    print(f"H{H} W{W} {cin}->{cout}: max abs err {err:.2e}  f32 kernel {ms:.5f} ms"
+          f"  bound {bound_ms:.5f} ms  cuDNN f32 {library_ms:.5f} ms  repeat {repeat}"
+          f"  tile {choice}")
+    return {"shape": [H, W, cin, cout], "max_abs_err": err, "bitwise_repeat": repeat,
+            "flops": flops, "bytes": bytes_, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": library_ms, "library_ms": library_ms, "tile": choice}
+
+
 def main(device=None):
-    """Print and return, per f32 check shape and per bf16 layer: the error
-    against the plain version, the kernel's, plain version's and library's
-    ms, FLOPs, bound and (layers) the tensor-core tile and the ms of each of
-    its stages (ops.conv3x3.STAGES)."""
+    """Print and return, per f32 check shape, per f32 layer and per bf16
+    layer: the error against the plain version, the kernel's, plain
+    version's and library's ms, FLOPs, bound and the tile (f32: with its
+    cluster split; bf16: the tensor-core tile and the ms of each of its
+    stages, ops.conv3x3.STAGES)."""
     dev = resolve_device(device)
     time_ms = timer(dev)
     print(f"device: {device_name(dev)}")
-    checks = []
-    for (H, W, cin, cout), x, w, b in check_inputs(dev):
-        err = float((conv3x3(x, w, b) - conv3x3_plain(x, w, b)).abs().max())
-        if not err <= F32_ATOL:
-            raise AssertionError(f"conv3x3 f32 at {(H, W, cin, cout)}: max abs err {err}")
-        flops, bytes_, bound_ms, bound_by = layer_bound(H, cin, cout, W, 4, PEAK_F32)
-        ms = time_ms(lambda: conv3x3(x, w, b), **TIMING)
-        library_ms = time_ms(library_conv(x, w, b), **TIMING)
-        print(f"H{H} W{W} {cin}->{cout}: max abs err {err:.2e}  f32 kernel {ms:.4f} ms"
-              f"  bound {bound_ms:.5f} ms  cuDNN f32 {library_ms:.4f} ms")
-        # in f32 the plain version is this same cuDNN call (TF32 off), timed once
-        checks.append({"shape": [H, W, cin, cout], "max_abs_err": err, "flops": flops,
-                       "bytes": bytes_, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "plain_ms": library_ms, "library_ms": library_ms})
+    checks = [f32_row(shape, x, w, b, time_ms) for shape, x, w, b in check_inputs(dev)]
+    f32_layers = [f32_row((H, H, cin, cout), x, w, b, time_ms)
+                  for (H, cin, cout), x, w, b in layer_inputs(dev)]
 
     on_card = dev.type == "cuda"
     tiles = tc_tiles(dev) if on_card else ()
@@ -139,7 +166,8 @@ def main(device=None):
                      "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "bf16_scaled_err": err, "stage_ms": stage_ms})
     return {"device": device_name(dev), "tiles": tiles, "checks": checks,
-            "check_max_abs_err": [c["max_abs_err"] for c in checks], "layers": rows}
+            "check_max_abs_err": [c["max_abs_err"] for c in checks], "f32_layers": f32_layers,
+            "layers": rows}
 
 
 if __name__ == "__main__":

@@ -15,7 +15,9 @@ torch.cumsum, torch.cumprod) batched over the TILES x REPS chunks, its stack
 built outside the timed window. Then the JAX tool's numeric lines
 (:279-300): the moments of each form against an f64 sum_i (x + i) @ basis,
 and the tensor-core forms of the accumulators and scans against the
-CUDA-core forms.
+CUDA-core forms; and the log-space cumprod kernel's stages (products, logs
+and exps alone, ops.reduce_scan.SCAN_STAGES), each against its plain
+version and timed, which say what holds it back.
 
     python -m moss_torch.tools.mxu_micro
 
@@ -29,7 +31,7 @@ import torch
 from .. import resolve_device
 from ..ops import reduce_scan as rs
 from ..ops.reduce_scan import H, K, PIX, REPS, RUNS, TILES, W
-from .timing import device_name, timer
+from .timing import device_name, sm_clock_hz, timer
 
 # H100 SXM peaks (NVIDIA datasheet, dense): FLOP/s on the CUDA cores in f32,
 # on the tensor cores in bf16 and TF32; HBM bytes/s
@@ -37,7 +39,11 @@ PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+MUFU_PER_CLOCK = 16 * 132  # transcendental ops a clock: 16 an SM, 132 SMs
 ELEMS = K * PIX  # elements of a chunk
+# transcendentals a run's function takes per element and rep: the log-space
+# cumprod's logarithm and exponential
+TRANSCENDENTALS = {"cumprod_logsplit2": 2}
 # FLOPs of one pass of a contraction per chunk-op: (K, 1024) @ (1024, 8) for
 # the moments, (8, K) @ (K, 1024) for the accumulators
 CONTRACTION_FLOPS = 2 * K * PIX * 8
@@ -98,12 +104,14 @@ def inputs(dev):
     return torch.as_tensor(x, device=dev), torch.as_tensor(s, device=dev)
 
 
-def bound(name):
+def bound(name, clock_hz=None):
     """The least time of one launch of `name` (TILES x REPS chunk-ops): the
     larger of the bytes (x and s read once, the output written once) at
     HBM's rate and the operations at the peak of each unit they run on. For
     a tensor-core scan also the bound of its formulation, the triangular
-    product's FLOPs at the bf16 peak."""
+    product's FLOPs at the bf16 peak; for a run with transcendentals, given
+    the SM clock, their time were they all MUFU ops (sfu_bound_ms), at
+    MUFU_PER_CLOCK."""
     family = rs.RUN[name][1]
     tc_flops, tc_peak, f32_per_elem = OPS[name]
     bytes_ = 4 * (ELEMS + (8 * K if family == "acc" else 0) + OUT_ELEMS[family])
@@ -118,6 +126,10 @@ def bound(name):
     if name in SCAN_TC_PASSES:
         row["formulation_tc_flops"] = chunk_ops * SCAN_TC_PASSES[name] * SCAN_TC_FLOPS
         row["formulation_bound_ms"] = 1e3 * row["formulation_tc_flops"] / PEAK_BF16
+    if name in TRANSCENDENTALS and clock_hz:
+        row["transcendentals"] = chunk_ops * ELEMS * TRANSCENDENTALS[name]
+        row["sm_clock_hz"] = clock_hz
+        row["sfu_bound_ms"] = 1e3 * row["transcendentals"] / (MUFU_PER_CLOCK * clock_hz)
     return row
 
 
@@ -193,6 +205,26 @@ def numeric_lines(outs, x):
     return res
 
 
+def scan_stages(x, time_ms, timing=None):
+    """The log-space cumprod kernel's stages (rs.SCAN_STAGES) on the chunk:
+    each against its plain version (raising past RTOL of the max), its
+    observers equal across tiles, its ms; {stage: row}."""
+    rows = {}
+    for stage in rs.SCAN_STAGES:
+        out, obs = rs.scan_stage(x, stage)
+        err = scaled_err(out, rs.scan_stage_plain(x, stage))
+        if not (err <= RTOL and torch.isfinite(out).all()):
+            raise AssertionError(f"scan stage {stage}: off its plain version by {err:.2e} of "
+                                 "the max")
+        observers_equal = obs is None or bool(torch.equal(obs, obs[:1].expand_as(obs)))
+        if not observers_equal:
+            raise AssertionError(f"scan stage {stage}: the tiles' observers differ")
+        ms = time_ms(lambda: rs.scan_stage(x, stage), **(timing or TIMING))
+        rows[stage] = {"ms": ms, "scaled_err": err, "observers_equal": observers_equal}
+        print(f"cumprod log+TC split2 stage {stage:8s} {ms:8.4f} ms  err {err:.1e}")
+    return rows
+
+
 def main(device=None, timing=None, tiles=TILES):
     """Run, check, time and print the twelve runs; return {"runs": {name:
     row}, "numeric": the numeric lines}. timing: cuda_ms / cpu_ms keywords
@@ -205,6 +237,7 @@ def main(device=None, timing=None, tiles=TILES):
     timing, plain_timing = timing or TIMING, timing or PLAIN_TIMING
     x, s = inputs(dev)
     xt = chunk_stack(x, tiles)
+    clock_hz = sm_clock_hz(dev)
     print(f"device: {device_name(dev)}; chunk ({K}, 8, 128) f32, REPS = {REPS}, TILES = {TILES}")
     rows, outs = {}, {}
     with rs.full_f32():
@@ -233,7 +266,7 @@ def main(device=None, timing=None, tiles=TILES):
                    "plain_ms": plain_ms, "plain_ns_per_chunk_op": plain_ms / chunk_ops * 1e6,
                    "library_ms": lib_ms, "library_ns_per_chunk_op": lib_ms / chunk_ops * 1e6,
                    "max_abs_err": float((out - plain).abs().max()), "scaled_err": err,
-                   **bound(name)}
+                   **bound(name, clock_hz)}
             if "formulation_tc_flops" in row:  # the triangular product's rate
                 row["formulation_tflops"] = row["formulation_tc_flops"] / ms / 1e9
             rows[name] = row
@@ -241,8 +274,12 @@ def main(device=None, timing=None, tiles=TILES):
                   f"ns/chunk-op  bound {row['bound_ms']:7.4f} ms  plain "
                   f"{row['plain_ns_per_chunk_op']:9.1f} ns/chunk-op  library "
                   f"{row['library_ns_per_chunk_op']:8.1f} ns/chunk-op  err {err:.1e}")
+            if "sfu_bound_ms" in row:
+                print(f"{'':24s} SFU bound {row['sfu_bound_ms']:.4f} ms: "
+                      f"{row['transcendentals']:.4g} transcendentals at {MUFU_PER_CLOCK} a "
+                      f"clock, {clock_hz / 1e9:.3f} GHz")
     return {"device": device_name(dev), "reps": REPS, "tiles": TILES, "runs": rows,
-            "numeric": numeric_lines(outs, x)}
+            "numeric": numeric_lines(outs, x), "scan_stages": scan_stages(x, time_ms, timing)}
 
 
 if __name__ == "__main__":

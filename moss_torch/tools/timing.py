@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import os
+import subprocess
 import sys
 import time
 
@@ -110,3 +111,15 @@ def timer(device: torch.device):
 
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def sm_clock_hz(device: torch.device):
+    """The card's top SM clock in Hz, as nvidia-smi reports it
+    (clocks.max.sm); None on the CPU."""
+    if device.type != "cuda":
+        return None
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    out = subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True, capture_output=True,
+                         text=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6

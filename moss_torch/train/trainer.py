@@ -10,7 +10,13 @@ opacities when i % opacity_reset_interval == 0 or, on a white background,
 i == densify_from_iter, both only while i < densify_until_iter. The eval and
 save_fn of iteration i run on the state after step i - 1 (at the last
 iteration, the final state), ckpt_fn(i) after step i. A non-finite loss
-raises FloatingPointError.
+writes a failure snapshot (the frame's rasterizer inputs under the current
+params, <cfg.model_path>/snapshot_iter{N}.npz) and raises FloatingPointError
+naming it.
+
+The ground truth's LPIPS towers are computed once per train frame and kept
+while they fit in MOSS_LPIPS_GT_CACHE bytes (default 8 GiB; 0 turns the
+cache off), else each step computes its frame's again, as moss_tpu does.
 
 Each step is dispatched and its scalar logs read back (one sync), so the
 loop needs no queue and no segmenting; moss_tpu's pair-budget probe, resize
@@ -92,7 +98,9 @@ def init_gaussians_and_mlps(scene: SceneContext, cfg: Config, device=None):
 class Trainer:
     """Trains one avatar. train_frames and test_frames are Frames on the
     trainer's device; lpips_params are the LPIPS tower's weights
-    (ops/lpips.py). Renders go through rasterize_cuda: the blend kernels for
+    (ops/lpips.py), and lpips_backbone says what they are, "random" or
+    "pretrained" (ops/lpips.backbone's kind), which every evaluate reports
+    as moss_tpu's does. Renders go through rasterize_cuda: the blend kernels for
     CUDA tensors, their plain version for CPU ones. extent is the scene's
     spatial scale: the xyz learning rate's factor and densification's size
     unit. log_fn(it, logs) gets each iteration's logs as Python numbers.
@@ -102,14 +110,14 @@ class Trainer:
     def __init__(self, scene: SceneContext, train_frames: List[Frame], test_frames: List[Frame],
                  cfg: Config, lpips_params, crop_hw=None, extent: float = EXTENT,
                  log_fn: Optional[Callable[[int, Dict], None]] = None, tb=None, mesh=None,
-                 gui=None, source_path: str = "", device=None):
+                 gui=None, source_path: str = "", lpips_backbone: str = "random", device=None):
         self.device = resolve_device(device if device is not None or mesh is None
                                      else mesh.device)
         if cfg.model.static_scene and cfg.model.motion_offset:
             raise ValueError("static_scene has no body model: set motion_offset=False")
         self.scene, self.cfg, self.extent = scene, cfg, extent
         self.train_frames, self.test_frames = train_frames, test_frames
-        self.lpips_params = lpips_params
+        self.lpips_params, self.lpips_backbone = lpips_params, lpips_backbone
         self.log_fn = log_fn
         self.tb, self.mesh, self.gui, self.source_path = tb, mesh, gui, source_path
         self._tb_gt_logged = False
@@ -200,13 +208,64 @@ class Trainer:
 
     def _gt_lpips_features(self):
         """Every train frame's ground-truth LPIPS tower at its crop, once: the
-        ground truth does not change, so the step need not recompute it."""
-        if self.cfg.optim.w_lpips == 0.0:
+        ground truth does not change, so the step need not recompute it. None
+        (each step computes its frame's) when the towers need more than
+        MOSS_LPIPS_GT_CACHE bytes (default 8 GiB; 0 or less: always),
+        moss_tpu's budget (its trainer.py:722-760): MonoCap's 100 frames at
+        a 1024 x 1024 crop would take 25.6 GB."""
+        if self.cfg.optim.w_lpips == 0.0 or not self.train_frames:
             return None
+        budget = int(os.environ.get("MOSS_LPIPS_GT_CACHE", 8 << 30))
         ch, cw = self.crop_hw
+        need = lpips.gt_feature_bytes(ch, cw) * len(self.train_frames)
+        if budget <= 0 or need > budget:
+            if budget > 0:
+                print(f"[trainer] gt-LPIPS tower cache disabled: needs {need / 2**30:.1f} GiB > "
+                      f"MOSS_LPIPS_GT_CACHE {budget / 2**30:.1f} GiB — paying one gt VGG "
+                      "forward per step instead")
+            return None
         return [lpips.gt_features(self.lpips_params,
                                   crop_window(f.image, f.crop_y0, f.crop_x0, ch, cw))
                 for f in self.train_frames]
+
+    @torch.no_grad()
+    def _dump_failure_snapshot(self, it: int, frame: Frame, logs: Dict, reason: str):
+        """Write the rasterizer's inputs for `frame` under the CURRENT params
+        (the Projected fields and bg), the iteration, the frame's height and
+        width, the reason and the step's logs (log_<key>) to
+        <cfg.model_path>/snapshot_iter{it}.npz, moss_tpu's failure snapshot
+        (its trainer.py:629-683, the reference debug mode's snapshot on a
+        kernel failure). moss_tpu's slot_budget, pair_budget and max_tiles
+        keys are left out: the port sizes its pair list per frame and has no
+        budgets. Returns the path, or None with no model_path."""
+        outdir = getattr(self.cfg, "model_path", "") or ""
+        if not outdir:
+            return None
+        os.makedirs(outdir, exist_ok=True)
+        path = os.path.join(outdir, f"snapshot_iter{it}.npz")
+        captured = {}
+
+        def capture(proj, bg, h, w):
+            captured.update(proj._asdict())
+            captured["bg"] = bg
+            z = torch.zeros((h, w), device=bg.device)
+            return {"color": torch.zeros((h, w, 3), device=bg.device), "depth": z, "alpha": z,
+                    "final_T": z}
+
+        try:
+            render_frame(self.ts.params["gauss"], self.ts.gstate.valid,
+                         self.ts.params.get("mlps"), self.scene, frame.smpl_params, frame.camera,
+                         self.bg, self.cfg.model.sh_degree, rasterize_fn=capture,
+                         motion_offset=self.cfg.model.motion_offset,
+                         static_scene=self.cfg.model.static_scene, device=self.device)
+        except Exception as e:  # the capture itself must never mask the error
+            print(f"[trainer] failure-snapshot raster capture failed: {e!r}")
+        arrays = {k: v.detach().cpu().numpy() for k, v in captured.items() if v is not None}
+        np.savez(path, **arrays, reason=np.asarray(reason), iteration=np.asarray(it),
+                 height=np.asarray(frame.camera.height), width=np.asarray(frame.camera.width),
+                 **{f"log_{k}": np.asarray(v) for k, v in (logs or {}).items()})
+        print(f"[trainer] {reason} at iter {it} — raster inputs dumped to {path}")
+        return path
 
     def train(self, iterations: Optional[int] = None, eval_iters=None, save_fn=None,
               save_iters=None, ckpt_fn=None) -> List[Dict]:
@@ -268,7 +327,11 @@ class Trainer:
                                              order[(it - 1) * n_data:it * n_data], deg, feats)
             logs = _to_host(logs)
             if not math.isfinite(logs["loss"]):
-                raise FloatingPointError(f"non-finite loss {logs['loss']} at iteration {it}")
+                # the params are poisoned: dump the frame's raster inputs, then abort
+                frame = self.train_frames[order[(it - 1) * n_data]]
+                path = self._dump_failure_snapshot(it, frame, logs, "non-finite loss")
+                raise FloatingPointError(f"non-finite loss {logs['loss']} at iteration {it}"
+                                         + (f" — snapshot at {path}" if path else ""))
             if self.log_fn is not None:
                 self.log_fn(it, logs)
             if o.densify_from_iter < it < o.densify_until_iter and \
@@ -385,8 +448,9 @@ class Trainer:
         sums = [0.0, 0.0, 0.0]
         for row in (torch.stack(per_frame).tolist() if per_frame else []):
             sums = [s + v for s, v in zip(sums, row)]
+        # provenance: random-backbone LPIPS is not comparable to the reference's
         return {"psnr": sums[0] / n, "ssim": sums[1] / n, "lpips": sums[2] / n,
-                "raster_overflow": 0}
+                "raster_overflow": 0, "lpips_backbone": self.lpips_backbone}
 
 
 def _to_host(logs: Dict) -> Dict:

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from moss_torch.ops import conv3x3 as conv
-from moss_torch.ops.conv3x3 import conv3x3, tc_tile
+from moss_torch.ops.conv3x3 import conv3x3, f32_tile, tc_tile
+from _conv_tiles import with_threads
 from _torch_threads import two_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,3 +100,30 @@ def test_stage_plain_on_the_cpu(stage):
     assert (conv.launches, conv.tc_launches, conv.stage_launches) == before
     with pytest.raises(ValueError):
         conv.conv3x3_tc_stage(x, w, b, stage + "_")
+
+
+CHECK_SHAPES = ((16, 128, 8, 16), (8, 256, 64, 64), (32, 128, 16, 8))
+# (tile code, cluster split) of the CUDA-core kernel on a 132-SM H100
+F32_CHOICE = {(16, 128, 8, 16): (6, 3), (8, 256, 64, 64): (1, 8), (32, 128, 16, 8): (7, 6),
+              (13, 29, 48, 72): (1, 6),
+              **{(H, H, cin, cout): (0, 1) for H, cin, cout in VGG_LAYERS[:-1]},
+              (32, 32, 512, 512): (1, 1)}
+
+
+@pytest.mark.parametrize("shape", list(F32_CHOICE), ids=["x".join(map(str, s)) for s in F32_CHOICE])
+def test_f32_tile_and_split(shape):
+    """The CUDA-core kernel's tile fits Cout (16 and 8 channels at check()'s
+    small shapes, so no FMA goes to a zero weight); check()'s shapes split K
+    over a cluster until the grid covers the 132 SMs, a ragged one as far as
+    it can; the VGG16 layers keep the K walk in one CTA, the 32x32 one on the
+    4-row tile, which covers 128 SMs unsplit."""
+    H, W, cin, cout = shape
+    tiles = with_threads()
+    code, split = f32_tile(H, W, cin, cout, tiles, 132)
+    assert (code, split) == F32_CHOICE[shape]
+    t = tiles[code]
+    assert t["channels"] == min(c for c in (8, 16, 32, 64) if c >= min(cout, 64))
+    assert 1 <= split <= min(8, 3 * -(-cin // 8))
+    ctas = -(-H // t["rows"]) * -(-W // 16) * -(-cout // t["channels"]) * split
+    if shape in CHECK_SHAPES:
+        assert ctas >= 132

@@ -29,7 +29,9 @@ two calls bitwise equal; the tensor-core kernel's ablated stages exactly
 their plain version.
 Reductions and scans: max |out - plain| <= 1e-5 max |plain|, the plain version
 rounding a tensor-core form's operands as its kernel does; observers bitwise
-equal across tiles.
+equal across tiles; the same for the log-space cumprod kernel's stages. The
+f32 conv also at the VGG16 layers, bitwise repeatable, its tile table the C
+library's.
 """
 import functools
 import time
@@ -44,6 +46,7 @@ from moss_torch.ops.projection import preprocess
 from moss_torch.ops.rasterize_ref import rasterize_reference
 from moss_torch.ops.transforms import build_covariance
 from moss_torch.render.camera import Camera
+from _conv_tiles import F32_TILES
 from _segment_order import CASES, kernel_order, pair_list
 
 
@@ -414,9 +417,14 @@ def _conv_inputs(device, H, W, cin, cout, seed=0):
             torch.as_tensor(rng.normal(0, 0.1, cout).astype(np.float32), device=device))
 
 
+F32_SHAPES = [(16, 128, 8, 16), (8, 256, 64, 64), (32, 128, 16, 8), (13, 29, 5, 70),
+              (13, 29, 48, 72)]
+VGG_LAYERS = [(512, 64, 64), (256, 64, 128), (256, 128, 128), (128, 128, 256), (128, 256, 256),
+              (64, 256, 512), (64, 512, 512), (32, 512, 512)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 128, 8, 16), (8, 256, 64, 64), (32, 128, 16, 8),
-                                   (13, 29, 5, 70)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_conv3x3_matches_plain_f32(cuda_device, shape):
     x, w, b = _conv_inputs(cuda_device, *shape)
     before = conv.launches
@@ -426,6 +434,49 @@ def test_conv3x3_matches_plain_f32(cuda_device, shape):
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, conv.conv3x3_plain(x, w, b, relu=relu), rtol=0, atol=1e-4)
     assert conv.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", VGG_LAYERS, ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_f32_at_the_vgg_layers(cuda_device, layer):
+    """The CUDA-core kernel at the eight VGG16 layers with the JAX tool's
+    bench() draws (x N(0, 1), w N(0, 0.05)), atol 1e-4; one launch a call."""
+    H, cin, cout = layer
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(H, H, cin)).astype(np.float32), device=cuda_device)
+    w = torch.as_tensor(rng.normal(0, 0.05, (3, 3, cin, cout)).astype(np.float32),
+                        device=cuda_device)
+    b = torch.as_tensor(rng.normal(0, 0.1, cout).astype(np.float32), device=cuda_device)
+    before = conv.launches
+    got = conv.conv3x3(x, w, b)
+    torch.cuda.synchronize()
+    assert conv.launches == before + 1
+    torch.testing.assert_close(got, conv.conv3x3_plain(x, w, b), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_SHAPES + [(32, 32, 512, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_f32_repeats_bit_for_bit(cuda_device, shape):
+    """The K walk split over a cluster adds the partials in rank order: two
+    calls give the same bits."""
+    x, w, b = _conv_inputs(cuda_device, *shape)
+    assert torch.equal(conv.conv3x3(x, w, b), conv.conv3x3(x, w, b))
+
+
+@pytest.mark.cuda
+def test_conv3x3_f32_tiles_are_the_c_librarys(cuda_device):
+    """The CUDA-core kernel's tile table that tests/_conv_tiles.py copies is
+    the one the C library reports, and every check() shape gets
+    a grid of at least one CTA per SM."""
+    tiles = conv.f32_tiles(cuda_device)
+    assert [{k: t[k] for k in ("rows", "channels", "per_thread")} for t in tiles] == \
+        list(F32_TILES)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for H, W, cin, cout in F32_SHAPES[:3]:
+        code, split = conv.f32_tile(H, W, cin, cout, tiles, sms)
+        t = tiles[code]
+        assert -(-H // t["rows"]) * -(-W // 16) * -(-cout // t["channels"]) * split >= sms
 
 
 @pytest.mark.cuda
@@ -501,6 +552,26 @@ def test_reduce_scan_matches_plain(cuda_device, name, reps):
     cpu_out, cpu_obs = rs.run(name, x.cpu(), s.cpu(), reps=reps)
     assert rs.launch_counts() == counts and cpu_obs is None
     assert torch.equal(cpu_out, rs.run_plain(name, x.cpu(), s.cpu(), reps=reps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("stage", rs.SCAN_STAGES)
+def test_scan_stage_matches_plain(cuda_device, stage, reps):
+    """Each stage of the log-space cumprod kernel against its plain version
+    (1e-5 of the max), observers bitwise equal across tiles, one launch;
+    "full" bitwise the production kernel."""
+    x, s = _chunk(cuda_device)
+    before = rs.stage_launches
+    out, obs = rs.scan_stage(x, stage, reps)
+    torch.cuda.synchronize()
+    assert rs.stage_launches == before + 1
+    plain = rs.scan_stage_plain(x, stage, reps)
+    err = float((out - plain).abs().max()) / float(plain.abs().max())
+    assert err <= 1e-5 and torch.isfinite(out).all(), err
+    assert torch.equal(obs, obs[:1].expand_as(obs))
+    if stage == "full":
+        assert torch.equal(out, rs.scan(x, reps, "mul", "split2")[0])
 
 
 @pytest.mark.cuda

@@ -231,4 +231,118 @@ def test_the_tool_on_the_cpu(capsys):
     assert 1e-5 < num["moments_err_of_max_vs_f64"]["bf16"] < 1e-3
     assert num["cumsum_split2_vs_cuda"]["of_max"] < 1e-5
     assert num["cumprod_logsplit2_vs_cuda"]["of_max"] < 1e-5
+    # the log-space cumprod's stages, each its plain version on the host
+    assert list(res["scan_stages"]) == list(rs.SCAN_STAGES)
+    assert all(r["scaled_err"] == 0.0 for r in res["scan_stages"].values())
+    # no clock off the card, so no SFU bound; on the card it counts two
+    # transcendentals an element and rep
+    assert "sfu_bound_ms" not in res["runs"]["cumprod_logsplit2"]
+    row = mxu_micro.bound("cumprod_logsplit2", 1.98e9)
+    assert row["transcendentals"] == 2 * rs.TILES * rs.REPS * rs.K * rs.PIX
+    assert 0.25 < row["sfu_bound_ms"] < 0.26
     assert "ns/chunk-op" in capsys.readouterr().out
+
+
+# ---- the log-space cumprod kernel's arithmetic, modelled in numpy --------------------
+#
+# csrc/reduce_scan.cu's scan_tc_kernel<kMul, kSplit2> works in base 2:
+# log2(1 - a) by log2_1m_near (a <= 0.5: f = -a, f P(f)) or log2_1m_far (the
+# exponent e and mantissa 1 + f of the exact 1 - a: e + f P(f) in one
+# rounding), P the degree-7 polynomial LOG2_POLY in Horner form, the split2
+# L product, then 2^c by ex2.approx (2 ulp; below 2^-126 flushed to 0). The
+# model repeats that arithmetic in float32 (an FMA as a float64 product and
+# sum rounded once to float32), the L product in float64, float64 as the
+# truth.
+
+CU = os.path.join(REPO, "moss_torch", "csrc", "reduce_scan.cu")
+TERM_BUDGET = 8e-8  # ln units: 128 terms within RTOL = 1e-5 of a cumsum of at most 1
+
+
+def _fma(a, b, c):
+    return (a.astype(np.float64) * b.astype(np.float64) + np.asarray(c, np.float64)).astype(
+        np.float32)
+
+
+def _poly(f):
+    p = np.full_like(f, np.float32(rs.LOG2_POLY[-1]))
+    for c in rs.LOG2_POLY[-2::-1]:
+        p = _fma(p, f, np.float32(c))
+    return p
+
+
+def log2_1m_model(a):
+    """The kernel's log2(1 - a), a float32 in [0, 0.9]."""
+    a = np.asarray(a, np.float32)
+    near = ((-a) * _poly(-a)).astype(np.float32)
+    bits = (np.float32(1) - a).astype(np.float32).view(np.int32)
+    e = ((0x4B000000 | (bits >> 23)).astype(np.int32).view(np.float32)
+         - np.float32(8388734)).astype(np.float32)
+    f = (((bits & 0x007FFFFF) | 0x3F000000).astype(np.int32).view(np.float32)
+         - np.float32(1)).astype(np.float32)
+    return np.where(a > np.float32(0.5), _fma(f, _poly(f), e), near)
+
+
+def test_log2_poly_is_the_kernels_table():
+    import re
+
+    body = re.search(r"kLog2Poly\[8\] = \{([^}]*)\}", open(CU).read()).group(1)
+    table = [np.float32(v.strip().rstrip("f")) for v in body.split(",")]
+    assert table == [np.float32(c) for c in rs.LOG2_POLY]
+
+
+def test_log2_model_within_the_per_term_budget():
+    """Over a in (0.003, 0.9] (a million points and both sides of 0.5): the
+    error of the kernel's log2(1 - a), in natural-log units, times 1 - a
+    (a term's largest weight exp(c) in the cumprod, since c holds the term)
+    within TERM_BUDGET; at most 2e-7 unweighted."""
+    a = np.linspace(0.003, 0.9, 1_000_001).astype(np.float32)
+    half = np.float32(0.5)
+    a = np.concatenate([a, [np.nextafter(half, np.float32(0)), half,
+                            np.nextafter(half, np.float32(1)), np.float32(0.9)]]).astype(np.float32)
+    a = a[a > np.float32(0.003)]
+    truth = np.log1p(-a.astype(np.float64))
+    err = np.abs(log2_1m_model(a).astype(np.float64) * np.log(2.0) - truth)
+    assert err.max() < 2e-7, err.max()
+    weighted = err * (1.0 - a.astype(np.float64))
+    assert weighted.max() <= TERM_BUDGET, (weighted.max(), a[weighted.argmax()])
+
+
+@pytest.mark.parametrize("ex2_err", [0.0, 2.0 ** -22, -(2.0 ** -22)], ids=["ex2", "ex2_high",
+                                                                              "ex2_low"])
+def test_modelled_cumprod_within_rtol_of_plain(data, plain_out, ex2_err):
+    """At the JAX tool's input and REPS: the modelled kernel (its log2, the
+    split2 L product, 2^c with ex2's error at either end of its 2 ulp) lies
+    within RTOL of scan_plain, the natural-log cumprod held to JAX."""
+    x = torch.as_tensor(data["x"])
+    L = np.tril(np.ones((rs.K, rs.K)))
+    acc = np.zeros((rs.K, rs.PIX), np.float32)
+    g0 = x.reshape(rs.K, rs.PIX)
+    for i in range(rs.REPS):
+        a = rs.rep_alpha(g0, i).numpy()
+        v = np.where(a > np.float32(0.003), log2_1m_model(np.minimum(a, np.float32(0.9))),
+                     np.float32(0)).astype(np.float32)
+        hi = torch.as_tensor(v).to(torch.bfloat16).float().numpy()
+        lo = torch.as_tensor(v - hi).to(torch.bfloat16).float().numpy()
+        c = (L @ hi.astype(np.float64) + L @ lo.astype(np.float64)).astype(np.float32)
+        e = np.exp2(c.astype(np.float64)) * (1.0 + ex2_err)
+        acc = (acc + np.where(c < -126, 0.0, e).astype(np.float32)).astype(np.float32)
+    assert _err_of_max(acc.reshape(rs.K, rs.H, rs.W),
+                       plain_out["cumprod_logsplit2"]) <= mxu_micro.RTOL
+
+
+@pytest.mark.parametrize("stage", rs.SCAN_STAGES)
+def test_scan_stage_plain_on_the_cpu(data, plain_out, stage):
+    """A stage of the log-space cumprod kernel on CPU tensors is its plain
+    version, with no launch: "full" the cumprod itself; the others sums of
+    split2 products, logs or exps of the masked alphas."""
+    x = torch.as_tensor(data["x"])
+    before = rs.stage_launches
+    out, obs = rs.scan_stage(x, stage, reps=3)
+    assert obs is None and rs.stage_launches == before
+    assert torch.equal(out, rs.scan_stage_plain(x, stage, reps=3))
+    if stage == "full":
+        np.testing.assert_array_equal(rs.scan_stage(x, stage)[0].numpy(),
+                                      plain_out["cumprod_logsplit2"])
+    with pytest.raises(ValueError):
+        rs.scan_stage(x, stage + "_")
+
