@@ -165,8 +165,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
  20. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
              cores, bf16, split2 and 3xTF32 tensor-core forms): their
              observers bitwise equal across the 256 tiles, a launch's time
-             against REPS; then moss_torch.tools.mxu_micro, counted, which
-             holds each against its plain version (1e-5 of the max)
+             against REPS; the 3xTF32 kernels' layout tables against their
+             Python copies, and moss_torch.tools.tc_rate (the tensor cores'
+             TF32 rate at N = 8 by instruction form, with and without the
+             split's work beside it, and the check that they read only an
+             operand's TF32 bits); then moss_torch.tools.mxu_micro, counted,
+             which holds each run and the stages of the log-space cumprod and
+             the 3xTF32 kernels against their plain versions (1e-5 of the
+             max) and times them
  21. timing  how many runs cuda_ms took again because the host had not
              queued them before their spin ended (0: every time above is the
              first run's), by phase and by kernel
@@ -214,7 +220,7 @@ from moss_torch.parallel.sharded import make_mesh, make_sharded_train_step
 from moss_torch.render import novel_view as nv
 from moss_torch.render.camera import Camera
 from moss_torch.render.render import SceneContext, render_frame
-from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro, timing
+from moss_torch.tools import bwd_kernel_floor, conv_proto, mxu_micro, sort_micro, tc_rate, timing
 from moss_torch.tools.timing import cuda_ms
 from moss_torch.train import checkpoint as ckpt
 from moss_torch.train import densify as D
@@ -253,7 +259,7 @@ GRAD_ATOL, BG_RTOL = 5e-4, 1e-4
 SEGMENT_RTOL = 1e-5
 # the CUDA sources under moss_torch/csrc
 KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum", "sort_pass", "conv3x3",
-           "reduce_scan")
+           "reduce_scan", "tc_rate")
 PEAK_BF16 = 989e12  # dense bf16 FLOP/s on the tensor cores
 # the sort passes' int32 min and max, counted at the f32 rate above: the
 # datasheet gives no int32 rate, and the SMs have half as many int32 lanes as
@@ -2741,11 +2747,12 @@ MXU_KERNELS = (
 
 def phase_tool_mxu(dev):
     """The twelve reduction and scan runs: their observers across tiles and a
-    launch's time against REPS; the log-space cumprod's card test three
-    times over; then the tool, counted, which holds each run to its plain
+    launch's time against REPS; the card test of the log-space cumprod and of
+    the two 3xTF32 forms three times over; the 3xTF32 layout tables and
+    tc_rate; then the tool, counted, which holds each run to its plain
     version (raising past mxu_micro.RTOL) and times it, with the SFU bound
-    and the cumprod kernel's stages. Returns ({kernel: row summed over its
-    runs}, {kernel: launches}, the stages' launches)."""
+    and the stages of the cumprod and 3xTF32 kernels. Returns ({kernel: row
+    summed over its runs}, {kernel: launches}, {stage family: launches})."""
     x, s = mxu_micro.inputs(dev)
     checks = {}
     for name, *_ in rs.RUNS:
@@ -2760,24 +2767,43 @@ def phase_tool_mxu(dev):
                                  "folded")
         checks[name] = {"observers_equal": True, "observer_shape": list(obs.shape),
                         "ms_vs_reps": vs_reps}
-    # the card test's case tests/test_torch_cuda.py::test_reduce_scan_matches_plain
-    # [cumprod_logsplit2-*], three times over: kernel within RTOL of plain, observers equal
-    repeats = []
-    for _ in range(3):
-        for reps in (rs.REPS, 3):
-            out, obs = rs.run("cumprod_logsplit2", x, s, reps=reps)
-            err = mxu_micro.scaled_err(out, rs.run_plain("cumprod_logsplit2", x, s, reps=reps))
-            if not (err <= mxu_micro.RTOL and torch.equal(obs, obs[:1].expand_as(obs))):
-                raise AssertionError(f"cumprod_logsplit2 at reps {reps}: {err:.2e} of the max, "
-                                     "or the tiles' observers differ")
-            repeats.append({"reps": reps, "scaled_err": err})
-    checks["cumprod_logsplit2"]["repeated_card_test"] = repeats
+    # the card test's cases tests/test_torch_cuda.py::test_reduce_scan_matches_plain
+    # [cumprod_logsplit2-*, moments_tf32x3-*, acc_tf32x3-*], three times over: kernel
+    # within RTOL of plain, observers equal
+    for name in ("cumprod_logsplit2", "moments_tf32x3", "acc_tf32x3"):
+        repeats = []
+        for _ in range(3):
+            for reps in (rs.REPS, 3):
+                out, obs = rs.run(name, x, s, reps=reps)
+                err = mxu_micro.scaled_err(out, rs.run_plain(name, x, s, reps=reps))
+                if not (err <= mxu_micro.RTOL and torch.equal(obs, obs[:1].expand_as(obs))):
+                    raise AssertionError(f"{name} at reps {reps}: {err:.2e} of the max, or the "
+                                         "tiles' observers differ")
+                repeats.append({"reps": reps, "scaled_err": err})
+        checks[name]["repeated_card_test"] = repeats
+    # the moments against an f64 sum at REPS (the JAX tool's numeric line)
+    ref = sum((x.double().reshape(rs.K, rs.PIX) + i) @ rs.basis(dev).double()
+              for i in range(rs.REPS))
+    f64_err = mxu_micro.scaled_err(rs.run("moments_tf32x3", x, s)[0].double(), ref)
+    if not f64_err < 1e-6:
+        raise AssertionError(f"moments_tf32x3: {f64_err:.2e} of the max from the f64 sum")
+    checks["moments_tf32x3"]["err_of_max_vs_f64"] = f64_err
+    for family in ("moments", "acc"):
+        if not torch.equal(rs.tf32x3_order(family), rs.tf32x3_order_plain(family)):
+            raise AssertionError(f"the 3xTF32 {family} kernel's layout table differs from "
+                                 "ops/reduce_scan.py's copy")
+    rates = tc_rate.main(dev)
 
     rs.reset_launch_counts()
     res = mxu_micro.main(dev)
     launches = rs.launch_counts()
+    forms = dict(rs.form_launches)
+    stage_launches = {"scan": rs.stage_launches, "tf32x3": rs.tf32x3_stage_launches}
     if rs.stage_launches < len(rs.SCAN_STAGES):
         raise AssertionError(f"the mxu tool launched the scan stages {rs.stage_launches} times")
+    if rs.tf32x3_stage_launches < 2 * len(rs.TF32X3_STAGES):
+        raise AssertionError("the mxu tool launched the 3xTF32 stages "
+                             f"{rs.tf32x3_stage_launches} times")
     if min(launches.values()) == 0:
         raise AssertionError(f"the mxu tool launched the kernels {launches} times")
     rows = res["runs"]
@@ -2791,20 +2817,30 @@ def phase_tool_mxu(dev):
             **{k: sum(rows[n][k] for n in names) for k in ("ms", "plain_ms", "library_ms")},
             "bound_ms": bound_ms, "bound_by": "operations" if by_ops >= bound_ms / 2 else "bytes",
             "max_abs_err": max(rows[n]["max_abs_err"] for n in names),
-            "variants": {n: {k: rows[n][k] for k in ("ms", "ns_per_chunk_op", "bound_ms",
-                                                      "plain_ms", "library_ms", "max_abs_err",
-                                                      "sfu_bound_ms") if k in rows[n]}
+            "variants": {n: {"launches": forms.get(n, 0),
+                             **{k: rows[n][k] for k in ("ms", "ns_per_chunk_op", "bound_ms",
+                                                        "bound_by", "plain_ms", "library_ms",
+                                                        "max_abs_err", "sfu_bound_ms")
+                                if k in rows[n]}}
                          for n in names}}
     kernels["mxu_scan"]["cumprod_stage_ms"] = {k: v["ms"] for k, v in res["scan_stages"].items()}
-    # the tensor-core scans' static instructions (cuobjdump -sass): what a
-    # rep's body of 32 elements a thread issues, the cumprod's stages beside it
-    sass = cuda_build.sass_opcodes("reduce_scan", "scan_tc_kernel")
+    for kname, family in (("mxu_moments", "moments"), ("mxu_acc", "acc")):
+        kernels[kname]["tf32x3_stage_ms"] = {
+            k: v["ms"] for k, v in res["tf32x3_stages"][family].items()}
+    # static instructions (cuobjdump -sass): the tensor-core scans (a rep's
+    # body of 32 elements a thread, the cumprod's stages beside it) and the
+    # contractions (the 3xTF32 kernels' stages beside them)
+    sass = {}
+    for prefix in ("scan_tc_kernel", "moments_tf32x3_kernel", "acc_tf32x3_kernel",
+                   "moments_bf16_kernel", "acc_bf16_kernel"):
+        sass.update(cuda_build.sass_opcodes("reduce_scan", prefix))
     for kernel, ops in sass.items():
         print(f"sass reduce_scan: {kernel}: " + ", ".join(f"{k} {v}" for k, v in
                                                           list(ops.items())[:12]), flush=True)
     emit({"phase": "tool_mxu", "reps": rs.REPS, "tiles": rs.TILES, "checks": checks,
-          "launches": launches, **res, "sass": sass})
-    return kernels, {k[0]: launches[k[1]] for k in MXU_KERNELS}, rs.stage_launches
+          "launches": launches, "form_launches": forms, "stage_launches": stage_launches,
+          "tc_rate": rates, **res, "sass": sass})
+    return kernels, {k[0]: launches[k[1]] for k in MXU_KERNELS}, stage_launches
 
 
 def main():
@@ -2984,7 +3020,10 @@ def main():
                 replaces_all=f"tools/mxu_micro.py: {all_}",
                 variants=mxu_rows[kname]["variants"],
                 **({"cumprod_stage_ms": mxu_rows[kname]["cumprod_stage_ms"],
-                    "stage_launches": mxu_stage_launches} if kname == "mxu_scan" else {}))
+                    "stage_launches": mxu_stage_launches["scan"]} if kname == "mxu_scan" else {}),
+                **({"tf32x3_stage_ms": mxu_rows[kname]["tf32x3_stage_ms"],
+                    "stage_launches": mxu_stage_launches["tf32x3"]}
+                   if kname in ("mxu_moments", "mxu_acc") else {}))
           for kname, _, _, replaces, all_ in MXU_KERNELS),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

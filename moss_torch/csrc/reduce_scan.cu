@@ -2,14 +2,16 @@
 // cores: the microbenchmark that asks which unit should run them.
 //
 // Replaces tools/mxu_micro.py's nine Pallas kernels (launched by `run`,
-// :219-236), in seven kernels (twelve instantiations) behind four entry
-// points:
+// :219-236), in nine kernels (twelve instantiations and their stages)
+// behind four entry points:
 //
-//   moss_mxu_moments  moments_cuda_kernel, moments_tc_kernel<mode>:
-//                     kern_moments_vpu (:58), kern_moments_mxu (:81)
+//   moss_mxu_moments  moments_cuda_kernel, moments_bf16_kernel,
+//                     moments_tf32x3_kernel<stage>: kern_moments_vpu (:58),
+//                     kern_moments_mxu (:81)
 //   moss_mxu_reshape  reshape_kernel: kern_reshape_only (:94)
-//   moss_mxu_acc      acc_cuda_kernel, acc_tc_kernel<mode>: kern_acc_vpu
-//                     (:102), kern_acc_mxu (:116)
+//   moss_mxu_acc      acc_cuda_kernel, acc_bf16_kernel,
+//                     acc_tf32x3_kernel<stage>: kern_acc_vpu (:102),
+//                     kern_acc_mxu (:116)
 //   moss_mxu_scan     scan_cuda_kernel<op>, scan_tc_kernel<op, mode>:
 //                     kern_cumsum_vpu (:153), kern_cumsum_mxu (:175),
 //                     kern_cumprod_vpu (:192), kern_cumprod_logmxu (:203)
@@ -36,8 +38,8 @@
 //   split2  hi = bf16(g), lo = bf16(g - hi): two bf16 passes
 //   tf32x3  3xTF32 for the TPU's HIGHEST: big = tf32(a), small =
 //           tf32(a - big), products small.big + big.small + big.big with
-//           m16n8k8 tf32; tf32() is cvt.rna.tf32.f32, round to nearest with
-//           ties away from zero
+//           m16n8k8 tf32; tf32() rounds to nearest with ties away from zero,
+//           cvt.rna.tf32.f32's rounding (split_operand)
 // The scans' CUDA-core forms are per-pixel sequential loops over K, the
 // form the blend kernels use, not the TPU's two-level Hillis-Steele scan.
 //
@@ -58,6 +60,30 @@
 // enum ScanStage). It now works in base 2: a degree-7 polynomial log2 on the
 // FMA pipe (log2_1m_near, log2_1m_far: within the error a term may take; the exponent of 1 - a
 // only in the reps where some alpha exceeds 0.5) and one MUFU ex2.
+//
+// The 3xTF32 moments and accumulators: three m16n8k8 products a k-step on
+// an operand split in every rep. Their bound is the products at the TF32
+// peak (0.052 ms a launch). What holds them is instruction issue: on the
+// H100 mma.sync runs TF32 at 63% of that peak alone, and its products and
+// the split's integer and f32 work do not overlap (tools/tc_rate.py: the
+// two together take the sum of their times), so a kernel's time is about
+// its products stage plus its split stage (enum Tf32Stage). The split is
+// per element and rep, and no tensor-core design removes it; cvt.rna
+// compiles to four instructions (an add, an Inf test, a select, a mask), so
+// a split by it takes nine an element. split_operand makes it five (x + i,
+// two integer adds, a mask, a subtract) and hands the tensor cores the
+// unmasked sums, whose low bits they do not read. Held in registers beside
+// A, the B fragments take a kernel to 163 registers (one CTA, 8 warps, an
+// SM), so B lies in shared memory, 16 B a lane and k-step, loaded once for
+// two reps (tf32x3_reps: the shared-memory load costs issue like the split,
+// about 0.02 ms a launch at one load a rep), which leaves both kernels 2
+// CTAs an SM; x comes in float4 or float2 loads, in an order of the
+// contraction axis that makes a lane's elements adjacent (mom_pixel,
+// acc_pixel); the moments' basis fragments are made
+// without a branch on the lane's column. wgmma, Hopper's asynchronous
+// product, is not used: at N = 8 it ran m64n8k8 TF32 at 148 TFLOP/s against
+// mma.sync m16n8k8's 313, and beside the split's work it took longer than
+// mma.sync did (tools/tc_rate.py).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (moss_torch/ops/cuda_build.py)
@@ -92,17 +118,26 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __uint_as_float(static_cast<uint32_t>(h) << 16);
 }
 
-// tf32(v) as the bits of an f32 whose low 13 mantissa bits are 0
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
+// 3xTF32 operands as the tensor cores take them. tf32(v), rounded to nearest
+// with ties away from zero, is (bits(v) + 0x1000) with the low 13 bits
+// cleared: cvt.rna.tf32.f32's value for every input but a NaN whose payload
+// lies in the low bits, which no operand here holds; cvt.rna compiles to four
+// instructions (it tests for Inf and NaN), this to one add. The tensor cores
+// read only the 19 high bits of a tf32 operand register (tools/tc_rate.py
+// checks it on the card), so the unmasked sum is the operand, and the mask is
+// applied only where tf32(v) is needed as an f32 value: the small part's
+// v - big.
+__device__ __forceinline__ uint32_t tf32_operand(float v) { return __float_as_uint(v) + 0x1000u; }
+
+__device__ __forceinline__ float tf32_value(uint32_t operand) {
+  return __uint_as_float(operand & 0xffffe000u);
 }
 
-// big and small of 3xTF32
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  big = to_tf32(v);
-  small = to_tf32(v - __uint_as_float(big));
+// big = tf32(v) and small = tf32(v - big) as operand registers: an add, a
+// mask, a subtract and an add
+__device__ __forceinline__ void split_operand(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_operand(v);
+  small = tf32_operand(v - tf32_value(big));
 }
 
 // c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 sums. Fragments
@@ -120,13 +155,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 
 // c += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 sums. Fragments:
 // a[0] row g, col t; a[1] row g+8, col t; a[2] row g, col t+4; a[3] row g+8,
-// col t+4. b0 row t, col g; b1 row t+4. c as in mma_bf16.
+// col t+4. b0 row t, col g; b1 row t+4. c as in mma_bf16. Volatile: a
+// product whose operands do not change over the reps (the products stage)
+// must not be hoisted out of them.
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Shared-memory loads that are repeated in every rep: the compiler would
@@ -147,46 +184,138 @@ __device__ __forceinline__ float4 lds4(const float4* p) {
   return v;
 }
 
-// ---- the reps of a tensor-core contraction --------------------------------
+__device__ __forceinline__ uint4 lds_u4(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
 
-// A elements of a lane per k-step: 8 bf16 (m16n8k16), 4 tf32 (m16n8k8)
-template <int kMode>
-constexpr int kAPer = kMode == kBf16 ? 8 : 4;
+// ---- the reps of a bf16 tensor-core contraction ---------------------------
 
 // c += sum over reps i of A_i @ B, for a warp's fragments preloaded in
-// fragment order: xa[s] the A elements of k-step s (A_i = xa + i, rounded as
-// kMode rounds it: bf16 pairs packed as a[e] = (xa[2e], xa[2e+1]), or 3xTF32
-// big and small), bb[s] the B fragment (tf32x3: its big part, bs its small
-// part). A rep's product gets its own fragments and is added to c in IEEE
-// f32 adds: the tensor cores' own accumulation is not rounded to nearest,
-// and all reps in one accumulator drift from the plain version by 1e-5 of
-// the max.
-template <int kMode, int kSteps>
-__device__ __forceinline__ void tc_reps(const float (&xa)[kSteps][kAPer<kMode>],
-                                        const uint32_t (&bb)[kSteps][2],
-                                        const uint32_t (&bs)[kSteps][2], int reps, float (&c)[4]) {
+// fragment order: xa[s] the A elements of k-step s (A_i = xa + i, rounded to
+// bf16 pairs packed as a[e] = (xa[2e], xa[2e+1])), bb[s] the B fragment. A
+// rep's product gets its own fragment and is added to c in IEEE f32 adds:
+// the tensor cores' own accumulation is not rounded to nearest, and all reps
+// in one accumulator drift from the plain version by 1e-5 of the max.
+template <int kSteps>
+__device__ __forceinline__ void bf16_reps(const float (&xa)[kSteps][8],
+                                          const uint32_t (&bb)[kSteps][2], int reps,
+                                          float (&c)[4]) {
   for (int i = 0; i < reps; ++i) {
     const float fi = static_cast<float>(i);
-    float cb[4] = {0.f, 0.f, 0.f, 0.f}, cs[4] = {0.f, 0.f, 0.f, 0.f};
+    float cb[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
-      if constexpr (kMode == kBf16) {
-        uint32_t a[4];
+      uint32_t a[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = pack_bf16(xa[s][2 * e] + fi, xa[s][2 * e + 1] + fi);
-        mma_bf16(cb, a, bb[s][0], bb[s][1]);
-      } else {
-        uint32_t big[4], small[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(xa[s][e] + fi, big[e], small[e]);
-        mma_tf32(cs, small, bb[s][0], bb[s][1]);
-        mma_tf32(cs, big, bs[s][0], bs[s][1]);
-        mma_tf32(cb, big, bb[s][0], bb[s][1]);
-      }
+      for (int e = 0; e < 4; ++e) a[e] = pack_bf16(xa[s][2 * e] + fi, xa[s][2 * e + 1] + fi);
+      mma_bf16(cb, a, bb[s][0], bb[s][1]);
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] += kMode == kBf16 ? cb[e] : cb[e] + cs[e];
+    for (int e = 0; e < 4; ++e) c[e] += cb[e];
   }
+}
+
+// ---- the reps of a 3xTF32 contraction --------------------------------------
+
+// Stages of the 3xTF32 kernels (moments_tf32x3_kernel, acc_tf32x3_kernel),
+// for timing what holds them back: kTf32Full the production kernel;
+// kTf32Products the operand split once, before the reps (big = tf32(x), and
+// big in place of small), the products and B loads as in full (a rep's sums
+// start from a 0 read from shared memory, so the compiler cannot find the
+// reps' products equal and do them once);
+// kTf32Split the operand work of every rep (x + i, big and small) with no
+// products and no B loads: each C element sums the small operand registers of
+// the A element in its slot (c0 a0, c1 a2, c2 a1, c3 a3), as f32 values
+// (tf32(v - big) plus the low bits the tensor cores drop).
+enum Tf32Stage { kTf32Full = 0, kTf32Products = 1, kTf32Split = 2 };
+
+constexpr int kTf32Steps = 16;  // k-steps of 8 a warp walks in a rep
+
+// zeros[32] of shared memory, set by the CTA before its reps
+__device__ __forceinline__ void set_rep_zeros(float* zeros) {
+  if (threadIdx.x < 32) zeros[threadIdx.x] = 0.f;
+}
+
+// the start of rep i's sums: 0, read from zeros in the products stage
+template <int kStage>
+__device__ __forceinline__ float rep_zero(const float* zeros, int i) {
+  return kStage == kTf32Products ? lds(zeros + (i & 31)) : 0.f;
+}
+
+// c += kReps reps' 3xTF32 products of a warp, reps i0, i0 + 1, ...: A = xa
+// + i, split into big and small in its rep (xa: the lane's A elements of
+// each k-step, in registers), B from bt (shared memory; k-step s at bt[32
+// s]: big b0, b1, small b0, b1), loaded once for the kReps reps. For each
+// rep, cs = small.B_big + big.B_small and cb = big.B_big run down the k-steps
+// in the tensor cores from 0, then c += cb + cs in IEEE f32 adds, rep after
+// rep; a k-step's B is loaded while the previous one's products run.
+// zeros: the products stage's 0 (rep_zero).
+template <int kStage, int kReps>
+__device__ __forceinline__ void tf32x3_reps(const float (&xa)[kTf32Steps][4], const uint4* bt,
+                                            int i0, const float* zeros, float (&c)[4]) {
+  float cb[kReps][4], cs[kReps][4], fi[kReps];
+#pragma unroll
+  for (int r = 0; r < kReps; ++r) {
+    const float z = rep_zero<kStage>(zeros, i0 + r);
+    fi[r] = static_cast<float>(i0 + r);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cb[r][e] = cs[r][e] = z;
+  }
+  uint4 b = kStage == kTf32Split ? uint4{} : lds_u4(bt);
+#pragma unroll
+  for (int s = 0; s < kTf32Steps; ++s) {
+    const uint4 next = kStage == kTf32Split || s + 1 == kTf32Steps ? b : lds_u4(bt + 32 * (s + 1));
+#pragma unroll
+    for (int r = 0; r < kReps; ++r) {
+      uint32_t big[4], small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kStage == kTf32Products) {
+          big[e] = small[e] = __float_as_uint(xa[s][e]);
+        } else {
+          split_operand(xa[s][e] + fi[r], big[e], small[e]);
+        }
+      }
+      if constexpr (kStage == kTf32Split) {
+        cs[r][0] += __uint_as_float(small[0]);
+        cs[r][1] += __uint_as_float(small[2]);
+        cs[r][2] += __uint_as_float(small[1]);
+        cs[r][3] += __uint_as_float(small[3]);
+      } else {
+        mma_tf32(cs[r], small, b.x, b.y);
+        mma_tf32(cs[r], big, b.z, b.w);
+        mma_tf32(cb[r], big, b.x, b.y);
+      }
+    }
+    b = next;
+  }
+#pragma unroll
+  for (int r = 0; r < kReps; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += cb[r][e] + cs[r][e];
+}
+
+// c += the 3xTF32 products of reps 0, ..., reps - 1, two at a time (one B
+// load a k-step for both), an odd last one alone
+template <int kStage>
+__device__ __forceinline__ void tf32x3_all_reps(const float (&xa)[kTf32Steps][4], const uint4* bt,
+                                                int reps, const float* zeros, float (&c)[4]) {
+  int i = 0;
+  for (; i + 1 < reps; i += 2) tf32x3_reps<kStage, 2>(xa, bt, i, zeros, c);
+  if (i < reps) tf32x3_reps<kStage, 1>(xa, bt, i, zeros, c);
+}
+
+// B of a k-step for one lane as bt holds it: the big and small operands of
+// b0 and b1
+__device__ __forceinline__ uint4 b_fragment(float b0, float b1) {
+  uint4 r;
+  split_operand(b0, r.x, r.z);
+  split_operand(b1, r.y, r.w);
+  return r;
 }
 
 // ---- the observer ---------------------------------------------------------
@@ -276,46 +405,14 @@ moments_cuda_kernel(const float* __restrict__ x, float* __restrict__ out,
   observe<kMomThreads>(sum, obs);
 }
 
-// Tensor cores: a CTA takes 16 splats (one m-tile) and its 8 warps split the
-// 1024-pixel depth in slices of 128; each warp keeps its A fragments of x in
-// registers and the basis fragments (made from the index), accumulates all
-// reps into one C fragment, and the warps' C are summed in a fixed order.
-template <int kMode>
-__global__ void __launch_bounds__(kMomThreads)
-moments_tc_kernel(const float* __restrict__ x, float* __restrict__ out,
-                  float* __restrict__ obs, int reps) {
-  constexpr int kStep = kMode == kBf16 ? 16 : 8;  // depth of one mma
-  constexpr int kSteps = 128 / kStep;             // over a warp's 128 pixels
+// A CTA's 16 splats from its 8 warps' C fragments (splat rows g, g + 8 of
+// the m-tile, columns 2t, 2t + 1), summed over the warps in a fixed order;
+// tile 0 stores, every CTA observes.
+__device__ __forceinline__ void moments_store(const float (&c)[4], float* __restrict__ out,
+                                              float* __restrict__ obs) {
   __shared__ float red[kMomThreads / 32][16][8];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const float* r0 = x + (blockIdx.x * 16 + g) * kPix;  // splat rows g and g + 8
-  const float* r8 = r0 + 8 * kPix;
-  float xa[kSteps][kAPer<kMode>];
-  uint32_t bb[kSteps][2], bs[kSteps][2] = {};  // basis fragments (tf32x3: big, small)
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const int p = warp * 128 + s * kStep;
-    if constexpr (kMode == kBf16) {
-      const int c0 = p + 2 * t, c8 = c0 + 8;
-      const float v[8] = {r0[c0], r0[c0 + 1], r8[c0], r8[c0 + 1],
-                          r0[c8], r0[c8 + 1], r8[c8], r8[c8 + 1]};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) xa[s][e] = v[e];
-      bb[s][0] = pack_bf16(basis(c0, g), basis(c0 + 1, g));
-      bb[s][1] = pack_bf16(basis(c8, g), basis(c8 + 1, g));
-    } else {
-      const int c0 = p + t, c4 = c0 + 4;
-      xa[s][0] = r0[c0];
-      xa[s][1] = r8[c0];
-      xa[s][2] = r0[c4];
-      xa[s][3] = r8[c4];
-      split_tf32(basis(c0, g), bb[s][0], bs[s][0]);
-      split_tf32(basis(c4, g), bb[s][1], bs[s][1]);
-    }
-  }
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  tc_reps<kMode>(xa, bb, bs, reps, c);
   red[warp][g][2 * t] = c[0];
   red[warp][g][2 * t + 1] = c[1];
   red[warp][g + 8][2 * t] = c[2];
@@ -329,6 +426,105 @@ moments_tc_kernel(const float* __restrict__ x, float* __restrict__ out,
     if (blockIdx.y == 0) out[(blockIdx.x * 16 + r) * 8 + n] = v;
   }
   observe<kMomThreads>(v, obs);
+}
+
+// Tensor cores, bf16: a CTA takes 16 splats (one m-tile) and its 8 warps
+// split the 1024-pixel depth in slices of 128; each warp keeps its A
+// fragments of x in registers and the basis fragments (made from the index),
+// adds each rep's C fragment to its sum, and the warps' sums are summed in a
+// fixed order.
+__global__ void __launch_bounds__(kMomThreads)
+moments_bf16_kernel(const float* __restrict__ x, float* __restrict__ out,
+                    float* __restrict__ obs, int reps) {
+  constexpr int kSteps = 128 / 16;  // m16n8k16 over a warp's 128 pixels
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float* r0 = x + (blockIdx.x * 16 + g) * kPix;  // splat rows g and g + 8
+  const float* r8 = r0 + 8 * kPix;
+  float xa[kSteps][8];
+  uint32_t bb[kSteps][2];  // basis fragments
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int c0 = warp * 128 + s * 16 + 2 * t, c8 = c0 + 8;
+    const float v[8] = {r0[c0], r0[c0 + 1], r8[c0], r8[c0 + 1],
+                        r0[c8], r0[c8 + 1], r8[c8], r8[c8 + 1]};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) xa[s][e] = v[e];
+    bb[s][0] = pack_bf16(basis(c0, g), basis(c0 + 1, g));
+    bb[s][1] = pack_bf16(basis(c8, g), basis(c8 + 1, g));
+  }
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  bf16_reps(xa, bb, reps, c);
+  moments_store(c, out, obs);
+}
+
+// The pixel of column col (0-7) of k-step s in warp w's 128-pixel slice of
+// moments_tf32x3_kernel: lane t's columns t and t + 4 take the pixels 32 t,
+// ..., 32 t + 31 of the slice, two adjacent ones a k-step, so a lane loads
+// its rows of x as float4s. The sum over pixels does not depend on which
+// k-step or column a pixel takes, so long as A and B agree.
+__host__ __device__ constexpr int mom_pixel(int w, int s, int col) {
+  return 128 * w + 32 * (col & 3) + 2 * s + (col >> 2);
+}
+
+// shared memory of moments_tf32x3_kernel beyond its static red and
+// warp_sum: the lanes' basis fragments
+constexpr int kMomTf32Smem = (kMomThreads / 32) * kTf32Steps * 32 * 16;  // 64 KB
+
+// Tensor cores, 3xTF32: a CTA takes 16 splats (one m-tile) and its 8 warps
+// split the 1024-pixel depth in slices of 128 (16 k-steps of m16n8k8); each
+// lane keeps its 64 A elements of x in registers (16 float4 loads,
+// mom_pixel's order) and its basis fragments (big and small, 16 B a k-step)
+// in shared memory, read again for every two reps (tf32x3_reps); a warp's
+// reps add into its sum, and the warps' sums are summed in a fixed order.
+// Two CTAs an SM (registers at most 128).
+template <int kStage>
+__global__ void __launch_bounds__(kMomThreads, 2)
+moments_tf32x3_kernel(const float* __restrict__ x, float* __restrict__ out,
+                      float* __restrict__ obs, int reps) {
+  extern __shared__ uint4 bt[];  // [warp][k-step][lane]
+  __shared__ float zeros[32];
+  set_rep_zeros(zeros);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  uint4* my_bt = bt + warp * kTf32Steps * 32 + lane;
+  {
+    // the lane's basis column n = g as fy px^ex (fy = py^ey, 0 for n >= 6),
+    // py = warp across the slice: no branch on the lane's column (a switch
+    // on it, as basis() has, ran every case a warp holds, per value)
+    const int ex = g == 3 ? 2 : g == 1 || g == 4 ? 1 : 0;
+    const int ey = g == 5 ? 2 : g == 2 || g == 4 ? 1 : 0;
+    const float py = static_cast<float>(warp);
+    const float fy = g >= 6 ? 0.f : ey == 2 ? py * py : ey == 1 ? py : 1.f;
+    auto value = [&](int p) {
+      const float px = static_cast<float>(p % kW);
+      return fy * ((ex >= 1 ? px : 1.f) * (ex == 2 ? px : 1.f));
+    };
+#pragma unroll
+    for (int s = 0; s < kTf32Steps; ++s)
+      my_bt[32 * s] = b_fragment(value(mom_pixel(warp, s, t)), value(mom_pixel(warp, s, t + 4)));
+  }
+  // a0, a2: splat row g, pixels mom_pixel(warp, s, t) and (.., t + 4) (adjacent);
+  // a1, a3: row g + 8
+  const float* r0 = x + (blockIdx.x * 16 + g) * kPix + mom_pixel(warp, 0, t);
+  float xa[kTf32Steps][4];
+#pragma unroll
+  for (int j = 0; j < kTf32Steps / 2; ++j) {
+    const float4 u = *reinterpret_cast<const float4*>(r0 + 4 * j);
+    const float4 v = *reinterpret_cast<const float4*>(r0 + 8 * kPix + 4 * j);
+    xa[2 * j][0] = u.x, xa[2 * j][2] = u.y, xa[2 * j + 1][0] = u.z, xa[2 * j + 1][2] = u.w;
+    xa[2 * j][1] = v.x, xa[2 * j][3] = v.y, xa[2 * j + 1][1] = v.z, xa[2 * j + 1][3] = v.w;
+  }
+  if constexpr (kStage == kTf32Products) {
+#pragma unroll
+    for (int s = 0; s < kTf32Steps; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xa[s][e] = tf32_value(tf32_operand(xa[s][e]));
+  }
+  __syncthreads();
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  tf32x3_all_reps<kStage>(xa, my_bt, reps, zeros, c);
+  moments_store(c, out, obs);
 }
 
 // ---- reshape only: out (K, 128) = sum over the 8 rows of sum_i (x + i) ----
@@ -411,56 +607,92 @@ acc_cuda_kernel(const float* __restrict__ x, const float* __restrict__ sw,
   observe<kAccCudaThreads>(sum, obs);
 }
 
-// Tensor cores: out^T (1024 x 8) = w^T (1024 x K) @ s^T (K x 8), M = pixels.
-// A warp takes 16 pixels and the whole depth of 128 splats; its A fragments
-// are pixel-major while x is stored splat-major, so each lane gathers its
-// elements by index into registers once, before the reps (no ldmatrix: its
-// .trans form exists for 16-bit elements only).
-template <int kMode>
+// Tensor cores, bf16: out^T (1024 x 8) = w^T (1024 x K) @ s^T (K x 8), M =
+// pixels. A warp takes 16 pixels and the whole depth of 128 splats; its A
+// fragments are pixel-major while x is stored splat-major, so each lane
+// gathers its elements by index into registers once, before the reps (no
+// ldmatrix: its .trans form exists for 16-bit elements only).
 __global__ void __launch_bounds__(kAccTcThreads)
-acc_tc_kernel(const float* __restrict__ x, const float* __restrict__ sw,
-              float* __restrict__ out, float* __restrict__ obs, int reps) {
-  constexpr int kStep = kMode == kBf16 ? 16 : 8;
-  constexpr int kSteps = kK / kStep;
+acc_bf16_kernel(const float* __restrict__ x, const float* __restrict__ sw,
+                float* __restrict__ out, float* __restrict__ obs, int reps) {
+  constexpr int kSteps = kK / 16;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int p0 = blockIdx.x * 128 + warp * 16 + g;  // pixel rows g and g + 8
   const float* srow = sw + g * kK;                  // s row n = g
-  float xa[kSteps][kAPer<kMode>];
-  uint32_t bb[kSteps][2], bs[kSteps][2] = {};
+  float xa[kSteps][8];
+  uint32_t bb[kSteps][2];
 #pragma unroll
   for (int s = 0; s < kSteps; ++s) {
-    const int k0 = s * kStep;
-    if constexpr (kMode == kBf16) {
-      const int c0 = k0 + 2 * t, c8 = c0 + 8;  // splat columns
-      xa[s][0] = x[c0 * kPix + p0];
-      xa[s][1] = x[(c0 + 1) * kPix + p0];
-      xa[s][2] = x[c0 * kPix + p0 + 8];
-      xa[s][3] = x[(c0 + 1) * kPix + p0 + 8];
-      xa[s][4] = x[c8 * kPix + p0];
-      xa[s][5] = x[(c8 + 1) * kPix + p0];
-      xa[s][6] = x[c8 * kPix + p0 + 8];
-      xa[s][7] = x[(c8 + 1) * kPix + p0 + 8];
-      bb[s][0] = pack_bf16(srow[c0], srow[c0 + 1]);
-      bb[s][1] = pack_bf16(srow[c8], srow[c8 + 1]);
-    } else {
-      const int c0 = k0 + t, c4 = c0 + 4;
-      xa[s][0] = x[c0 * kPix + p0];
-      xa[s][1] = x[c0 * kPix + p0 + 8];
-      xa[s][2] = x[c4 * kPix + p0];
-      xa[s][3] = x[c4 * kPix + p0 + 8];
-      split_tf32(srow[c0], bb[s][0], bs[s][0]);
-      split_tf32(srow[c4], bb[s][1], bs[s][1]);
-    }
+    const int c0 = s * 16 + 2 * t, c8 = c0 + 8;  // splat columns
+    xa[s][0] = x[c0 * kPix + p0];
+    xa[s][1] = x[(c0 + 1) * kPix + p0];
+    xa[s][2] = x[c0 * kPix + p0 + 8];
+    xa[s][3] = x[(c0 + 1) * kPix + p0 + 8];
+    xa[s][4] = x[c8 * kPix + p0];
+    xa[s][5] = x[(c8 + 1) * kPix + p0];
+    xa[s][6] = x[c8 * kPix + p0 + 8];
+    xa[s][7] = x[(c8 + 1) * kPix + p0 + 8];
+    bb[s][0] = pack_bf16(srow[c0], srow[c0 + 1]);
+    bb[s][1] = pack_bf16(srow[c8], srow[c8 + 1]);
   }
   float c[4] = {0.f, 0.f, 0.f, 0.f};
-  tc_reps<kMode>(xa, bb, bs, reps, c);
+  bf16_reps(xa, bb, reps, c);
   // c[0], c[1]: pixel p0, rows n = 2t, 2t+1; c[2], c[3]: pixel p0 + 8
   if (blockIdx.y == 0) {
     out[2 * t * kPix + p0] = c[0];
     out[(2 * t + 1) * kPix + p0] = c[1];
     out[2 * t * kPix + p0 + 8] = c[2];
     out[(2 * t + 1) * kPix + p0 + 8] = c[3];
+  }
+  observe<kAccTcThreads>(((c[0] + c[1]) + c[2]) + c[3], obs);
+}
+
+// The pixel, within its CTA's 128, of row r (0-15) of warp w's m-tile in
+// acc_tf32x3_kernel: a lane's rows g and g + 8 are adjacent pixels, so it
+// loads them as one float2. Column col of k-step s is splat 8 s + col.
+__host__ __device__ constexpr int acc_pixel(int w, int r) {
+  return 16 * w + 2 * (r & 7) + (r >> 3);
+}
+
+// Tensor cores, 3xTF32: out^T (1024 x 8) = w^T (1024 x K) @ s^T (K x 8), M =
+// pixels. A warp takes 16 pixels (acc_pixel's order) and the whole depth of
+// 128 splats (16 k-steps of m16n8k8); each lane keeps its 64 A elements of x
+// in registers (32 float2 loads) and the CTA's s^T fragments (big and small,
+// 8 KB) lie in shared memory, read again for every two reps by all 8 warps
+// (tf32x3_reps). Two CTAs an SM (registers at most 128).
+template <int kStage>
+__global__ void __launch_bounds__(kAccTcThreads, 2)
+acc_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ sw,
+                  float* __restrict__ out, float* __restrict__ obs, int reps) {
+  __shared__ uint4 bt[kTf32Steps * 32];  // [k-step][lane]: s[g][8 s + t], s[g][8 s + t + 4]
+  __shared__ float zeros[32];
+  set_rep_zeros(zeros);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  for (int e = threadIdx.x; e < kTf32Steps * 32; e += kAccTcThreads) {
+    const float* b = sw + ((e & 31) >> 2) * kK + 8 * (e >> 5) + (e & 3);
+    bt[e] = b_fragment(b[0], b[4]);
+  }
+  const int p = blockIdx.x * 128 + acc_pixel(warp, g);  // rows g, g + 8: pixels p, p + 1
+  float xa[kTf32Steps][4];
+#pragma unroll
+  for (int s = 0; s < kTf32Steps; ++s) {
+    const float2 u = *reinterpret_cast<const float2*>(x + (8 * s + t) * kPix + p);
+    const float2 v = *reinterpret_cast<const float2*>(x + (8 * s + t + 4) * kPix + p);
+    xa[s][0] = u.x, xa[s][1] = u.y, xa[s][2] = v.x, xa[s][3] = v.y;
+    if constexpr (kStage == kTf32Products) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xa[s][e] = tf32_value(tf32_operand(xa[s][e]));
+    }
+  }
+  __syncthreads();
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  tf32x3_all_reps<kStage>(xa, bt + lane, reps, zeros, c);
+  // c[0], c[1]: pixel p, rows n = 2t, 2t + 1; c[2], c[3]: pixel p + 1
+  if (blockIdx.y == 0) {
+    *reinterpret_cast<float2*>(out + 2 * t * kPix + p) = make_float2(c[0], c[2]);
+    *reinterpret_cast<float2*>(out + (2 * t + 1) * kPix + p) = make_float2(c[1], c[3]);
   }
   observe<kAccTcThreads>(((c[0] + c[1]) + c[2]) + c[3], obs);
 }
@@ -742,6 +974,49 @@ int launch(Kernel kernel, int parts, int threads, int tiles, cudaStream_t stream
   return static_cast<int>(cudaGetLastError());
 }
 
+// launch with `smem` bytes of dynamic shared memory, which may pass 48 KB
+template <typename Kernel, typename... Args>
+int launch_smem(Kernel kernel, int smem, int parts, int threads, int tiles, cudaStream_t stream,
+                Args... args) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(parts, tiles), threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int moments_tf32x3(int stage, const float* x, float* out, float* obs, int reps, int tiles,
+                   cudaStream_t s) {
+  switch (stage) {
+    case kTf32Full:
+      return launch_smem(moments_tf32x3_kernel<kTf32Full>, kMomTf32Smem, kMomTcParts, kMomThreads,
+                         tiles, s, x, out, obs, reps);
+    case kTf32Products:
+      return launch_smem(moments_tf32x3_kernel<kTf32Products>, kMomTf32Smem, kMomTcParts,
+                         kMomThreads, tiles, s, x, out, obs, reps);
+    case kTf32Split:
+      return launch_smem(moments_tf32x3_kernel<kTf32Split>, kMomTf32Smem, kMomTcParts,
+                         kMomThreads, tiles, s, x, out, obs, reps);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int acc_tf32x3(int stage, const float* x, const float* sw, float* out, float* obs, int reps,
+               int tiles, cudaStream_t s) {
+  switch (stage) {
+    case kTf32Full:
+      return launch(acc_tf32x3_kernel<kTf32Full>, kAccParts, kAccTcThreads, tiles, s, x, sw, out,
+                    obs, reps);
+    case kTf32Products:
+      return launch(acc_tf32x3_kernel<kTf32Products>, kAccParts, kAccTcThreads, tiles, s, x, sw,
+                    out, obs, reps);
+    case kTf32Split:
+      return launch(acc_tf32x3_kernel<kTf32Split>, kAccParts, kAccTcThreads, tiles, s, x, sw, out,
+                    obs, reps);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 int moments_parts(int mode) {
   return mode == kCuda ? kMomCudaParts : mode == kBf16 || mode == kTf32x3 ? kMomTcParts : -1;
 }
@@ -774,9 +1049,8 @@ extern "C" int moss_mxu_moments(const float* x, float* out, float* obs, int reps
   if (mode == kCuda)
     return launch(moments_cuda_kernel, parts, kMomThreads, tiles, s, x, out, obs, reps);
   if (mode == kBf16)
-    return launch(moments_tc_kernel<kBf16>, parts, kMomThreads, tiles, s, x, out, obs, reps);
-  if (mode == kTf32x3)
-    return launch(moments_tc_kernel<kTf32x3>, parts, kMomThreads, tiles, s, x, out, obs, reps);
+    return launch(moments_bf16_kernel, parts, kMomThreads, tiles, s, x, out, obs, reps);
+  if (mode == kTf32x3) return moments_tf32x3(kTf32Full, x, out, obs, reps, tiles, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -797,11 +1071,8 @@ extern "C" int moss_mxu_acc(const float* x, const float* sw, float* out, float* 
     case kCuda:
       return launch(acc_cuda_kernel, kAccParts, kAccCudaThreads, tiles, s, x, sw, out, obs, reps);
     case kBf16:
-      return launch(acc_tc_kernel<kBf16>, kAccParts, kAccTcThreads, tiles, s, x, sw, out, obs,
-                    reps);
-    case kTf32x3:
-      return launch(acc_tc_kernel<kTf32x3>, kAccParts, kAccTcThreads, tiles, s, x, sw, out, obs,
-                    reps);
+      return launch(acc_bf16_kernel, kAccParts, kAccTcThreads, tiles, s, x, sw, out, obs, reps);
+    case kTf32x3: return acc_tf32x3(kTf32Full, x, sw, out, obs, reps, tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -850,3 +1121,39 @@ extern "C" int moss_mxu_scan_stage(const float* x, float* out, float* obs, int r
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// Stage `stage` (enum Tf32Stage) of the 3xTF32 moments or accumulator
+// kernel, launched as moss_mxu_moments or moss_mxu_acc with mode 2 is, with
+// its observer (tiles, their parts); cudaErrorInvalidValue for an unknown
+// stage.
+extern "C" int moss_mxu_moments_stage(const float* x, float* out, float* obs, int reps,
+                                      int tiles, int stage, void* stream) {
+  return moments_tf32x3(stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int moss_mxu_acc_stage(const float* x, const float* sw, float* out, float* obs,
+                                  int reps, int tiles, int stage, void* stream) {
+  return acc_tf32x3(stage, x, sw, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+}
+
+// The 3xTF32 kernels' layouts, on the host, for their Python copies: family
+// 0 writes mom_pixel(w, s, col) for w < 8, s < 16, col < 8 into out (1,024
+// ints, in that order), family 1 acc_pixel(w, r) for w < 8, r < 16 (128);
+// returns the count written, -1 for an unknown family.
+extern "C" int moss_mxu_tf32x3_order(int family, int* out) {
+  constexpr int kWarps = kMomThreads / 32;
+  if (family == 0) {
+    for (int w = 0; w < kWarps; ++w)
+      for (int s = 0; s < kTf32Steps; ++s)
+        for (int col = 0; col < 8; ++col)
+          out[(w * kTf32Steps + s) * 8 + col] = mom_pixel(w, s, col);
+    return kWarps * kTf32Steps * 8;
+  }
+  if (family == 1) {
+    for (int w = 0; w < kAccTcThreads / 32; ++w)
+      for (int r = 0; r < 16; ++r) out[w * 16 + r] = acc_pixel(w, r);
+    return kAccTcThreads / 32 * 16;
+  }
+  return -1;
+}
+

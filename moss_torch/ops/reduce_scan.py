@@ -35,7 +35,11 @@ of the sums, within 1e-5 of the max.
 The log-space cumprod's kernel works in base 2 (log2(1 - a) by a polynomial,
 LOG2_POLY, and 2^x), its plain version in natural logs as the JAX kernel
 does; scan_stage runs the kernel's stages (SCAN_STAGES: products, logs and
-exps alone), for timing what holds it back.
+exps alone), for timing what holds it back. tf32x3_stage does the same for
+the 3xTF32 moments and accumulators (TF32X3_STAGES: the products on an
+operand split once, the split alone), whose kernels take the contraction
+axis in the order mom_pixel and acc_pixel give (the C library's
+moss_mxu_tf32x3_order reports it).
 
 A kernel launch runs TILES identical copies of the chunk (the TPU's grid
 of TILES = 256 programs); only tile 0 stores the output, and every CTA
@@ -66,6 +70,9 @@ reshape_launches = 0  # moss_mxu_reshape
 acc_launches = 0      # moss_mxu_acc
 scan_launches = 0     # moss_mxu_scan
 stage_launches = 0    # moss_mxu_scan_stage
+tf32x3_stage_launches = 0  # moss_mxu_moments_stage, moss_mxu_acc_stage
+# launches of each of RUNS's forms through its family's wrapper, by run name
+form_launches = {}
 
 # the log-space cumprod kernel's stages, by their code in csrc/reduce_scan.cu
 # (enum ScanStage)
@@ -74,6 +81,13 @@ SCAN_STAGES = ("full", "products", "logs", "exps")
 # kLog2Poly of csrc/reduce_scan.cu::log2_poly
 LOG2_POLY = (1.4426864, -0.7218736, 0.4700032, -0.46861637, -0.29185253, -1.9971113, -2.669445,
              -2.283522)
+
+# the 3xTF32 kernels' stages, by their code in csrc/reduce_scan.cu (enum
+# Tf32Stage)
+TF32X3_STAGES = ("full", "products", "split")
+# the 3xTF32 kernels' shapes (csrc/reduce_scan.cu): warps a CTA, k-steps of 8
+# a warp walks in a rep, pixels a moments warp covers
+TF32X3_WARPS, TF32X3_STEPS, MOM_SLICE = 8, 16, 128
 
 MODES = ("cuda", "bf16", "tf32x3")
 SCAN_MODES = {"add": ("cuda", "bf16", "split2"), "mul": ("cuda", "split2")}
@@ -106,6 +120,8 @@ _SIGNATURES = {  # pointers, then reps, tiles, [op,] [mode]
     "moss_mxu_acc": [_PTR] * 4 + [_INT] * 3,
     "moss_mxu_scan": [_PTR] * 3 + [_INT] * 4,
     "moss_mxu_scan_stage": [_PTR] * 3 + [_INT] * 3,
+    "moss_mxu_moments_stage": [_PTR] * 3 + [_INT] * 3,
+    "moss_mxu_acc_stage": [_PTR] * 4 + [_INT] * 3,
 }
 
 
@@ -192,6 +208,57 @@ def rep_alpha(x, i: int):
     as the JAX kernel's weak-typed Python float is (:197)."""
     scale = torch.tensor(0.01 * (i + 1), dtype=torch.float32, device=x.device)
     return torch.clamp(x * scale, 0.0, 0.9)
+
+
+def tf32_operand(a):
+    """The operand register the 3xTF32 kernels hand the tensor cores for a:
+    bits(a) + 0x1000, as an f32 (tf32(a) plus the 13 low bits the tensor
+    cores do not read)."""
+    return (a.contiguous().view(torch.int32) + 0x1000).view(torch.float32)
+
+
+# ---- the 3xTF32 kernels' order of the contraction axis ------------------------
+
+def mom_pixel(w: int, s: int, col: int) -> int:
+    """csrc/reduce_scan.cu::mom_pixel: the pixel of column col of k-step s in
+    warp w's slice of the moments kernel."""
+    return MOM_SLICE * w + 32 * (col & 3) + 2 * s + (col >> 2)
+
+
+def acc_pixel(w: int, r: int) -> int:
+    """csrc/reduce_scan.cu::acc_pixel: the pixel (of its CTA's 128) of row r of
+    warp w's m-tile in the accumulator kernel."""
+    return 16 * w + 2 * (r & 7) + (r >> 3)
+
+
+def tf32x3_order_plain(family: str):
+    """mom_pixel over (warp, k-step, column), (8, 16, 8), for "moments";
+    acc_pixel over (warp, row), (8, 16), for "acc"."""
+    if family == "moments":
+        return torch.tensor([[[mom_pixel(w, s, c) for c in range(8)]
+                              for s in range(TF32X3_STEPS)] for w in range(TF32X3_WARPS)])
+    return torch.tensor([[acc_pixel(w, r) for r in range(16)] for w in range(TF32X3_WARPS)])
+
+
+def tf32x3_order(family: str):
+    """The C library's tables of tf32x3_order_plain (moss_mxu_tf32x3_order)."""
+    code = {"moments": 0, "acc": 1}[family]
+    want = tf32x3_order_plain(family)
+    buf = (ctypes.c_int * want.numel())()
+    fn = cuda_build.load("reduce_scan").moss_mxu_tf32x3_order
+    fn.argtypes, fn.restype = [_INT, ctypes.POINTER(ctypes.c_int)], _INT
+    n = fn(code, buf)
+    if n != want.numel():
+        raise ValueError(f"moss_mxu_tf32x3_order({code}) wrote {n} entries, not {want.numel()}")
+    return torch.tensor(list(buf)).reshape(want.shape)
+
+
+def _slot_column(col):
+    """The C column (output column n of the moments, row n of the
+    accumulators) whose element sums the A element of fragment column col
+    in the split stage: columns t and t + 4 of lane t feed C columns 2t and
+    2t + 1."""
+    return 2 * (col % 4) + col // 4
 
 
 # ---- plain versions -----------------------------------------------------------
@@ -299,6 +366,10 @@ def _parts(symbol, *codes):
     return n
 
 
+def _count_form(name):
+    form_launches[name] = form_launches.get(name, 0) + 1
+
+
 def _launch(symbol, x, out, reps, *codes, s=None):
     """Launch `symbol` over TILES copies of the chunk; returns (out, observer)."""
     obs = torch.empty((TILES, _parts(symbol, *codes)), dtype=torch.float32, device=x.device)
@@ -318,6 +389,7 @@ def moments(x, reps: int = REPS, mode: str = "cuda"):
     out = torch.empty((K, 8), dtype=torch.float32, device=x.device)
     res = _launch("moss_mxu_moments", x, out, reps, _MODE_CODE[mode])
     moments_launches += 1
+    _count_form(f"moments_{mode}")
     return res
 
 
@@ -330,6 +402,7 @@ def reshape_only(x, reps: int = REPS):
     out = torch.empty((K, W), dtype=torch.float32, device=x.device)
     res = _launch("moss_mxu_reshape", x, out, reps)
     reshape_launches += 1
+    _count_form("reshape_only")
     return res
 
 
@@ -343,6 +416,7 @@ def acc(x, s, reps: int = REPS, mode: str = "cuda"):
     out = torch.empty((8, H, W), dtype=torch.float32, device=x.device)
     res = _launch("moss_mxu_acc", x, out, reps, _MODE_CODE[mode], s=s)
     acc_launches += 1
+    _count_form(f"acc_{mode}")
     return res
 
 
@@ -359,6 +433,8 @@ def scan(x, reps: int = REPS, op: str = "add", mode: str = "cuda"):
     out = torch.empty((K, H, W), dtype=torch.float32, device=x.device)
     res = _launch("moss_mxu_scan", x, out, reps, _OP_CODE[op], _MODE_CODE[mode])
     scan_launches += 1
+    _count_form(f"cumsum_{mode}" if op == "add" else
+                "cumprod_logsplit2" if mode == "split2" else f"cumprod_{mode}")
     return res
 
 
@@ -407,6 +483,84 @@ def scan_stage(x, stage: str, reps: int = REPS):
     return out, obs
 
 
+def _slot_onehot(family: str, device):
+    """The split stage's sum as a 0/1 matrix: (1024, 8) pixel to the moments'
+    output column, (8, K) accumulator row to splat, by each element's
+    fragment column (_slot_column)."""
+    if family == "moments":
+        order = tf32x3_order_plain("moments")
+        m = torch.zeros((PIX, 8))
+        m[order.reshape(-1), _slot_column(torch.arange(8).expand_as(order)).reshape(-1)] = 1.0
+    else:
+        k = torch.arange(K)
+        m = torch.zeros((8, K))
+        m[_slot_column(k % 8), k] = 1.0
+    return m.to(device)
+
+
+def _tf32x3_args(family, stage, what):
+    if family not in ("moments", "acc"):
+        raise ValueError(f"{what}: family {family!r} is not 'moments' or 'acc'")
+    if stage not in TF32X3_STAGES:
+        raise ValueError(f"{what}: stage {stage!r}: expected one of {TF32X3_STAGES}")
+
+
+def tf32x3_stage_plain(family: str, x, s, stage: str, reps: int = REPS):
+    """What stage `stage` of the 3xTF32 moments ("moments") or accumulator
+    ("acc") kernel returns: "full" the 3xTF32 product (moments_plain,
+    acc_plain); "products" the reps' sums of (big.B_big + big.B_small) +
+    big.B_big with big = tf32(x), split once; "split" the sum over reps of
+    each element's small operand register tf32_operand(v - tf32(v)), v = x +
+    i, into the output element its fragment slot feeds (_slot_onehot)."""
+    _tf32x3_args(family, stage, "tf32x3_stage_plain")
+    if stage == "full":
+        return (moments_plain(x, reps, "tf32x3") if family == "moments"
+                else acc_plain(x, s, reps, "tf32x3"))
+    g0, lead = _rows(x)
+    moments_ = family == "moments"
+    acc = torch.zeros((*lead, K, 8) if moments_ else (*lead, 8, PIX), device=x.device)
+    with full_f32(), one_cpu_thread(x):
+        if stage == "products":
+            big = round_tf32(g0)
+            b_big, b_small = split_tf32(basis(x.device) if moments_ else s)
+            if moments_:
+                cb, cs = big @ b_big, big @ b_big + big @ b_small
+            else:
+                cb, cs = b_big @ big, b_big @ big + b_small @ big
+            for _ in range(reps):
+                acc = acc + (cb + cs)
+        else:
+            onehot = _slot_onehot(family, x.device)
+            for i in range(reps):
+                v = g0 + float(i)
+                small = tf32_operand(v - round_tf32(v))
+                acc = acc + (small @ onehot if moments_ else onehot @ small)
+    return acc if moments_ else acc.reshape(*lead, 8, H, W)
+
+
+def tf32x3_stage(family: str, x, s, stage: str, reps: int = REPS):
+    """(out, observer) of stage `stage` of the 3xTF32 moments or accumulator
+    kernel: "full" is that kernel (mode "tf32x3"), the others leave out part
+    of its work, so their times say what holds it back. s is read by "acc"
+    only. Counted in `tf32x3_stage_launches`; on a CPU tensor,
+    tf32x3_stage_plain."""
+    global tf32x3_stage_launches
+    _tf32x3_args(family, stage, "tf32x3_stage")
+    _check(x, reps, "tf32x3_stage", s if family == "acc" else None)
+    if x.device.type == "cpu":
+        return tf32x3_stage_plain(family, x, s, stage, reps), None
+    symbol = f"moss_mxu_{family}_stage"
+    out = torch.empty((K, 8) if family == "moments" else (8, H, W), dtype=torch.float32,
+                      device=x.device)
+    obs = torch.empty((TILES, _parts(f"moss_mxu_{family}", _MODE_CODE["tf32x3"])),
+                      dtype=torch.float32, device=x.device)
+    ptrs = [x.data_ptr()] + ([s.data_ptr()] if family == "acc" else [])
+    cuda_build.launch("reduce_scan", symbol, _SIGNATURES[symbol], x.device, *ptrs, out.data_ptr(),
+                      obs.data_ptr(), reps, TILES, TF32X3_STAGES.index(stage))
+    tf32x3_stage_launches += 1
+    return out, obs
+
+
 # ---- the twelve runs by name ----------------------------------------------------
 
 def _scan_op(family):
@@ -445,4 +599,7 @@ def launch_counts():
 
 def reset_launch_counts():
     global moments_launches, reshape_launches, acc_launches, scan_launches, stage_launches
+    global tf32x3_stage_launches
     moments_launches = reshape_launches = acc_launches = scan_launches = stage_launches = 0
+    tf32x3_stage_launches = 0
+    form_launches.clear()

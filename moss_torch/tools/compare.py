@@ -1,0 +1,124 @@
+"""Time one family of kernels of two checkouts of this repository on one card,
+in turns.
+
+    python -m moss_torch.tools.compare OTHER_ROOT [--what conv|mxu] [--json FILE]
+
+Runs four child processes in the order OTHER, THIS, THIS, OTHER. Each imports
+its own checkout's moss_torch, which builds that checkout's kernels into the
+checkout's build directory, and times them:
+
+  conv  the f32 conv kernel (csrc/conv3x3.cu, the CUDA-core one):
+        ops.conv3x3.conv3x3 on f32 inputs at conv_proto's check() shapes and
+        VGG16 layers (conv_proto.check_inputs and layer_inputs: the JAX tool's
+        draws) with cuda_ms at conv_proto.TIMING, and cuDNN f32 (TF32 off) on
+        the same inputs
+  mxu   the twelve reduction and scan runs (csrc/reduce_scan.cu): each of
+        ops.reduce_scan.RUNS through rs.run on mxu_micro.inputs, with cuda_ms
+        at mxu_micro.TIMING
+
+Prints one JSON line per turn, then each root's per-entry median over its two
+turns and its sums, and the card's name and power limit. Both checkouts need
+those entry points: every checkout since the f32 conv kernel was added (conv)
+or since the reduce_scan kernels were (mxu). Runs on the GPU only.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+THIS_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+_PRELUDE = r"""
+import json, sys
+import torch
+from moss_torch.tools.timing import cuda_ms
+if not torch.cuda.is_available():
+    sys.exit("compare needs a CUDA device")
+dev = torch.device("cuda", 0)
+"""
+# one turn, run with its checkout's root first on sys.path: a RESULT line of
+# {kind: {entry: ms}}
+CHILD = {
+    "conv": _PRELUDE + r"""
+from moss_torch.ops.conv3x3 import conv3x3
+from moss_torch.tools import conv_proto
+torch.backends.cudnn.allow_tf32 = False
+out = {"checks": {}, "layers": {}, "cudnn_checks": {}, "cudnn_layers": {}}
+rows = [("checks", "x".join(map(str, s)), x, w, b) for s, x, w, b in conv_proto.check_inputs(dev)]
+rows += [("layers", "x".join(map(str, (H, H, ci, co))), x, w, b)
+         for (H, ci, co), x, w, b in conv_proto.layer_inputs(dev)]
+for kind, key, x, w, b in rows:
+    out[kind][key] = cuda_ms(lambda: conv3x3(x, w, b), **conv_proto.TIMING)
+    out["cudnn_" + kind][key] = cuda_ms(conv_proto.library_conv(x, w, b), **conv_proto.TIMING)
+print("RESULT " + json.dumps(out), flush=True)
+""",
+    "mxu": _PRELUDE + r"""
+from moss_torch.ops import reduce_scan as rs
+from moss_torch.tools import mxu_micro
+x, s = mxu_micro.inputs(dev)
+out = {"runs": {}}
+with rs.full_f32():
+    for name, *_ in rs.RUNS:
+        out["runs"][name] = cuda_ms(lambda: rs.run(name, x, s), **mxu_micro.TIMING)
+print("RESULT " + json.dumps(out), flush=True)
+""",
+}
+
+
+def turn(root: str, what: str) -> dict:
+    """One child process on `root`'s checkout; its RESULT line."""
+    env = {**os.environ, "PYTHONPATH": root}
+    proc = subprocess.run([sys.executable, "-c", CHILD[what]], cwd=root, env=env,
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"compare turn ({what}) on {root} failed:\n{proc.stdout}\n{proc.stderr}")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")][-1]
+    return json.loads(line[len("RESULT "):])
+
+
+def summary(turns) -> dict:
+    """Each entry's median over the turns, and each kind's sum of them."""
+    med = {k: {e: float(np.median([t[k][e] for t in turns])) for e in turns[0][k]}
+           for k in turns[0]}
+    return {**med, **{f"sum_{k}": sum(med[k].values()) for k in med}}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other_root", help="the other checkout's root directory")
+    ap.add_argument("--what", choices=sorted(CHILD), default="conv",
+                    help="the kernels to time (default conv)")
+    ap.add_argument("--json", help="also write the result to this file")
+    args = ap.parse_args(argv)
+    other = os.path.abspath(args.other_root)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    order = [other, THIS_ROOT, THIS_ROOT, other]
+    turns = []
+    for root in order:
+        res = turn(root, args.what)
+        turns.append(res)
+        print(json.dumps({"root": root, **res}), flush=True)
+    result = {"what": args.what, "nvidia_smi": smi, "order": order,
+              "other": {"root": other, **summary([turns[0], turns[3]])},
+              "this": {"root": THIS_ROOT, **summary([turns[1], turns[2]])}}
+    for name in ("other", "this"):
+        r = result[name]
+        kinds = [k for k in turns[0]]
+        print(f"{name} ({r['root']}): " + "; ".join(
+            f"{k}: " + "  ".join(f"{e} {ms:.5f}" for e, ms in r[k].items())
+            + f"  sum {r['sum_' + k]:.5f} ms" for k in kinds), flush=True)
+    print(smi, flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(result, f, indent=1)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -15,9 +15,11 @@ torch.cumsum, torch.cumprod) batched over the TILES x REPS chunks, its stack
 built outside the timed window. Then the JAX tool's numeric lines
 (:279-300): the moments of each form against an f64 sum_i (x + i) @ basis,
 and the tensor-core forms of the accumulators and scans against the
-CUDA-core forms; and the log-space cumprod kernel's stages (products, logs
-and exps alone, ops.reduce_scan.SCAN_STAGES), each against its plain
-version and timed, which say what holds it back.
+CUDA-core forms; and the stages of the log-space cumprod kernel (products,
+logs and exps alone, ops.reduce_scan.SCAN_STAGES) and of the 3xTF32 moments
+and accumulator kernels (the products on an operand split once, the split
+alone, ops.reduce_scan.TF32X3_STAGES), each against its plain version and
+timed, which say what holds them back.
 
     python -m moss_torch.tools.mxu_micro
 
@@ -225,6 +227,29 @@ def scan_stages(x, time_ms, timing=None):
     return rows
 
 
+def tf32x3_stages(x, s, time_ms, timing=None):
+    """The 3xTF32 moments and accumulator kernels' stages
+    (rs.TF32X3_STAGES) on the chunk: each against its plain version
+    (raising past RTOL of the max), its observers equal across tiles, its
+    ms; {family: {stage: row}}."""
+    rows = {}
+    for family in ("moments", "acc"):
+        rows[family] = {}
+        for stage in rs.TF32X3_STAGES:
+            out, obs = rs.tf32x3_stage(family, x, s, stage)
+            err = scaled_err(out, rs.tf32x3_stage_plain(family, x, s, stage))
+            if not (err <= RTOL and torch.isfinite(out).all()):
+                raise AssertionError(f"{family} 3xTF32 stage {stage}: off its plain version by "
+                                     f"{err:.2e} of the max")
+            observers_equal = obs is None or bool(torch.equal(obs, obs[:1].expand_as(obs)))
+            if not observers_equal:
+                raise AssertionError(f"{family} 3xTF32 stage {stage}: the tiles' observers differ")
+            ms = time_ms(lambda: rs.tf32x3_stage(family, x, s, stage), **(timing or TIMING))
+            rows[family][stage] = {"ms": ms, "scaled_err": err, "observers_equal": observers_equal}
+            print(f"{family:7s} TC 3xTF32 stage {stage:8s} {ms:8.4f} ms  err {err:.1e}")
+    return rows
+
+
 def main(device=None, timing=None, tiles=TILES):
     """Run, check, time and print the twelve runs; return {"runs": {name:
     row}, "numeric": the numeric lines}. timing: cuda_ms / cpu_ms keywords
@@ -279,7 +304,8 @@ def main(device=None, timing=None, tiles=TILES):
                       f"{row['transcendentals']:.4g} transcendentals at {MUFU_PER_CLOCK} a "
                       f"clock, {clock_hz / 1e9:.3f} GHz")
     return {"device": device_name(dev), "reps": REPS, "tiles": TILES, "runs": rows,
-            "numeric": numeric_lines(outs, x), "scan_stages": scan_stages(x, time_ms, timing)}
+            "numeric": numeric_lines(outs, x), "scan_stages": scan_stages(x, time_ms, timing),
+            "tf32x3_stages": tf32x3_stages(x, s, time_ms, timing)}
 
 
 if __name__ == "__main__":

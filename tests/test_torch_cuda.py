@@ -29,7 +29,10 @@ two calls bitwise equal; the tensor-core kernel's ablated stages exactly
 their plain version.
 Reductions and scans: max |out - plain| <= 1e-5 max |plain|, the plain version
 rounding a tensor-core form's operands as its kernel does; observers bitwise
-equal across tiles; the same for the log-space cumprod kernel's stages. The
+equal across tiles; the same for the stages of the log-space cumprod kernel
+and of the 3xTF32 moments and accumulator kernels, whose layout tables are
+the C library's and whose unmasked TF32 operands the tensor cores read as
+cvt.rna's, bit for bit (csrc/tc_rate.cu). The
 f32 conv also at the VGG16 layers, bitwise repeatable, its tile table the C
 library's.
 """
@@ -572,6 +575,46 @@ def test_scan_stage_matches_plain(cuda_device, stage, reps):
     assert torch.equal(obs, obs[:1].expand_as(obs))
     if stage == "full":
         assert torch.equal(out, rs.scan(x, reps, "mul", "split2")[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("stage", rs.TF32X3_STAGES)
+@pytest.mark.parametrize("family", ["moments", "acc"])
+def test_tf32x3_stage_matches_plain(cuda_device, family, stage, reps):
+    """Each stage of the 3xTF32 moments and accumulator kernels against its
+    plain version (1e-5 of the max), observers bitwise equal across tiles,
+    one launch; "full" bitwise the production kernel."""
+    x, s = _chunk(cuda_device)
+    before = rs.tf32x3_stage_launches
+    out, obs = rs.tf32x3_stage(family, x, s, stage, reps)
+    torch.cuda.synchronize()
+    assert rs.tf32x3_stage_launches == before + 1
+    plain = rs.tf32x3_stage_plain(family, x, s, stage, reps)
+    err = float((out - plain).abs().max()) / float(plain.abs().max())
+    assert err <= 1e-5 and torch.isfinite(out).all(), err
+    assert torch.equal(obs, obs[:1].expand_as(obs))
+    if stage == "full":
+        assert torch.equal(out, rs.run(f"{family}_tf32x3", x, s, reps=reps)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["moments", "acc"])
+def test_tf32x3_order_is_the_c_librarys(cuda_device, family):
+    """The 3xTF32 kernels' order of the contraction axis that
+    ops/reduce_scan.py copies (mom_pixel, acc_pixel) is the C library's."""
+    assert torch.equal(rs.tf32x3_order(family), rs.tf32x3_order_plain(family))
+
+
+@pytest.mark.cuda
+def test_tensor_cores_read_only_the_tf32_bits(cuda_device):
+    """An m16n8k8 product of the unmasked bits(v) + 0x1000 the 3xTF32 kernels
+    hand over is bitwise the product of cvt.rna.tf32.f32(v)."""
+    from moss_torch.tools import tc_rate
+
+    before = tc_rate.low_bits_launches
+    assert tc_rate.low_bits(cuda_device) == 0.0
+    assert tc_rate.low_bits_launches == before + tc_rate.LOW_BITS_DRAWS
 
 
 @pytest.mark.cuda

@@ -346,3 +346,210 @@ def test_scan_stage_plain_on_the_cpu(data, plain_out, stage):
     with pytest.raises(ValueError):
         rs.scan_stage(x, stage + "_")
 
+
+
+# ---- the 3xTF32 moments and accumulator kernels: layout, stages, sums ------------
+#
+# csrc/reduce_scan.cu's moments_tf32x3_kernel and acc_tf32x3_kernel take the
+# contraction axis in the order mom_pixel / acc_pixel give (ops/reduce_scan.py
+# copies them; a card test holds the copies to the C library's tables), split
+# each rep's operand into big and small TF32 parts handed to the tensor cores
+# unmasked (tf32_operand), and sum cs = small.B_big then big.B_small and cb =
+# big.B_big down 16 k-steps of m16n8k8 products, then c += cb + cs in f32.
+
+
+def _tf32_np(a):
+    """tf32(a), round to nearest with ties away from zero, in numpy."""
+    b = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _operand_np(a):
+    """bits(a) + 0x1000 as an f32: the kernels' unmasked operand register."""
+    return (np.asarray(a, np.float32).view(np.uint32) + np.uint32(0x1000)).view(np.float32)
+
+
+def test_tf32x3_constants_are_the_kernels():
+    import re
+
+    src = open(CU).read()
+    assert int(re.search(r"constexpr int kTf32Steps = (\d+);", src).group(1)) == rs.TF32X3_STEPS
+    for threads in ("kMomThreads", "kAccTcThreads"):
+        n = int(re.search(rf"constexpr int {threads} = (\d+);", src).group(1))
+        assert n // 32 == rs.TF32X3_WARPS, threads
+    enum = re.search(r"enum Tf32Stage \{([^}]*)\}", src).group(1)
+    names = [v.split("=")[0].strip()[len("kTf32"):].lower() for v in enum.split(",")]
+    assert tuple(names) == rs.TF32X3_STAGES
+    assert rs.MOM_SLICE * rs.TF32X3_WARPS == rs.PIX
+    assert 8 * rs.TF32X3_STEPS == rs.K == rs.MOM_SLICE
+
+
+def test_tf32x3_layouts_cover_the_chunk_and_load_in_vectors():
+    """mom_pixel takes each pixel once, warp w's slice is pixel row w (the
+    py of the kernel's basis table), and lane t's columns t and t + 4 over
+    the 16 k-steps are 32 adjacent pixels (float4 loads); acc_pixel takes
+    each of a CTA's 128 pixels once, rows g and g + 8 adjacent (float2)."""
+    mom = rs.tf32x3_order_plain("moments")
+    assert mom.shape == (rs.TF32X3_WARPS, rs.TF32X3_STEPS, 8)
+    assert sorted(mom.reshape(-1).tolist()) == list(range(rs.PIX))
+    assert torch.equal(mom // rs.W, torch.arange(8).view(8, 1, 1).expand_as(mom))
+    for t in range(4):
+        run = mom[:, :, [t, t + 4]].reshape(rs.TF32X3_WARPS, -1)
+        assert torch.equal(run - run[:, :1], torch.arange(32).expand_as(run))
+    acc = rs.tf32x3_order_plain("acc")
+    assert sorted(acc.reshape(-1).tolist()) == list(range(128))
+    assert torch.equal(acc[:, 8:] - acc[:, :8], torch.ones_like(acc[:, :8]))
+    assert int(acc[:, 0].remainder(2).max()) == 0
+
+
+def _tf32x3_stage_np(family, data, stage, reps):
+    """The stage's function in numpy, float64 sums, its maps written out
+    anew: the split stage sums pixel p of a splat row into moments column
+    2 ((p % 128) // 32) + p % 2, and splat k of a pixel into accumulator row
+    2 (k % 4) + (k % 8) // 4."""
+    x = data["x"].reshape(mm.K, mm.PIX)
+    b = data["b"] if family == "moments" else data["s"]
+    bb = _tf32_np(b).astype(np.float64)
+    bs = _tf32_np(b - _tf32_np(b)).astype(np.float64)
+    acc = 0.0
+    for i in range(reps):
+        v = (x + np.float32(i)).astype(np.float32)
+        if stage == "products":
+            v = x
+        big = _tf32_np(v)
+        small = _tf32_np(v - big)
+        if stage == "products":
+            small = big
+        big, small = big.astype(np.float64), small.astype(np.float64)
+        if stage == "split":
+            g = _operand_np(v - _tf32_np(v)).astype(np.float64)
+            if family == "moments":
+                p = np.arange(mm.PIX)
+                m = np.zeros((mm.PIX, 8))
+                m[p, 2 * ((p % 128) // 32) + p % 2] = 1.0
+                acc = acc + g @ m
+            else:
+                k = np.arange(mm.K)
+                m = np.zeros((8, mm.K))
+                m[2 * (k % 4) + (k % 8) // 4, k] = 1.0
+                acc = acc + m @ g
+        elif family == "moments":
+            acc = acc + small @ bb + big @ bs + big @ bb
+        else:
+            acc = acc + bb @ small + bs @ big + bb @ big
+    return acc
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("stage", rs.TF32X3_STAGES)
+@pytest.mark.parametrize("family", ["moments", "acc"])
+def test_tf32x3_stage_plain_on_the_cpu(data, plain_out, family, stage, reps):
+    """A stage of the 3xTF32 kernels on CPU tensors is its plain version,
+    with no launch, and that is the stage's function (numpy, float64 sums)
+    within RTOL: "full" the 3xTF32 product itself; "products" the reps'
+    products on tf32(x) split once; "split" the small operands' sums."""
+    x, s = torch.as_tensor(data["x"]), torch.as_tensor(data["s"])
+    before = (rs.tf32x3_stage_launches, dict(rs.form_launches))
+    out, obs = rs.tf32x3_stage(family, x, s, stage, reps)
+    assert obs is None and (rs.tf32x3_stage_launches, rs.form_launches) == before
+    assert torch.equal(out, rs.tf32x3_stage_plain(family, x, s, stage, reps))
+    want = _tf32x3_stage_np(family, data, stage, reps)
+    assert _err_of_max(out.numpy().reshape(want.shape), want) <= mxu_micro.RTOL
+    if stage == "full" and reps == rs.REPS:
+        np.testing.assert_array_equal(out.numpy(), plain_out[f"{family}_tf32x3"])
+    with pytest.raises(ValueError):
+        rs.tf32x3_stage(family, x, s, stage + "_", reps)
+
+
+def _mma_model(acc, a, b):
+    """acc + a @ b with a's 8 columns taken in order, each product exact and
+    added in float32: the model of one m16n8k8 product's sum."""
+    for c in range(a.shape[-1]):
+        acc = acc + a[..., :, c:c + 1] * b[..., c:c + 1, :]
+    return acc
+
+
+def tf32x3_kernel_model(family, x, s, reps):
+    """The 3xTF32 kernels' sums in float32: per rep and warp, cs (small.B_big,
+    then big.B_small) and cb (big.B_big) down the 16 k-steps in the kernel's
+    column order (tf32x3_order_plain), c += cb + cs; the moments' 8 warps' c
+    summed in warp order."""
+    g0 = x.reshape(rs.K, rs.PIX)
+    if family == "moments":
+        order = rs.tf32x3_order_plain("moments")              # (warp, step, col)
+        b_big, b_small = rs.split_tf32(rs.basis())            # (PIX, 8)
+        c = torch.zeros((rs.TF32X3_WARPS, rs.K, 8))
+        for i in range(reps):
+            big, small = rs.split_tf32(g0 + float(i))
+            cb = torch.zeros_like(c)
+            cs = torch.zeros_like(c)
+            for st in range(rs.TF32X3_STEPS):
+                p = order[:, st]                              # (warp, col)
+                a_big = big[:, p].permute(1, 0, 2)            # (warp, K, col)
+                a_small = small[:, p].permute(1, 0, 2)
+                cs = _mma_model(_mma_model(cs, a_small, b_big[p]), a_big, b_small[p])
+                cb = _mma_model(cb, a_big, b_big[p])
+            c = c + (cb + cs)
+        out = c[0]
+        for w in range(1, rs.TF32X3_WARPS):
+            out = out + c[w]
+        return out
+    b_big, b_small = rs.split_tf32(s.T.contiguous())          # (K, 8)
+    c = torch.zeros((rs.PIX, 8))
+    for i in range(reps):
+        big, small = rs.split_tf32((g0 + float(i)).T.contiguous())  # (PIX, K)
+        cb = torch.zeros_like(c)
+        cs = torch.zeros_like(c)
+        for st in range(rs.TF32X3_STEPS):
+            k = slice(8 * st, 8 * st + 8)
+            cs = _mma_model(_mma_model(cs, small[:, k], b_big[k]), big[:, k], b_small[k])
+            cb = _mma_model(cb, big[:, k], b_big[k])
+        c = c + (cb + cs)
+    return c.T.reshape(8, rs.H, rs.W)
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("family", ["moments", "acc"])
+def test_tf32x3_kernel_sums_within_rtol_of_plain(data, family, reps):
+    """The kernels' order of f32 sums (the model above) lies within RTOL of
+    moments_plain / acc_plain at mode tf32x3, the contract they are held to
+    on the card."""
+    x, s = torch.as_tensor(data["x"]), torch.as_tensor(data["s"])
+    got = tf32x3_kernel_model(family, x, s, reps)
+    want = rs.tf32x3_stage_plain(family, x, s, "full", reps)
+    assert got.shape == want.shape
+    assert mxu_micro.scaled_err(got, want) <= mxu_micro.RTOL
+
+
+def test_tc_rate_forms_and_arithmetic():
+    """tools/tc_rate.py's form codes are csrc/tc_rate.cu's, its TFLOP/s count
+    eight instructions a round for each warp or warpgroup, and it needs a
+    card."""
+    import re
+
+    from moss_torch.tools import tc_rate
+
+    src = open(os.path.join(REPO, "moss_torch", "csrc", "tc_rate.cu")).read()
+    enum = re.search(r"enum Form \{([^}]*)\}", src).group(1)
+    codes = [int(v.split("=")[1]) for v in enum.split(",")]
+    assert sorted(list(tc_rate.FORMS.values()) + [tc_rate.SPLIT_ALONE]) == codes
+    # 132 CTAs of 256 threads, 2048 rounds in 1 ms: 8 warps or 2 warpgroups a CTA
+    per_ms = 2 * 8 * 2048 * 132 / 1e-3 / 1e12
+    assert tc_rate.tflops("mma_m16n8k8", 1.0, 132) == pytest.approx(1024 * 8 * per_ms)
+    assert tc_rate.tflops("wgmma_m64n8k8", 1.0, 132) == pytest.approx(4096 * 2 * per_ms)
+    assert tc_rate.tflops("wgmma_m64n16k8", 1.0, 132) == pytest.approx(8192 * 2 * per_ms)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tc_rate.main("cpu")
+
+
+def test_compare_summary_and_modes():
+    """tools/compare.py: each entry's median over the turns and each kind's
+    sum; a child script per kind of kernel."""
+    from moss_torch.tools import compare
+
+    assert sorted(compare.CHILD) == ["conv", "mxu"]
+    turns = [{"runs": {"a": 1.0, "b": 4.0}}, {"runs": {"a": 3.0, "b": 2.0}}]
+    got = compare.summary(turns)
+    assert got == {"runs": {"a": 2.0, "b": 3.0}, "sum_runs": 5.0}
+    with pytest.raises(SystemExit):
+        compare.main(["root", "--what", "sort"])
