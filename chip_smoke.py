@@ -170,9 +170,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              TF32 rate at N = 8 by instruction form, with and without the
              split's work beside it, and the check that they read only an
              operand's TF32 bits); then moss_torch.tools.mxu_micro, counted,
-             which holds each run and the stages of the log-space cumprod and
-             the 3xTF32 kernels against their plain versions (1e-5 of the
-             max) and times them
+             which holds each run and the stages of the tensor-core cumsums,
+             the log-space cumprod and the 3xTF32 kernels against their plain
+             versions (1e-5 of the max) and times them
  21. timing  how many runs cuda_ms took again because the host had not
              queued them before their spin ended (0: every time above is the
              first run's), by phase and by kernel
@@ -2747,12 +2747,13 @@ MXU_KERNELS = (
 
 def phase_tool_mxu(dev):
     """The twelve reduction and scan runs: their observers across tiles and a
-    launch's time against REPS; the card test of the log-space cumprod and of
-    the two 3xTF32 forms three times over; the 3xTF32 layout tables and
-    tc_rate; then the tool, counted, which holds each run to its plain
-    version (raising past mxu_micro.RTOL) and times it, with the SFU bound
-    and the stages of the cumprod and 3xTF32 kernels. Returns ({kernel: row
-    summed over its runs}, {kernel: launches}, {stage family: launches})."""
+    launch's time against REPS; the card test of the two tensor-core
+    cumsums, the log-space cumprod and the two 3xTF32 forms three times over;
+    the 3xTF32 layout tables and tc_rate; then the tool, counted, which holds
+    each run to its plain version (raising past mxu_micro.RTOL) and times it,
+    with the SFU bound and the stages of the cumsum, cumprod and 3xTF32
+    kernels. Returns ({kernel: row summed over its runs}, {kernel:
+    launches}, {stage family: launches})."""
     x, s = mxu_micro.inputs(dev)
     checks = {}
     for name, *_ in rs.RUNS:
@@ -2768,9 +2769,10 @@ def phase_tool_mxu(dev):
         checks[name] = {"observers_equal": True, "observer_shape": list(obs.shape),
                         "ms_vs_reps": vs_reps}
     # the card test's cases tests/test_torch_cuda.py::test_reduce_scan_matches_plain
-    # [cumprod_logsplit2-*, moments_tf32x3-*, acc_tf32x3-*], three times over: kernel
-    # within RTOL of plain, observers equal
-    for name in ("cumprod_logsplit2", "moments_tf32x3", "acc_tf32x3"):
+    # [cumsum_bf16-*, cumsum_split2-*, cumprod_logsplit2-*, moments_tf32x3-*,
+    # acc_tf32x3-*], three times over: kernel within RTOL of plain, observers equal
+    for name in ("cumsum_bf16", "cumsum_split2", "cumprod_logsplit2", "moments_tf32x3",
+                 "acc_tf32x3"):
         repeats = []
         for _ in range(3):
             for reps in (rs.REPS, 3):
@@ -2798,9 +2800,13 @@ def phase_tool_mxu(dev):
     res = mxu_micro.main(dev)
     launches = rs.launch_counts()
     forms = dict(rs.form_launches)
-    stage_launches = {"scan": rs.stage_launches, "tf32x3": rs.tf32x3_stage_launches}
+    stage_launches = {"scan": rs.stage_launches, "cumsum": rs.cumsum_stage_launches,
+                      "tf32x3": rs.tf32x3_stage_launches}
     if rs.stage_launches < len(rs.SCAN_STAGES):
         raise AssertionError(f"the mxu tool launched the scan stages {rs.stage_launches} times")
+    if rs.cumsum_stage_launches < len(rs.CUMSUM_MODES) * len(rs.CUMSUM_STAGES):
+        raise AssertionError("the mxu tool launched the cumsum stages "
+                             f"{rs.cumsum_stage_launches} times")
     if rs.tf32x3_stage_launches < 2 * len(rs.TF32X3_STAGES):
         raise AssertionError("the mxu tool launched the 3xTF32 stages "
                              f"{rs.tf32x3_stage_launches} times")
@@ -2824,6 +2830,8 @@ def phase_tool_mxu(dev):
                                 if k in rows[n]}}
                          for n in names}}
     kernels["mxu_scan"]["cumprod_stage_ms"] = {k: v["ms"] for k, v in res["scan_stages"].items()}
+    kernels["mxu_scan"]["cumsum_stage_ms"] = {
+        mode: {k: v["ms"] for k, v in rows.items()} for mode, rows in res["cumsum_stages"].items()}
     for kname, family in (("mxu_moments", "moments"), ("mxu_acc", "acc")):
         kernels[kname]["tf32x3_stage_ms"] = {
             k: v["ms"] for k, v in res["tf32x3_stages"][family].items()}
@@ -3020,7 +3028,10 @@ def main():
                 replaces_all=f"tools/mxu_micro.py: {all_}",
                 variants=mxu_rows[kname]["variants"],
                 **({"cumprod_stage_ms": mxu_rows[kname]["cumprod_stage_ms"],
-                    "stage_launches": mxu_stage_launches["scan"]} if kname == "mxu_scan" else {}),
+                    "stage_launches": mxu_stage_launches["scan"],
+                    "cumsum_stage_ms": mxu_rows[kname]["cumsum_stage_ms"],
+                    "cumsum_stage_launches": mxu_stage_launches["cumsum"]}
+                   if kname == "mxu_scan" else {}),
                 **({"tf32x3_stage_ms": mxu_rows[kname]["tf32x3_stage_ms"],
                     "stage_launches": mxu_stage_launches["tf32x3"]}
                    if kname in ("mxu_moments", "mxu_acc") else {}))

@@ -47,11 +47,12 @@
 // per CTA and held in registers or shared memory across the repeats (the
 // counterpart of VMEM). A chunk-op does 2 K 1024 8 = 2.1 MFLOP of moments or
 // accumulator contraction, about 1.5 MFLOP on the CUDA cores (67 TFLOP/s
-// f32) and one tensor-core pass (989 TFLOP/s bf16, 495 TF32); the triangular
-// product of a tensor-core scan is 36 of the 64 16x16 blocks of L (128 x
-// 128) against 1024 pixels, 18.9 MFLOP a pass, 72x the scan's adds: the
-// bound of a scan is its own f32 work, which the tensor-core forms do with
-// 72x the operations. The log-space cumprod adds a logarithm and an
+// f32) and one tensor-core pass (989 TFLOP/s bf16, 495 TF32); the bound of a
+// scan is its own f32 work. The log-space cumprod's tensor-core product is 36
+// of the 64 16x16 blocks of L (128 x 128) against 1024 pixels, 18.9 MFLOP a
+// pass, 72x the scan's adds; the cumsums multiply only the 8 diagonal blocks
+// and carry each slab's total (15 blocks for bf16's all-ones carry, 8 for
+// split2's shuffled one). The log-space cumprod adds a logarithm and an
 // exponential per element and rep: 1.07e9 a launch, each one op in the bound
 // (moss_torch/tools/mxu_micro.py OPS), beside which the tool also gives their
 // time at the MUFU rate (16 a clock an SM). What held it: the libm log1pf and
@@ -820,6 +821,215 @@ __device__ __forceinline__ uint32_t tri_pair(int r, int c) {
   return pack_bf16(c <= r ? 1.f : 0.f, c + 1 <= r ? 1.f : 0.f);
 }
 
+// The B fragments of a slab of v (rows 2t, 2t+1 in v[0], v[1]; 2t+8, 2t+9 in
+// v[2], v[3]): hi = bf16(v); for split2 also lo = bf16(v - bf16(v)), bf16(v)
+// read back from hi's halves
+template <int kMode>
+__device__ __forceinline__ void slab_operand(const float (&v)[4], uint32_t (&hi)[2],
+                                             uint32_t (&lo)[2]) {
+  hi[0] = pack_bf16(v[0], v[1]);
+  hi[1] = pack_bf16(v[2], v[3]);
+  if constexpr (kMode == kSplit2) {
+    lo[0] = pack_bf16(v[0] - __uint_as_float(hi[0] << 16),
+                      v[1] - __uint_as_float(hi[0] & 0xffff0000u));
+    lo[1] = pack_bf16(v[2] - __uint_as_float(hi[1] << 16),
+                      v[3] - __uint_as_float(hi[1] & 0xffff0000u));
+  }
+}
+
+// The tensor-core scans' B fragments of x: a warp takes 8 pixels (one
+// n-tile, col g = pixel pb + g) and all 128 splats as eight 16-splat slabs;
+// xv[s] holds rows 2t, 2t+1, 2t+8, 2t+9 of slab s
+__device__ __forceinline__ void load_scan_b(const float* __restrict__ x, int pb, int g, int t,
+                                            float (&xv)[8][4]) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int k0 = 16 * s + 2 * t;
+    xv[s][0] = x[k0 * kPix + pb + g];
+    xv[s][1] = x[(k0 + 1) * kPix + pb + g];
+    xv[s][2] = x[(k0 + 8) * kPix + pb + g];
+    xv[s][3] = x[(k0 + 9) * kPix + pb + g];
+  }
+}
+
+// Tile 0 stores a warp's sums, every CTA observes. kCLayout: acc[m] is the C
+// fragment of slab m (splats 16 m + g and + 8, pixels pb + 2t, + 1); else the
+// B fragment, as xv (splats 16 m + 2t, + 1, + 8, + 9, pixel pb + g).
+template <bool kCLayout>
+__device__ __forceinline__ void store_scan(const float (&acc)[8][4], float* __restrict__ out,
+                                           float* __restrict__ obs, int pb, int g, int t) {
+  float sum = 0.f;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    if constexpr (kCLayout) {
+      const int r = 16 * m + g;
+      if (blockIdx.y == 0) {
+        out[r * kPix + pb + 2 * t] = acc[m][0];
+        out[r * kPix + pb + 2 * t + 1] = acc[m][1];
+        out[(r + 8) * kPix + pb + 2 * t] = acc[m][2];
+        out[(r + 8) * kPix + pb + 2 * t + 1] = acc[m][3];
+      }
+    } else {
+      const int k0 = 16 * m + 2 * t;
+      if (blockIdx.y == 0) {
+        out[k0 * kPix + pb + g] = acc[m][0];
+        out[(k0 + 1) * kPix + pb + g] = acc[m][1];
+        out[(k0 + 8) * kPix + pb + g] = acc[m][2];
+        out[(k0 + 9) * kPix + pb + g] = acc[m][3];
+      }
+    }
+    sum += ((acc[m][0] + acc[m][1]) + acc[m][2]) + acc[m][3];
+  }
+  observe<kScanTcThreads>(sum, obs);
+}
+
+// ---- the tensor-core cumsums: a diagonal block a slab and a carried total ----
+//
+// out = L @ g, L the lower-triangular ones, slab by slab: slab s's output is
+// the diagonal 16 x 16 block of L against slab s, its in-slab inclusive scan
+// (one m16n8k16 product, two for split2: hi, then lo), on the C operand
+// carry, the total of slabs 0, ..., s - 1. The 28 all-ones blocks below the
+// diagonal, 28 of the 36 products a pass of L @ g, are not multiplied
+// against an m-tile: an all-ones block against a slab is the slab's column
+// total in all 16 rows, which the carry holds. Two ways to carry it, both
+// measured on the H100 (PERF.md), each mode keeping the faster:
+//   shuffles (split2): row 15 of slab s's result is the total through slab
+//     s, the next slab's carry; two shuffles a slab hand it from the lanes
+//     of row 15 (g = 7: lane 28 + t) to the lanes of its columns. 8 products
+//     a pass (16 for split2), 14 shuffles.
+//   all-ones product (bf16): the carry is a C fragment of its own, and each
+//     slab but the last adds its all-ones product to it. 15 products a pass
+//     (30), no shuffle.
+// Every output adds slabs 0, 1, ..., s in order, hi before lo, in the tensor
+// cores: the products and C values of the whole triangular product, in its
+// order, so the output is bitwise that product's (row 15 of the diagonal
+// block is all ones). A rep's result is added to the sum over reps in IEEE
+// f32. What
+// holds them: the operand and sum work (x + i, the packs, split2's split, the
+// adds into the sums) and the carry, which do not overlap the products
+// (stages: enum CumsumStage).
+
+// Stages of the tensor-core cumsums (scan_tc_kernel<kAdd, mode, stage>), for
+// timing what holds them back: kCsFull the production kernel; kCsProducts the
+// diagonal products and the carry on x's operand made once, before the reps
+// (a rep's carry starts from a 0 read from shared memory, so the compiler
+// cannot do the reps' equal products once); kCsOperand x + i, the rounding
+// and split2's split of every rep, no product: each operand register summed
+// as an f32, the hi pair's into its odd splat, the lo pair's into its even
+// one (0 there for bf16), as out (splat, pixel); kCsOtherCarry the
+// production kernel with the mode's other carry.
+enum CumsumStage { kCsFull = 0, kCsProducts = 1, kCsOperand = 2, kCsOtherCarry = 3 };
+
+// acc += kReps reps' cumsums of a warp, reps i0, i0 + 1, ..., slab by slab,
+// the reps side by side; kOnes: the carry by the all-ones product (A = full),
+// else by the shuffles. xv: x's B elements (load_scan_b); op: x's hi and lo
+// fragments by slab, made once (kCsProducts); zeros: the products stage's 0
+// (rep_zero's role).
+template <int kMode, int kStage, bool kOnes, int kReps>
+__device__ __forceinline__ void cumsum_reps(const float (&xv)[8][4], const uint32_t (&op)[8][4],
+                                            const uint32_t (&diag)[4], const uint32_t (&full)[4],
+                                            int i0, const float* zeros, float (&acc)[8][4]) {
+  const int t = threadIdx.x & 3;
+  float carry[kReps][4], fi[kReps];
+#pragma unroll
+  for (int r = 0; r < kReps; ++r) {
+    fi[r] = static_cast<float>(i0 + r);
+    const float z = kStage == kCsProducts ? lds(zeros + ((i0 + r) & 31)) : 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) carry[r][e] = z;
+  }
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+#pragma unroll
+    for (int r = 0; r < kReps; ++r) {
+      uint32_t hi[2], lo[2];
+      if constexpr (kStage == kCsProducts) {
+        hi[0] = op[s][0], hi[1] = op[s][1], lo[0] = op[s][2], lo[1] = op[s][3];
+      } else {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = xv[s][e] + fi[r];
+        slab_operand<kMode>(v, hi, lo);
+      }
+      if constexpr (kStage == kCsOperand) {
+        acc[s][1] += __uint_as_float(hi[0]);
+        acc[s][3] += __uint_as_float(hi[1]);
+        if constexpr (kMode == kSplit2) {
+          acc[s][0] += __uint_as_float(lo[0]);
+          acc[s][2] += __uint_as_float(lo[1]);
+        }
+      } else {
+        float d[4] = {carry[r][0], carry[r][1], carry[r][2], carry[r][3]};
+        mma_bf16(d, diag, hi[0], hi[1]);
+        if constexpr (kMode == kSplit2) mma_bf16(d, diag, lo[0], lo[1]);
+        if (s < 7) {
+          if constexpr (kOnes) {
+            mma_bf16(carry[r], full, hi[0], hi[1]);
+            if constexpr (kMode == kSplit2) mma_bf16(carry[r], full, lo[0], lo[1]);
+          } else {  // row 15: c[2], c[3] of lane 28 + t
+            carry[r][0] = carry[r][2] = __shfl_sync(kFull, d[2], 28 + t);
+            carry[r][1] = carry[r][3] = __shfl_sync(kFull, d[3], 28 + t);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[s][e] += d[e];
+      }
+    }
+  }
+}
+
+// Tensor cores: out (128 x 64 pixels of a CTA) = sum_i L @ r(x + i), r the
+// bf16 rounding (kBf16) or hi + lo (kSplit2); a warp takes 8 pixels, two reps
+// at a time (an odd last one alone).
+template <int kMode, int kStage>
+__device__ __forceinline__ void cumsum_tc(const float* __restrict__ x, float* __restrict__ out,
+                                          float* __restrict__ obs, int reps) {
+  constexpr bool kOnes = (kMode == kBf16) != (kStage == kCsOtherCarry);
+  __shared__ float zeros[32];
+  // the all-ones A fragment, read from shared memory: as a constant it was
+  // made again, four moves, before every product that took it
+  __shared__ uint4 ones;
+  if constexpr (kStage == kCsProducts) set_rep_zeros(zeros);
+  if (kOnes && threadIdx.x == 0) {
+    const uint32_t o = pack_bf16(1.f, 1.f);
+    ones = make_uint4(o, o, o, o);
+  }
+  if constexpr (kStage == kCsProducts || kOnes) __syncthreads();
+  uint32_t full[4] = {};
+  if constexpr (kOnes) {
+    const uint4 f = lds_u4(&ones);
+    full[0] = f.x, full[1] = f.y, full[2] = f.z, full[3] = f.w;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int pb = blockIdx.x * 64 + warp * 8;  // the warp's first pixel
+  float xv[8][4];
+  load_scan_b(x, pb, g, t, xv);
+  uint32_t op[8][4] = {};
+  if constexpr (kStage == kCsProducts) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      uint32_t hi[2], lo[2] = {0u, 0u};
+      slab_operand<kMode>(xv[s], hi, lo);
+      op[s][0] = hi[0], op[s][1] = hi[1], op[s][2] = lo[0], op[s][3] = lo[1];
+    }
+  }
+  const uint32_t diag[4] = {tri_pair(g, 2 * t), tri_pair(g + 8, 2 * t),
+                            tri_pair(g, 2 * t + 8), tri_pair(g + 8, 2 * t + 8)};
+  float acc[8][4];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0.f;
+  int i = 0;
+  for (; i + 1 < reps; i += 2)
+    cumsum_reps<kMode, kStage, kOnes, 2>(xv, op, diag, full, i, zeros, acc);
+  if (i < reps) cumsum_reps<kMode, kStage, kOnes, 1>(xv, op, diag, full, i, zeros, acc);
+  store_scan<kStage != kCsOperand>(acc, out, obs, pb, g, t);
+}
+
+// ---- the log-space cumprod ---------------------------------------------------
+
 // Stages of the log-space cumprod (scan_tc_kernel<kMul, kSplit2>), for
 // timing what holds it back: kScanFull the production kernel; kScanProducts
 // the split2 L product of the masked -a, no log, no exp (out = its sum);
@@ -830,32 +1040,23 @@ __device__ __forceinline__ uint32_t tri_pair(int r, int c) {
 // its operand lies (the B fragment), as out (splat, pixel).
 enum ScanStage { kScanFull = 0, kScanProducts = 1, kScanLogs = 2, kScanExps = 3 };
 
-// Tensor cores: out (128 x 64 pixels of a CTA) = L (128 x 128) @ g. A warp
-// takes 8 pixels (one n-tile) and all 8 m-tiles; L is exact in bf16 and made
-// in registers; blocks above the diagonal are zero and skipped (36 of 64
-// remain). kMode kBf16: one pass of bf16(g); kSplit2: hi and lo passes.
-// kMul works in base 2: g = log2(1 - a) by log2_1m_* on the FMA pipe, the
-// cumprod 2^(L @ g) by one ex2 (MUFU) per element; the libm log1pf and expf
-// it replaces were several dozen instructions each.
-template <int kOp, int kMode, int kStage = kScanFull>
-__global__ void __launch_bounds__(kScanTcThreads)
-scan_tc_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
-               int reps) {
+// Tensor cores: out (128 x 64 pixels of a CTA) = exp2(L @ log2 g) in split2,
+// the whole triangular product: a warp takes 8 pixels (one n-tile) and all 8
+// m-tiles; L is exact in bf16 and made in registers; blocks above the
+// diagonal are zero and skipped (36 of 64 remain). It works in base 2: g =
+// log2(1 - a) by log2_1m_* on the FMA pipe, the cumprod 2^(L @ g) by one ex2
+// (MUFU) per element; the libm log1pf and expf it replaces were several
+// dozen instructions each.
+template <int kStage>
+__device__ __forceinline__ void log_cumprod_tc(const float* __restrict__ x,
+                                               float* __restrict__ out,
+                                               float* __restrict__ obs, int reps) {
   constexpr bool kProducts = kStage == kScanFull || kStage == kScanProducts;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int pb = blockIdx.x * 64 + warp * 8;  // the warp's first pixel
-  // B fragments (rows = splats, col g = pixel pb + g): b0 rows 2t, 2t+1;
-  // b1 rows 2t+8, 2t+9 of each 16-splat step
   float xv[8][4];
-#pragma unroll
-  for (int s = 0; s < 8; ++s) {
-    const int k0 = 16 * s + 2 * t;
-    xv[s][0] = x[k0 * kPix + pb + g];
-    xv[s][1] = x[(k0 + 1) * kPix + pb + g];
-    xv[s][2] = x[(k0 + 8) * kPix + pb + g];
-    xv[s][3] = x[(k0 + 9) * kPix + pb + g];
-  }
+  load_scan_b(x, pb, g, t, xv);
   const uint32_t ones = pack_bf16(1.f, 1.f);
   const uint32_t diag[4] = {tri_pair(g, 2 * t), tri_pair(g + 8, 2 * t),
                             tri_pair(g, 2 * t + 8), tri_pair(g + 8, 2 * t + 8)};
@@ -879,7 +1080,6 @@ scan_tc_kernel(const float* __restrict__ x, float* __restrict__ out, float* __re
   // 0.5 / max x)
   auto rep = [&](int i, auto far) {
     constexpr bool kFar = decltype(far)::value;
-    const float fi = static_cast<float>(i);
     const float ci = rep_scale(i);
     // slab s (splats 16 s ... 16 s + 15) of the operand, then its products
     // into the sums c[m] of every m >= s: the tensor cores work on slab s
@@ -894,36 +1094,25 @@ scan_tc_kernel(const float* __restrict__ x, float* __restrict__ out, float* __re
       float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if constexpr (kOp == kAdd) {
-          v[e] = xv[s][e] + fi;
+        const float a = alpha_sat(xv[s][e], ci);
+        float g;  // log2(1 - a), or -a for the stages without logs
+        if constexpr (kStage == kScanFull || kStage == kScanLogs) {
+          g = log2_1m_near(a);
+          if constexpr (kFar) g = select(a > 0.5f, log2_1m_far(a), g);
         } else {
-          const float a = alpha_sat(xv[s][e], ci);
-          float g;  // log2(1 - a), or -a for the stages without logs
-          if constexpr (kStage == kScanFull || kStage == kScanLogs) {
-            g = log2_1m_near(a);
-            if constexpr (kFar) g = select(a > 0.5f, log2_1m_far(a), g);
-          } else {
-            g = -a;
-          }
-          v[e] = select(a > 0.003f, g, 0.f);
-          if constexpr (kStage == kScanLogs) acc[s][e] += v[e];
-          if constexpr (kStage == kScanExps) acc[s][e] += exp2_fast(v[e]);
+          g = -a;
         }
+        v[e] = select(a > 0.003f, g, 0.f);
+        if constexpr (kStage == kScanLogs) acc[s][e] += v[e];
+        if constexpr (kStage == kScanExps) acc[s][e] += exp2_fast(v[e]);
       }
       if constexpr (!kProducts) continue;
       uint32_t hi[2], lo[2];
-      hi[0] = pack_bf16(v[0], v[1]);
-      hi[1] = pack_bf16(v[2], v[3]);
-      if constexpr (kMode == kSplit2) {  // lo = bf16(v - bf16(v)), bf16(v) from hi's halves
-        lo[0] = pack_bf16(v[0] - __uint_as_float(hi[0] << 16),
-                          v[1] - __uint_as_float(hi[0] & 0xffff0000u));
-        lo[1] = pack_bf16(v[2] - __uint_as_float(hi[1] << 16),
-                          v[3] - __uint_as_float(hi[1] & 0xffff0000u));
-      }
+      slab_operand<kSplit2>(v, hi, lo);
 #pragma unroll
       for (int m = s; m < 8; ++m) {
         mma_bf16(c[m], s == m ? diag : full, hi[0], hi[1]);
-        if constexpr (kMode == kSplit2) mma_bf16(c[m], s == m ? diag : full, lo[0], lo[1]);
+        mma_bf16(c[m], s == m ? diag : full, lo[0], lo[1]);
       }
     }
     if constexpr (kProducts) {
@@ -931,41 +1120,31 @@ scan_tc_kernel(const float* __restrict__ x, float* __restrict__ out, float* __re
       for (int m = 0; m < 8; ++m)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          acc[m][e] += kOp == kMul && kStage == kScanFull ? exp2_fast(c[m][e]) : c[m][e];
+          acc[m][e] += kStage == kScanFull ? exp2_fast(c[m][e]) : c[m][e];
     }
   };
   for (int i = 0; i < reps; ++i) {
-    const bool far = kOp == kMul && (kStage == kScanFull || kStage == kScanLogs) &&
+    const bool far = (kStage == kScanFull || kStage == kScanLogs) &&
                      __any_sync(kFull, xmax * rep_scale(i) > 0.5f);
     if (far)
       rep(i, std::true_type{});
     else
       rep(i, std::false_type{});
   }
-  float sum = 0.f;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    if constexpr (kProducts) {
-      // c[0], c[1]: splat 16 m + g, pixels pb + 2t, +1; c[2], c[3]: splat + 8
-      const int r = 16 * m + g;
-      if (blockIdx.y == 0) {
-        out[r * kPix + pb + 2 * t] = acc[m][0];
-        out[r * kPix + pb + 2 * t + 1] = acc[m][1];
-        out[(r + 8) * kPix + pb + 2 * t] = acc[m][2];
-        out[(r + 8) * kPix + pb + 2 * t + 1] = acc[m][3];
-      }
-    } else {  // splats 16 m + 2t, +1, +8, +9, pixel pb + g, as xv
-      const int k0 = 16 * m + 2 * t;
-      if (blockIdx.y == 0) {
-        out[k0 * kPix + pb + g] = acc[m][0];
-        out[(k0 + 1) * kPix + pb + g] = acc[m][1];
-        out[(k0 + 8) * kPix + pb + g] = acc[m][2];
-        out[(k0 + 9) * kPix + pb + g] = acc[m][3];
-      }
-    }
-    sum += ((acc[m][0] + acc[m][1]) + acc[m][2]) + acc[m][3];
-  }
-  observe<kScanTcThreads>(sum, obs);
+  store_scan<kProducts>(acc, out, obs, pb, g, t);
+}
+
+// The tensor-core scans: kAdd the cumsums (cumsum_tc, stage enum
+// CumsumStage), kMul the log-space cumprod in split2 (log_cumprod_tc, enum
+// ScanStage)
+template <int kOp, int kMode, int kStage = 0>
+__global__ void __launch_bounds__(kScanTcThreads)
+scan_tc_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
+               int reps) {
+  if constexpr (kOp == kAdd)
+    cumsum_tc<kMode, kStage>(x, out, obs, reps);
+  else
+    log_cumprod_tc<kStage>(x, out, obs, reps);
 }
 
 template <typename Kernel, typename... Args>
@@ -1013,6 +1192,26 @@ int acc_tf32x3(int stage, const float* x, const float* sw, float* out, float* ob
     case kTf32Split:
       return launch(acc_tf32x3_kernel<kTf32Split>, kAccParts, kAccTcThreads, tiles, s, x, sw, out,
                     obs, reps);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int kMode>
+int cumsum_stage(int stage, const float* x, float* out, float* obs, int reps, int tiles,
+                 cudaStream_t s) {
+  switch (stage) {
+    case kCsFull:
+      return launch(scan_tc_kernel<kAdd, kMode, kCsFull>, kScanParts, kScanTcThreads, tiles, s, x,
+                    out, obs, reps);
+    case kCsProducts:
+      return launch(scan_tc_kernel<kAdd, kMode, kCsProducts>, kScanParts, kScanTcThreads, tiles, s,
+                    x, out, obs, reps);
+    case kCsOperand:
+      return launch(scan_tc_kernel<kAdd, kMode, kCsOperand>, kScanParts, kScanTcThreads, tiles, s,
+                    x, out, obs, reps);
+    case kCsOtherCarry:
+      return launch(scan_tc_kernel<kAdd, kMode, kCsOtherCarry>, kScanParts, kScanTcThreads, tiles,
+                    s, x, out, obs, reps);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1087,12 +1286,9 @@ extern "C" int moss_mxu_scan(const float* x, float* out, float* obs, int reps, i
     return launch(scan_cuda_kernel<kAdd>, parts, kScanCudaThreads, tiles, s, x, out, obs, reps);
   if (op == kMul && mode == kCuda)
     return launch(scan_cuda_kernel<kMul>, parts, kScanCudaThreads, tiles, s, x, out, obs, reps);
-  if (op == kAdd && mode == kBf16)
-    return launch(scan_tc_kernel<kAdd, kBf16>, parts, kScanTcThreads, tiles, s, x, out, obs,
-                  reps);
+  if (op == kAdd && mode == kBf16) return cumsum_stage<kBf16>(kCsFull, x, out, obs, reps, tiles, s);
   if (op == kAdd && mode == kSplit2)
-    return launch(scan_tc_kernel<kAdd, kSplit2>, parts, kScanTcThreads, tiles, s, x, out, obs,
-                  reps);
+    return cumsum_stage<kSplit2>(kCsFull, x, out, obs, reps, tiles, s);
   if (op == kMul && mode == kSplit2)
     return launch(scan_tc_kernel<kMul, kSplit2>, parts, kScanTcThreads, tiles, s, x, out, obs,
                   reps);
@@ -1120,6 +1316,18 @@ extern "C" int moss_mxu_scan_stage(const float* x, float* out, float* obs, int r
                     s, x, out, obs, reps);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Stage `stage` (enum CumsumStage) of the tensor-core cumsum of mode `mode`
+// (1 bf16, 3 split2), launched as moss_mxu_scan(op 0, mode) is, with its
+// observer (tiles, its parts); cudaErrorInvalidValue for an unknown mode or
+// stage.
+extern "C" int moss_mxu_cumsum_stage(const float* x, float* out, float* obs, int reps, int tiles,
+                                     int mode, int stage, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (mode == kBf16) return cumsum_stage<kBf16>(stage, x, out, obs, reps, tiles, s);
+  if (mode == kSplit2) return cumsum_stage<kSplit2>(stage, x, out, obs, reps, tiles, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Stage `stage` (enum Tf32Stage) of the 3xTF32 moments or accumulator

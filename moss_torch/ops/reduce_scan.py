@@ -32,11 +32,16 @@ of their f32 sums. The CUDA-core scans are per-pixel sequential loops, not
 the TPU's two-level Hillis-Steele scan: against it they differ by the order
 of the sums, within 1e-5 of the max.
 
-The log-space cumprod's kernel works in base 2 (log2(1 - a) by a polynomial,
+The tensor-core cumsums multiply only the diagonal block of L for each
+16-splat slab and carry the slabs' running total (by an all-ones product for
+bf16, by shuffles for split2); cumsum_stage runs their stages
+(CUMSUM_STAGES: the products and carry on an operand made once, the operand
+work alone, the mode's other carry), for timing what holds them back. The
+log-space cumprod's kernel works in base 2 (log2(1 - a) by a polynomial,
 LOG2_POLY, and 2^x), its plain version in natural logs as the JAX kernel
 does; scan_stage runs the kernel's stages (SCAN_STAGES: products, logs and
-exps alone), for timing what holds it back. tf32x3_stage does the same for
-the 3xTF32 moments and accumulators (TF32X3_STAGES: the products on an
+exps alone). tf32x3_stage does the same for the 3xTF32 moments and
+accumulators (TF32X3_STAGES: the products on an
 operand split once, the split alone), whose kernels take the contraction
 axis in the order mom_pixel and acc_pixel give (the C library's
 moss_mxu_tf32x3_order reports it).
@@ -70,6 +75,7 @@ reshape_launches = 0  # moss_mxu_reshape
 acc_launches = 0      # moss_mxu_acc
 scan_launches = 0     # moss_mxu_scan
 stage_launches = 0    # moss_mxu_scan_stage
+cumsum_stage_launches = 0  # moss_mxu_cumsum_stage
 tf32x3_stage_launches = 0  # moss_mxu_moments_stage, moss_mxu_acc_stage
 # launches of each of RUNS's forms through its family's wrapper, by run name
 form_launches = {}
@@ -77,6 +83,10 @@ form_launches = {}
 # the log-space cumprod kernel's stages, by their code in csrc/reduce_scan.cu
 # (enum ScanStage)
 SCAN_STAGES = ("full", "products", "logs", "exps")
+# the tensor-core cumsums' stages, by their code in csrc/reduce_scan.cu (enum
+# CumsumStage)
+CUMSUM_STAGES = ("full", "products", "operand", "other_carry")
+CUMSUM_MODES = ("bf16", "split2")
 # log2(1 + f) / f on [-0.5, 0] in float32, constant term first: the table
 # kLog2Poly of csrc/reduce_scan.cu::log2_poly
 LOG2_POLY = (1.4426864, -0.7218736, 0.4700032, -0.46861637, -0.29185253, -1.9971113, -2.669445,
@@ -120,6 +130,7 @@ _SIGNATURES = {  # pointers, then reps, tiles, [op,] [mode]
     "moss_mxu_acc": [_PTR] * 4 + [_INT] * 3,
     "moss_mxu_scan": [_PTR] * 3 + [_INT] * 4,
     "moss_mxu_scan_stage": [_PTR] * 3 + [_INT] * 3,
+    "moss_mxu_cumsum_stage": [_PTR] * 3 + [_INT] * 4,
     "moss_mxu_moments_stage": [_PTR] * 3 + [_INT] * 3,
     "moss_mxu_acc_stage": [_PTR] * 4 + [_INT] * 3,
 }
@@ -483,6 +494,72 @@ def scan_stage(x, stage: str, reps: int = REPS):
     return out, obs
 
 
+def _pair_register(lo_elem, hi_elem):
+    """The f32 whose bits are the bf16 pair register pack_bf16(lo_elem,
+    hi_elem) of csrc/reduce_scan.cu, from two bf16-rounded f32 values: hi_elem
+    in the high half, lo_elem's bf16 bits in the low half."""
+    low = (lo_elem.contiguous().view(torch.int32) >> 16) & 0xFFFF
+    return (hi_elem.contiguous().view(torch.int32) | low).view(torch.float32)
+
+
+def _cumsum_args(mode, stage, what):
+    if mode not in CUMSUM_MODES:
+        raise ValueError(f"{what}: mode {mode!r}: expected one of {CUMSUM_MODES}")
+    if stage not in CUMSUM_STAGES:
+        raise ValueError(f"{what}: stage {stage!r}: expected one of {CUMSUM_STAGES}")
+
+
+def cumsum_stage_plain(x, mode: str, stage: str, reps: int = REPS):
+    """What stage `stage` of the tensor-core cumsum of `mode` returns: "full"
+    and "other_carry" the cumsum (scan_plain); "products" the reps' sums of
+    L @ r(x), r rounded once; "operand" per pair of splats (2j, 2j + 1) and pixel, the
+    sum over reps of the hi pair register of v = x + i (_pair_register) in
+    splat 2j + 1 and of the lo pair register (split2) or 0 (bf16) in splat
+    2j."""
+    _cumsum_args(mode, stage, "cumsum_stage_plain")
+    if stage in ("full", "other_carry"):
+        return scan_plain(x, reps, "add", mode)
+    g0, lead = _rows(x)
+    acc = torch.zeros((*lead, K, PIX), device=x.device)
+    if stage == "products":
+        cs = _mm(tri(x.device), g0, mode)
+        for _ in range(reps):
+            acc = acc + cs
+        return acc.reshape(*lead, K, H, W)
+    for i in range(reps):
+        v = g0 + float(i)
+        hi = round_bf16(v)
+        pairs = torch.zeros_like(acc)
+        pairs[..., 1::2, :] = _pair_register(hi[..., 0::2, :], hi[..., 1::2, :])
+        if mode == "split2":
+            lo = round_bf16(v - hi)
+            pairs[..., 0::2, :] = _pair_register(lo[..., 0::2, :], lo[..., 1::2, :])
+        acc = acc + pairs
+    return acc.reshape(*lead, K, H, W)
+
+
+def cumsum_stage(x, mode: str, stage: str, reps: int = REPS):
+    """(out (K, 8, 128), observer) of stage `stage` of the tensor-core cumsum
+    kernel of `mode` (scan op "add"): "full" is that kernel, "other_carry" the
+    same function with the mode's other carry, the others leave out part of
+    its work, so their times say what holds it back. Counted in `cumsum_stage_launches`;
+    on a CPU tensor, cumsum_stage_plain."""
+    global cumsum_stage_launches
+    _cumsum_args(mode, stage, "cumsum_stage")
+    _check(x, reps, "cumsum_stage")
+    if x.device.type == "cpu":
+        return cumsum_stage_plain(x, mode, stage, reps), None
+    out = torch.empty((K, H, W), dtype=torch.float32, device=x.device)
+    obs = torch.empty((TILES, _parts("moss_mxu_scan", _OP_CODE["add"], _MODE_CODE[mode])),
+                      dtype=torch.float32, device=x.device)
+    cuda_build.launch("reduce_scan", "moss_mxu_cumsum_stage",
+                      _SIGNATURES["moss_mxu_cumsum_stage"], x.device, x.data_ptr(),
+                      out.data_ptr(), obs.data_ptr(), reps, TILES, _MODE_CODE[mode],
+                      CUMSUM_STAGES.index(stage))
+    cumsum_stage_launches += 1
+    return out, obs
+
+
 def _slot_onehot(family: str, device):
     """The split stage's sum as a 0/1 matrix: (1024, 8) pixel to the moments'
     output column, (8, K) accumulator row to splat, by each element's
@@ -599,7 +676,7 @@ def launch_counts():
 
 def reset_launch_counts():
     global moments_launches, reshape_launches, acc_launches, scan_launches, stage_launches
-    global tf32x3_stage_launches
+    global tf32x3_stage_launches, cumsum_stage_launches
     moments_launches = reshape_launches = acc_launches = scan_launches = stage_launches = 0
-    tf32x3_stage_launches = 0
+    tf32x3_stage_launches = cumsum_stage_launches = 0
     form_launches.clear()

@@ -14,10 +14,12 @@ checkout's build directory, and times them:
         the same inputs
   mxu   the twelve reduction and scan runs (csrc/reduce_scan.cu): each of
         ops.reduce_scan.RUNS through rs.run on mxu_micro.inputs, with cuda_ms
-        at mxu_micro.TIMING
+        at mxu_micro.TIMING, and a sha256 of each run's output
 
 Prints one JSON line per turn, then each root's per-entry median over its two
-turns and its sums, and the card's name and power limit. Both checkouts need
+turns and its sums, the entries whose output digests are the same in all four
+turns (bitwise equal across the checkouts), and the card's name and power
+limit. Both checkouts need
 those entry points: every checkout since the f32 conv kernel was added (conv)
 or since the reduce_scan kernels were (mxu). Runs on the GPU only.
 """
@@ -60,12 +62,15 @@ print("RESULT " + json.dumps(out), flush=True)
     "mxu": _PRELUDE + r"""
 from moss_torch.ops import reduce_scan as rs
 from moss_torch.tools import mxu_micro
+import hashlib
 x, s = mxu_micro.inputs(dev)
 out = {"runs": {}}
+digests = {}
 with rs.full_f32():
     for name, *_ in rs.RUNS:
         out["runs"][name] = cuda_ms(lambda: rs.run(name, x, s), **mxu_micro.TIMING)
-print("RESULT " + json.dumps(out), flush=True)
+        digests[name] = hashlib.sha256(rs.run(name, x, s)[0].cpu().numpy().tobytes()).hexdigest()
+print("RESULT " + json.dumps({**out, "digests": digests}), flush=True)
 """,
 }
 
@@ -82,10 +87,19 @@ def turn(root: str, what: str) -> dict:
 
 
 def summary(turns) -> dict:
-    """Each entry's median over the turns, and each kind's sum of them."""
+    """Each entry's median over the turns, and each kind's sum of them (the
+    timed kinds: all but "digests")."""
     med = {k: {e: float(np.median([t[k][e] for t in turns])) for e in turns[0][k]}
-           for k in turns[0]}
+           for k in turns[0] if k != "digests"}
     return {**med, **{f"sum_{k}": sum(med[k].values()) for k in med}}
+
+
+def same_outputs(turns) -> dict:
+    """{entry: whether every turn gave its output the same digest}, for the
+    kinds that report digests; {} for the others."""
+    if "digests" not in turns[0]:
+        return {}
+    return {e: len({t["digests"][e] for t in turns}) == 1 for e in turns[0]["digests"]}
 
 
 def main(argv=None):
@@ -106,13 +120,17 @@ def main(argv=None):
         print(json.dumps({"root": root, **res}), flush=True)
     result = {"what": args.what, "nvidia_smi": smi, "order": order,
               "other": {"root": other, **summary([turns[0], turns[3]])},
-              "this": {"root": THIS_ROOT, **summary([turns[1], turns[2]])}}
+              "this": {"root": THIS_ROOT, **summary([turns[1], turns[2]])},
+              "bitwise_equal": same_outputs(turns)}
     for name in ("other", "this"):
         r = result[name]
-        kinds = [k for k in turns[0]]
+        kinds = [k for k in turns[0] if k != "digests"]
         print(f"{name} ({r['root']}): " + "; ".join(
             f"{k}: " + "  ".join(f"{e} {ms:.5f}" for e, ms in r[k].items())
             + f"  sum {r['sum_' + k]:.5f} ms" for k in kinds), flush=True)
+    if result["bitwise_equal"]:
+        print("outputs bitwise equal in all four turns: " + "  ".join(
+            f"{e} {same}" for e, same in result["bitwise_equal"].items()), flush=True)
     print(smi, flush=True)
     if args.json:
         with open(args.json, "w") as f:

@@ -15,7 +15,9 @@ torch.cumsum, torch.cumprod) batched over the TILES x REPS chunks, its stack
 built outside the timed window. Then the JAX tool's numeric lines
 (:279-300): the moments of each form against an f64 sum_i (x + i) @ basis,
 and the tensor-core forms of the accumulators and scans against the
-CUDA-core forms; and the stages of the log-space cumprod kernel (products,
+CUDA-core forms; and the stages of the tensor-core cumsums (the products and
+carry on an operand made once, the operand work alone, the other carry,
+ops.reduce_scan.CUMSUM_STAGES), of the log-space cumprod kernel (products,
 logs and exps alone, ops.reduce_scan.SCAN_STAGES) and of the 3xTF32 moments
 and accumulator kernels (the products on an operand split once, the split
 alone, ops.reduce_scan.TF32X3_STAGES), each against its plain version and
@@ -49,12 +51,16 @@ TRANSCENDENTALS = {"cumprod_logsplit2": 2}
 # FLOPs of one pass of a contraction per chunk-op: (K, 1024) @ (1024, 8) for
 # the moments, (8, K) @ (K, 1024) for the accumulators
 CONTRACTION_FLOPS = 2 * K * PIX * 8
-# FLOPs of one tensor-core scan pass per chunk-op: the 36 16x16 blocks of the
-# lower-triangular L on or below its diagonal (the kernel skips the 28 zero
-# ones), each against the 1024 pixels. 72x the scan's adds: this is the
-# formulation's work, not the function's, so it gives the L product's rate
-# and a bound of the formulation beside the scan's own bound
-SCAN_TC_FLOPS = 2 * 16 * 16 * PIX * 36
+# FLOPs of one 16x16 block of L against the 1024 pixels of a chunk-op. A
+# tensor-core scan pass multiplies SCAN_TC_BLOCKS of them: the bf16 cumsum the
+# diagonal block of each of the 8 16-splat slabs and an all-ones block for
+# the carry after each but the last (15), the split2 cumsum the 8 diagonal
+# blocks (its carry is shuffled), the log-space cumprod the 36 blocks of L on
+# or below its diagonal (72x the scan's adds). This is the formulation's work, not the
+# function's, so it gives the products' rate and a bound of the formulation
+# beside the scan's own bound
+BLOCK_FLOPS = 2 * 16 * 16 * PIX
+SCAN_TC_BLOCKS = {"cumsum_bf16": 15, "cumsum_split2": 8, "cumprod_logsplit2": 36}
 # per run: (tensor-core FLOPs per chunk-op the function needs, their peak or
 # None, f32 operations per element and rep on the CUDA cores: an FMA counts
 # 2, a log1pf or expf 1, which keeps the bound low, and a rounding
@@ -110,8 +116,8 @@ def bound(name, clock_hz=None):
     """The least time of one launch of `name` (TILES x REPS chunk-ops): the
     larger of the bytes (x and s read once, the output written once) at
     HBM's rate and the operations at the peak of each unit they run on. For
-    a tensor-core scan also the bound of its formulation, the triangular
-    product's FLOPs at the bf16 peak; for a run with transcendentals, given
+    a tensor-core scan also the bound of its formulation, the FLOPs of the
+    blocks of L it multiplies at the bf16 peak; for a run with transcendentals, given
     the SM clock, their time were they all MUFU ops (sfu_bound_ms), at
     MUFU_PER_CLOCK."""
     family = rs.RUN[name][1]
@@ -126,7 +132,8 @@ def bound(name, clock_hz=None):
            "tc_flops": chunk_ops * tc_flops, "f32_ops": chunk_ops * ELEMS * f32_per_elem,
            "bytes": bytes_}
     if name in SCAN_TC_PASSES:
-        row["formulation_tc_flops"] = chunk_ops * SCAN_TC_PASSES[name] * SCAN_TC_FLOPS
+        row["formulation_tc_flops"] = (chunk_ops * SCAN_TC_PASSES[name] * SCAN_TC_BLOCKS[name]
+                                       * BLOCK_FLOPS)
         row["formulation_bound_ms"] = 1e3 * row["formulation_tc_flops"] / PEAK_BF16
     if name in TRANSCENDENTALS and clock_hz:
         row["transcendentals"] = chunk_ops * ELEMS * TRANSCENDENTALS[name]
@@ -207,6 +214,37 @@ def numeric_lines(outs, x):
     return res
 
 
+def _stage_row(what, out, obs, plain, time_fn, time_ms, timing):
+    """Check a stage's output against its plain version (raising past RTOL
+    of the max) and its observers across tiles; time it."""
+    err = scaled_err(out, plain)
+    if not (err <= RTOL and torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: off its plain version by {err:.2e} of the max")
+    observers_equal = obs is None or bool(torch.equal(obs, obs[:1].expand_as(obs)))
+    if not observers_equal:
+        raise AssertionError(f"{what}: the tiles' observers differ")
+    return {"ms": time_ms(time_fn, **(timing or TIMING)), "scaled_err": err,
+            "observers_equal": observers_equal}
+
+
+def cumsum_stages(x, time_ms, timing=None):
+    """The tensor-core cumsums' stages (rs.CUMSUM_STAGES) in both modes on the
+    chunk, each against its plain version, its observers equal across tiles,
+    its ms; {mode: {stage: row}}."""
+    rows = {}
+    for mode in rs.CUMSUM_MODES:
+        rows[mode] = {}
+        for stage in rs.CUMSUM_STAGES:
+            out, obs = rs.cumsum_stage(x, mode, stage)
+            row = _stage_row(f"cumsum {mode} stage {stage}", out, obs,
+                             rs.cumsum_stage_plain(x, mode, stage),
+                             lambda: rs.cumsum_stage(x, mode, stage), time_ms, timing)
+            rows[mode][stage] = row
+            print(f"cumsum TC {mode:6s} stage {stage:8s} {row['ms']:8.4f} ms  err "
+                  f"{row['scaled_err']:.1e}")
+    return rows
+
+
 def scan_stages(x, time_ms, timing=None):
     """The log-space cumprod kernel's stages (rs.SCAN_STAGES) on the chunk:
     each against its plain version (raising past RTOL of the max), its
@@ -214,16 +252,11 @@ def scan_stages(x, time_ms, timing=None):
     rows = {}
     for stage in rs.SCAN_STAGES:
         out, obs = rs.scan_stage(x, stage)
-        err = scaled_err(out, rs.scan_stage_plain(x, stage))
-        if not (err <= RTOL and torch.isfinite(out).all()):
-            raise AssertionError(f"scan stage {stage}: off its plain version by {err:.2e} of "
-                                 "the max")
-        observers_equal = obs is None or bool(torch.equal(obs, obs[:1].expand_as(obs)))
-        if not observers_equal:
-            raise AssertionError(f"scan stage {stage}: the tiles' observers differ")
-        ms = time_ms(lambda: rs.scan_stage(x, stage), **(timing or TIMING))
-        rows[stage] = {"ms": ms, "scaled_err": err, "observers_equal": observers_equal}
-        print(f"cumprod log+TC split2 stage {stage:8s} {ms:8.4f} ms  err {err:.1e}")
+        row = _stage_row(f"scan stage {stage}", out, obs, rs.scan_stage_plain(x, stage),
+                         lambda: rs.scan_stage(x, stage), time_ms, timing)
+        rows[stage] = row
+        print(f"cumprod log+TC split2 stage {stage:8s} {row['ms']:8.4f} ms  err "
+              f"{row['scaled_err']:.1e}")
     return rows
 
 
@@ -237,16 +270,12 @@ def tf32x3_stages(x, s, time_ms, timing=None):
         rows[family] = {}
         for stage in rs.TF32X3_STAGES:
             out, obs = rs.tf32x3_stage(family, x, s, stage)
-            err = scaled_err(out, rs.tf32x3_stage_plain(family, x, s, stage))
-            if not (err <= RTOL and torch.isfinite(out).all()):
-                raise AssertionError(f"{family} 3xTF32 stage {stage}: off its plain version by "
-                                     f"{err:.2e} of the max")
-            observers_equal = obs is None or bool(torch.equal(obs, obs[:1].expand_as(obs)))
-            if not observers_equal:
-                raise AssertionError(f"{family} 3xTF32 stage {stage}: the tiles' observers differ")
-            ms = time_ms(lambda: rs.tf32x3_stage(family, x, s, stage), **(timing or TIMING))
-            rows[family][stage] = {"ms": ms, "scaled_err": err, "observers_equal": observers_equal}
-            print(f"{family:7s} TC 3xTF32 stage {stage:8s} {ms:8.4f} ms  err {err:.1e}")
+            row = _stage_row(f"{family} 3xTF32 stage {stage}", out, obs,
+                             rs.tf32x3_stage_plain(family, x, s, stage),
+                             lambda: rs.tf32x3_stage(family, x, s, stage), time_ms, timing)
+            rows[family][stage] = row
+            print(f"{family:7s} TC 3xTF32 stage {stage:8s} {row['ms']:8.4f} ms  err "
+                  f"{row['scaled_err']:.1e}")
     return rows
 
 
@@ -292,7 +321,7 @@ def main(device=None, timing=None, tiles=TILES):
                    "library_ms": lib_ms, "library_ns_per_chunk_op": lib_ms / chunk_ops * 1e6,
                    "max_abs_err": float((out - plain).abs().max()), "scaled_err": err,
                    **bound(name, clock_hz)}
-            if "formulation_tc_flops" in row:  # the triangular product's rate
+            if "formulation_tc_flops" in row:  # the rate of the products of L's blocks
                 row["formulation_tflops"] = row["formulation_tc_flops"] / ms / 1e9
             rows[name] = row
             print(f"{LABEL[name]:24s} {ms:8.3f} ms total  {row['ns_per_chunk_op']:8.1f} "
@@ -304,7 +333,8 @@ def main(device=None, timing=None, tiles=TILES):
                       f"{row['transcendentals']:.4g} transcendentals at {MUFU_PER_CLOCK} a "
                       f"clock, {clock_hz / 1e9:.3f} GHz")
     return {"device": device_name(dev), "reps": REPS, "tiles": TILES, "runs": rows,
-            "numeric": numeric_lines(outs, x), "scan_stages": scan_stages(x, time_ms, timing),
+            "numeric": numeric_lines(outs, x), "cumsum_stages": cumsum_stages(x, time_ms, timing),
+            "scan_stages": scan_stages(x, time_ms, timing),
             "tf32x3_stages": tf32x3_stages(x, s, time_ms, timing)}
 
 

@@ -29,8 +29,8 @@ two calls bitwise equal; the tensor-core kernel's ablated stages exactly
 their plain version.
 Reductions and scans: max |out - plain| <= 1e-5 max |plain|, the plain version
 rounding a tensor-core form's operands as its kernel does; observers bitwise
-equal across tiles; the same for the stages of the log-space cumprod kernel
-and of the 3xTF32 moments and accumulator kernels, whose layout tables are
+equal across tiles; the same for the stages of the tensor-core cumsums, of the
+log-space cumprod kernel and of the 3xTF32 moments and accumulator kernels, whose layout tables are
 the C library's and whose unmasked TF32 operands the tensor cores read as
 cvt.rna's, bit for bit (csrc/tc_rate.cu). The
 f32 conv also at the VGG16 layers, bitwise repeatable, its tile table the C
@@ -575,6 +575,27 @@ def test_scan_stage_matches_plain(cuda_device, stage, reps):
     assert torch.equal(obs, obs[:1].expand_as(obs))
     if stage == "full":
         assert torch.equal(out, rs.scan(x, reps, "mul", "split2")[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("stage", rs.CUMSUM_STAGES)
+@pytest.mark.parametrize("mode", rs.CUMSUM_MODES)
+def test_cumsum_stage_matches_plain(cuda_device, mode, stage, reps):
+    """Each stage of the tensor-core cumsums against its plain version (1e-5
+    of the max), observers bitwise equal across tiles, one launch; "full"
+    bitwise the production kernel."""
+    x, s = _chunk(cuda_device)
+    before = rs.cumsum_stage_launches
+    out, obs = rs.cumsum_stage(x, mode, stage, reps)
+    torch.cuda.synchronize()
+    assert rs.cumsum_stage_launches == before + 1
+    plain = rs.cumsum_stage_plain(x, mode, stage, reps)
+    err = float((out - plain).abs().max()) / float(plain.abs().max())
+    assert err <= 1e-5 and torch.isfinite(out).all(), err
+    assert torch.equal(obs, obs[:1].expand_as(obs))
+    if stage == "full":
+        assert torch.equal(out, rs.scan(x, reps, "add", mode)[0])
 
 
 @pytest.mark.cuda

@@ -55,6 +55,11 @@ PALLAS = {
     "cumprod_logsplit2": (mm.kern_cumprod_logmxu, (mm.K, mm.H, mm.W), ("L",)),
 }
 BF16_RUNS = ("moments_bf16", "acc_bf16", "cumsum_bf16")
+# the tensor-core scans' (passes, 16x16 blocks multiplied a pass): the bf16
+# cumsum the diagonal block of each of the 8 slabs and an all-ones block for
+# the carry after the first 7, the split2 cumsum the 8 diagonal blocks (its
+# carry is shuffled), the cumprod the 36 on or below L's diagonal
+SCAN_BLOCKS = {"cumsum_bf16": (1, 15), "cumsum_split2": (2, 8), "cumprod_logsplit2": (2, 36)}
 F32_RTOL, BF16_VS_F32_RTOL = 1e-5, 1e-2
 
 
@@ -221,18 +226,30 @@ def test_the_tool_on_the_cpu(capsys):
     for name, row in res["runs"].items():
         assert row["scaled_err"] == 0.0 and row["bound_ms"] > 0, name
         assert row["library_ms"] > 0 and row["plain_ms"] > 0 and row["timed_tiles"] == 2
-        # a tensor-core scan is bound by the scan, its triangular product beside it
-        tc_scan = name in ("cumsum_bf16", "cumsum_split2", "cumprod_logsplit2")
+        # a tensor-core scan is bound by the scan; beside it, the products of the
+        # blocks of L its kernel multiplies, at the bf16 peak
+        tc_scan = name in SCAN_BLOCKS
         assert ("formulation_bound_ms" in row) == tc_scan
         if tc_scan:
-            assert row["formulation_bound_ms"] > row["bound_ms"]
+            passes, blocks = SCAN_BLOCKS[name]
+            flops = rs.TILES * rs.REPS * passes * blocks * 2 * 16 * 16 * rs.PIX
+            assert row["formulation_tc_flops"] == flops, name
+            assert row["formulation_bound_ms"] == pytest.approx(1e3 * flops / mxu_micro.PEAK_BF16)
+    # the cumprod's 36-block product takes longer at the bf16 peak than its f32
+    # work at the CUDA cores' peak
+    cumprod = res["runs"]["cumprod_logsplit2"]
+    assert cumprod["formulation_bound_ms"] > cumprod["bound_ms"]
     num = res["numeric"]
     assert max(num["moments_err_of_max_vs_f64"][m] for m in ("cuda", "tf32x3")) < 1e-6
     assert 1e-5 < num["moments_err_of_max_vs_f64"]["bf16"] < 1e-3
     assert num["cumsum_split2_vs_cuda"]["of_max"] < 1e-5
     assert num["cumprod_logsplit2_vs_cuda"]["of_max"] < 1e-5
-    # the log-space cumprod's stages, each its plain version on the host
+    # the kernels' stages, each its plain version on the host
     assert list(res["scan_stages"]) == list(rs.SCAN_STAGES)
+    assert list(res["cumsum_stages"]) == list(rs.CUMSUM_MODES)
+    assert all(list(rows) == list(rs.CUMSUM_STAGES) and
+               all(r["scaled_err"] == 0.0 for r in rows.values())
+               for rows in res["cumsum_stages"].values())
     assert all(r["scaled_err"] == 0.0 for r in res["scan_stages"].values())
     # no clock off the card, so no SFU bound; on the card it counts two
     # transcendentals an element and rep
@@ -346,6 +363,198 @@ def test_scan_stage_plain_on_the_cpu(data, plain_out, stage):
     with pytest.raises(ValueError):
         rs.scan_stage(x, stage + "_")
 
+
+# ---- the tensor-core cumsums' blocked formulation, modelled in numpy ----------------
+#
+# csrc/reduce_scan.cu's scan_tc_kernel<kAdd, mode> computes L @ r(x + i) slab
+# by slab: for each 16-splat slab s, the product of L's diagonal 16 x 16
+# block with the slab (hi, then lo for split2) on the C operand `carry`, the
+# total of slabs 0, ..., s - 1. No block below the diagonal is multiplied
+# against an m-tile. The carry: "shuffles" (split2's) takes row 15 of slab
+# s's result, the total through slab s; "ones" (bf16's) adds each slab's
+# all-ones product to a C fragment of its own. The model rounds the operands
+# as the kernel does, adds a product's terms to its C operand one at a time
+# in float32 in splat order, and adds a rep's result to the sum over reps in
+# float32.
+CARRIES = ("ones", "shuffles")
+
+
+def blocked_cumsum_model(x, reps, split, carry_by):
+    g0 = np.asarray(x, np.float32).reshape(mm.K, mm.PIX)
+    acc = np.zeros((mm.K, mm.PIX), np.float32)
+    for i in range(reps):
+        v = (g0 + np.float32(i)).astype(np.float32)
+        hi = _bf16(v)
+        parts = (hi, _bf16((v - hi).astype(np.float32))) if split else (hi,)
+        out = np.empty_like(acc)
+        carry = np.zeros(mm.PIX, np.float32)
+        for s in range(mm.K // 16):
+            d = np.repeat(carry[None], 16, 0)
+            for part in parts:
+                for k in range(16):  # row r adds the slab's splats 0..r in order
+                    d[k:] = d[k:] + part[16 * s + k]
+                    if carry_by == "ones":  # the all-ones product, every splat
+                        carry = carry + part[16 * s + k]
+            out[16 * s:16 * s + 16] = d
+            if carry_by == "shuffles":
+                carry = d[15]
+        acc = (acc + out).astype(np.float32)
+    return acc.reshape(mm.K, mm.H, mm.W)
+
+
+def _jax_cumsum(x, reps, split, monkeypatch):
+    """kern_cumsum_mxu in interpret mode with no grid, its REPS set to reps."""
+    monkeypatch.setattr(mm, "REPS", reps)
+    call = pl.pallas_call(functools.partial(mm.kern_cumsum_mxu, split),
+                          out_shape=jax.ShapeDtypeStruct((mm.K, mm.H, mm.W), jnp.float32),
+                          interpret=True)
+    return np.asarray(call(jnp.asarray(x), jnp.asarray(np.tril(np.ones((mm.K, mm.K), np.float32)))))
+
+
+def triangular_cumsum_model(x, reps, split):
+    """The 36-block product L @ r(x + i) as the blocked model sums it: each
+    m-tile's C starts at 0 and adds, slab by slab in order, hi before lo, the
+    all-ones block's product (every splat of the slab) or, on the diagonal,
+    the triangular block's (splats 0..r for row r)."""
+    g0 = np.asarray(x, np.float32).reshape(mm.K, mm.PIX)
+    acc = np.zeros((mm.K, mm.PIX), np.float32)
+    for i in range(reps):
+        v = (g0 + np.float32(i)).astype(np.float32)
+        hi = _bf16(v)
+        parts = (hi, _bf16((v - hi).astype(np.float32))) if split else (hi,)
+        out = np.empty_like(acc)
+        for m in range(mm.K // 16):
+            c = np.zeros((16, mm.PIX), np.float32)
+            for s in range(m + 1):
+                for part in parts:
+                    for k in range(16):
+                        rows = slice(k, 16) if s == m else slice(0, 16)
+                        c[rows] = c[rows] + part[16 * s + k]
+            out[16 * m:16 * m + 16] = c
+        acc = (acc + out).astype(np.float32)
+    return acc.reshape(mm.K, mm.H, mm.W)
+
+
+@pytest.mark.parametrize("carry_by", CARRIES)
+@pytest.mark.parametrize("split", [False, True], ids=["bf16", "split2"])
+def test_blocked_cumsum_model_bitwise_the_triangular_product(data, split, carry_by):
+    """Either carry adds the same terms to the same C values in the same
+    order as the 36-block product: the all-ones blocks' terms slab by slab
+    (row 15 of a diagonal block is all ones), then the diagonal block's. So
+    the blocked kernels can give the 36-block kernels' bits, which the card
+    shows (moss_torch/tools/compare.py's output digests)."""
+    got = blocked_cumsum_model(data["x"], 3, split, carry_by)
+    np.testing.assert_array_equal(got, triangular_cumsum_model(data["x"], 3, split))
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("carry_by", CARRIES)
+@pytest.mark.parametrize("split", [False, True], ids=["bf16", "split2"])
+def test_blocked_cumsum_model_within_rtol_of_plain(data, split, carry_by, reps):
+    """At the JAX tool's input: the blocked formulation with either carry
+    (the mode's own in "full", the other in the "other_carry" stage), as the
+    kernel sums it, lies within RTOL of scan_plain (L @ r(g) in one
+    product); bf16 also within RTOL of the rounding model's float64 sums."""
+    x = data["x"]
+    model = blocked_cumsum_model(x, reps, split, carry_by)
+    plain = rs.scan_plain(torch.as_tensor(x), reps, "add", "split2" if split else "bf16").numpy()
+    assert _err_of_max(model, plain.astype(np.float64)) <= mxu_micro.RTOL
+    if not split:
+        g = x.reshape(mm.K, mm.PIX)
+        ref = sum(np.cumsum(_bf16(g + np.float32(i)).astype(np.float64), axis=0)
+                  for i in range(reps))
+        assert _err_of_max(model.reshape(ref.shape), ref) <= mxu_micro.RTOL
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("carry_by", CARRIES)
+@pytest.mark.parametrize("split", [False, True], ids=["bf16", "split2"])
+def test_blocked_cumsum_model_within_rtol_of_jax(data, split, carry_by, reps, monkeypatch):
+    """The blocked formulation against kern_cumsum_mxu in interpret mode.
+    split2 at the JAX tool's input. bf16 on an input whose x + i are exact in
+    bf16 (multiples of 1/8 within (-8, 8), so x + i < 32 keeps 8 significant
+    bits): JAX on the CPU does not round a DEFAULT product's operands to
+    bf16, so only where the rounding is exact is its f32 product the bf16
+    one; the rounding itself is held to the numpy model above."""
+    if split:
+        x = data["x"]
+    else:
+        rng = np.random.default_rng(5)
+        x = (rng.integers(-63, 64, size=(mm.K, mm.H, mm.W)) / 8).astype(np.float32)
+        assert np.array_equal(_bf16(x + np.float32(rs.REPS - 1)), x + np.float32(rs.REPS - 1))
+    ref = _jax_cumsum(x, reps, split, monkeypatch).astype(np.float64)
+    assert _err_of_max(blocked_cumsum_model(x, reps, split, carry_by), ref) <= mxu_micro.RTOL
+
+
+def _pair_np(lo_elem, hi_elem):
+    """The bf16 pair register pack_bf16(lo, hi) as an f32, in numpy."""
+    hi_bits = np.asarray(hi_elem, np.float32).view(np.uint32)
+    lo_bits = np.asarray(lo_elem, np.float32).view(np.uint32) >> 16
+    return (hi_bits | lo_bits).view(np.float32)
+
+
+def _cumsum_stage_np(x, mode, stage, reps):
+    """The cumsum stage's function in numpy: float64 sums of the rounded
+    operands for the products, the pair registers summed in float32 in rep
+    order for the operand stage."""
+    g = x.reshape(mm.K, mm.PIX)
+    split = mode == "split2"
+    if stage in ("full", "other_carry"):
+        return sum(np.cumsum(_split_np(g + np.float32(i), split), axis=0) for i in range(reps))
+    if stage == "products":
+        return reps * np.cumsum(_split_np(g, split), axis=0)
+    acc = np.zeros_like(g)
+    for i in range(reps):
+        v = (g + np.float32(i)).astype(np.float32)
+        hi = _bf16(v)
+        pairs = np.zeros_like(g)
+        pairs[1::2] = _pair_np(hi[0::2], hi[1::2])
+        if split:
+            lo = _bf16((v - hi).astype(np.float32))
+            pairs[0::2] = _pair_np(lo[0::2], lo[1::2])
+        acc = (acc + pairs).astype(np.float32)
+    return acc
+
+
+def _split_np(v, split):
+    """r(v) in float64: bf16(v), or hi + bf16(v - hi) for split2."""
+    v = np.asarray(v, np.float32)
+    hi = _bf16(v)
+    return hi.astype(np.float64) + (_bf16((v - hi).astype(np.float32)) if split else 0.0)
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("stage", rs.CUMSUM_STAGES)
+@pytest.mark.parametrize("mode", rs.CUMSUM_MODES)
+def test_cumsum_stage_plain_on_the_cpu(data, plain_out, mode, stage, reps):
+    """A stage of the tensor-core cumsums on CPU tensors is its plain version,
+    with no launch, and that is the stage's function in numpy: within RTOL for
+    the products, bitwise for the operand registers' sums."""
+    x = torch.as_tensor(data["x"])
+    before = (rs.cumsum_stage_launches, dict(rs.form_launches))
+    out, obs = rs.cumsum_stage(x, mode, stage, reps)
+    assert obs is None and (rs.cumsum_stage_launches, rs.form_launches) == before
+    assert torch.equal(out, rs.cumsum_stage_plain(x, mode, stage, reps))
+    want = _cumsum_stage_np(data["x"], mode, stage, reps)
+    if stage == "operand":
+        np.testing.assert_array_equal(out.numpy().reshape(want.shape), want)
+    else:
+        assert _err_of_max(out.numpy().reshape(want.shape), want) <= mxu_micro.RTOL
+    if stage == "full" and reps == rs.REPS:
+        np.testing.assert_array_equal(out.numpy(), plain_out[f"cumsum_{mode}"])
+    with pytest.raises(ValueError):
+        rs.cumsum_stage(x, mode, stage + "_", reps)
+
+
+def test_cumsum_stages_are_the_kernels():
+    """ops/reduce_scan.py's cumsum stage names are enum CumsumStage's, in
+    order."""
+    import re
+
+    enum = re.search(r"enum CumsumStage \{([^}]*)\}", open(CU).read()).group(1)
+    names = [re.sub(r"(?<!^)(?=[A-Z])", "_", v.split("=")[0].strip()[len("kCs"):]).lower()
+             for v in enum.split(",")]
+    assert tuple(names) == rs.CUMSUM_STAGES
 
 
 # ---- the 3xTF32 moments and accumulator kernels: layout, stages, sums ------------
@@ -551,5 +760,11 @@ def test_compare_summary_and_modes():
     turns = [{"runs": {"a": 1.0, "b": 4.0}}, {"runs": {"a": 3.0, "b": 2.0}}]
     got = compare.summary(turns)
     assert got == {"runs": {"a": 2.0, "b": 3.0}, "sum_runs": 5.0}
+    assert compare.same_outputs(turns) == {}
+    # the mxu turns' output digests: the same in every turn, or not
+    digests = [{"a": "1", "b": "2"}, {"a": "1", "b": "3"}, {"a": "1", "b": "2"}]
+    turns = [{**t, "digests": d} for t, d in zip(turns + turns[:1], digests)]
+    assert compare.summary(turns) == {"runs": {"a": 1.0, "b": 4.0}, "sum_runs": 5.0}
+    assert compare.same_outputs(turns) == {"a": True, "b": False}
     with pytest.raises(SystemExit):
         compare.main(["root", "--what", "sort"])
