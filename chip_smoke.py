@@ -2747,13 +2747,15 @@ MXU_KERNELS = (
 
 def phase_tool_mxu(dev):
     """The twelve reduction and scan runs: their observers across tiles and a
-    launch's time against REPS; the card test of the two tensor-core
-    cumsums, the log-space cumprod and the two 3xTF32 forms three times over;
-    the 3xTF32 layout tables and tc_rate; then the tool, counted, which holds
-    each run to its plain version (raising past mxu_micro.RTOL) and times it,
-    with the SFU bound and the stages of the cumsum, cumprod and 3xTF32
-    kernels. Returns ({kernel: row summed over its runs}, {kernel:
-    launches}, {stage family: launches})."""
+    launch's time against REPS; the card test of the CUDA-core moments and
+    accumulators, the two tensor-core cumsums, the log-space cumprod and the
+    two 3xTF32 forms three times over; both f32-class moments against an f64
+    sum; the 3xTF32 layout tables and tc_rate; then the tool, counted, which
+    holds each run to its plain version (raising past mxu_micro.RTOL) and
+    times it, with the SFU bound and the stages of the cumsum, cumprod,
+    3xTF32 and CUDA-core kernels; the CUDA-core kernels' registers and CTAs an
+    SM. Returns ({kernel: row summed over its runs}, {kernel: launches},
+    {stage family: launches})."""
     x, s = mxu_micro.inputs(dev)
     checks = {}
     for name, *_ in rs.RUNS:
@@ -2769,10 +2771,11 @@ def phase_tool_mxu(dev):
         checks[name] = {"observers_equal": True, "observer_shape": list(obs.shape),
                         "ms_vs_reps": vs_reps}
     # the card test's cases tests/test_torch_cuda.py::test_reduce_scan_matches_plain
-    # [cumsum_bf16-*, cumsum_split2-*, cumprod_logsplit2-*, moments_tf32x3-*,
-    # acc_tf32x3-*], three times over: kernel within RTOL of plain, observers equal
-    for name in ("cumsum_bf16", "cumsum_split2", "cumprod_logsplit2", "moments_tf32x3",
-                 "acc_tf32x3"):
+    # [moments_cuda-*, acc_cuda-*, cumsum_bf16-*, cumsum_split2-*, cumprod_logsplit2-*,
+    # moments_tf32x3-*, acc_tf32x3-*], three times over: kernel within RTOL of plain,
+    # observers equal
+    for name in ("moments_cuda", "acc_cuda", "cumsum_bf16", "cumsum_split2",
+                 "cumprod_logsplit2", "moments_tf32x3", "acc_tf32x3"):
         repeats = []
         for _ in range(3):
             for reps in (rs.REPS, 3):
@@ -2783,13 +2786,15 @@ def phase_tool_mxu(dev):
                                          "tiles' observers differ")
                 repeats.append({"reps": reps, "scaled_err": err})
         checks[name]["repeated_card_test"] = repeats
-    # the moments against an f64 sum at REPS (the JAX tool's numeric line)
+    # the f32-class moments against an f64 sum at REPS (the JAX tool's numeric
+    # line), on the columns both compute
     ref = sum((x.double().reshape(rs.K, rs.PIX) + i) @ rs.basis(dev).double()
               for i in range(rs.REPS))
-    f64_err = mxu_micro.scaled_err(rs.run("moments_tf32x3", x, s)[0].double(), ref)
-    if not f64_err < 1e-6:
-        raise AssertionError(f"moments_tf32x3: {f64_err:.2e} of the max from the f64 sum")
-    checks["moments_tf32x3"]["err_of_max_vs_f64"] = f64_err
+    for name in ("moments_cuda", "moments_tf32x3"):
+        f64_err = mxu_micro.scaled_err(rs.run(name, x, s)[0].double()[:, :6], ref[:, :6])
+        if not f64_err < 1e-6:
+            raise AssertionError(f"{name}: {f64_err:.2e} of the max from the f64 sum")
+        checks[name]["err_of_max_vs_f64"] = f64_err
     for family in ("moments", "acc"):
         if not torch.equal(rs.tf32x3_order(family), rs.tf32x3_order_plain(family)):
             raise AssertionError(f"the 3xTF32 {family} kernel's layout table differs from "
@@ -2801,7 +2806,7 @@ def phase_tool_mxu(dev):
     launches = rs.launch_counts()
     forms = dict(rs.form_launches)
     stage_launches = {"scan": rs.stage_launches, "cumsum": rs.cumsum_stage_launches,
-                      "tf32x3": rs.tf32x3_stage_launches}
+                      "tf32x3": rs.tf32x3_stage_launches, "cuda": rs.cuda_stage_launches}
     if rs.stage_launches < len(rs.SCAN_STAGES):
         raise AssertionError(f"the mxu tool launched the scan stages {rs.stage_launches} times")
     if rs.cumsum_stage_launches < len(rs.CUMSUM_MODES) * len(rs.CUMSUM_STAGES):
@@ -2810,6 +2815,9 @@ def phase_tool_mxu(dev):
     if rs.tf32x3_stage_launches < 2 * len(rs.TF32X3_STAGES):
         raise AssertionError("the mxu tool launched the 3xTF32 stages "
                              f"{rs.tf32x3_stage_launches} times")
+    if rs.cuda_stage_launches < 2 * len(rs.CUDA_STAGES):
+        raise AssertionError("the mxu tool launched the CUDA-core stages "
+                             f"{rs.cuda_stage_launches} times")
     if min(launches.values()) == 0:
         raise AssertionError(f"the mxu tool launched the kernels {launches} times")
     rows = res["runs"]
@@ -2835,19 +2843,31 @@ def phase_tool_mxu(dev):
     for kname, family in (("mxu_moments", "moments"), ("mxu_acc", "acc")):
         kernels[kname]["tf32x3_stage_ms"] = {
             k: v["ms"] for k, v in res["tf32x3_stages"][family].items()}
+        kernels[kname]["cuda_stage_ms"] = {
+            k: v["ms"] for k, v in res["cuda_stages"][family].items()}
     # static instructions (cuobjdump -sass): the tensor-core scans (a rep's
     # body of 32 elements a thread, the cumprod's stages beside it) and the
-    # contractions (the 3xTF32 kernels' stages beside them)
+    # contractions (the 3xTF32 and CUDA-core kernels' stages beside them)
     sass = {}
     for prefix in ("scan_tc_kernel", "moments_tf32x3_kernel", "acc_tf32x3_kernel",
-                   "moments_bf16_kernel", "acc_bf16_kernel"):
+                   "moments_bf16_kernel", "acc_bf16_kernel", "moments_cuda_kernel",
+                   "acc_cuda_kernel"):
         sass.update(cuda_build.sass_opcodes("reduce_scan", prefix))
     for kernel, ops in sass.items():
         print(f"sass reduce_scan: {kernel}: " + ", ".join(f"{k} {v}" for k, v in
                                                           list(ops.items())[:12]), flush=True)
+    # the CUDA-core kernels' registers (ptxas) and CTAs an SM (occupancy query)
+    regs = {k["kernel"]: k["registers"] for k in cuda_build.ptxas_report("reduce_scan")}
+    cuda_cores = {}
+    for family in ("moments", "acc"):
+        full = [k for k in regs if k.startswith(f"{family}_cuda_kernel") and "ILi0E" in k]
+        cuda_cores[family] = {"registers": regs[full[0]] if full else None,
+                              "ctas_per_sm": rs.cuda_ctas_per_sm(family)}
+        print(f"{family} CUDA cores: {cuda_cores[family]['registers']} registers, "
+              f"{cuda_cores[family]['ctas_per_sm']} CTAs an SM", flush=True)
     emit({"phase": "tool_mxu", "reps": rs.REPS, "tiles": rs.TILES, "checks": checks,
           "launches": launches, "form_launches": forms, "stage_launches": stage_launches,
-          "tc_rate": rates, **res, "sass": sass})
+          "tc_rate": rates, **res, "sass": sass, "cuda_cores": cuda_cores})
     return kernels, {k[0]: launches[k[1]] for k in MXU_KERNELS}, stage_launches
 
 

@@ -43,6 +43,18 @@
 // The scans' CUDA-core forms are per-pixel sequential loops over K, the
 // form the blend kernels use, not the TPU's two-level Hillis-Steele scan.
 //
+// The CUDA-core moments and accumulators hold their chunk in registers and
+// are bound by FP32-pipe issue, one warp instruction a clock a scheduler, an
+// FMA counting one. The moments take the TPU kernel's separable form: each
+// column's 8 rows summed weighted by 1, py and py^2, then the columns
+// weighted by px, 33 instructions per 8 elements. The accumulators are
+// register-blocked, a lane 4 pixels and a warp 16 splats, so that one
+// broadcast load of s feeds 4 pixels' FMAs: 6.5 instructions an element,
+// which issue below that rate, since an FMA whose three operands all come
+// from the register file issues slower (acc_splat).
+// Their stages (enum CudaStage) time the loads, the store and the observer
+// alone.
+//
 // What bounds them on the H100: operations. The chunk is read from L2 once
 // per CTA and held in registers or shared memory across the repeats (the
 // counterpart of VMEM). A chunk-op does 2 K 1024 8 = 2.1 MFLOP of moments or
@@ -359,42 +371,83 @@ constexpr int kMomThreads = 256;
 constexpr int kMomCudaParts = kK / (kMomThreads / 32);  // a warp per splat: 16
 constexpr int kMomTcParts = kK / 16;                    // 16 splats a CTA: 8
 
-// CUDA cores: one warp per splat row, lane l holds pixels l + 32 j; six
-// moments per rep by FMA, a warp butterfly, then the sum over reps. Output
-// columns [S0, Sx, Sy, Sxx, Sxy, Syy, S0, Sx] as kern_moments_vpu (:77).
+// Stages of the CUDA-core moments and accumulator kernels (moments_cuda_kernel,
+// acc_cuda_kernel), for timing what holds them back: kCudaFull the
+// production kernel; kCudaLoads the chunk read, the store and the observer
+// with no reps: each thread sums its elements of x once into the first
+// output (the moments' S0, the accumulators' row 0; the repeated columns or
+// rows as in full), every other output 0.
+enum CudaStage { kCudaFull = 0, kCudaLoads = 1 };
+
+constexpr int kMomCudaCols = 4;  // adjacent pixel columns a lane of moments_cuda_kernel takes
+static_assert(kMomCudaCols * 32 == kW, "a warp's lanes cover a row of the chunk in float4s");
+
+// CUDA cores, the separable form of kern_moments_vpu (:58-78): one warp per
+// splat row; lane l takes the columns 4 l, ..., 4 l + 3 of the 8 rows (8
+// float4 loads). Per rep and column: g = x + i for its 8 rows; the row sums
+// s0 = sum g, s1 = sum py g and s2 = sum py^2 g, in row order (py the row, an
+// FMA immediate; row 0 has py = 0, row 1 needs no multiply); then the lane
+// sums S0 += s0, Sy += s1, Syy += s2 and, by FMA with px = 4 l + c and px^2,
+// Sx, Sxx and Sxy: 33 FP32-pipe instructions per 8 elements. The lane sums
+// run across all reps, columns in order within a rep; one warp butterfly
+// (xor 16, 8, 4, 2, 1) after the last rep, not one a rep.
+// Output columns [S0, Sx, Sy, Sxx, Sxy, Syy, S0, Sx] as kern_moments_vpu (:77).
+template <int kStage>
 __global__ void __launch_bounds__(kMomThreads)
 moments_cuda_kernel(const float* __restrict__ x, float* __restrict__ out,
                     float* __restrict__ obs, int reps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int k = blockIdx.x * (kMomThreads / 32) + warp;
-  float xv[32];
+  const float4* src = reinterpret_cast<const float4*>(x + k * kPix) + lane;
+  float xv[8][kMomCudaCols];
 #pragma unroll
-  for (int j = 0; j < 32; ++j) xv[j] = x[k * kPix + lane + 32 * j];
-  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int i = 0; i < reps; ++i) {
-    const float fi = static_cast<float>(i);
-    float s[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int r = 0; r < 8; ++r) {
+    const float4 u = src[r * (kW / 4)];
+    xv[r][0] = u.x, xv[r][1] = u.y, xv[r][2] = u.z, xv[r][3] = u.w;
+  }
+  float px[kMomCudaCols], px2[kMomCudaCols];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float px = static_cast<float>(lane + 32 * (j & 3));
-      const float py = static_cast<float>(j >> 2);
-      const float v = xv[j] + fi;
-      const float vx = v * px, vy = v * py;
-      s[0] += v;
-      s[1] += vx;
-      s[2] += vy;
-      s[3] = fmaf(vx, px, s[3]);
-      s[4] = fmaf(vx, py, s[4]);
-      s[5] = fmaf(vy, py, s[5]);
-    }
+  for (int c = 0; c < kMomCudaCols; ++c) {
+    px[c] = static_cast<float>(kMomCudaCols * lane + c);
+    px2[c] = px[c] * px[c];
+  }
+  float S[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // S0, Sx, Sy, Sxx, Sxy, Syy
+  if constexpr (kStage == kCudaLoads) {
 #pragma unroll
-    for (int m = 0; m < 6; ++m) {
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s[m] += __shfl_xor_sync(kFull, s[m], o);
-      acc[m] += s[m];
+      for (int c = 0; c < kMomCudaCols; ++c) S[0] += xv[r][c];
+  } else {
+    for (int i = 0; i < reps; ++i) {
+      const float fi = static_cast<float>(i);
+#pragma unroll
+      for (int c = 0; c < kMomCudaCols; ++c) {
+        float g[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) g[r] = xv[r][c] + fi;
+        float s0 = g[0];
+#pragma unroll
+        for (int r = 1; r < 8; ++r) s0 += g[r];
+        float s1 = g[1], s2 = g[1];
+#pragma unroll
+        for (int r = 2; r < 8; ++r) {
+          s1 = fmaf(static_cast<float>(r), g[r], s1);
+          s2 = fmaf(static_cast<float>(r * r), g[r], s2);
+        }
+        S[0] += s0;
+        S[2] += s1;
+        S[5] += s2;
+        S[1] = fmaf(px[c], s0, S[1]);
+        S[3] = fmaf(px2[c], s0, S[3]);
+        S[4] = fmaf(px[c], s1, S[4]);
+      }
     }
   }
-  const float row[8] = {acc[0], acc[1], acc[2], acc[3], acc[4], acc[5], acc[0], acc[1]};
+#pragma unroll
+  for (int m = 0; m < 6; ++m)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) S[m] += __shfl_xor_sync(kFull, S[m], o);
+  const float row[8] = {S[0], S[1], S[2], S[3], S[4], S[5], S[0], S[1]};
   float sum = 0.f;
   if (lane == 0) {
 #pragma unroll
@@ -560,50 +613,100 @@ reshape_kernel(const float* __restrict__ x, float* __restrict__ out, float* __re
 
 // ---- accumulators: out (8, 1024) = sum_i s (8, K) @ (x + i) (K, 1024) ----
 
-constexpr int kAccCudaThreads = 128;
+constexpr int kAccCudaThreads = 256;
 constexpr int kAccTcThreads = 256;
 constexpr int kAccParts = kPix / 128;  // 128 pixels a CTA: 8
+constexpr int kAccCudaWarps = kAccCudaThreads / 32;
+constexpr int kAccCudaSplats = kK / kAccCudaWarps;  // splats a warp of acc_cuda_kernel takes: 16
+constexpr int kAccCudaPix = 128 / 32;               // adjacent pixels a lane takes: 4
+static_assert(kAccCudaPix == 4, "a lane loads its pixels of a splat as one float4");
 
-// CUDA cores: a thread per pixel holds its column of x in registers; s rows
-// 0-4 sit in shared memory, two vector loads per splat and rep (broadcast to
-// the warp); five FMAs per splat and rep. Rows 5-7 repeat rows 0-2, as
-// kern_acc_vpu does (:112).
-__global__ void __launch_bounds__(kAccCudaThreads)
+// The 20 FMAs of one splat into a lane's sums a[n][c] (row n, pixel c), s
+// the splat's five weights, v its four values x + i: row n walks the pixels
+// up for even n and down for odd n, so that each FMA shares s[n] or v[c]
+// with the one before it and the compiler can take that operand from the
+// operand reuse cache. An FMA that reads all three of its operands from the
+// register file issues slower on the H100 than one with an immediate or
+// uniform-register operand; this order leaves fewer of them.
+__device__ __forceinline__ void acc_splat(const float (&s)[5], const float (&v)[kAccCudaPix],
+                                          float (&a)[5][kAccCudaPix]) {
+#pragma unroll
+  for (int n = 0; n < 5; ++n)
+#pragma unroll
+    for (int q = 0; q < kAccCudaPix; ++q) {
+      const int c = (n & 1) ? kAccCudaPix - 1 - q : q;
+      a[n][c] = fmaf(s[n], v[c], a[n][c]);
+    }
+}
+
+// CUDA cores, register-blocked: a CTA takes 128 pixels and all 128 splats;
+// warp w takes the splats 16 w, ..., 16 w + 15 and lane l the 4 adjacent
+// pixels 4 l, ..., 4 l + 3 (16 float4 loads, 64 registers of x). s rows 0-4
+// sit in shared memory; per splat and rep two broadcast loads of s feed 4
+// adds x + i and 20 FMAs (acc_splat), 0.5 loads an element. A lane's 20
+// sums run across all reps, splats in order within a rep; then the 8 warps'
+// partial sums are added through shared memory in warp order. At most 128
+// registers: 2 CTAs an SM. Rows 5-7 repeat rows 0-2, as kern_acc_vpu does
+// (:112).
+template <int kStage>
+__global__ void __launch_bounds__(kAccCudaThreads, 2)
 acc_cuda_kernel(const float* __restrict__ x, const float* __restrict__ sw,
                 float* __restrict__ out, float* __restrict__ obs, int reps) {
   __shared__ float4 s_sh[kK][2];  // s[0..3][k], then s[4][k]
+  __shared__ float4 red[kAccCudaWarps][5][32];
   for (int k = threadIdx.x; k < kK; k += kAccCudaThreads) {
     s_sh[k][0] = make_float4(sw[k], sw[kK + k], sw[2 * kK + k], sw[3 * kK + k]);
     s_sh[k][1] = make_float4(sw[4 * kK + k], 0.f, 0.f, 0.f);
   }
-  __syncthreads();
-  const int p = blockIdx.x * kAccCudaThreads + threadIdx.x;
-  float xv[kK];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* src = x + kAccCudaSplats * warp * kPix + blockIdx.x * 128 + kAccCudaPix * lane;
+  float xv[kAccCudaSplats][kAccCudaPix];
 #pragma unroll
-  for (int k = 0; k < kK; ++k) xv[k] = x[k * kPix + p];
-  float acc[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int i = 0; i < reps; ++i) {
-    const float fi = static_cast<float>(i);
-    float a[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      const float v = xv[k] + fi;
-      const float4 s03 = lds4(&s_sh[k][0]), s4 = lds4(&s_sh[k][1]);
-      a[0] = fmaf(s03.x, v, a[0]);
-      a[1] = fmaf(s03.y, v, a[1]);
-      a[2] = fmaf(s03.z, v, a[2]);
-      a[3] = fmaf(s03.w, v, a[3]);
-      a[4] = fmaf(s4.x, v, a[4]);
-    }
-#pragma unroll
-    for (int j = 0; j < 5; ++j) acc[j] += a[j];
+  for (int j = 0; j < kAccCudaSplats; ++j) {
+    const float4 u = *reinterpret_cast<const float4*>(src + j * kPix);
+    xv[j][0] = u.x, xv[j][1] = u.y, xv[j][2] = u.z, xv[j][3] = u.w;
   }
-  const float col[8] = {acc[0], acc[1], acc[2], acc[3], acc[4], acc[0], acc[1], acc[2]};
-  float sum = 0.f;
+  __syncthreads();
+  float a[5][kAccCudaPix] = {};
+  if constexpr (kStage == kCudaLoads) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    sum += col[n];
-    if (blockIdx.y == 0) out[n * kPix + p] = col[n];
+    for (int j = 0; j < kAccCudaSplats; ++j)
+#pragma unroll
+      for (int c = 0; c < kAccCudaPix; ++c) a[0][c] += xv[j][c];
+  } else {
+    const float4* my_s = &s_sh[kAccCudaSplats * warp][0];
+    for (int i = 0; i < reps; ++i) {
+      const float fi = static_cast<float>(i);
+#pragma unroll
+      for (int j = 0; j < kAccCudaSplats; ++j) {
+        const float4 s03 = lds4(my_s + 2 * j);
+        const float s[5] = {s03.x, s03.y, s03.z, s03.w,
+                            lds(reinterpret_cast<const float*>(my_s + 2 * j + 1))};
+        float v[kAccCudaPix];
+#pragma unroll
+        for (int c = 0; c < kAccCudaPix; ++c) v[c] = xv[j][c] + fi;
+        acc_splat(s, v, a);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 5; ++n) red[warp][n][lane] = make_float4(a[n][0], a[n][1], a[n][2], a[n][3]);
+  __syncthreads();
+  float sum = 0.f;
+  if (threadIdx.x < 5 * 32) {  // row n, pixels 4 l, ..., 4 l + 3 of the CTA's 128
+    const int n = threadIdx.x >> 5, l = threadIdx.x & 31;
+    float4 v = red[0][n][l];
+#pragma unroll
+    for (int w = 1; w < kAccCudaWarps; ++w) {
+      const float4 u = red[w][n][l];
+      v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+    }
+    if (blockIdx.y == 0) {
+      const int p = blockIdx.x * 128 + kAccCudaPix * l;
+      *reinterpret_cast<float4*>(out + n * kPix + p) = v;
+      if (n < 3) *reinterpret_cast<float4*>(out + (n + 5) * kPix + p) = v;
+    }
+    sum = (v.x + v.y) + (v.z + v.w);
   }
   observe<kAccCudaThreads>(sum, obs);
 }
@@ -1216,6 +1319,32 @@ int cumsum_stage(int stage, const float* x, float* out, float* obs, int reps, in
   }
 }
 
+int moments_cuda(int stage, const float* x, float* out, float* obs, int reps, int tiles,
+                 cudaStream_t s) {
+  switch (stage) {
+    case kCudaFull:
+      return launch(moments_cuda_kernel<kCudaFull>, kMomCudaParts, kMomThreads, tiles, s, x, out,
+                    obs, reps);
+    case kCudaLoads:
+      return launch(moments_cuda_kernel<kCudaLoads>, kMomCudaParts, kMomThreads, tiles, s, x, out,
+                    obs, reps);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int acc_cuda(int stage, const float* x, const float* sw, float* out, float* obs, int reps,
+             int tiles, cudaStream_t s) {
+  switch (stage) {
+    case kCudaFull:
+      return launch(acc_cuda_kernel<kCudaFull>, kAccParts, kAccCudaThreads, tiles, s, x, sw, out,
+                    obs, reps);
+    case kCudaLoads:
+      return launch(acc_cuda_kernel<kCudaLoads>, kAccParts, kAccCudaThreads, tiles, s, x, sw, out,
+                    obs, reps);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 int moments_parts(int mode) {
   return mode == kCuda ? kMomCudaParts : mode == kBf16 || mode == kTf32x3 ? kMomTcParts : -1;
 }
@@ -1245,8 +1374,7 @@ extern "C" int moss_mxu_moments(const float* x, float* out, float* obs, int reps
                                 int mode, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const int parts = moments_parts(mode);
-  if (mode == kCuda)
-    return launch(moments_cuda_kernel, parts, kMomThreads, tiles, s, x, out, obs, reps);
+  if (mode == kCuda) return moments_cuda(kCudaFull, x, out, obs, reps, tiles, s);
   if (mode == kBf16)
     return launch(moments_bf16_kernel, parts, kMomThreads, tiles, s, x, out, obs, reps);
   if (mode == kTf32x3) return moments_tf32x3(kTf32Full, x, out, obs, reps, tiles, s);
@@ -1267,8 +1395,7 @@ extern "C" int moss_mxu_acc(const float* x, const float* sw, float* out, float* 
                             int tiles, int mode, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kCuda:
-      return launch(acc_cuda_kernel, kAccParts, kAccCudaThreads, tiles, s, x, sw, out, obs, reps);
+    case kCuda: return acc_cuda(kCudaFull, x, sw, out, obs, reps, tiles, s);
     case kBf16:
       return launch(acc_bf16_kernel, kAccParts, kAccTcThreads, tiles, s, x, sw, out, obs, reps);
     case kTf32x3: return acc_tf32x3(kTf32Full, x, sw, out, obs, reps, tiles, s);
@@ -1342,6 +1469,37 @@ extern "C" int moss_mxu_moments_stage(const float* x, float* out, float* obs, in
 extern "C" int moss_mxu_acc_stage(const float* x, const float* sw, float* out, float* obs,
                                   int reps, int tiles, int stage, void* stream) {
   return acc_tf32x3(stage, x, sw, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+}
+
+// Stage `stage` (enum CudaStage) of the CUDA-core moments or accumulator
+// kernel, launched as moss_mxu_moments or moss_mxu_acc with mode 0 is, with
+// its observer (tiles, their parts); cudaErrorInvalidValue for an unknown
+// stage.
+extern "C" int moss_mxu_moments_cuda_stage(const float* x, float* out, float* obs, int reps,
+                                           int tiles, int stage, void* stream) {
+  return moments_cuda(stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int moss_mxu_acc_cuda_stage(const float* x, const float* sw, float* out, float* obs,
+                                       int reps, int tiles, int stage, void* stream) {
+  return acc_cuda(stage, x, sw, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+}
+
+// CTAs an SM of the CUDA-core moments (family 0) or accumulator (1) kernel
+// at its block size, as the runtime's occupancy query gives them; -1 for an
+// unknown family, or the query's error negated.
+extern "C" int moss_mxu_cuda_ctas_per_sm(int family) {
+  int n = 0;
+  cudaError_t e;
+  if (family == 0)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, moments_cuda_kernel<kCudaFull>,
+                                                      kMomThreads, 0);
+  else if (family == 1)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, acc_cuda_kernel<kCudaFull>,
+                                                      kAccCudaThreads, 0);
+  else
+    return -1;
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // The 3xTF32 kernels' layouts, on the host, for their Python copies: family

@@ -44,7 +44,12 @@ exps alone). tf32x3_stage does the same for the 3xTF32 moments and
 accumulators (TF32X3_STAGES: the products on an
 operand split once, the split alone), whose kernels take the contraction
 axis in the order mom_pixel and acc_pixel give (the C library's
-moss_mxu_tf32x3_order reports it).
+moss_mxu_tf32x3_order reports it), and cuda_stage for the CUDA-core moments
+and accumulators (CUDA_STAGES: the chunk's read, the store and the observer
+alone). The CUDA-core moments sum each column's 8 rows weighted by 1, py
+and py^2, then the columns weighted by px (kern_moments_vpu's order); the
+CUDA-core accumulators are register-blocked, a lane 4 pixels and a warp 16
+splats, the warps' partial sums added in warp order.
 
 A kernel launch runs TILES identical copies of the chunk (the TPU's grid
 of TILES = 256 programs); only tile 0 stores the output, and every CTA
@@ -77,6 +82,7 @@ scan_launches = 0     # moss_mxu_scan
 stage_launches = 0    # moss_mxu_scan_stage
 cumsum_stage_launches = 0  # moss_mxu_cumsum_stage
 tf32x3_stage_launches = 0  # moss_mxu_moments_stage, moss_mxu_acc_stage
+cuda_stage_launches = 0  # moss_mxu_moments_cuda_stage, moss_mxu_acc_cuda_stage
 # launches of each of RUNS's forms through its family's wrapper, by run name
 form_launches = {}
 
@@ -98,6 +104,14 @@ TF32X3_STAGES = ("full", "products", "split")
 # the 3xTF32 kernels' shapes (csrc/reduce_scan.cu): warps a CTA, k-steps of 8
 # a warp walks in a rep, pixels a moments warp covers
 TF32X3_WARPS, TF32X3_STEPS, MOM_SLICE = 8, 16, 128
+
+# the CUDA-core moments and accumulator kernels' stages, by their code in
+# csrc/reduce_scan.cu (enum CudaStage)
+CUDA_STAGES = ("full", "loads")
+# their shapes (csrc/reduce_scan.cu): warps a CTA of either kernel, adjacent
+# pixel columns a moments lane takes, splats an accumulator warp takes and
+# adjacent pixels an accumulator lane takes
+CUDA_WARPS, MOM_CUDA_COLS, ACC_CUDA_SPLATS, ACC_CUDA_PIX = 8, 4, 16, 4
 
 MODES = ("cuda", "bf16", "tf32x3")
 SCAN_MODES = {"add": ("cuda", "bf16", "split2"), "mul": ("cuda", "split2")}
@@ -133,6 +147,8 @@ _SIGNATURES = {  # pointers, then reps, tiles, [op,] [mode]
     "moss_mxu_cumsum_stage": [_PTR] * 3 + [_INT] * 4,
     "moss_mxu_moments_stage": [_PTR] * 3 + [_INT] * 3,
     "moss_mxu_acc_stage": [_PTR] * 4 + [_INT] * 3,
+    "moss_mxu_moments_cuda_stage": [_PTR] * 3 + [_INT] * 3,
+    "moss_mxu_acc_cuda_stage": [_PTR] * 4 + [_INT] * 3,
 }
 
 
@@ -638,6 +654,67 @@ def tf32x3_stage(family: str, x, s, stage: str, reps: int = REPS):
     return out, obs
 
 
+def _cuda_stage_args(family, stage, what):
+    if family not in ("moments", "acc"):
+        raise ValueError(f"{what}: family {family!r} is not 'moments' or 'acc'")
+    if stage not in CUDA_STAGES:
+        raise ValueError(f"{what}: stage {stage!r}: expected one of {CUDA_STAGES}")
+
+
+def cuda_stage_plain(family: str, x, s, stage: str, reps: int = REPS):
+    """What stage `stage` of the CUDA-core moments ("moments") or accumulator
+    ("acc") kernel returns: "full" the function (moments_plain, acc_plain
+    at mode "cuda"); "loads" the sum of x over the contracted axis in the
+    first output, the moments' columns 0 and 6 (S0) or the accumulators'
+    rows 0 and 5, every other output 0, whatever `reps`."""
+    _cuda_stage_args(family, stage, "cuda_stage_plain")
+    if stage == "full":
+        return (moments_plain(x, reps, "cuda") if family == "moments"
+                else acc_plain(x, s, reps, "cuda"))
+    g0, lead = _rows(x)
+    if family == "moments":
+        out = torch.zeros((*lead, K, 8), device=x.device)
+        out[..., 0] = out[..., 6] = g0.sum(-1)
+        return out
+    out = torch.zeros((*lead, 8, PIX), device=x.device)
+    out[..., 0, :] = out[..., 5, :] = g0.sum(-2)
+    return out.reshape(*lead, 8, H, W)
+
+
+def cuda_stage(family: str, x, s, stage: str, reps: int = REPS):
+    """(out, observer) of stage `stage` of the CUDA-core moments or
+    accumulator kernel: "full" is that kernel (mode "cuda"), "loads" leaves
+    out the reps, so its time says what the chunk's read, the store and the
+    observer cost. s is read by "acc" only. Counted in
+    `cuda_stage_launches`; on a CPU tensor, cuda_stage_plain."""
+    global cuda_stage_launches
+    _cuda_stage_args(family, stage, "cuda_stage")
+    _check(x, reps, "cuda_stage", s if family == "acc" else None)
+    if x.device.type == "cpu":
+        return cuda_stage_plain(family, x, s, stage, reps), None
+    symbol = f"moss_mxu_{family}_cuda_stage"
+    out = torch.empty((K, 8) if family == "moments" else (8, H, W), dtype=torch.float32,
+                      device=x.device)
+    obs = torch.empty((TILES, _parts(f"moss_mxu_{family}", _MODE_CODE["cuda"])),
+                      dtype=torch.float32, device=x.device)
+    ptrs = [x.data_ptr()] + ([s.data_ptr()] if family == "acc" else [])
+    cuda_build.launch("reduce_scan", symbol, _SIGNATURES[symbol], x.device, *ptrs, out.data_ptr(),
+                      obs.data_ptr(), reps, TILES, CUDA_STAGES.index(stage))
+    cuda_stage_launches += 1
+    return out, obs
+
+
+def cuda_ctas_per_sm(family: str) -> int:
+    """CTAs an SM of the CUDA-core moments or accumulator kernel, from the
+    C library's occupancy query (moss_mxu_cuda_ctas_per_sm); needs a card."""
+    fn = cuda_build.load("reduce_scan").moss_mxu_cuda_ctas_per_sm
+    fn.argtypes, fn.restype = [_INT], _INT
+    n = fn({"moments": 0, "acc": 1}[family])
+    if n <= 0:
+        raise RuntimeError(f"moss_mxu_cuda_ctas_per_sm({family}) returned {n}")
+    return n
+
+
 # ---- the twelve runs by name ----------------------------------------------------
 
 def _scan_op(family):
@@ -676,7 +753,7 @@ def launch_counts():
 
 def reset_launch_counts():
     global moments_launches, reshape_launches, acc_launches, scan_launches, stage_launches
-    global tf32x3_stage_launches, cumsum_stage_launches
+    global tf32x3_stage_launches, cumsum_stage_launches, cuda_stage_launches
     moments_launches = reshape_launches = acc_launches = scan_launches = stage_launches = 0
-    tf32x3_stage_launches = cumsum_stage_launches = 0
+    tf32x3_stage_launches = cumsum_stage_launches = cuda_stage_launches = 0
     form_launches.clear()

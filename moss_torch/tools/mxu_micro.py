@@ -20,8 +20,10 @@ carry on an operand made once, the operand work alone, the other carry,
 ops.reduce_scan.CUMSUM_STAGES), of the log-space cumprod kernel (products,
 logs and exps alone, ops.reduce_scan.SCAN_STAGES) and of the 3xTF32 moments
 and accumulator kernels (the products on an operand split once, the split
-alone, ops.reduce_scan.TF32X3_STAGES), each against its plain version and
-timed, which say what holds them back.
+alone, ops.reduce_scan.TF32X3_STAGES) and of the CUDA-core moments and
+accumulator kernels (the chunk's read, the store and the observer alone,
+ops.reduce_scan.CUDA_STAGES), each against its plain version and timed,
+which say what holds them back.
 
     python -m moss_torch.tools.mxu_micro
 
@@ -64,9 +66,12 @@ SCAN_TC_BLOCKS = {"cumsum_bf16": 15, "cumsum_split2": 8, "cumprod_logsplit2": 36
 # per run: (tensor-core FLOPs per chunk-op the function needs, their peak or
 # None, f32 operations per element and rep on the CUDA cores: an FMA counts
 # 2, a log1pf or expf 1, which keeps the bound low, and a rounding
-# conversion 0). CUDA-core forms: moments 12 (x + i, v px, v py, three adds,
-# three FMAs), reshape 2 (x + i, the add), acc 11 (x + i, five FMAs), cumsum 3
-# (x + i, the running add, the add into the sum), cumprod 7 (x c, the clip's
+# conversion 0). CUDA-core forms: moments 6, the separable form's least work
+# (kern_moments_vpu's order) per 8-row column: 8 adds x + i, 7 adds of the
+# row sum, 6 FMAs each for the sums weighted by py and py^2 (each starts at
+# row 1's term, row 0's weight is 0), then 3 adds and 3 FMAs into the six
+# moments, 48 a column; reshape 2 (x + i, the add), acc 11 (x + i, five
+# FMAs), cumsum 3 (x + i, the running add, the add into the sum), cumprod 7 (x c, the clip's
 # max and min, 1 - a, the select, the running product, the add). The
 # tensor-core contractions count their passes' FLOPs and their operand work
 # (x + i; 3xTF32 also the split's subtract). The tensor-core scans are bound
@@ -74,7 +79,7 @@ SCAN_TC_BLOCKS = {"cumsum_bf16": 15, "cumsum_split2": 8, "cumprod_logsplit2": 36
 # (split2 4); the log-space cumprod x c, max, min, the select, log1pf, the
 # split's subtract, the running add, expf and the add into the sum (9)
 OPS = {
-    "moments_cuda": (0, None, 12),
+    "moments_cuda": (0, None, 6),
     "moments_tf32x3": (3 * CONTRACTION_FLOPS, PEAK_TF32, 2),
     "moments_bf16": (CONTRACTION_FLOPS, PEAK_BF16, 1),
     "reshape_only": (0, None, 2),
@@ -279,6 +284,25 @@ def tf32x3_stages(x, s, time_ms, timing=None):
     return rows
 
 
+def cuda_stages(x, s, time_ms, timing=None):
+    """The CUDA-core moments and accumulator kernels' stages
+    (rs.CUDA_STAGES) on the chunk: each against its plain version (raising
+    past RTOL of the max), its observers equal across tiles, its ms;
+    {family: {stage: row}}."""
+    rows = {}
+    for family in ("moments", "acc"):
+        rows[family] = {}
+        for stage in rs.CUDA_STAGES:
+            out, obs = rs.cuda_stage(family, x, s, stage)
+            row = _stage_row(f"{family} CUDA cores stage {stage}", out, obs,
+                             rs.cuda_stage_plain(family, x, s, stage),
+                             lambda: rs.cuda_stage(family, x, s, stage), time_ms, timing)
+            rows[family][stage] = row
+            print(f"{family:7s} CUDA cores stage {stage:6s} {row['ms']:8.4f} ms  err "
+                  f"{row['scaled_err']:.1e}")
+    return rows
+
+
 def main(device=None, timing=None, tiles=TILES):
     """Run, check, time and print the twelve runs; return {"runs": {name:
     row}, "numeric": the numeric lines}. timing: cuda_ms / cpu_ms keywords
@@ -335,7 +359,8 @@ def main(device=None, timing=None, tiles=TILES):
     return {"device": device_name(dev), "reps": REPS, "tiles": TILES, "runs": rows,
             "numeric": numeric_lines(outs, x), "cumsum_stages": cumsum_stages(x, time_ms, timing),
             "scan_stages": scan_stages(x, time_ms, timing),
-            "tf32x3_stages": tf32x3_stages(x, s, time_ms, timing)}
+            "tf32x3_stages": tf32x3_stages(x, s, time_ms, timing),
+            "cuda_stages": cuda_stages(x, s, time_ms, timing)}
 
 
 if __name__ == "__main__":

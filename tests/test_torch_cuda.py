@@ -30,7 +30,8 @@ their plain version.
 Reductions and scans: max |out - plain| <= 1e-5 max |plain|, the plain version
 rounding a tensor-core form's operands as its kernel does; observers bitwise
 equal across tiles; the same for the stages of the tensor-core cumsums, of the
-log-space cumprod kernel and of the 3xTF32 moments and accumulator kernels, whose layout tables are
+log-space cumprod kernel, of the CUDA-core moments and accumulator kernels (at least two
+CTAs an SM) and of the 3xTF32 moments and accumulator kernels, whose layout tables are
 the C library's and whose unmasked TF32 operands the tensor cores read as
 cvt.rna's, bit for bit (csrc/tc_rate.cu). The
 f32 conv also at the VGG16 layers, bitwise repeatable, its tile table the C
@@ -617,6 +618,29 @@ def test_tf32x3_stage_matches_plain(cuda_device, family, stage, reps):
     assert torch.equal(obs, obs[:1].expand_as(obs))
     if stage == "full":
         assert torch.equal(out, rs.run(f"{family}_tf32x3", x, s, reps=reps)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("stage", rs.CUDA_STAGES)
+@pytest.mark.parametrize("family", ["moments", "acc"])
+def test_cuda_stage_matches_plain(cuda_device, family, stage, reps):
+    """Each stage of the CUDA-core moments and accumulator kernels against its
+    plain version (1e-5 of the max), observers bitwise equal across tiles,
+    one launch; "full" bitwise the production kernel; the kernels fit at
+    least two CTAs an SM."""
+    x, s = _chunk(cuda_device)
+    before = rs.cuda_stage_launches
+    out, obs = rs.cuda_stage(family, x, s, stage, reps)
+    torch.cuda.synchronize()
+    assert rs.cuda_stage_launches == before + 1
+    plain = rs.cuda_stage_plain(family, x, s, stage, reps)
+    err = float((out - plain).abs().max()) / float(plain.abs().max())
+    assert err <= 1e-5 and torch.isfinite(out).all(), err
+    assert torch.equal(obs, obs[:1].expand_as(obs))
+    if stage == "full":
+        assert torch.equal(out, rs.run(f"{family}_cuda", x, s, reps=reps)[0])
+    assert rs.cuda_ctas_per_sm(family) >= 2
 
 
 @pytest.mark.cuda

@@ -251,6 +251,17 @@ def test_the_tool_on_the_cpu(capsys):
                all(r["scaled_err"] == 0.0 for r in rows.values())
                for rows in res["cumsum_stages"].values())
     assert all(r["scaled_err"] == 0.0 for r in res["scan_stages"].values())
+    assert list(res["cuda_stages"]) == ["moments", "acc"]
+    assert all(list(rows) == list(rs.CUDA_STAGES) and
+               all(r["scaled_err"] == 0.0 for r in rows.values())
+               for rows in res["cuda_stages"].values())
+    # the CUDA-core moments' bound: the separable form's least work, 48 f32
+    # operations (an FMA 2) per 8-row column, at the f32 peak
+    moments = res["runs"]["moments_cuda"]
+    ops = rs.TILES * rs.REPS * rs.K * (rs.PIX // 8) * (8 + 7 + 2 * 6 * 2 + 3 + 3 * 2)
+    assert moments["f32_ops"] == ops and moments["bound_by"] == "operations"
+    assert moments["bound_ms"] == pytest.approx(1e3 * ops / mxu_micro.PEAK_F32, rel=1e-12)
+    assert 0.048 < moments["bound_ms"] < 0.0482
     # no clock off the card, so no SFU bound; on the card it counts two
     # transcendentals an element and rep
     assert "sfu_bound_ms" not in res["runs"]["cumprod_logsplit2"]
@@ -728,6 +739,150 @@ def test_tf32x3_kernel_sums_within_rtol_of_plain(data, family, reps):
     want = rs.tf32x3_stage_plain(family, x, s, "full", reps)
     assert got.shape == want.shape
     assert mxu_micro.scaled_err(got, want) <= mxu_micro.RTOL
+
+
+# ---- the CUDA-core moments and accumulator kernels' order of sums ----------------
+#
+# csrc/reduce_scan.cu's moments_cuda_kernel: a warp per splat, lane l the
+# columns 4 l + c of the 8 rows; per rep and column the row sums s0 (row
+# order), s1 and s2 (FMAs with immediates r and r^2, from row 1's term), then
+# the lane sums S0, Sy, Syy (adds) and Sx, Sxx, Sxy (FMAs with px = 4 l + c and
+# px^2), across all reps; one xor butterfly (16, 8, 4, 2, 1) at the end.
+# acc_cuda_kernel: warp w the splats 16 w + j, a lane's sums a[n][p] =
+# fma(s[n][k], x[k][p] + i, a[n][p]) across reps, splats in order within a
+# rep; then the 8 warps' partial sums added in warp order. The models repeat
+# that arithmetic in float32 (an FMA as a float64 product and sum rounded
+# once to float32).
+
+
+def moments_cuda_model(x, reps):
+    xs = np.asarray(x, np.float32).reshape(mm.K, 8, 32, rs.MOM_CUDA_COLS)  # splat, row, lane, col
+    px = np.arange(mm.W, dtype=np.float32).reshape(32, rs.MOM_CUDA_COLS)
+    px2 = (px * px).astype(np.float32)
+    S = np.zeros((6, mm.K, 32), np.float32)  # S0, Sx, Sy, Sxx, Sxy, Syy
+    for i in range(reps):
+        for c in range(rs.MOM_CUDA_COLS):
+            g = (xs[..., c] + np.float32(i)).astype(np.float32)  # (K, 8, 32)
+            s0 = g[:, 0]
+            for r in range(1, 8):
+                s0 = (s0 + g[:, r]).astype(np.float32)
+            s1 = s2 = g[:, 1]
+            for r in range(2, 8):
+                s1 = _fma(np.float32(r), g[:, r], s1)
+                s2 = _fma(np.float32(r * r), g[:, r], s2)
+            S[0] = S[0] + s0
+            S[2] = S[2] + s1
+            S[5] = S[5] + s2
+            S[1] = _fma(px[:, c], s0, S[1])
+            S[3] = _fma(px2[:, c], s0, S[3])
+            S[4] = _fma(px[:, c], s1, S[4])
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        S = (S + S[:, :, lanes ^ o]).astype(np.float32)
+    lane0 = S[:, :, 0]
+    return np.stack([lane0[m] for m in (0, 1, 2, 3, 4, 5, 0, 1)], 1)
+
+
+def acc_cuda_model(x, s, reps):
+    g0 = np.asarray(x, np.float32).reshape(mm.K, mm.PIX)
+    s5 = np.asarray(s, np.float32)[:5]
+    warps = mm.K // rs.ACC_CUDA_SPLATS
+    a = np.zeros((warps, 5, mm.PIX), np.float32)
+    first = rs.ACC_CUDA_SPLATS * np.arange(warps)
+    for i in range(reps):
+        for j in range(rs.ACC_CUDA_SPLATS):
+            k = first + j  # each warp's j-th splat
+            v = (g0[k] + np.float32(i)).astype(np.float32)  # (warps, PIX)
+            a = _fma(s5[:, k].T[:, :, None], v[:, None, :], a)
+    out = a[0]
+    for w in range(1, warps):
+        out = (out + a[w]).astype(np.float32)
+    return np.concatenate([out, out[:3]]).reshape(8, mm.H, mm.W)
+
+
+def _jax_vpu(name, data, reps, monkeypatch):
+    """kern_moments_vpu or kern_acc_vpu in interpret mode with no grid, its
+    REPS set to reps."""
+    kernel, shape, extra = PALLAS[name]
+    monkeypatch.setattr(mm, "REPS", reps)
+    call = pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct(shape, jnp.float32),
+                          interpret=True)
+    return np.asarray(call(*(jnp.asarray(data[k]) for k in ("x",) + extra)))
+
+
+def test_cuda_constants_are_the_kernels():
+    """The CUDA-core kernels' shapes and stages that ops/reduce_scan.py and
+    the models above copy are csrc/reduce_scan.cu's."""
+    import re
+
+    src = open(CU).read()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]*);", src).group(1).split("//")[0].strip()
+
+    assert int(const("kMomThreads")) // 32 == rs.CUDA_WARPS
+    assert int(const("kAccCudaThreads")) // 32 == rs.CUDA_WARPS
+    assert int(const("kMomCudaCols")) == rs.MOM_CUDA_COLS == rs.W // 32
+    assert const("kAccCudaSplats") == "kK / kAccCudaWarps"
+    assert const("kAccCudaPix") == "128 / 32" and rs.ACC_CUDA_PIX == 128 // 32
+    assert rs.ACC_CUDA_SPLATS * rs.CUDA_WARPS == rs.K
+    enum = re.search(r"enum CudaStage \{([^}]*)\}", src).group(1)
+    names = [v.split("=")[0].strip()[len("kCuda"):].lower() for v in enum.split(",")]
+    assert tuple(names) == rs.CUDA_STAGES
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("family", ["moments", "acc"])
+def test_cuda_kernel_sums_within_rtol(data, pallas_out, family, reps, monkeypatch):
+    """The CUDA-core kernels' order of f32 sums (the models above) lies within
+    RTOL of the plain version and of the Pallas kernel in interpret mode
+    (kern_moments_vpu, kern_acc_vpu), the contract they are held to on the
+    card; the moments also within 1e-6 of an f64 sum, as on the card."""
+    name = f"{family}_cuda"
+    if family == "moments":
+        got = moments_cuda_model(data["x"], reps)
+    else:
+        got = acc_cuda_model(data["x"], data["s"], reps)
+    x, s = torch.as_tensor(data["x"]), torch.as_tensor(data["s"])
+    plain = rs.run_plain(name, x, s, reps).numpy()
+    assert got.shape == plain.shape and np.isfinite(got).all()
+    assert _err_of_max(got, plain.astype(np.float64)) <= mxu_micro.RTOL
+    pallas = pallas_out[name] if reps == rs.REPS else _jax_vpu(name, data, reps, monkeypatch)
+    assert _err_of_max(got, pallas.astype(np.float64)) <= mxu_micro.RTOL
+    if family == "moments":
+        g = data["x"].reshape(mm.K, mm.PIX).astype(np.float64)
+        ref = sum((g + i) @ data["b"].astype(np.float64) for i in range(reps))
+        assert _err_of_max(got[:, :6], ref[:, :6]) < 1e-6
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("stage", rs.CUDA_STAGES)
+@pytest.mark.parametrize("family", ["moments", "acc"])
+def test_cuda_stage_plain_on_the_cpu(data, plain_out, family, stage, reps):
+    """A stage of the CUDA-core kernels on CPU tensors is its plain version,
+    with no launch: "full" the run's plain version; "loads" x summed over
+    the contracted axis into the first output and its repeat, in float64
+    within RTOL, whatever reps."""
+    x, s = torch.as_tensor(data["x"]), torch.as_tensor(data["s"])
+    before = (rs.cuda_stage_launches, dict(rs.form_launches))
+    out, obs = rs.cuda_stage(family, x, s, stage, reps)
+    assert obs is None and (rs.cuda_stage_launches, rs.form_launches) == before
+    assert torch.equal(out, rs.cuda_stage_plain(family, x, s, stage, reps))
+    if stage == "full":
+        assert torch.equal(out, rs.run_plain(f"{family}_cuda", x, s, reps))
+        if reps == rs.REPS:
+            np.testing.assert_array_equal(out.numpy(), plain_out[f"{family}_cuda"])
+    else:
+        g = data["x"].reshape(mm.K, mm.PIX).astype(np.float64)
+        if family == "moments":
+            want = np.zeros((mm.K, 8))
+            want[:, 0] = want[:, 6] = g.sum(1)
+        else:
+            want = np.zeros((8, mm.PIX))
+            want[0] = want[5] = g.sum(0)
+        assert _err_of_max(out.numpy().reshape(want.shape), want) <= mxu_micro.RTOL
+    with pytest.raises(ValueError):
+        rs.cuda_stage(family, x, s, stage + "_", reps)
 
 
 def test_tc_rate_forms_and_arithmetic():
