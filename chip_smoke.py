@@ -165,14 +165,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
  20. tool_mxu  the twelve reductions and scans of csrc/reduce_scan.cu (CUDA
              cores, bf16, split2 and 3xTF32 tensor-core forms): their
              observers bitwise equal across the 256 tiles, a launch's time
-             against REPS; the 3xTF32 kernels' layout tables against their
-             Python copies, and moss_torch.tools.tc_rate (the tensor cores'
-             TF32 rate at N = 8 by instruction form, with and without the
-             split's work beside it, and the check that they read only an
-             operand's TF32 bits); then moss_torch.tools.mxu_micro, counted,
-             which holds each run and the stages of the tensor-core cumsums,
-             the log-space cumprod and the 3xTF32 kernels against their plain
-             versions (1e-5 of the max) and times them
+             against REPS; the tensor-core kernels' layout tables against
+             their Python copies, and moss_torch.tools.tc_rate (the tensor
+             cores' TF32 and bf16 rates at N = 8 by instruction form, with
+             and without their operand work beside them, and the check that
+             they read only an operand's TF32 bits); then
+             moss_torch.tools.mxu_micro, counted, which holds each run and
+             the stages of the tensor-core cumsums, the log-space cumprod,
+             the 3xTF32 kernels, the bf16 moments and the CUDA-core kernels
+             against their plain versions (1e-5 of the max) and times them;
+             registers and CTAs an SM of the CUDA-core kernels and the bf16
+             moments
  21. timing  how many runs cuda_ms took again because the host had not
              queued them before their spin ended (0: every time above is the
              first run's), by phase and by kernel
@@ -2747,15 +2750,18 @@ MXU_KERNELS = (
 
 def phase_tool_mxu(dev):
     """The twelve reduction and scan runs: their observers across tiles and a
-    launch's time against REPS; the card test of the CUDA-core moments and
-    accumulators, the two tensor-core cumsums, the log-space cumprod and the
-    two 3xTF32 forms three times over; both f32-class moments against an f64
-    sum; the 3xTF32 layout tables and tc_rate; then the tool, counted, which
-    holds each run to its plain version (raising past mxu_micro.RTOL) and
-    times it, with the SFU bound and the stages of the cumsum, cumprod,
-    3xTF32 and CUDA-core kernels; the CUDA-core kernels' registers and CTAs an
-    SM. Returns ({kernel: row summed over its runs}, {kernel: launches},
-    {stage family: launches})."""
+    launch's time against REPS; the card test of the CUDA-core moments,
+    accumulators and cumprod, the two tensor-core cumsums, the log-space
+    cumprod, the two 3xTF32 forms and the bf16 moments three times over (the
+    CUDA-core cumprod and the bf16 moments also at REPS / 3 and 4 REPS); the
+    moments against an f64 sum (the f32-class forms gated at 1e-6, bf16
+    reported); the tensor-core layout tables and tc_rate; then the tool,
+    counted, which holds each run to its plain version (raising past
+    mxu_micro.RTOL) and times it, with the SFU bound and the stages of the
+    cumsum, cumprod, 3xTF32, bf16 and CUDA-core kernels; the CUDA-core
+    kernels' and the bf16 moments' registers and CTAs an SM. Returns
+    ({kernel: row summed over its runs}, {kernel: launches}, {stage family:
+    launches})."""
     x, s = mxu_micro.inputs(dev)
     checks = {}
     for name, *_ in rs.RUNS:
@@ -2772,13 +2778,16 @@ def phase_tool_mxu(dev):
                         "ms_vs_reps": vs_reps}
     # the card test's cases tests/test_torch_cuda.py::test_reduce_scan_matches_plain
     # [moments_cuda-*, acc_cuda-*, cumsum_bf16-*, cumsum_split2-*, cumprod_logsplit2-*,
-    # moments_tf32x3-*, acc_tf32x3-*], three times over: kernel within RTOL of plain,
-    # observers equal
+    # moments_tf32x3-*, acc_tf32x3-*, cumprod_cuda-*, moments_bf16-*], three times over,
+    # the last two also at the reps of test_redesigned_kernels_at_more_reps: kernel
+    # within RTOL of plain, observers equal
     for name in ("moments_cuda", "acc_cuda", "cumsum_bf16", "cumsum_split2",
-                 "cumprod_logsplit2", "moments_tf32x3", "acc_tf32x3"):
+                 "cumprod_logsplit2", "moments_tf32x3", "acc_tf32x3", "cumprod_cuda",
+                 "moments_bf16"):
         repeats = []
+        more = (rs.REPS // 3, 4 * rs.REPS) if name in ("cumprod_cuda", "moments_bf16") else ()
         for _ in range(3):
-            for reps in (rs.REPS, 3):
+            for reps in (rs.REPS, 3, *more):
                 out, obs = rs.run(name, x, s, reps=reps)
                 err = mxu_micro.scaled_err(out, rs.run_plain(name, x, s, reps=reps))
                 if not (err <= mxu_micro.RTOL and torch.equal(obs, obs[:1].expand_as(obs))):
@@ -2786,19 +2795,25 @@ def phase_tool_mxu(dev):
                                          "tiles' observers differ")
                 repeats.append({"reps": reps, "scaled_err": err})
         checks[name]["repeated_card_test"] = repeats
-    # the f32-class moments against an f64 sum at REPS (the JAX tool's numeric
-    # line), on the columns both compute
+    # the moments against an f64 sum at REPS (the JAX tool's numeric line), on the
+    # columns all compute: the f32-class forms within 1e-6 of the max, bf16 (its
+    # operands rounded to 8 bits) reported only
     ref = sum((x.double().reshape(rs.K, rs.PIX) + i) @ rs.basis(dev).double()
               for i in range(rs.REPS))
-    for name in ("moments_cuda", "moments_tf32x3"):
+    for name in ("moments_cuda", "moments_tf32x3", "moments_bf16"):
         f64_err = mxu_micro.scaled_err(rs.run(name, x, s)[0].double()[:, :6], ref[:, :6])
-        if not f64_err < 1e-6:
+        if name != "moments_bf16" and not f64_err < 1e-6:
             raise AssertionError(f"{name}: {f64_err:.2e} of the max from the f64 sum")
         checks[name]["err_of_max_vs_f64"] = f64_err
+    print(f"moments_bf16: {checks['moments_bf16']['err_of_max_vs_f64']:.3e} of the max from the "
+          "f64 sum (not gated)", flush=True)
     for family in ("moments", "acc"):
         if not torch.equal(rs.tf32x3_order(family), rs.tf32x3_order_plain(family)):
             raise AssertionError(f"the 3xTF32 {family} kernel's layout table differs from "
                                  "ops/reduce_scan.py's copy")
+    if not torch.equal(rs.bf16_order(), rs.bf16_order_plain()):
+        raise AssertionError("the bf16 moments kernel's layout table differs from "
+                             "ops/reduce_scan.py's copy")
     rates = tc_rate.main(dev)
 
     rs.reset_launch_counts()
@@ -2806,7 +2821,8 @@ def phase_tool_mxu(dev):
     launches = rs.launch_counts()
     forms = dict(rs.form_launches)
     stage_launches = {"scan": rs.stage_launches, "cumsum": rs.cumsum_stage_launches,
-                      "tf32x3": rs.tf32x3_stage_launches, "cuda": rs.cuda_stage_launches}
+                      "tf32x3": rs.tf32x3_stage_launches, "cuda": rs.cuda_stage_launches,
+                      "bf16": rs.bf16_stage_launches}
     if rs.stage_launches < len(rs.SCAN_STAGES):
         raise AssertionError(f"the mxu tool launched the scan stages {rs.stage_launches} times")
     if rs.cumsum_stage_launches < len(rs.CUMSUM_MODES) * len(rs.CUMSUM_STAGES):
@@ -2815,9 +2831,12 @@ def phase_tool_mxu(dev):
     if rs.tf32x3_stage_launches < 2 * len(rs.TF32X3_STAGES):
         raise AssertionError("the mxu tool launched the 3xTF32 stages "
                              f"{rs.tf32x3_stage_launches} times")
-    if rs.cuda_stage_launches < 2 * len(rs.CUDA_STAGES):
+    if rs.cuda_stage_launches < len(rs.CUDA_FAMILIES) * len(rs.CUDA_STAGES):
         raise AssertionError("the mxu tool launched the CUDA-core stages "
                              f"{rs.cuda_stage_launches} times")
+    if rs.bf16_stage_launches < len(rs.BF16_STAGES):
+        raise AssertionError(f"the mxu tool launched the bf16 stages {rs.bf16_stage_launches} "
+                             "times")
     if min(launches.values()) == 0:
         raise AssertionError(f"the mxu tool launched the kernels {launches} times")
     rows = res["runs"]
@@ -2843,31 +2862,34 @@ def phase_tool_mxu(dev):
     for kname, family in (("mxu_moments", "moments"), ("mxu_acc", "acc")):
         kernels[kname]["tf32x3_stage_ms"] = {
             k: v["ms"] for k, v in res["tf32x3_stages"][family].items()}
+    for kname, family in (("mxu_moments", "moments"), ("mxu_acc", "acc"), ("mxu_scan", "cumprod")):
         kernels[kname]["cuda_stage_ms"] = {
             k: v["ms"] for k, v in res["cuda_stages"][family].items()}
+    kernels["mxu_moments"]["bf16_stage_ms"] = {k: v["ms"] for k, v in res["bf16_stages"].items()}
     # static instructions (cuobjdump -sass): the tensor-core scans (a rep's
     # body of 32 elements a thread, the cumprod's stages beside it) and the
     # contractions (the 3xTF32 and CUDA-core kernels' stages beside them)
     sass = {}
     for prefix in ("scan_tc_kernel", "moments_tf32x3_kernel", "acc_tf32x3_kernel",
                    "moments_bf16_kernel", "acc_bf16_kernel", "moments_cuda_kernel",
-                   "acc_cuda_kernel"):
+                   "acc_cuda_kernel", "cumsum_cuda_kernel", "cumprod_cuda_kernel"):
         sass.update(cuda_build.sass_opcodes("reduce_scan", prefix))
     for kernel, ops in sass.items():
         print(f"sass reduce_scan: {kernel}: " + ", ".join(f"{k} {v}" for k, v in
                                                           list(ops.items())[:12]), flush=True)
-    # the CUDA-core kernels' registers (ptxas) and CTAs an SM (occupancy query)
+    # the CUDA-core kernels' and the bf16 moments' registers (ptxas, the
+    # production form, stage 0) and CTAs an SM (occupancy query)
     regs = {k["kernel"]: k["registers"] for k in cuda_build.ptxas_report("reduce_scan")}
-    cuda_cores = {}
-    for family in ("moments", "acc"):
-        full = [k for k in regs if k.startswith(f"{family}_cuda_kernel") and "ILi0E" in k]
-        cuda_cores[family] = {"registers": regs[full[0]] if full else None,
-                              "ctas_per_sm": rs.cuda_ctas_per_sm(family)}
-        print(f"{family} CUDA cores: {cuda_cores[family]['registers']} registers, "
-              f"{cuda_cores[family]['ctas_per_sm']} CTAs an SM", flush=True)
+    ctas = {}
+    for name in rs.CTAS_KERNELS:
+        full = [k for k in regs if k.startswith(f"{name}_kernel ") and "ILi0E" in k]
+        ctas[name] = {"registers": regs[full[0]] if full else None,
+                      "ctas_per_sm": rs.ctas_per_sm(name)}
+        print(f"{name}: {ctas[name]['registers']} registers, {ctas[name]['ctas_per_sm']} CTAs "
+              "an SM", flush=True)
     emit({"phase": "tool_mxu", "reps": rs.REPS, "tiles": rs.TILES, "checks": checks,
           "launches": launches, "form_launches": forms, "stage_launches": stage_launches,
-          "tc_rate": rates, **res, "sass": sass, "cuda_cores": cuda_cores})
+          "tc_rate": rates, **res, "sass": sass, "ctas": ctas})
     return kernels, {k[0]: launches[k[1]] for k in MXU_KERNELS}, stage_launches
 
 
@@ -3054,7 +3076,13 @@ def main():
                    if kname == "mxu_scan" else {}),
                 **({"tf32x3_stage_ms": mxu_rows[kname]["tf32x3_stage_ms"],
                     "stage_launches": mxu_stage_launches["tf32x3"]}
-                   if kname in ("mxu_moments", "mxu_acc") else {}))
+                   if kname in ("mxu_moments", "mxu_acc") else {}),
+                **({"cuda_stage_ms": mxu_rows[kname]["cuda_stage_ms"],
+                    "cuda_stage_launches": mxu_stage_launches["cuda"]}
+                   if kname != "mxu_reshape" else {}),
+                **({"bf16_stage_ms": mxu_rows[kname]["bf16_stage_ms"],
+                    "bf16_stage_launches": mxu_stage_launches["bf16"]}
+                   if kname == "mxu_moments" else {}))
           for kname, _, _, replaces, all_ in MXU_KERNELS),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,19 +2,20 @@
 // cores: the microbenchmark that asks which unit should run them.
 //
 // Replaces tools/mxu_micro.py's nine Pallas kernels (launched by `run`,
-// :219-236), in nine kernels (twelve instantiations and their stages)
+// :219-236), in ten kernels (twelve production forms and their stages)
 // behind four entry points:
 //
-//   moss_mxu_moments  moments_cuda_kernel, moments_bf16_kernel,
+//   moss_mxu_moments  moments_cuda_kernel<stage>, moments_bf16_kernel<stage>,
 //                     moments_tf32x3_kernel<stage>: kern_moments_vpu (:58),
 //                     kern_moments_mxu (:81)
 //   moss_mxu_reshape  reshape_kernel: kern_reshape_only (:94)
-//   moss_mxu_acc      acc_cuda_kernel, acc_bf16_kernel,
+//   moss_mxu_acc      acc_cuda_kernel<stage>, acc_bf16_kernel,
 //                     acc_tf32x3_kernel<stage>: kern_acc_vpu (:102),
 //                     kern_acc_mxu (:116)
-//   moss_mxu_scan     scan_cuda_kernel<op>, scan_tc_kernel<op, mode>:
-//                     kern_cumsum_vpu (:153), kern_cumsum_mxu (:175),
-//                     kern_cumprod_vpu (:192), kern_cumprod_logmxu (:203)
+//   moss_mxu_scan     cumsum_cuda_kernel, cumprod_cuda_kernel<stage>,
+//                     scan_tc_kernel<op, mode>: kern_cumsum_vpu (:153),
+//                     kern_cumsum_mxu (:175), kern_cumprod_vpu (:192),
+//                     kern_cumprod_logmxu (:203)
 //
 // Every kernel works on one chunk x (K = 128 splats, 8 x 128 = 1024 pixels)
 // f32, repeats its function `reps` times (rep i works on x + i, or on the
@@ -42,6 +43,10 @@
 //           cvt.rna.tf32.f32's rounding (split_operand)
 // The scans' CUDA-core forms are per-pixel sequential loops over K, the
 // form the blend kernels use, not the TPU's two-level Hillis-Steele scan.
+// The cumprod's walks over K carry up to 16 reps side by side (one running
+// product each), so a thread reads each x once a walk and its sums over reps
+// need no array of 128 registers: 6 instructions an element and rep,
+// issue-bound (cumprod_walk, masked_one_minus).
 //
 // The CUDA-core moments and accumulators hold their chunk in registers and
 // are bound by FP32-pipe issue, one warp instruction a clock a scheduler, an
@@ -97,6 +102,16 @@
 // product, is not used: at N = 8 it ran m64n8k8 TF32 at 148 TFLOP/s against
 // mma.sync m16n8k8's 313, and beside the split's work it took longer than
 // mma.sync did (tools/tc_rate.py).
+//
+// The bf16 moments: one m16n8k16 product a k-step on x + i rounded to bf16
+// pairs in every rep (1.5 instructions an element: the add and half a
+// cvt.rn.bf16x2), its bound the products at the bf16 peak (0.0087 ms a
+// launch). x comes in float4 loads, in an order of the contraction axis that
+// gives a lane's four A columns of a k-step four adjacent pixels
+// (mom_bf16_pixel), and two reps run their product chains side by side
+// (mom_bf16_reps), so one chain's latency hides behind the other's; their
+// stages (enum Bf16Stage) time the loads, the operand work and the products
+// alone.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (moss_torch/ops/cuda_build.py)
@@ -350,21 +365,6 @@ __device__ __forceinline__ void observe(float v, float* obs) {
   }
 }
 
-// basis[p][n] of tools/mxu_micro.py::_basis (:48-55): [1, px, py, px^2,
-// px py, py^2, 0, 0], px = p % 128, py = p / 128; exact in f32
-__device__ __forceinline__ float basis(int p, int n) {
-  const float px = static_cast<float>(p % kW), py = static_cast<float>(p / kW);
-  switch (n) {
-    case 0: return 1.f;
-    case 1: return px;
-    case 2: return py;
-    case 3: return px * px;
-    case 4: return px * py;
-    case 5: return py * py;
-    default: return 0.f;
-  }
-}
-
 // ---- moments: out (K, 8) = sum_i (x + i).reshape(K, 1024) @ basis ----------
 
 constexpr int kMomThreads = 256;
@@ -482,33 +482,148 @@ __device__ __forceinline__ void moments_store(const float (&c)[4], float* __rest
   observe<kMomThreads>(v, obs);
 }
 
+// Stages of the bf16 tensor-core moments (moments_bf16_kernel), for timing
+// what holds it back: kBf16Full the production kernel; kBf16Loads the chunk
+// read, the store and the observer with no reps: each lane sums its
+// elements of splat rows g and g + 8 once into its C elements of column 2t;
+// kBf16Operands x + i and the bf16 packs of every rep with no products: each
+// C element sums the pair registers of its slot as f32 (c0 a0, c1 a2, c2 a1,
+// c3 a3); kBf16Products the packs made once, before the reps, and the
+// products of every rep (a rep's sums start from a 0 read from shared
+// memory, so the compiler cannot find the reps' products equal).
+enum Bf16Stage { kBf16Full = 0, kBf16Loads = 1, kBf16Operands = 2, kBf16Products = 3 };
+
+constexpr int kMomBf16Steps = 128 / 16;  // k-steps of m16n8k16 over a warp's 128 pixels: 8
+constexpr int kMomBf16InFlight = 2;      // reps whose product chains run side by side
+
+// The pixel of column col (0-15) of k-step s in warp w's 128-pixel slice of
+// moments_bf16_kernel: lane t's columns 2t, 2t + 1, 2t + 8 and 2t + 9 take
+// the adjacent pixels 16 s + 4 t, ..., + 3 of the slice, so a lane loads each
+// splat row's elements of a k-step as one float4, and the A pairs (2t, 2t +
+// 1) and (2t + 8, 2t + 9) are its halves. The sum over pixels does not
+// depend on which k-step or column a pixel takes, so long as A and B agree;
+// k-step s still takes the 16 pixels 16 s, ..., 16 s + 15 of the slice, as
+// the column order col -> 16 s + col does, and on the H100 a product's sum
+// came out bitwise the same in both orders.
+__host__ __device__ constexpr int mom_bf16_pixel(int w, int s, int col) {
+  return 128 * w + 16 * s + 4 * ((col & 7) >> 1) + (col & 1) + 2 * (col >> 3);
+}
+
+// The A fragment of a k-step (mma_bf16) from a lane's float4s of splat rows
+// g (u) and g + 8 (v), plus fi, rounded to bf16 pairs
+__device__ __forceinline__ void bf16_a(const float4& u, const float4& v, float fi,
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(u.x + fi, u.y + fi);
+  a[1] = pack_bf16(v.x + fi, v.y + fi);
+  a[2] = pack_bf16(u.z + fi, u.w + fi);
+  a[3] = pack_bf16(v.z + fi, v.w + fi);
+}
+
+// c += kReps reps' bf16 products of a warp, reps i0, i0 + 1, ...: per rep,
+// cb = sum over the k-steps of A_i @ B in the tensor cores from 0 (A_i the
+// packs of x + i, xu and xv: rows g and g + 8; B the basis fragments bb),
+// the reps' chains interleaved k-step by k-step, then c += cb in IEEE f32
+// adds, rep after rep (each rep's tensor-core sum formed as bf16_reps forms
+// it). op: the packs of x made once (kBf16Products); zeros: that stage's 0.
+template <int kStage, int kReps>
+__device__ __forceinline__ void mom_bf16_reps(const float4 (&xu)[kMomBf16Steps],
+                                              const float4 (&xv)[kMomBf16Steps],
+                                              const uint32_t (&op)[kMomBf16Steps][4],
+                                              const uint32_t (&bb)[kMomBf16Steps][2], int i0,
+                                              const float* zeros, float (&c)[4]) {
+  float cb[kReps][4], fi[kReps];
+#pragma unroll
+  for (int r = 0; r < kReps; ++r) {
+    fi[r] = static_cast<float>(i0 + r);
+    const float z = kStage == kBf16Products ? lds(zeros + ((i0 + r) & 31)) : 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cb[r][e] = z;
+  }
+#pragma unroll
+  for (int s = 0; s < kMomBf16Steps; ++s) {
+#pragma unroll
+    for (int r = 0; r < kReps; ++r) {
+      uint32_t a[4];
+      if constexpr (kStage == kBf16Products) {
+        a[0] = op[s][0], a[1] = op[s][1], a[2] = op[s][2], a[3] = op[s][3];
+      } else {
+        bf16_a(xu[s], xv[s], fi[r], a);
+      }
+      if constexpr (kStage == kBf16Operands) {
+        cb[r][0] += __uint_as_float(a[0]);
+        cb[r][1] += __uint_as_float(a[2]);
+        cb[r][2] += __uint_as_float(a[1]);
+        cb[r][3] += __uint_as_float(a[3]);
+      } else {
+        mma_bf16(cb[r], a, bb[s][0], bb[s][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kReps; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += cb[r][e];
+}
+
 // Tensor cores, bf16: a CTA takes 16 splats (one m-tile) and its 8 warps
-// split the 1024-pixel depth in slices of 128; each warp keeps its A
-// fragments of x in registers and the basis fragments (made from the index),
-// adds each rep's C fragment to its sum, and the warps' sums are summed in a
-// fixed order.
-__global__ void __launch_bounds__(kMomThreads)
+// split the 1024-pixel depth in slices of 128 (8 k-steps of m16n8k16, pixel
+// row w for warp w); each lane keeps its 64 elements of x in registers (16
+// float4 loads, mom_bf16_pixel's order) and its basis fragments, made from
+// the lane's column n = g with no divide and no branch on n; reps run two at
+// a time (an odd last one alone), each rep's sum added to the warp's, and
+// the warps' sums are summed in a fixed order. Two CTAs an SM (registers at
+// most 128).
+template <int kStage>
+__global__ void __launch_bounds__(kMomThreads, 2)
 moments_bf16_kernel(const float* __restrict__ x, float* __restrict__ out,
                     float* __restrict__ obs, int reps) {
-  constexpr int kSteps = 128 / 16;  // m16n8k16 over a warp's 128 pixels
+  __shared__ float zeros[32];
+  if constexpr (kStage == kBf16Products) {
+    set_rep_zeros(zeros);
+    __syncthreads();
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const float* r0 = x + (blockIdx.x * 16 + g) * kPix;  // splat rows g and g + 8
-  const float* r8 = r0 + 8 * kPix;
-  float xa[kSteps][8];
-  uint32_t bb[kSteps][2];  // basis fragments
+  // splat rows g and g + 8, pixels mom_bf16_pixel(warp, s, 2t), ..., + 3
+  const float* r0 = x + (blockIdx.x * 16 + g) * kPix + mom_bf16_pixel(warp, 0, 2 * t);
+  float4 xu[kMomBf16Steps], xv[kMomBf16Steps];
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const int c0 = warp * 128 + s * 16 + 2 * t, c8 = c0 + 8;
-    const float v[8] = {r0[c0], r0[c0 + 1], r8[c0], r8[c0 + 1],
-                        r0[c8], r0[c8 + 1], r8[c8], r8[c8 + 1]};
-#pragma unroll
-    for (int e = 0; e < 8; ++e) xa[s][e] = v[e];
-    bb[s][0] = pack_bf16(basis(c0, g), basis(c0 + 1, g));
-    bb[s][1] = pack_bf16(basis(c8, g), basis(c8 + 1, g));
+  for (int s = 0; s < kMomBf16Steps; ++s) {
+    xu[s] = *reinterpret_cast<const float4*>(r0 + 16 * s);
+    xv[s] = *reinterpret_cast<const float4*>(r0 + 8 * kPix + 16 * s);
   }
   float c[4] = {0.f, 0.f, 0.f, 0.f};
-  bf16_reps(xa, bb, reps, c);
+  if constexpr (kStage == kBf16Loads) {
+#pragma unroll
+    for (int s = 0; s < kMomBf16Steps; ++s) {
+      c[0] = (((c[0] + xu[s].x) + xu[s].y) + xu[s].z) + xu[s].w;
+      c[2] = (((c[2] + xv[s].x) + xv[s].y) + xv[s].z) + xv[s].w;
+    }
+  } else {
+    // the basis column n = g at pixel column px of row py = warp: fy px^ex,
+    // fy = py^ey (0 for n >= 6), exact in f32 and rounded to bf16
+    const int ex = g == 3 ? 2 : g == 1 || g == 4 ? 1 : 0;
+    const int ey = g == 5 ? 2 : g == 2 || g == 4 ? 1 : 0;
+    const float py = static_cast<float>(warp);
+    const float fy = g >= 6 ? 0.f : ey == 2 ? py * py : ey == 1 ? py : 1.f;
+    auto value = [&](int px) {
+      const float f = static_cast<float>(px);
+      return fy * ((ex >= 1 ? f : 1.f) * (ex == 2 ? f : 1.f));
+    };
+    uint32_t bb[kMomBf16Steps][2];  // B rows 2t, 2t + 1 and 2t + 8, 2t + 9: pixels px, ..., + 3
+    uint32_t op[kMomBf16Steps][4] = {};
+#pragma unroll
+    for (int s = 0; s < kMomBf16Steps; ++s) {
+      const int px = mom_bf16_pixel(0, s, 2 * t);
+      bb[s][0] = pack_bf16(value(px), value(px + 1));
+      bb[s][1] = pack_bf16(value(px + 2), value(px + 3));
+      if constexpr (kStage == kBf16Products) bf16_a(xu[s], xv[s], 0.f, op[s]);
+    }
+    int i = 0;
+    for (; i + kMomBf16InFlight <= reps; i += kMomBf16InFlight)
+      mom_bf16_reps<kStage, kMomBf16InFlight>(xu, xv, op, bb, i, zeros, c);
+    for (; i < reps; ++i) mom_bf16_reps<kStage, 1>(xu, xv, op, bb, i, zeros, c);
+  }
   moments_store(c, out, obs);
 }
 
@@ -811,16 +926,14 @@ constexpr int kScanCudaThreads = 64;
 constexpr int kScanTcThreads = 256;
 constexpr int kScanParts = kPix / 64;  // 64 pixels a CTA: 16
 
-__device__ __forceinline__ float alpha_of(float xv, float ci) {
-  return fminf(fmaxf(xv * ci, 0.f), 0.9f);
-}
-
 __device__ __forceinline__ float rep_scale(int i) {
   return static_cast<float>(0.01 * static_cast<double>(i + 1));
 }
 
-// alpha_of in two instructions: a saturating multiply (the clip at 0; NaN
-// to 0 as fmaxf does) and the min
+// a = clip(x c_i, 0, 0.9), fminf(fmaxf(x c_i, 0), 0.9), in two instructions:
+// a saturating multiply (the clip at 0, after the product's rounding; NaN to
+// 0 as fmaxf does) and the min. Equal to the fminf-fmaxf form on every
+// input, but -0, which both send through the mask as 0
 __device__ __forceinline__ float alpha_sat(float xv, float ci) {
   float a;
   asm("mul.sat.f32 %0, %1, %2;" : "=f"(a) : "f"(xv), "f"(ci));
@@ -875,13 +988,12 @@ __device__ __forceinline__ float exp2_fast(float v) {
   return r;
 }
 
-// CUDA cores: a thread per pixel walks K = 128 in order; the CTA's 64
-// columns of x sit in shared memory, read again in every rep, and the
-// thread's 128 sums in registers.
-template <int kOp>
+// CUDA cores, the cumsum: a thread per pixel walks K = 128 in order; the
+// CTA's 64 columns of x sit in shared memory, read again in every rep, and
+// the thread's 128 sums in registers.
 __global__ void __launch_bounds__(kScanCudaThreads)
-scan_cuda_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
-                 int reps) {
+cumsum_cuda_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
+                   int reps) {
   __shared__ float xs[kK][kScanCudaThreads];
   const int p0 = blockIdx.x * kScanCudaThreads;
   for (int k = 0; k < kK; ++k) xs[k][threadIdx.x] = x[k * kPix + p0 + threadIdx.x];
@@ -890,23 +1002,12 @@ scan_cuda_kernel(const float* __restrict__ x, float* __restrict__ out, float* __
 #pragma unroll
   for (int k = 0; k < kK; ++k) acc[k] = 0.f;
   for (int i = 0; i < reps; ++i) {
-    if constexpr (kOp == kAdd) {
-      const float fi = static_cast<float>(i);
-      float run = 0.f;
+    const float fi = static_cast<float>(i);
+    float run = 0.f;
 #pragma unroll
-      for (int k = 0; k < kK; ++k) {
-        run = run + (lds(&xs[k][threadIdx.x]) + fi);
-        acc[k] += run;
-      }
-    } else {
-      const float ci = rep_scale(i);
-      float run = 1.f;
-#pragma unroll
-      for (int k = 0; k < kK; ++k) {
-        const float a = alpha_of(lds(&xs[k][threadIdx.x]), ci);
-        run = run * (a > 0.003f ? 1.f - a : 1.f);
-        acc[k] += run;
-      }
+    for (int k = 0; k < kK; ++k) {
+      run = run + (lds(&xs[k][threadIdx.x]) + fi);
+      acc[k] += run;
     }
   }
   float sum = 0.f;
@@ -916,6 +1017,151 @@ scan_cuda_kernel(const float* __restrict__ x, float* __restrict__ out, float* __
     if (blockIdx.y == 0) out[k * kPix + p0 + threadIdx.x] = acc[k];
   }
   observe<kScanCudaThreads>(sum, obs);
+}
+
+// ---- the CUDA-core cumprod: the reps inside the walk over the splats --------
+
+constexpr int kCumprodGroup = 16;  // reps a walk over K carries side by side, at most
+constexpr int kCumprodBatch = 8;   // splats whose x a thread loads a batch ahead
+// dynamic shared memory of cumprod_cuda_kernel when its reps take more than
+// one walk: the sums of the walks before, [splat][thread]
+constexpr int kCumprodSmem = kK * kScanCudaThreads * 4;  // 32 KB
+
+// The walks a launch of `reps` takes: reps / 16 of 16, then one each of 8,
+// 4, 2 and 1 as the rest's bits say
+__host__ __device__ constexpr int cumprod_walks(int reps) {
+  return reps / kCumprodGroup + (reps & 8 ? 1 : 0) + (reps & 4 ? 1 : 0) + (reps & 2 ? 1 : 0) +
+         (reps & 1 ? 1 : 0);
+}
+
+// The masked factor a > 0.003 ? 1 - a : 1 in two FMA-pipe instructions,
+// bitwise, where a compare and a select are two on the half-rate ALU pipe:
+// the mask a > 0.003 as 1.0 or 0.0 by (a - 0.003) 2^40 in one rounding,
+// saturated to [0, 1] (f32 values near 0.003 lie 2^-32 apart, so an a above
+// it gives at least 256), then fma(-a, mask, 1), 1 - a rounded once or
+// exactly 1
+__device__ __forceinline__ float masked_one_minus(float a) {
+  constexpr float kScale = 1099511627776.f;  // 2^40
+  float mask;
+  asm("fma.rn.sat.f32 %0, %1, %2, %3;" : "=f"(mask) : "f"(a), "f"(kScale), "f"(-0.003f * kScale));
+  return __fmaf_rn(-a, mask, 1.f);
+}
+
+// One walk of a thread's pixel over K for the reps i0, ..., i0 + kReps - 1:
+// a running product each, so per splat x is read once (from L2, a batch of
+// kCumprodBatch loaded while the batch before is worked) and each rep adds
+// its product to the splat's sum, in rep order. The sum starts at 0 in the
+// first walk, else at the walks before's (part: the thread's column of the
+// shared-memory sums, splat k at part[64 k]); the last walk adds it to
+// `total` in splat order and tile 0 stores it to op (the thread's column of
+// out), the others leave it in part. Each output is ((0 + r_0) + r_1) + ...
+// with rep i's r_i formed as a per-rep walk forms it: run = run (1 - a) or
+// run, the product and the add rounded apart, but at the last splat, where
+// the product feeds only the add, one FMA.
+template <int kReps, bool kEnd>
+__device__ __forceinline__ void cumprod_batch(const float (&xb)[kCumprodBatch], int k0,
+                                              const float (&ci)[kReps], float (&run)[kReps],
+                                              float* part, bool first, bool last,
+                                              float* __restrict__ op, float& total) {
+#pragma unroll
+  for (int j = 0; j < kCumprodBatch; ++j) {
+    const int k = k0 + j;
+    float s = first ? 0.f : part[k * kScanCudaThreads];
+#pragma unroll
+    for (int r = 0; r < kReps; ++r) {
+      const float a = alpha_sat(xb[j], ci[r]);
+      const float g = masked_one_minus(a);
+      if (kEnd && j + 1 == kCumprodBatch) {
+        s = __fmaf_rn(run[r], g, s);
+      } else {
+        run[r] = __fmul_rn(run[r], g);
+        s = __fadd_rn(s, run[r]);
+      }
+    }
+    if (last) {
+      total += s;
+      if (blockIdx.y == 0) op[k * kPix] = s;
+    } else {
+      part[k * kScanCudaThreads] = s;
+    }
+  }
+}
+
+template <int kReps>
+__device__ __forceinline__ void cumprod_walk(const float* __restrict__ xp, float* part, int i0,
+                                             bool first, bool last, float* __restrict__ op,
+                                             float& total) {
+  float ci[kReps], run[kReps];
+#pragma unroll
+  for (int r = 0; r < kReps; ++r) {
+    ci[r] = rep_scale(i0 + r);
+    run[r] = 1.f;
+  }
+  float xb[kCumprodBatch];
+#pragma unroll
+  for (int j = 0; j < kCumprodBatch; ++j) xb[j] = xp[j * kPix];
+  int k0 = 0;
+#pragma unroll 1
+  for (; k0 + kCumprodBatch < kK; k0 += kCumprodBatch) {
+    float xn[kCumprodBatch];  // the next batch's x
+#pragma unroll
+    for (int j = 0; j < kCumprodBatch; ++j) xn[j] = xp[(k0 + kCumprodBatch + j) * kPix];
+    cumprod_batch<kReps, false>(xb, k0, ci, run, part, first, last, op, total);
+#pragma unroll
+    for (int j = 0; j < kCumprodBatch; ++j) xb[j] = xn[j];
+  }
+  cumprod_batch<kReps, true>(xb, k0, ci, run, part, first, last, op, total);
+}
+
+// CUDA cores, the masked cumprod: a thread per pixel, 64 a CTA, walks K
+// with up to 16 reps inside (cumprod_walk): 6 instructions an element and
+// rep (the saturating multiply and the min of alpha_sat, the mask's two
+// FMAs, the product, the add; one of them, the min, on the half-rate ALU
+// pipe), 16 on the thread's running products side by side,
+// and a few dozen registers. A
+// launch of more reps walks again, the sums of the walks before in shared
+// memory (kCumprodSmem, given only then). Its stages (enum CudaStage):
+// kCudaLoads reads x, stores it as the output (tile 0) and observes it.
+template <int kStage>
+__global__ void __launch_bounds__(kScanCudaThreads)
+cumprod_cuda_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
+                    int reps) {
+  extern __shared__ float part[];
+  const int p = blockIdx.x * kScanCudaThreads + threadIdx.x;
+  const float* xp = x + p;
+  float* op = out + p;
+  float total = 0.f;
+  if constexpr (kStage == kCudaLoads) {
+#pragma unroll 8
+    for (int k = 0; k < kK; ++k) {
+      const float v = xp[k * kPix];
+      total += v;
+      if (blockIdx.y == 0) op[k * kPix] = v;
+    }
+  } else if (reps == 0) {
+    if (blockIdx.y == 0)
+      for (int k = 0; k < kK; ++k) op[k * kPix] = 0.f;
+  } else {
+    float* my = part + threadIdx.x;
+    int i = 0;
+    for (; i + kCumprodGroup <= reps; i += kCumprodGroup)
+      cumprod_walk<kCumprodGroup>(xp, my, i, i == 0, i + kCumprodGroup == reps, op, total);
+    // the rest in walks of 8, 4, 2 and 1
+    if (reps - i >= 8) {
+      cumprod_walk<8>(xp, my, i, i == 0, i + 8 == reps, op, total);
+      i += 8;
+    }
+    if (reps - i >= 4) {
+      cumprod_walk<4>(xp, my, i, i == 0, i + 4 == reps, op, total);
+      i += 4;
+    }
+    if (reps - i >= 2) {
+      cumprod_walk<2>(xp, my, i, i == 0, i + 2 == reps, op, total);
+      i += 2;
+    }
+    if (reps - i >= 1) cumprod_walk<1>(xp, my, i, i == 0, true, op, total);
+  }
+  observe<kScanCudaThreads>(total, obs);
 }
 
 // The bf16 fragment of the lower-triangular ones L at (row r, col c) of a
@@ -1345,6 +1591,41 @@ int acc_cuda(int stage, const float* x, const float* sw, float* out, float* obs,
   }
 }
 
+int moments_bf16(int stage, const float* x, float* out, float* obs, int reps, int tiles,
+                 cudaStream_t s) {
+  switch (stage) {
+    case kBf16Full:
+      return launch(moments_bf16_kernel<kBf16Full>, kMomTcParts, kMomThreads, tiles, s, x, out,
+                    obs, reps);
+    case kBf16Loads:
+      return launch(moments_bf16_kernel<kBf16Loads>, kMomTcParts, kMomThreads, tiles, s, x, out,
+                    obs, reps);
+    case kBf16Operands:
+      return launch(moments_bf16_kernel<kBf16Operands>, kMomTcParts, kMomThreads, tiles, s, x,
+                    out, obs, reps);
+    case kBf16Products:
+      return launch(moments_bf16_kernel<kBf16Products>, kMomTcParts, kMomThreads, tiles, s, x,
+                    out, obs, reps);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the cumprod's sums of earlier walks take shared memory (below the 48 KB a
+// launch may ask for unasked) only where the reps take more than one walk
+int cumprod_cuda(int stage, const float* x, float* out, float* obs, int reps, int tiles,
+                 cudaStream_t s) {
+  const dim3 grid(kScanParts, tiles);
+  if (stage == kCudaFull) {
+    const int smem = cumprod_walks(reps) > 1 ? kCumprodSmem : 0;
+    cumprod_cuda_kernel<kCudaFull><<<grid, kScanCudaThreads, smem, s>>>(x, out, obs, reps);
+  } else if (stage == kCudaLoads) {
+    cumprod_cuda_kernel<kCudaLoads><<<grid, kScanCudaThreads, 0, s>>>(x, out, obs, reps);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 int moments_parts(int mode) {
   return mode == kCuda ? kMomCudaParts : mode == kBf16 || mode == kTf32x3 ? kMomTcParts : -1;
 }
@@ -1373,10 +1654,8 @@ extern "C" int moss_mxu_moments_parts(int mode) { return moments_parts(mode); }
 extern "C" int moss_mxu_moments(const float* x, float* out, float* obs, int reps, int tiles,
                                 int mode, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const int parts = moments_parts(mode);
   if (mode == kCuda) return moments_cuda(kCudaFull, x, out, obs, reps, tiles, s);
-  if (mode == kBf16)
-    return launch(moments_bf16_kernel, parts, kMomThreads, tiles, s, x, out, obs, reps);
+  if (mode == kBf16) return moments_bf16(kBf16Full, x, out, obs, reps, tiles, s);
   if (mode == kTf32x3) return moments_tf32x3(kTf32Full, x, out, obs, reps, tiles, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1410,9 +1689,8 @@ extern "C" int moss_mxu_scan(const float* x, float* out, float* obs, int reps, i
   const auto s = static_cast<cudaStream_t>(stream);
   const int parts = kScanParts;
   if (op == kAdd && mode == kCuda)
-    return launch(scan_cuda_kernel<kAdd>, parts, kScanCudaThreads, tiles, s, x, out, obs, reps);
-  if (op == kMul && mode == kCuda)
-    return launch(scan_cuda_kernel<kMul>, parts, kScanCudaThreads, tiles, s, x, out, obs, reps);
+    return launch(cumsum_cuda_kernel, parts, kScanCudaThreads, tiles, s, x, out, obs, reps);
+  if (op == kMul && mode == kCuda) return cumprod_cuda(kCudaFull, x, out, obs, reps, tiles, s);
   if (op == kAdd && mode == kBf16) return cumsum_stage<kBf16>(kCsFull, x, out, obs, reps, tiles, s);
   if (op == kAdd && mode == kSplit2)
     return cumsum_stage<kSplit2>(kCsFull, x, out, obs, reps, tiles, s);
@@ -1471,10 +1749,10 @@ extern "C" int moss_mxu_acc_stage(const float* x, const float* sw, float* out, f
   return acc_tf32x3(stage, x, sw, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
 }
 
-// Stage `stage` (enum CudaStage) of the CUDA-core moments or accumulator
-// kernel, launched as moss_mxu_moments or moss_mxu_acc with mode 0 is, with
-// its observer (tiles, their parts); cudaErrorInvalidValue for an unknown
-// stage.
+// Stage `stage` (enum CudaStage) of the CUDA-core moments, accumulator or
+// cumprod kernel, launched as moss_mxu_moments or moss_mxu_acc with mode 0,
+// or moss_mxu_scan with op 1 and mode 0, is, with its observer (tiles, their
+// parts); cudaErrorInvalidValue for an unknown stage.
 extern "C" int moss_mxu_moments_cuda_stage(const float* x, float* out, float* obs, int reps,
                                            int tiles, int stage, void* stream) {
   return moments_cuda(stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
@@ -1485,29 +1763,58 @@ extern "C" int moss_mxu_acc_cuda_stage(const float* x, const float* sw, float* o
   return acc_cuda(stage, x, sw, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
 }
 
-// CTAs an SM of the CUDA-core moments (family 0) or accumulator (1) kernel
-// at its block size, as the runtime's occupancy query gives them; -1 for an
-// unknown family, or the query's error negated.
-extern "C" int moss_mxu_cuda_ctas_per_sm(int family) {
+extern "C" int moss_mxu_cumprod_cuda_stage(const float* x, float* out, float* obs, int reps,
+                                           int tiles, int stage, void* stream) {
+  return cumprod_cuda(stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+}
+
+// Stage `stage` (enum Bf16Stage) of the bf16 moments kernel, launched as
+// moss_mxu_moments with mode 1 is, with its observer (tiles, its parts);
+// cudaErrorInvalidValue for an unknown stage.
+extern "C" int moss_mxu_moments_bf16_stage(const float* x, float* out, float* obs, int reps,
+                                           int tiles, int stage, void* stream) {
+  return moments_bf16(stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+}
+
+// CTAs an SM of a kernel's production form at its block size and with no
+// dynamic shared memory, as the runtime's occupancy query gives them: 0 the
+// CUDA-core moments, 1 the CUDA-core accumulators, 2 the CUDA-core cumprod
+// (its launches of at most 16 reps), 3 the bf16 moments; -1 for an unknown
+// kernel, or the query's error negated.
+extern "C" int moss_mxu_ctas_per_sm(int kernel) {
   int n = 0;
   cudaError_t e;
-  if (family == 0)
+  if (kernel == 0)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, moments_cuda_kernel<kCudaFull>,
                                                       kMomThreads, 0);
-  else if (family == 1)
+  else if (kernel == 1)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, acc_cuda_kernel<kCudaFull>,
                                                       kAccCudaThreads, 0);
+  else if (kernel == 2)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, cumprod_cuda_kernel<kCudaFull>,
+                                                      kScanCudaThreads, 0);
+  else if (kernel == 3)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, moments_bf16_kernel<kBf16Full>,
+                                                      kMomThreads, 0);
   else
     return -1;
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-// The 3xTF32 kernels' layouts, on the host, for their Python copies: family
-// 0 writes mom_pixel(w, s, col) for w < 8, s < 16, col < 8 into out (1,024
-// ints, in that order), family 1 acc_pixel(w, r) for w < 8, r < 16 (128);
-// returns the count written, -1 for an unknown family.
-extern "C" int moss_mxu_tf32x3_order(int family, int* out) {
+// The tensor-core moments' and accumulators' layouts, on the host, for
+// their Python copies: family 0 writes mom_pixel(w, s, col) for w < 8, s <
+// 16, col < 8 into out (1,024 ints, in that order), family 1 acc_pixel(w, r)
+// for w < 8, r < 16 (128), family 2 mom_bf16_pixel(w, s, col) for w < 8, s <
+// 8, col < 16 (1,024); returns the count written, -1 for an unknown family.
+extern "C" int moss_mxu_tc_order(int family, int* out) {
   constexpr int kWarps = kMomThreads / 32;
+  if (family == 2) {
+    for (int w = 0; w < kWarps; ++w)
+      for (int s = 0; s < kMomBf16Steps; ++s)
+        for (int col = 0; col < 16; ++col)
+          out[(w * kMomBf16Steps + s) * 16 + col] = mom_bf16_pixel(w, s, col);
+    return kWarps * kMomBf16Steps * 16;
+  }
   if (family == 0) {
     for (int w = 0; w < kWarps; ++w)
       for (int s = 0; s < kTf32Steps; ++s)

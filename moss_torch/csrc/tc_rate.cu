@@ -1,10 +1,12 @@
-// The tensor cores' rate at N = 8 in TF32, by instruction form, and a check
-// of what a TF32 operand register carries: the measurements that chose
-// reduce_scan.cu's 3xTF32 design (moss_torch/tools/tc_rate.py).
+// The tensor cores' rate at N = 8 in TF32 and bf16, by instruction form, and
+// a check of what a TF32 operand register carries: the measurements that
+// chose reduce_scan.cu's 3xTF32 and bf16 moments designs
+// (moss_torch/tools/tc_rate.py).
 //
 //   kMma     mma.sync m16n8k8 tf32, eight independent accumulators a warp
 //   kWgmma8  wgmma m64n8k8 tf32, A from registers, B from shared memory
 //   kWgmma16 wgmma m64n16k8 tf32, the same
+//   kMmaBf16 mma.sync m16n8k16 bf16, eight independent accumulators a warp
 //
 // Each warp (or warpgroup) runs `iters` rounds of eight products on
 // constant operands (a round of wgmmas is one commit group, one group kept in
@@ -21,7 +23,10 @@
 
 namespace {
 
-enum Form { kMma = 0, kWgmma8 = 1, kWgmma16 = 2, kNone = 3 };
+enum Form { kMma = 0, kWgmma8 = 1, kWgmma16 = 2, kNone = 3, kMmaBf16 = 4 };
+// the operand work beside the products: none, the 3xTF32 split, or the bf16
+// moments' x + i and packs
+enum Work { kNoWork = 0, kSplitWork = 1, kBf16Work = 2 };
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -29,6 +34,20 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
                "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
                : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 // d (64 x N) += a (64 x 8, registers: warp w rows 16 w + the mma.sync
@@ -63,12 +82,16 @@ __device__ __forceinline__ uint64_t b_desc(const void* p) {
          (static_cast<uint64_t>(256 >> 4) << 32);
 }
 
-// A round: eight products of kForm (none for kNone) and, with kSplit, the
-// 3xTF32 split of eight values (reduce_scan.cu's split_operand, 5
-// instructions each, and an add into a sum: the operand work that goes with
-// eight products in the 3xTF32 kernels, 6 an element against their 7), on
-// registers the products do not read, so the two can overlap.
-template <int kForm, bool kSplit>
+// A round: eight products of kForm (none for kNone) and the operand work
+// kWork, on registers the products do not read, so the two can overlap:
+// kSplitWork the 3xTF32 split of eight values (reduce_scan.cu's
+// split_operand, 5 instructions each, and an add into a sum: the operand
+// work that goes with eight products in the 3xTF32 kernels, 6 an element
+// against their 7); kBf16Work the bf16 moments' work for eight m16n8k16
+// products, 64 values x + i rounded into 32 bf16 pairs (64 adds, 32
+// cvt.rn.bf16x2, as moments_bf16_kernel's A fragments take them), the pairs
+// folded by xor into a sum (16 three-input LOP3s on the integer pipe).
+template <int kForm, int kWork>
 __global__ void __launch_bounds__(256) rate_kernel(float* out, int iters) {
   constexpr int kN = kForm == kWgmma16 ? 16 : 8;
   __shared__ __align__(128) float bs[16 * 8];
@@ -77,7 +100,8 @@ __global__ void __launch_bounds__(256) rate_kernel(float* out, int iters) {
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const uint32_t one = __float_as_uint(1.f);
-  const uint32_t a[4] = {__float_as_uint(1.f + lane), one, one, one};
+  const uint32_t a[4] = {kForm == kMmaBf16 ? pack_bf16(1.f + lane, 1.f) : __float_as_uint(1.f + lane),
+                         one, one, one};
   float d[8][kN / 2];  // mma.sync: eight accumulators; wgmma: eight, one group
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -86,11 +110,18 @@ __global__ void __launch_bounds__(256) rate_kernel(float* out, int iters) {
   float xs[8], sums[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) xs[j] = 0.001f * (lane + 32 * j), sums[j] = 0.f;
+  float xb[32];  // the bf16 work's values: 64 sums a round from these and two offsets
+#pragma unroll
+  for (int j = 0; j < 32; ++j) xb[j] = kWork == kBf16Work ? 0.001f * (lane + 32 * j) : 0.f;
+  uint32_t folded = 0u;
   const uint64_t desc = b_desc(bs);
   for (int it = 0; it < iters; ++it) {
     if constexpr (kForm == kMma) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) mma_tf32(d[j], a, one, one);
+    } else if constexpr (kForm == kMmaBf16) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma_bf16(d[j], a, a[0], a[0]);
     } else if constexpr (kForm != kNone) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) fence_regs(d[j]);
@@ -101,7 +132,19 @@ __global__ void __launch_bounds__(256) rate_kernel(float* out, int iters) {
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     }
-    if constexpr (kSplit) {
+    if constexpr (kWork == kBf16Work) {
+      const float f[2] = {static_cast<float>(it), static_cast<float>(it) + 0.5f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // product j's A: values xb[8 (j / 2) + e] + f[j % 2]
+        const float* v = xb + 8 * (j >> 1);
+        const float fj = f[j & 1];
+        const uint32_t p0 = pack_bf16(v[0] + fj, v[1] + fj), p1 = pack_bf16(v[2] + fj, v[3] + fj);
+        const uint32_t p2 = pack_bf16(v[4] + fj, v[5] + fj), p3 = pack_bf16(v[6] + fj, v[7] + fj);
+        folded ^= p0 ^ p1;
+        folded ^= p2 ^ p3;
+      }
+    }
+    if constexpr (kWork == kSplitWork) {
       const float fi = static_cast<float>(it);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -119,7 +162,7 @@ __global__ void __launch_bounds__(256) rate_kernel(float* out, int iters) {
   }
   if constexpr (kForm == kWgmma8 || kForm == kWgmma16)
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  float s = 0.f;
+  float s = __uint_as_float(folded & 0x3fffffffu);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     s += sums[j];
@@ -161,20 +204,33 @@ __global__ void low_bits_kernel(const float* a, const float* b, float* d) {
 }  // namespace
 
 // Launch `blocks` CTAs of `threads` (a multiple of 128, at most 256) of form
-// `form` (enum Form), with the split's operand work if `split`, for `iters`
-// rounds; out takes 256 floats. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an unknown form (kNone takes split = 1).
-extern "C" int moss_tc_rate(int form, int split, float* out, int blocks, int threads, int iters,
+// `form` (enum Form) with the operand work `work` (enum Work) beside it, for
+// `iters` rounds; out takes 256 floats. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unknown pair: the TF32 forms take work 0 or
+// 1, kMmaBf16 0 or 2, kNone 1 or 2.
+extern "C" int moss_tc_rate(int form, int work, float* out, int blocks, int threads, int iters,
                             void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const dim3 g(blocks), b(threads);
-  if (form == kMma && !split) rate_kernel<kMma, false><<<g, b, 0, s>>>(out, iters);
-  else if (form == kMma) rate_kernel<kMma, true><<<g, b, 0, s>>>(out, iters);
-  else if (form == kWgmma8 && !split) rate_kernel<kWgmma8, false><<<g, b, 0, s>>>(out, iters);
-  else if (form == kWgmma8) rate_kernel<kWgmma8, true><<<g, b, 0, s>>>(out, iters);
-  else if (form == kWgmma16 && !split) rate_kernel<kWgmma16, false><<<g, b, 0, s>>>(out, iters);
-  else if (form == kWgmma16) rate_kernel<kWgmma16, true><<<g, b, 0, s>>>(out, iters);
-  else if (form == kNone && split) rate_kernel<kNone, true><<<g, b, 0, s>>>(out, iters);
+  if (form == kMma && work == kNoWork) rate_kernel<kMma, kNoWork><<<g, b, 0, s>>>(out, iters);
+  else if (form == kMma && work == kSplitWork)
+    rate_kernel<kMma, kSplitWork><<<g, b, 0, s>>>(out, iters);
+  else if (form == kWgmma8 && work == kNoWork)
+    rate_kernel<kWgmma8, kNoWork><<<g, b, 0, s>>>(out, iters);
+  else if (form == kWgmma8 && work == kSplitWork)
+    rate_kernel<kWgmma8, kSplitWork><<<g, b, 0, s>>>(out, iters);
+  else if (form == kWgmma16 && work == kNoWork)
+    rate_kernel<kWgmma16, kNoWork><<<g, b, 0, s>>>(out, iters);
+  else if (form == kWgmma16 && work == kSplitWork)
+    rate_kernel<kWgmma16, kSplitWork><<<g, b, 0, s>>>(out, iters);
+  else if (form == kMmaBf16 && work == kNoWork)
+    rate_kernel<kMmaBf16, kNoWork><<<g, b, 0, s>>>(out, iters);
+  else if (form == kMmaBf16 && work == kBf16Work)
+    rate_kernel<kMmaBf16, kBf16Work><<<g, b, 0, s>>>(out, iters);
+  else if (form == kNone && work == kSplitWork)
+    rate_kernel<kNone, kSplitWork><<<g, b, 0, s>>>(out, iters);
+  else if (form == kNone && work == kBf16Work)
+    rate_kernel<kNone, kBf16Work><<<g, b, 0, s>>>(out, iters);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

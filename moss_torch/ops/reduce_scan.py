@@ -44,12 +44,18 @@ exps alone). tf32x3_stage does the same for the 3xTF32 moments and
 accumulators (TF32X3_STAGES: the products on an
 operand split once, the split alone), whose kernels take the contraction
 axis in the order mom_pixel and acc_pixel give (the C library's
-moss_mxu_tf32x3_order reports it), and cuda_stage for the CUDA-core moments
-and accumulators (CUDA_STAGES: the chunk's read, the store and the observer
-alone). The CUDA-core moments sum each column's 8 rows weighted by 1, py
-and py^2, then the columns weighted by px (kern_moments_vpu's order); the
-CUDA-core accumulators are register-blocked, a lane 4 pixels and a warp 16
-splats, the warps' partial sums added in warp order.
+moss_mxu_tc_order reports it), bf16_stage for the bf16 moments
+(BF16_STAGES: the chunk's read, the operand work and the products alone),
+whose kernel takes the pixels in mom_bf16_pixel's order, and cuda_stage for
+the CUDA-core moments, accumulators and cumprod (CUDA_STAGES: the chunk's
+read, the store and the observer alone). The CUDA-core moments sum each
+column's 8 rows weighted by 1, py and py^2, then the columns weighted by px
+(kern_moments_vpu's order); the CUDA-core accumulators are register-blocked,
+a lane 4 pixels and a warp 16 splats, the warps' partial sums added in warp
+order; the CUDA-core cumprod walks the splats with up to CUMPROD_GROUP reps
+side by side, which leaves each output's sum over reps in rep order.
+ctas_per_sm gives the occupancy of the CUDA-core kernels and the bf16
+moments.
 
 A kernel launch runs TILES identical copies of the chunk (the TPU's grid
 of TILES = 256 programs); only tile 0 stores the output, and every CTA
@@ -82,7 +88,8 @@ scan_launches = 0     # moss_mxu_scan
 stage_launches = 0    # moss_mxu_scan_stage
 cumsum_stage_launches = 0  # moss_mxu_cumsum_stage
 tf32x3_stage_launches = 0  # moss_mxu_moments_stage, moss_mxu_acc_stage
-cuda_stage_launches = 0  # moss_mxu_moments_cuda_stage, moss_mxu_acc_cuda_stage
+cuda_stage_launches = 0  # moss_mxu_{moments,acc,cumprod}_cuda_stage
+bf16_stage_launches = 0  # moss_mxu_moments_bf16_stage
 # launches of each of RUNS's forms through its family's wrapper, by run name
 form_launches = {}
 
@@ -105,13 +112,24 @@ TF32X3_STAGES = ("full", "products", "split")
 # a warp walks in a rep, pixels a moments warp covers
 TF32X3_WARPS, TF32X3_STEPS, MOM_SLICE = 8, 16, 128
 
-# the CUDA-core moments and accumulator kernels' stages, by their code in
-# csrc/reduce_scan.cu (enum CudaStage)
+# the CUDA-core moments, accumulator and cumprod kernels' stages, by their
+# code in csrc/reduce_scan.cu (enum CudaStage)
 CUDA_STAGES = ("full", "loads")
-# their shapes (csrc/reduce_scan.cu): warps a CTA of either kernel, adjacent
-# pixel columns a moments lane takes, splats an accumulator warp takes and
-# adjacent pixels an accumulator lane takes
+CUDA_FAMILIES = ("moments", "acc", "cumprod")
+# their shapes (csrc/reduce_scan.cu): warps a CTA of the moments and
+# accumulator kernels, adjacent pixel columns a moments lane takes, splats an
+# accumulator warp takes and adjacent pixels an accumulator lane takes; reps
+# a cumprod walk carries at most and splats a cumprod thread loads ahead
 CUDA_WARPS, MOM_CUDA_COLS, ACC_CUDA_SPLATS, ACC_CUDA_PIX = 8, 4, 16, 4
+CUMPROD_GROUP, CUMPROD_BATCH = 16, 8
+
+# the bf16 moments kernel's stages, by their code in csrc/reduce_scan.cu (enum
+# Bf16Stage), its k-steps of 16 pixels a warp walks in a rep (8 warps a CTA,
+# TF32X3_WARPS) and the reps whose product chains run side by side
+BF16_STAGES = ("full", "loads", "operands", "products")
+MOM_BF16_STEPS, MOM_BF16_IN_FLIGHT = 8, 2
+# the kernels ctas_per_sm knows, in the order of moss_mxu_ctas_per_sm's codes
+CTAS_KERNELS = ("moments_cuda", "acc_cuda", "cumprod_cuda", "moments_bf16")
 
 MODES = ("cuda", "bf16", "tf32x3")
 SCAN_MODES = {"add": ("cuda", "bf16", "split2"), "mul": ("cuda", "split2")}
@@ -149,6 +167,8 @@ _SIGNATURES = {  # pointers, then reps, tiles, [op,] [mode]
     "moss_mxu_acc_stage": [_PTR] * 4 + [_INT] * 3,
     "moss_mxu_moments_cuda_stage": [_PTR] * 3 + [_INT] * 3,
     "moss_mxu_acc_cuda_stage": [_PTR] * 4 + [_INT] * 3,
+    "moss_mxu_cumprod_cuda_stage": [_PTR] * 3 + [_INT] * 3,
+    "moss_mxu_moments_bf16_stage": [_PTR] * 3 + [_INT] * 3,
 }
 
 
@@ -267,17 +287,39 @@ def tf32x3_order_plain(family: str):
     return torch.tensor([[acc_pixel(w, r) for r in range(16)] for w in range(TF32X3_WARPS)])
 
 
-def tf32x3_order(family: str):
-    """The C library's tables of tf32x3_order_plain (moss_mxu_tf32x3_order)."""
-    code = {"moments": 0, "acc": 1}[family]
-    want = tf32x3_order_plain(family)
+def mom_bf16_pixel(w: int, s: int, col: int) -> int:
+    """csrc/reduce_scan.cu::mom_bf16_pixel: the pixel of column col (0-15) of
+    k-step s in warp w's slice of the bf16 moments kernel; lane t's columns
+    2t, 2t + 1, 2t + 8, 2t + 9 are four adjacent pixels."""
+    return MOM_SLICE * w + 16 * s + 4 * ((col & 7) >> 1) + (col & 1) + 2 * (col >> 3)
+
+
+def bf16_order_plain():
+    """mom_bf16_pixel over (warp, k-step, column), (8, 8, 16)."""
+    return torch.tensor([[[mom_bf16_pixel(w, s, c) for c in range(16)]
+                          for s in range(MOM_BF16_STEPS)] for w in range(TF32X3_WARPS)])
+
+
+def _c_order(code: int, want):
+    """The C library's table of family `code` (moss_mxu_tc_order), shaped as
+    its Python copy `want`."""
     buf = (ctypes.c_int * want.numel())()
-    fn = cuda_build.load("reduce_scan").moss_mxu_tf32x3_order
+    fn = cuda_build.load("reduce_scan").moss_mxu_tc_order
     fn.argtypes, fn.restype = [_INT, ctypes.POINTER(ctypes.c_int)], _INT
     n = fn(code, buf)
     if n != want.numel():
-        raise ValueError(f"moss_mxu_tf32x3_order({code}) wrote {n} entries, not {want.numel()}")
+        raise ValueError(f"moss_mxu_tc_order({code}) wrote {n} entries, not {want.numel()}")
     return torch.tensor(list(buf)).reshape(want.shape)
+
+
+def tf32x3_order(family: str):
+    """The C library's tables of tf32x3_order_plain."""
+    return _c_order({"moments": 0, "acc": 1}[family], tf32x3_order_plain(family))
+
+
+def bf16_order():
+    """The C library's table of bf16_order_plain."""
+    return _c_order(2, bf16_order_plain())
 
 
 def _slot_column(col):
@@ -655,22 +697,25 @@ def tf32x3_stage(family: str, x, s, stage: str, reps: int = REPS):
 
 
 def _cuda_stage_args(family, stage, what):
-    if family not in ("moments", "acc"):
-        raise ValueError(f"{what}: family {family!r} is not 'moments' or 'acc'")
+    if family not in CUDA_FAMILIES:
+        raise ValueError(f"{what}: family {family!r} is not one of {CUDA_FAMILIES}")
     if stage not in CUDA_STAGES:
         raise ValueError(f"{what}: stage {stage!r}: expected one of {CUDA_STAGES}")
 
 
 def cuda_stage_plain(family: str, x, s, stage: str, reps: int = REPS):
-    """What stage `stage` of the CUDA-core moments ("moments") or accumulator
-    ("acc") kernel returns: "full" the function (moments_plain, acc_plain
-    at mode "cuda"); "loads" the sum of x over the contracted axis in the
+    """What stage `stage` of the CUDA-core moments ("moments"), accumulator
+    ("acc") or cumprod ("cumprod") kernel returns: "full" the function
+    (moments_plain, acc_plain at mode "cuda", scan_plain at op "mul");
+    "loads" for the contractions the sum of x over the contracted axis in the
     first output, the moments' columns 0 and 6 (S0) or the accumulators'
-    rows 0 and 5, every other output 0, whatever `reps`."""
+    rows 0 and 5, every other output 0, for the cumprod x itself, whatever
+    `reps`."""
     _cuda_stage_args(family, stage, "cuda_stage_plain")
     if stage == "full":
-        return (moments_plain(x, reps, "cuda") if family == "moments"
-                else acc_plain(x, s, reps, "cuda"))
+        return run_plain(f"{family}_cuda", x, s, reps)
+    if family == "cumprod":
+        return x.clone()
     g0, lead = _rows(x)
     if family == "moments":
         out = torch.zeros((*lead, K, 8), device=x.device)
@@ -682,8 +727,8 @@ def cuda_stage_plain(family: str, x, s, stage: str, reps: int = REPS):
 
 
 def cuda_stage(family: str, x, s, stage: str, reps: int = REPS):
-    """(out, observer) of stage `stage` of the CUDA-core moments or
-    accumulator kernel: "full" is that kernel (mode "cuda"), "loads" leaves
+    """(out, observer) of stage `stage` of the CUDA-core moments, accumulator
+    or cumprod kernel: "full" is that kernel (mode "cuda"), "loads" leaves
     out the reps, so its time says what the chunk's read, the store and the
     observer cost. s is read by "acc" only. Counted in
     `cuda_stage_launches`; on a CPU tensor, cuda_stage_plain."""
@@ -693,10 +738,11 @@ def cuda_stage(family: str, x, s, stage: str, reps: int = REPS):
     if x.device.type == "cpu":
         return cuda_stage_plain(family, x, s, stage, reps), None
     symbol = f"moss_mxu_{family}_cuda_stage"
-    out = torch.empty((K, 8) if family == "moments" else (8, H, W), dtype=torch.float32,
-                      device=x.device)
-    obs = torch.empty((TILES, _parts(f"moss_mxu_{family}", _MODE_CODE["cuda"])),
+    out = torch.empty({"moments": (K, 8), "acc": (8, H, W), "cumprod": (K, H, W)}[family],
                       dtype=torch.float32, device=x.device)
+    parts = (_parts("moss_mxu_scan", _OP_CODE["mul"], _MODE_CODE["cuda"]) if family == "cumprod"
+             else _parts(f"moss_mxu_{family}", _MODE_CODE["cuda"]))
+    obs = torch.empty((TILES, parts), dtype=torch.float32, device=x.device)
     ptrs = [x.data_ptr()] + ([s.data_ptr()] if family == "acc" else [])
     cuda_build.launch("reduce_scan", symbol, _SIGNATURES[symbol], x.device, *ptrs, out.data_ptr(),
                       obs.data_ptr(), reps, TILES, CUDA_STAGES.index(stage))
@@ -704,14 +750,69 @@ def cuda_stage(family: str, x, s, stage: str, reps: int = REPS):
     return out, obs
 
 
-def cuda_ctas_per_sm(family: str) -> int:
-    """CTAs an SM of the CUDA-core moments or accumulator kernel, from the
-    C library's occupancy query (moss_mxu_cuda_ctas_per_sm); needs a card."""
-    fn = cuda_build.load("reduce_scan").moss_mxu_cuda_ctas_per_sm
+def _bf16_stage_args(stage, what):
+    if stage not in BF16_STAGES:
+        raise ValueError(f"{what}: stage {stage!r}: expected one of {BF16_STAGES}")
+
+
+def bf16_stage_plain(x, stage: str, reps: int = REPS):
+    """What stage `stage` of the bf16 moments kernel returns, (K, 8): "full"
+    the moments at mode "bf16" (moments_plain); "loads" x summed into column
+    2t over the pixels p with (p % 16) // 4 == t (lane t's of every k-step,
+    mom_bf16_pixel), the odd columns 0, whatever `reps`; "operands" the sum
+    over reps of the pair registers of v = x + i (_pair_register): of pixels
+    p, p + 1 into column 2t, of p + 2, p + 3 into column 2t + 1, p = 16 j + 4 t;
+    "products" the reps' sums of bf16(x) @ bf16(basis), x rounded once."""
+    _bf16_stage_args(stage, "bf16_stage_plain")
+    if stage == "full":
+        return moments_plain(x, reps, "bf16")
+    g0, lead = _rows(x)
+    out = torch.zeros((*lead, K, 8), device=x.device)
+    if stage == "loads":
+        out[..., 0::2] = g0.reshape(*lead, K, PIX // 16, 4, 4).sum((-3, -1))
+        return out
+    if stage == "products":
+        cs = _mm(g0, basis(x.device), "bf16")
+        for _ in range(reps):
+            out = out + cs
+        return out
+    for i in range(reps):
+        hi = round_bf16(g0 + float(i)).reshape(*lead, K, PIX // 16, 4, 4)
+        pairs = torch.stack([_pair_register(hi[..., 0], hi[..., 1]),
+                             _pair_register(hi[..., 2], hi[..., 3])], -1)  # (.., K, j, t, 2)
+        out = out + pairs.sum(-3).reshape(*lead, K, 8)
+    return out
+
+
+def bf16_stage(x, stage: str, reps: int = REPS):
+    """(out (K, 8), observer) of stage `stage` of the bf16 moments kernel:
+    "full" is that kernel (moments at mode "bf16"), the others leave out
+    part of its work, so their times say what holds it back. Counted in
+    `bf16_stage_launches`; on a CPU tensor, bf16_stage_plain."""
+    global bf16_stage_launches
+    _bf16_stage_args(stage, "bf16_stage")
+    _check(x, reps, "bf16_stage")
+    if x.device.type == "cpu":
+        return bf16_stage_plain(x, stage, reps), None
+    out = torch.empty((K, 8), dtype=torch.float32, device=x.device)
+    obs = torch.empty((TILES, _parts("moss_mxu_moments", _MODE_CODE["bf16"])),
+                      dtype=torch.float32, device=x.device)
+    cuda_build.launch("reduce_scan", "moss_mxu_moments_bf16_stage",
+                      _SIGNATURES["moss_mxu_moments_bf16_stage"], x.device, x.data_ptr(),
+                      out.data_ptr(), obs.data_ptr(), reps, TILES, BF16_STAGES.index(stage))
+    bf16_stage_launches += 1
+    return out, obs
+
+
+def ctas_per_sm(name: str) -> int:
+    """CTAs an SM of the kernel of run `name` (one of CTAS_KERNELS) at its
+    production launch of REPS, from the C library's occupancy query
+    (moss_mxu_ctas_per_sm); needs a card."""
+    fn = cuda_build.load("reduce_scan").moss_mxu_ctas_per_sm
     fn.argtypes, fn.restype = [_INT], _INT
-    n = fn({"moments": 0, "acc": 1}[family])
+    n = fn(CTAS_KERNELS.index(name))
     if n <= 0:
-        raise RuntimeError(f"moss_mxu_cuda_ctas_per_sm({family}) returned {n}")
+        raise RuntimeError(f"moss_mxu_ctas_per_sm({name}) returned {n}")
     return n
 
 
@@ -753,7 +854,7 @@ def launch_counts():
 
 def reset_launch_counts():
     global moments_launches, reshape_launches, acc_launches, scan_launches, stage_launches
-    global tf32x3_stage_launches, cumsum_stage_launches, cuda_stage_launches
+    global tf32x3_stage_launches, cumsum_stage_launches, cuda_stage_launches, bf16_stage_launches
     moments_launches = reshape_launches = acc_launches = scan_launches = stage_launches = 0
-    tf32x3_stage_launches = cumsum_stage_launches = cuda_stage_launches = 0
+    tf32x3_stage_launches = cumsum_stage_launches = cuda_stage_launches = bf16_stage_launches = 0
     form_launches.clear()

@@ -18,10 +18,12 @@ and the tensor-core forms of the accumulators and scans against the
 CUDA-core forms; and the stages of the tensor-core cumsums (the products and
 carry on an operand made once, the operand work alone, the other carry,
 ops.reduce_scan.CUMSUM_STAGES), of the log-space cumprod kernel (products,
-logs and exps alone, ops.reduce_scan.SCAN_STAGES) and of the 3xTF32 moments
+logs and exps alone, ops.reduce_scan.SCAN_STAGES), of the 3xTF32 moments
 and accumulator kernels (the products on an operand split once, the split
-alone, ops.reduce_scan.TF32X3_STAGES) and of the CUDA-core moments and
-accumulator kernels (the chunk's read, the store and the observer alone,
+alone, ops.reduce_scan.TF32X3_STAGES), of the bf16 moments kernel (the
+chunk's read, the operand work and the products alone,
+ops.reduce_scan.BF16_STAGES) and of the CUDA-core moments, accumulator and
+cumprod kernels (the chunk's read, the store and the observer alone,
 ops.reduce_scan.CUDA_STAGES), each against its plain version and timed,
 which say what holds them back.
 
@@ -284,13 +286,28 @@ def tf32x3_stages(x, s, time_ms, timing=None):
     return rows
 
 
+def bf16_stages(x, time_ms, timing=None):
+    """The bf16 moments kernel's stages (rs.BF16_STAGES) on the chunk: each
+    against its plain version (raising past RTOL of the max), its observers
+    equal across tiles, its ms; {stage: row}."""
+    rows = {}
+    for stage in rs.BF16_STAGES:
+        out, obs = rs.bf16_stage(x, stage)
+        row = _stage_row(f"moments bf16 stage {stage}", out, obs, rs.bf16_stage_plain(x, stage),
+                         lambda: rs.bf16_stage(x, stage), time_ms, timing)
+        rows[stage] = row
+        print(f"moments TC bf16 stage {stage:8s} {row['ms']:8.4f} ms  err "
+              f"{row['scaled_err']:.1e}")
+    return rows
+
+
 def cuda_stages(x, s, time_ms, timing=None):
-    """The CUDA-core moments and accumulator kernels' stages
+    """The CUDA-core moments, accumulator and cumprod kernels' stages
     (rs.CUDA_STAGES) on the chunk: each against its plain version (raising
     past RTOL of the max), its observers equal across tiles, its ms;
     {family: {stage: row}}."""
     rows = {}
-    for family in ("moments", "acc"):
+    for family in rs.CUDA_FAMILIES:
         rows[family] = {}
         for stage in rs.CUDA_STAGES:
             out, obs = rs.cuda_stage(family, x, s, stage)
@@ -360,6 +377,7 @@ def main(device=None, timing=None, tiles=TILES):
             "numeric": numeric_lines(outs, x), "cumsum_stages": cumsum_stages(x, time_ms, timing),
             "scan_stages": scan_stages(x, time_ms, timing),
             "tf32x3_stages": tf32x3_stages(x, s, time_ms, timing),
+            "bf16_stages": bf16_stages(x, time_ms, timing),
             "cuda_stages": cuda_stages(x, s, time_ms, timing)}
 
 

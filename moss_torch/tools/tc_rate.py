@@ -1,16 +1,19 @@
-"""The tensor cores' TF32 rate at N = 8 by instruction form, and what a TF32
-operand register carries: csrc/tc_rate.cu.
+"""The tensor cores' TF32 and bf16 rates at N = 8 by instruction form, and
+what a TF32 operand register carries: csrc/tc_rate.cu.
 
-The 3xTF32 moments and accumulators of csrc/reduce_scan.cu multiply by a
-matrix only 8 wide (the basis, or s). This tool measures the rate at which
-the two product instructions Hopper offers run at that width, on constant
-operands with nothing else in the kernel: mma.sync m16n8k8 (eight
+The tensor-core moments and accumulators of csrc/reduce_scan.cu multiply by
+a matrix only 8 wide (the basis, or s). This tool measures the rate at which
+the product instructions Hopper offers run at that width, on constant
+operands with nothing else in the kernel: in TF32 mma.sync m16n8k8 (eight
 independent accumulators a warp) and wgmma m64n8k8 and m64n16k8 (A from
 registers, B from shared memory, eight products a commit group, one group
-in flight), each at 1-4 CTAs of 256 threads an SM. Then each again with the
-3xTF32 split's operand work beside the products (6 instructions an element,
-8 elements a round of 8 products, on registers the products do not read),
-and that work alone: whether the form lets the two overlap. And it checks, on random
+in flight), in bf16 mma.sync m16n8k16 (the bf16 moments' product), each at
+1-4 CTAs of 256 threads an SM. Then each again with its kernels' operand
+work beside the products, on registers the products do not read: for TF32
+the 3xTF32 split (6 instructions an element, 8 elements a round of 8
+products), for bf16 the bf16 moments' x + i and packs (64 adds and 32
+cvt.rn.bf16x2 a round of 8 products, folded by xor); and that work alone:
+whether the form lets the two overlap. And it checks, on random
 operands, that an m16n8k8 product of the unmasked bits(v) + 0x1000 that
 reduce_scan.cu's split_operand hands the tensor cores is bitwise the product
 of cvt.rna.tf32.f32(v): that the tensor cores read only a TF32 operand's 19
@@ -18,8 +21,9 @@ high bits.
 
     python -m moss_torch.tools.tc_rate
 
-Runs on the GPU only; prints a line per form, split work and CTA count, the
-check, and the card's name and power limit.
+Runs on the GPU only; prints a line per form and CTA count (alone, with its
+operand work, the work alone), the check, and the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -33,11 +37,17 @@ from .. import resolve_device
 from ..ops import cuda_build
 from .timing import cuda_ms
 
-PEAK_TF32 = 495e12  # H100 SXM, dense (NVIDIA datasheet)
-FORMS = {"mma_m16n8k8": 0, "wgmma_m64n8k8": 1, "wgmma_m64n16k8": 2}
-SPLIT_ALONE = 3  # csrc/tc_rate.cu kNone: the split's operand work and no products
+PEAK_TF32, PEAK_BF16 = 495e12, 989e12  # H100 SXM, dense (NVIDIA datasheet)
+FORMS = {"mma_m16n8k8": 0, "wgmma_m64n8k8": 1, "wgmma_m64n16k8": 2, "mma_bf16_m16n8k16": 4}
+WORK_ALONE = 3  # csrc/tc_rate.cu kNone: operand work and no products
+# csrc/tc_rate.cu enum Work: the 3xTF32 split, the bf16 moments' x + i and packs
+WORK = {"split": 1, "bf16": 2}
+# each form's peak and the operand work of the kernels that take it
+PEAK = {f: PEAK_BF16 if "bf16" in f else PEAK_TF32 for f in FORMS}
+FORM_WORK = {f: "bf16" if "bf16" in f else "split" for f in FORMS}
 # multiply-adds of one instruction of a warp (mma.sync) or a warpgroup (wgmma)
-MACS = {"mma_m16n8k8": 16 * 8 * 8, "wgmma_m64n8k8": 64 * 8 * 8, "wgmma_m64n16k8": 64 * 16 * 8}
+MACS = {"mma_m16n8k8": 16 * 8 * 8, "wgmma_m64n8k8": 64 * 8 * 8, "wgmma_m64n16k8": 64 * 16 * 8,
+        "mma_bf16_m16n8k16": 16 * 8 * 16}
 THREADS, ITERS, SMS = 256, 2048, 132
 CTAS_PER_SM = (1, 2, 4)
 LOW_BITS_DRAWS = 16
@@ -56,15 +66,15 @@ def tflops(form: str, ms: float, blocks: int, threads: int = THREADS, iters: int
     return 2 * MACS[form] * 8 * iters * issuers * blocks / (ms * 1e-3) / 1e12
 
 
-def rate(form, blocks: int, device, split: bool = False, out=None):
-    """One launch of `form` (a name of FORMS, or None for the split alone),
-    with the split's operand work if `split`, over `blocks` CTAs; returns the
-    output buffer."""
+def rate(form, blocks: int, device, work=None, out=None):
+    """One launch of `form` (a name of FORMS, or None for the work alone),
+    with the operand work `work` (a name of WORK, or None) beside it, over
+    `blocks` CTAs; returns the output buffer."""
     global rate_launches
     out = torch.empty(THREADS, dtype=torch.float32, device=device) if out is None else out
-    code = SPLIT_ALONE if form is None else FORMS[form]
+    code = WORK_ALONE if form is None else FORMS[form]
     cuda_build.launch("tc_rate", "moss_tc_rate", [_INT, _INT, _PTR, _INT, _INT, _INT], device,
-                      code, int(split or form is None), out.data_ptr(), blocks, THREADS, ITERS)
+                      code, WORK[work] if work else 0, out.data_ptr(), blocks, THREADS, ITERS)
     rate_launches += 1
     return out
 
@@ -89,8 +99,8 @@ def low_bits(device, seed=0):
 
 def main(device=None):
     """{"low_bits_max_abs_diff", "rates": {form: {ctas_per_sm: {ms, tflops,
-    share_of_peak, ms_with_split}}}, "split_alone_ms": {ctas_per_sm: ms},
-    "nvidia_smi"}."""
+    share_of_peak, work, ms_with_work}}}, "work_alone_ms": {work:
+    {ctas_per_sm: ms}}, "nvidia_smi"}."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("tc_rate measures the tensor cores: it needs a CUDA device")
@@ -101,24 +111,28 @@ def main(device=None):
     if diff != 0.0:
         raise AssertionError("the tensor cores read a TF32 operand's low 13 bits")
     out = torch.empty(THREADS, dtype=torch.float32, device=dev)
-    def time(form, blocks, split):
-        return cuda_ms(lambda: rate(form, blocks, dev, split, out), n=5, reps=2, warmup=1)
+    def time(form, blocks, work):
+        return cuda_ms(lambda: rate(form, blocks, dev, work, out), n=5, reps=2, warmup=1)
 
-    alone = {per_sm: time(None, per_sm * SMS, True) for per_sm in CTAS_PER_SM}
+    alone = {work: {per_sm: time(None, per_sm * SMS, work) for per_sm in CTAS_PER_SM}
+             for work in WORK}
     rates = {}
     for form in FORMS:
         rates[form] = {}
+        work = FORM_WORK[form]
         for per_sm in CTAS_PER_SM:
             blocks = per_sm * SMS
-            ms, with_split = time(form, blocks, False), time(form, blocks, True)
+            ms, with_work = time(form, blocks, None), time(form, blocks, work)
             tf = tflops(form, ms, blocks)
-            rates[form][per_sm] = {"ms": ms, "tflops": tf, "share_of_peak": tf * 1e12 / PEAK_TF32,
-                                   "ms_with_split": with_split}
-            print(f"{form:15s} {per_sm} CTA(s) of {THREADS} an SM: {ms:8.4f} ms  {tf:6.1f} "
-                  f"TFLOP/s  ({100 * tf * 1e12 / PEAK_TF32:.1f}% of the TF32 peak); with the "
-                  f"split {with_split:.4f} ms, the split alone {alone[per_sm]:.4f}", flush=True)
+            share = tf * 1e12 / PEAK[form]
+            rates[form][per_sm] = {"ms": ms, "tflops": tf, "share_of_peak": share, "work": work,
+                                   "ms_with_work": with_work}
+            print(f"{form:17s} {per_sm} CTA(s) of {THREADS} an SM: {ms:8.4f} ms  {tf:6.1f} "
+                  f"TFLOP/s  ({100 * share:.1f}% of the {'bf16' if 'bf16' in form else 'TF32'} "
+                  f"peak); with the {work} work {with_work:.4f} ms, the work alone "
+                  f"{alone[work][per_sm]:.4f}", flush=True)
     print(smi, flush=True)
-    return {"low_bits_max_abs_diff": diff, "rates": rates, "split_alone_ms": alone,
+    return {"low_bits_max_abs_diff": diff, "rates": rates, "work_alone_ms": alone,
             "nvidia_smi": smi}
 
 

@@ -30,9 +30,11 @@ their plain version.
 Reductions and scans: max |out - plain| <= 1e-5 max |plain|, the plain version
 rounding a tensor-core form's operands as its kernel does; observers bitwise
 equal across tiles; the same for the stages of the tensor-core cumsums, of the
-log-space cumprod kernel, of the CUDA-core moments and accumulator kernels (at least two
-CTAs an SM) and of the 3xTF32 moments and accumulator kernels, whose layout tables are
-the C library's and whose unmasked TF32 operands the tensor cores read as
+log-space cumprod kernel, of the CUDA-core moments, accumulator and cumprod kernels and
+of the bf16 moments (at least two CTAs an SM; the last two also at REPS / 3 and 4 REPS,
+where they walk or pair their reps otherwise) and of the 3xTF32 moments and
+accumulator kernels; the tensor-core moments' and accumulators' layout tables are
+the C library's, and the tensor cores read the unmasked TF32 operands as
 cvt.rna's, bit for bit (csrc/tc_rate.cu). The
 f32 conv also at the VGG16 layers, bitwise repeatable, its tile table the C
 library's.
@@ -623,12 +625,12 @@ def test_tf32x3_stage_matches_plain(cuda_device, family, stage, reps):
 @pytest.mark.cuda
 @pytest.mark.parametrize("reps", [rs.REPS, 3])
 @pytest.mark.parametrize("stage", rs.CUDA_STAGES)
-@pytest.mark.parametrize("family", ["moments", "acc"])
+@pytest.mark.parametrize("family", rs.CUDA_FAMILIES)
 def test_cuda_stage_matches_plain(cuda_device, family, stage, reps):
-    """Each stage of the CUDA-core moments and accumulator kernels against its
-    plain version (1e-5 of the max), observers bitwise equal across tiles,
-    one launch; "full" bitwise the production kernel; the kernels fit at
-    least two CTAs an SM."""
+    """Each stage of the CUDA-core moments, accumulator and cumprod kernels
+    against its plain version (1e-5 of the max), observers bitwise equal
+    across tiles, one launch; "full" bitwise the production kernel; the
+    kernels fit at least two CTAs an SM."""
     x, s = _chunk(cuda_device)
     before = rs.cuda_stage_launches
     out, obs = rs.cuda_stage(family, x, s, stage, reps)
@@ -640,7 +642,48 @@ def test_cuda_stage_matches_plain(cuda_device, family, stage, reps):
     assert torch.equal(obs, obs[:1].expand_as(obs))
     if stage == "full":
         assert torch.equal(out, rs.run(f"{family}_cuda", x, s, reps=reps)[0])
-    assert rs.cuda_ctas_per_sm(family) >= 2
+    assert rs.ctas_per_sm(f"{family}_cuda") >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [rs.REPS, rs.REPS // 3, 4 * rs.REPS])
+@pytest.mark.parametrize("stage", rs.BF16_STAGES)
+def test_bf16_stage_matches_plain(cuda_device, stage, reps):
+    """Each stage of the bf16 moments kernel against its plain version (1e-5
+    of the max), observers bitwise equal across tiles, one launch; "full"
+    bitwise the production kernel, which fits two CTAs an SM."""
+    x, s = _chunk(cuda_device)
+    before = rs.bf16_stage_launches
+    out, obs = rs.bf16_stage(x, stage, reps)
+    torch.cuda.synchronize()
+    assert rs.bf16_stage_launches == before + 1
+    plain = rs.bf16_stage_plain(x, stage, reps)
+    err = float((out - plain).abs().max()) / float(plain.abs().max())
+    assert err <= 1e-5 and torch.isfinite(out).all(), err
+    assert torch.equal(obs, obs[:1].expand_as(obs))
+    if stage == "full":
+        assert torch.equal(out, rs.run("moments_bf16", x, s, reps=reps)[0])
+    assert rs.ctas_per_sm("moments_bf16") >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [rs.REPS // 3, 4 * rs.REPS])
+@pytest.mark.parametrize("name", ["cumprod_cuda", "moments_bf16"])
+def test_redesigned_kernels_at_more_reps(cuda_device, name, reps):
+    """The CUDA-core cumprod (its reps in walks of 16, 4 and 1) and the bf16
+    moments (two reps in flight, an odd one alone) at REPS / 3 and 4 REPS,
+    beside test_reduce_scan_matches_plain's REPS and 3: kernel within 1e-5 of
+    the max of plain, observers bitwise equal, one launch."""
+    x, s = _chunk(cuda_device)
+    before = rs.launch_counts()
+    out, obs = rs.run(name, x, s, reps=reps)
+    torch.cuda.synchronize()
+    key = "scan" if name == "cumprod_cuda" else "moments"
+    assert rs.launch_counts()[key] == before[key] + 1
+    plain = rs.run_plain(name, x, s, reps=reps)
+    err = float((out - plain).abs().max()) / float(plain.abs().max())
+    assert err <= 1e-5 and torch.isfinite(out).all(), err
+    assert torch.equal(obs, obs[:1].expand_as(obs))
 
 
 @pytest.mark.cuda
@@ -649,6 +692,13 @@ def test_tf32x3_order_is_the_c_librarys(cuda_device, family):
     """The 3xTF32 kernels' order of the contraction axis that
     ops/reduce_scan.py copies (mom_pixel, acc_pixel) is the C library's."""
     assert torch.equal(rs.tf32x3_order(family), rs.tf32x3_order_plain(family))
+
+
+@pytest.mark.cuda
+def test_bf16_order_is_the_c_librarys(cuda_device):
+    """The bf16 moments kernel's order of the pixels that ops/reduce_scan.py
+    copies (mom_bf16_pixel) is the C library's."""
+    assert torch.equal(rs.bf16_order(), rs.bf16_order_plain())
 
 
 @pytest.mark.cuda

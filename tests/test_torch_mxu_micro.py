@@ -251,10 +251,12 @@ def test_the_tool_on_the_cpu(capsys):
                all(r["scaled_err"] == 0.0 for r in rows.values())
                for rows in res["cumsum_stages"].values())
     assert all(r["scaled_err"] == 0.0 for r in res["scan_stages"].values())
-    assert list(res["cuda_stages"]) == ["moments", "acc"]
+    assert list(res["cuda_stages"]) == list(rs.CUDA_FAMILIES)
     assert all(list(rows) == list(rs.CUDA_STAGES) and
                all(r["scaled_err"] == 0.0 for r in rows.values())
                for rows in res["cuda_stages"].values())
+    assert list(res["bf16_stages"]) == list(rs.BF16_STAGES)
+    assert all(r["scaled_err"] == 0.0 for r in res["bf16_stages"].values())
     # the CUDA-core moments' bound: the separable form's least work, 48 f32
     # operations (an FMA 2) per 8-row column, at the f32 peak
     moments = res["runs"]["moments_cuda"]
@@ -857,12 +859,12 @@ def test_cuda_kernel_sums_within_rtol(data, pallas_out, family, reps, monkeypatc
 
 @pytest.mark.parametrize("reps", [rs.REPS, 3])
 @pytest.mark.parametrize("stage", rs.CUDA_STAGES)
-@pytest.mark.parametrize("family", ["moments", "acc"])
+@pytest.mark.parametrize("family", rs.CUDA_FAMILIES)
 def test_cuda_stage_plain_on_the_cpu(data, plain_out, family, stage, reps):
     """A stage of the CUDA-core kernels on CPU tensors is its plain version,
     with no launch: "full" the run's plain version; "loads" x summed over
     the contracted axis into the first output and its repeat, in float64
-    within RTOL, whatever reps."""
+    within RTOL (the cumprod's: x itself), whatever reps."""
     x, s = torch.as_tensor(data["x"]), torch.as_tensor(data["s"])
     before = (rs.cuda_stage_launches, dict(rs.form_launches))
     out, obs = rs.cuda_stage(family, x, s, stage, reps)
@@ -872,6 +874,8 @@ def test_cuda_stage_plain_on_the_cpu(data, plain_out, family, stage, reps):
         assert torch.equal(out, rs.run_plain(f"{family}_cuda", x, s, reps))
         if reps == rs.REPS:
             np.testing.assert_array_equal(out.numpy(), plain_out[f"{family}_cuda"])
+    elif family == "cumprod":
+        np.testing.assert_array_equal(out.numpy(), data["x"])
     else:
         g = data["x"].reshape(mm.K, mm.PIX).astype(np.float64)
         if family == "moments":
@@ -886,9 +890,9 @@ def test_cuda_stage_plain_on_the_cpu(data, plain_out, family, stage, reps):
 
 
 def test_tc_rate_forms_and_arithmetic():
-    """tools/tc_rate.py's form codes are csrc/tc_rate.cu's, its TFLOP/s count
-    eight instructions a round for each warp or warpgroup, and it needs a
-    card."""
+    """tools/tc_rate.py's form and operand-work codes are csrc/tc_rate.cu's,
+    its TFLOP/s count eight instructions a round for each warp or
+    warpgroup, each form against its own peak, and it needs a card."""
     import re
 
     from moss_torch.tools import tc_rate
@@ -896,12 +900,20 @@ def test_tc_rate_forms_and_arithmetic():
     src = open(os.path.join(REPO, "moss_torch", "csrc", "tc_rate.cu")).read()
     enum = re.search(r"enum Form \{([^}]*)\}", src).group(1)
     codes = [int(v.split("=")[1]) for v in enum.split(",")]
-    assert sorted(list(tc_rate.FORMS.values()) + [tc_rate.SPLIT_ALONE]) == codes
+    assert sorted(list(tc_rate.FORMS.values()) + [tc_rate.WORK_ALONE]) == codes
+    enum = re.search(r"enum Work \{([^}]*)\}", src).group(1)
+    work = {v.split("=")[0].strip(): int(v.split("=")[1]) for v in enum.split(",")}
+    assert work == {"kNoWork": 0, "kSplitWork": tc_rate.WORK["split"],
+                    "kBf16Work": tc_rate.WORK["bf16"]}
+    assert tc_rate.PEAK["mma_bf16_m16n8k16"] == tc_rate.PEAK_BF16
+    assert tc_rate.FORM_WORK == {"mma_m16n8k8": "split", "wgmma_m64n8k8": "split",
+                                 "wgmma_m64n16k8": "split", "mma_bf16_m16n8k16": "bf16"}
     # 132 CTAs of 256 threads, 2048 rounds in 1 ms: 8 warps or 2 warpgroups a CTA
     per_ms = 2 * 8 * 2048 * 132 / 1e-3 / 1e12
     assert tc_rate.tflops("mma_m16n8k8", 1.0, 132) == pytest.approx(1024 * 8 * per_ms)
     assert tc_rate.tflops("wgmma_m64n8k8", 1.0, 132) == pytest.approx(4096 * 2 * per_ms)
     assert tc_rate.tflops("wgmma_m64n16k8", 1.0, 132) == pytest.approx(8192 * 2 * per_ms)
+    assert tc_rate.tflops("mma_bf16_m16n8k16", 1.0, 132) == pytest.approx(2048 * 8 * per_ms)
     with pytest.raises(RuntimeError, match="CUDA"):
         tc_rate.main("cpu")
 
@@ -923,3 +935,253 @@ def test_compare_summary_and_modes():
     assert compare.same_outputs(turns) == {"a": True, "b": False}
     with pytest.raises(SystemExit):
         compare.main(["root", "--what", "sort"])
+
+
+# ---- the CUDA-core cumprod's walks and the bf16 moments' order of pixels --------------
+#
+# csrc/reduce_scan.cu's cumprod_cuda_kernel walks a pixel's 128 splats once
+# for up to CUMPROD_GROUP reps side by side (reps // 16 walks of 16, then one
+# each of 8, 4, 2 and 1 as the rest's bits say): per splat each rep's
+# alpha_sat, the mask, the running product, and the product added to the
+# splat's sum in rep order, the sum carried from walk to walk. Its
+# moments_bf16_kernel takes pixel 16 s + 4 t + e of warp w's row for lane t
+# at k-step s (mom_bf16_pixel), and adds per rep and warp a chain of 8
+# m16n8k16 products, two reps' chains side by side, into its sum.
+
+
+def cumprod_walk_sizes(reps):
+    """The reps of each walk of cumprod_cuda_kernel, in order."""
+    sizes = [rs.CUMPROD_GROUP] * (reps // rs.CUMPROD_GROUP)
+    return sizes + [b for b in (8, 4, 2, 1) if reps % rs.CUMPROD_GROUP & b]
+
+
+def alpha_sat_model(x, c):
+    """csrc/reduce_scan.cu::alpha_sat in float32: mul.sat (the product rounded,
+    then clamped to [0, 1], NaN to +0) and the min with 0.9."""
+    a = (np.asarray(x, np.float32) * np.float32(c)).astype(np.float32)
+    a = np.where(np.isnan(a), np.float32(0), np.clip(a, np.float32(0), np.float32(1)))
+    return np.minimum(a, np.float32(0.9)).astype(np.float32)
+
+
+def cumprod_walk_model(x, reps, fma_last):
+    """The cumprod kernel's sums in float32, walk by walk, the reps inside
+    the walk over the splats; fma_last: the last splat's product and add in
+    one rounding (an FMA), as the kernel does."""
+    g0 = np.asarray(x, np.float32).reshape(rs.K, rs.PIX)
+    acc = np.zeros((rs.K, rs.PIX), np.float32)
+    i0 = 0
+    for size in cumprod_walk_sizes(reps):
+        c = [np.float32(0.01 * (i + 1)) for i in range(i0, i0 + size)]
+        run = np.ones((size, rs.PIX), np.float32)
+        for k in range(rs.K):
+            s = acc[k]
+            for r in range(size):
+                a = alpha_sat_model(g0[k], c[r])
+                g = np.where(a > np.float32(0.003), (np.float32(1) - a).astype(np.float32),
+                             np.float32(1))
+                if fma_last and k == rs.K - 1:
+                    s = _fma(run[r], g, s)
+                else:
+                    run[r] = (run[r] * g).astype(np.float32)
+                    s = (s + run[r]).astype(np.float32)
+            acc[k] = s
+        i0 += size
+    return acc.reshape(rs.K, rs.H, rs.W)
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, rs.REPS // 3, 4 * rs.REPS])
+def test_cumprod_walk_order_is_the_plain_order(data, reps):
+    """The reps moved inside the walk change no operation of any output:
+    each is still ((0 + r_0) + r_1) + ... in rep order with each r_i formed
+    splat by splat, so the walks' model is bitwise scan_plain(op="mul") at
+    REPS (one walk), REPS / 3 (walks of 4 and 1) and 4 REPS (four walks);
+    with the kernel's FMA at the last splat it differs in that splat only,
+    within RTOL, and in the Pallas kernel's interpret-mode output's RTOL."""
+    x = torch.as_tensor(data["x"])
+    plain = rs.scan_plain(x, reps, "mul", "cuda").numpy()
+    assert sum(cumprod_walk_sizes(reps)) == reps
+    np.testing.assert_array_equal(cumprod_walk_model(data["x"], reps, fma_last=False), plain)
+    fused = cumprod_walk_model(data["x"], reps, fma_last=True)
+    differs = np.argwhere(fused != plain)
+    assert len(differs) and set(differs[:, 0].tolist()) == {rs.K - 1}
+    assert _err_of_max(fused, plain.astype(np.float64)) <= mxu_micro.RTOL
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, rs.REPS // 3, 4 * rs.REPS])
+def test_cumprod_walk_model_within_rtol_of_pallas(data, pallas_out, reps, monkeypatch):
+    """The kernel's sums (the walks' model with the last splat's FMA) within
+    RTOL of kern_cumprod_vpu in interpret mode, its REPS set to reps."""
+    pallas = (pallas_out["cumprod_cuda"] if reps == rs.REPS
+              else _jax_vpu("cumprod_cuda", data, reps, monkeypatch))
+    got = cumprod_walk_model(data["x"], reps, fma_last=True)
+    assert _err_of_max(got, pallas.astype(np.float64)) <= mxu_micro.RTOL
+
+
+def test_alpha_sat_model_is_rep_alpha(data):
+    """The saturating multiply and the min give rep_alpha's alpha on the
+    tool's x and at the edges (+-0, a NaN, 0.003 / c_i and its neighbours,
+    values past the clip, infinities), for every rep's c_i: equal values
+    where rep_alpha is a number, and everywhere the same masked factor
+    (a > 0.003 ? 1 - a : 1), bit for bit; a NaN x, whose rep_alpha is NaN,
+    gets 0, which the mask sends to 1 as it does the NaN. The kernel forms
+    that factor as fma(-a, mask, 1), mask 1.0 or 0.0 (masked_one_minus):
+    bitwise the select's."""
+    edges = []
+    for i in range(4 * rs.REPS):
+        t = np.float32(0.003) / np.float32(0.01 * (i + 1))
+        edges += [t, np.nextafter(t, np.float32(0)), np.nextafter(t, np.float32(1))]
+    x = np.concatenate([data["x"].reshape(-1), np.float32(edges),
+                        np.float32([0.0, -0.0, np.nan, 1e30, -1e30, np.inf, -np.inf, 90.0, 91.0,
+                                    1e-40, -1e-40])]).astype(np.float32)
+    xt = torch.as_tensor(x)
+    for i in range(4 * rs.REPS):
+        want = rs.rep_alpha(xt, i).numpy()
+        got = alpha_sat_model(x, np.float32(0.01 * (i + 1)))
+        number = ~np.isnan(want)
+        assert np.array_equal(got[number], want[number])
+        assert not np.isnan(got).any() and (got[~number] == 0).all()
+
+        def mask(a):
+            return np.where(a > np.float32(0.003), (np.float32(1) - a).astype(np.float32),
+                            np.float32(1)).astype(np.float32)
+
+        assert np.array_equal(mask(got).view(np.int32), mask(want).view(np.int32))
+        # the kernel's form of the masked factor: fma(-a, [a > 0.003], 1)
+        fma_form = _fma(-got, (got > np.float32(0.003)).astype(np.float32), np.float32(1))
+        assert np.array_equal(fma_form.view(np.int32), mask(got).view(np.int32))
+
+
+def test_bf16_moments_order_covers_the_chunk_and_loads_in_float4():
+    """mom_bf16_pixel takes each pixel once, warp w's slice is pixel row w
+    (the py of the kernel's basis table), a k-step's 16 columns are 16
+    adjacent pixels, and lane t's columns 2t, 2t + 1, 2t + 8, 2t + 9 are the
+    four adjacent pixels of one float4, 16-byte aligned (a multiple of 4)."""
+    order = rs.bf16_order_plain()
+    assert order.shape == (rs.TF32X3_WARPS, rs.MOM_BF16_STEPS, 16)
+    assert sorted(order.reshape(-1).tolist()) == list(range(rs.PIX))
+    assert torch.equal(order // rs.W, torch.arange(8).view(8, 1, 1).expand_as(order))
+    assert torch.equal(order.sort(-1).values - order[..., :1].min(-1, keepdim=True).values,
+                       torch.arange(16).expand_as(order))
+    for t in range(4):
+        quad = order[..., [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]]
+        assert torch.equal(quad - quad[..., :1], torch.arange(4).expand_as(quad))
+        assert int(quad[..., 0].remainder(4).max()) == 0
+
+
+def bf16_moments_kernel_model(x, reps):
+    """The bf16 moments kernel's sums in float32: per rep and warp, cb down
+    its 8 k-steps, each m16n8k16 product's 16 columns in the kernel's order
+    (bf16_order_plain) added to it one by one, each product exact; c += cb
+    rep after rep; the 8 warps' c summed in warp order."""
+    g0 = x.reshape(rs.K, rs.PIX)
+    order = rs.bf16_order_plain()                              # (warp, step, col)
+    b = rs.round_bf16(rs.basis())                              # (PIX, 8)
+    c = torch.zeros((rs.TF32X3_WARPS, rs.K, 8))
+    for i in range(reps):
+        a = rs.round_bf16(g0 + float(i))
+        cb = torch.zeros_like(c)
+        for st in range(rs.MOM_BF16_STEPS):
+            p = order[:, st]                                   # (warp, col)
+            cb = _mma_model(cb, a[:, p].permute(1, 0, 2), b[p])
+        c = c + cb
+    out = c[0]
+    for w in range(1, rs.TF32X3_WARPS):
+        out = out + c[w]
+    return out
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, rs.REPS // 3, 4 * rs.REPS])
+def test_bf16_moments_order_within_rtol(data, pallas_out, reps, monkeypatch):
+    """The new order of the bf16 moments' f32 sums (the model above) lies
+    within RTOL of moments_plain at mode bf16, the contract the kernel is
+    held to on the card, and within BF16_VS_F32_RTOL of kern_moments_mxu at
+    DEFAULT in interpret mode (which on the CPU does not round to bf16)."""
+    x = torch.as_tensor(data["x"])
+    got = bf16_moments_kernel_model(x, reps)
+    want = rs.moments_plain(x, reps, "bf16")
+    assert got.shape == want.shape
+    assert mxu_micro.scaled_err(got, want) <= mxu_micro.RTOL
+    pallas = (pallas_out["moments_bf16"] if reps == rs.REPS
+              else _jax_vpu("moments_bf16", data, reps, monkeypatch))
+    assert _err_of_max(got.numpy()[:, :6], pallas[:, :6].astype(np.float64)) <= BF16_VS_F32_RTOL
+
+
+def _bf16_stage_np(x, stage, reps):
+    """The bf16 moments' stage in numpy, float64 sums, its lane map written
+    out anew: lane t of every k-step holds pixels p with p % 16 in 4t, ...,
+    4t + 3; the pairs (p, p + 1) of it, p % 4 = 0, feed column 2t, (p + 2,
+    p + 3) column 2t + 1."""
+    g = np.asarray(x, np.float32).reshape(mm.K, mm.PIX)
+    p = np.arange(mm.PIX)
+    t = (p % 16) // 4
+    out = np.zeros((mm.K, 8))
+    if stage == "loads":
+        for lane in range(4):
+            out[:, 2 * lane] = g[:, t == lane].astype(np.float64).sum(1)
+        return out
+    if stage == "products":
+        b = np.asarray(rs.round_bf16(rs.basis()), np.float64)
+        return reps * (np.asarray(rs.round_bf16(torch.as_tensor(g)), np.float64) @ b)
+    for i in range(reps):
+        hi = np.asarray(rs.round_bf16(torch.as_tensor(g + np.float32(i))), np.float32)
+        bits = hi.view(np.uint32)
+        pair = ((bits[:, 1::2] & 0xFFFF0000) | (bits[:, 0::2] >> 16)).view(np.float32)  # (K, 512)
+        q = np.arange(mm.PIX // 2)                  # the pair of pixels 2q, 2q + 1
+        col = 2 * ((2 * q % 16) // 4) + (q % 2)
+        for n in range(8):
+            out[:, n] += pair[:, col == n].astype(np.float64).sum(1)
+    return out
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, rs.REPS // 3])
+@pytest.mark.parametrize("stage", rs.BF16_STAGES)
+def test_bf16_stage_plain_on_the_cpu(data, plain_out, stage, reps):
+    """A stage of the bf16 moments kernel on CPU tensors is its plain
+    version, with no launch, and that is the stage's function (numpy,
+    float64 sums) within RTOL: "full" the bf16 moments themselves, "loads"
+    x summed by lane, "operands" the pair registers summed by slot,
+    "products" the reps' products on x rounded once."""
+    x = torch.as_tensor(data["x"])
+    before = (rs.bf16_stage_launches, dict(rs.form_launches))
+    out, obs = rs.bf16_stage(x, stage, reps)
+    assert obs is None and (rs.bf16_stage_launches, rs.form_launches) == before
+    assert torch.equal(out, rs.bf16_stage_plain(x, stage, reps))
+    if stage == "full":
+        assert torch.equal(out, rs.moments_plain(x, reps, "bf16"))
+        if reps == rs.REPS:
+            np.testing.assert_array_equal(out.numpy(), plain_out["moments_bf16"])
+    else:
+        want = _bf16_stage_np(data["x"], stage, reps)
+        assert _err_of_max(out.numpy(), want) <= mxu_micro.RTOL
+    with pytest.raises(ValueError):
+        rs.bf16_stage(x, stage + "_", reps)
+
+
+def test_redesigned_constants_are_the_kernels():
+    """The cumprod's and the bf16 moments' shapes, stages and the occupancy
+    query's kernels that ops/reduce_scan.py and the models above copy are
+    csrc/reduce_scan.cu's."""
+    import re
+
+    src = open(CU).read()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]*);", src).group(1).split("//")[0].strip()
+
+    assert int(const("kCumprodGroup")) == rs.CUMPROD_GROUP
+    assert int(const("kCumprodBatch")) == rs.CUMPROD_BATCH and rs.K % rs.CUMPROD_BATCH == 0
+    assert const("kMomBf16Steps") == "128 / 16" and rs.MOM_BF16_STEPS == 128 // 16
+    assert int(const("kMomBf16InFlight")) == rs.MOM_BF16_IN_FLIGHT
+    enum = re.search(r"enum Bf16Stage \{([^}]*)\}", src).group(1)
+    names = [v.split("=")[0].strip()[len("kBf16"):].lower() for v in enum.split(",")]
+    assert tuple(names) == rs.BF16_STAGES
+    body = src[src.index('extern "C" int moss_mxu_ctas_per_sm'):]
+    kernels = re.findall(r"kernel == (\d)\)\s*e = cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+                         r"\(&n, (\w+)_kernel<", body)
+    assert [int(k) for k, _ in kernels] == list(range(len(rs.CTAS_KERNELS)))
+    assert tuple(n for _, n in kernels) == rs.CTAS_KERNELS
+    # the walks' decomposition: cumprod_walks' count, the model's sizes
+    walks = re.search(r"return reps / kCumprodGroup([^;]*);", src).group(1)
+    assert walks.count("reps &") == 4
+    for reps in range(0, 70):
+        assert len(cumprod_walk_sizes(reps)) == reps // 16 + bin(reps % 16).count("1")
