@@ -2751,15 +2751,16 @@ MXU_KERNELS = (
 def phase_tool_mxu(dev):
     """The twelve reduction and scan runs: their observers across tiles and a
     launch's time against REPS; the card test of the CUDA-core moments,
-    accumulators and cumprod, the two tensor-core cumsums, the log-space
-    cumprod, the two 3xTF32 forms and the bf16 moments three times over (the
-    CUDA-core cumprod and the bf16 moments also at REPS / 3 and 4 REPS); the
-    moments against an f64 sum (the f32-class forms gated at 1e-6, bf16
-    reported); the tensor-core layout tables and tc_rate; then the tool,
-    counted, which holds each run to its plain version (raising past
-    mxu_micro.RTOL) and times it, with the SFU bound and the stages of the
-    cumsum, cumprod, 3xTF32, bf16 and CUDA-core kernels; the CUDA-core
-    kernels' and the bf16 moments' registers and CTAs an SM. Returns
+    accumulators, cumsum and cumprod, the two tensor-core cumsums, the
+    log-space cumprod, the two 3xTF32 forms and the bf16 moments and
+    accumulators three times over (the CUDA-core cumsum and cumprod and the
+    bf16 forms also at REPS / 3 and 4 REPS); the moments against an f64 sum
+    (the f32-class forms gated at 1e-6, bf16 reported); the tensor-core
+    layout tables and tc_rate; then the tool, counted, which holds each run
+    to its plain version (raising past mxu_micro.RTOL) and times it, with
+    the SFU bound and the stages of the cumsum, cumprod, 3xTF32, bf16 and
+    CUDA-core kernels; the CUDA-core kernels' and the bf16 forms' registers
+    and CTAs an SM. Returns
     ({kernel: row summed over its runs}, {kernel: launches}, {stage family:
     launches})."""
     x, s = mxu_micro.inputs(dev)
@@ -2778,14 +2779,14 @@ def phase_tool_mxu(dev):
                         "ms_vs_reps": vs_reps}
     # the card test's cases tests/test_torch_cuda.py::test_reduce_scan_matches_plain
     # [moments_cuda-*, acc_cuda-*, cumsum_bf16-*, cumsum_split2-*, cumprod_logsplit2-*,
-    # moments_tf32x3-*, acc_tf32x3-*, cumprod_cuda-*, moments_bf16-*], three times over,
-    # the last two also at the reps of test_redesigned_kernels_at_more_reps: kernel
-    # within RTOL of plain, observers equal
+    # moments_tf32x3-*, acc_tf32x3-*, cumprod_cuda-*, moments_bf16-*, cumsum_cuda-*,
+    # acc_bf16-*], three times over, the last four also at the reps of
+    # test_redesigned_kernels_at_more_reps: kernel within RTOL of plain, observers equal
+    redesigned = ("cumprod_cuda", "moments_bf16", "cumsum_cuda", "acc_bf16")
     for name in ("moments_cuda", "acc_cuda", "cumsum_bf16", "cumsum_split2",
-                 "cumprod_logsplit2", "moments_tf32x3", "acc_tf32x3", "cumprod_cuda",
-                 "moments_bf16"):
+                 "cumprod_logsplit2", "moments_tf32x3", "acc_tf32x3", *redesigned):
         repeats = []
-        more = (rs.REPS // 3, 4 * rs.REPS) if name in ("cumprod_cuda", "moments_bf16") else ()
+        more = (rs.REPS // 3, 4 * rs.REPS) if name in redesigned else ()
         for _ in range(3):
             for reps in (rs.REPS, 3, *more):
                 out, obs = rs.run(name, x, s, reps=reps)
@@ -2834,7 +2835,7 @@ def phase_tool_mxu(dev):
     if rs.cuda_stage_launches < len(rs.CUDA_FAMILIES) * len(rs.CUDA_STAGES):
         raise AssertionError("the mxu tool launched the CUDA-core stages "
                              f"{rs.cuda_stage_launches} times")
-    if rs.bf16_stage_launches < len(rs.BF16_STAGES):
+    if rs.bf16_stage_launches < len(rs.BF16_FAMILIES) * len(rs.BF16_STAGES):
         raise AssertionError(f"the mxu tool launched the bf16 stages {rs.bf16_stage_launches} "
                              "times")
     if min(launches.values()) == 0:
@@ -2862,10 +2863,14 @@ def phase_tool_mxu(dev):
     for kname, family in (("mxu_moments", "moments"), ("mxu_acc", "acc")):
         kernels[kname]["tf32x3_stage_ms"] = {
             k: v["ms"] for k, v in res["tf32x3_stages"][family].items()}
-    for kname, family in (("mxu_moments", "moments"), ("mxu_acc", "acc"), ("mxu_scan", "cumprod")):
-        kernels[kname]["cuda_stage_ms"] = {
-            k: v["ms"] for k, v in res["cuda_stages"][family].items()}
-    kernels["mxu_moments"]["bf16_stage_ms"] = {k: v["ms"] for k, v in res["bf16_stages"].items()}
+    for kname, family, key in (("mxu_moments", "moments", "cuda_stage_ms"),
+                               ("mxu_acc", "acc", "cuda_stage_ms"),
+                               ("mxu_scan", "cumprod", "cuda_stage_ms"),
+                               ("mxu_scan", "cumsum", "cumsum_cuda_stage_ms")):
+        kernels[kname][key] = {k: v["ms"] for k, v in res["cuda_stages"][family].items()}
+    for kname, family in (("mxu_moments", "moments"), ("mxu_acc", "acc")):
+        kernels[kname]["bf16_stage_ms"] = {
+            k: v["ms"] for k, v in res["bf16_stages"][family].items()}
     # static instructions (cuobjdump -sass): the tensor-core scans (a rep's
     # body of 32 elements a thread, the cumprod's stages beside it) and the
     # contractions (the 3xTF32 and CUDA-core kernels' stages beside them)
@@ -2877,7 +2882,7 @@ def phase_tool_mxu(dev):
     for kernel, ops in sass.items():
         print(f"sass reduce_scan: {kernel}: " + ", ".join(f"{k} {v}" for k, v in
                                                           list(ops.items())[:12]), flush=True)
-    # the CUDA-core kernels' and the bf16 moments' registers (ptxas, the
+    # the CUDA-core kernels' and the bf16 forms' registers (ptxas, the
     # production form, stage 0) and CTAs an SM (occupancy query)
     regs = {k["kernel"]: k["registers"] for k in cuda_build.ptxas_report("reduce_scan")}
     ctas = {}
@@ -3080,9 +3085,11 @@ def main():
                 **({"cuda_stage_ms": mxu_rows[kname]["cuda_stage_ms"],
                     "cuda_stage_launches": mxu_stage_launches["cuda"]}
                    if kname != "mxu_reshape" else {}),
+                **({"cumsum_cuda_stage_ms": mxu_rows[kname]["cumsum_cuda_stage_ms"]}
+                   if kname == "mxu_scan" else {}),
                 **({"bf16_stage_ms": mxu_rows[kname]["bf16_stage_ms"],
                     "bf16_stage_launches": mxu_stage_launches["bf16"]}
-                   if kname == "mxu_moments" else {}))
+                   if kname in ("mxu_moments", "mxu_acc") else {}))
           for kname, _, _, replaces, all_ in MXU_KERNELS),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,10 @@
 //                     moments_tf32x3_kernel<stage>: kern_moments_vpu (:58),
 //                     kern_moments_mxu (:81)
 //   moss_mxu_reshape  reshape_kernel: kern_reshape_only (:94)
-//   moss_mxu_acc      acc_cuda_kernel<stage>, acc_bf16_kernel,
+//   moss_mxu_acc      acc_cuda_kernel<stage>, acc_bf16_kernel<stage>,
 //                     acc_tf32x3_kernel<stage>: kern_acc_vpu (:102),
 //                     kern_acc_mxu (:116)
-//   moss_mxu_scan     cumsum_cuda_kernel, cumprod_cuda_kernel<stage>,
+//   moss_mxu_scan     cumsum_cuda_kernel<stage>, cumprod_cuda_kernel<stage>,
 //                     scan_tc_kernel<op, mode>: kern_cumsum_vpu (:153),
 //                     kern_cumsum_mxu (:175), kern_cumprod_vpu (:192),
 //                     kern_cumprod_logmxu (:203)
@@ -43,10 +43,11 @@
 //           cvt.rna.tf32.f32's rounding (split_operand)
 // The scans' CUDA-core forms are per-pixel sequential loops over K, the
 // form the blend kernels use, not the TPU's two-level Hillis-Steele scan.
-// The cumprod's walks over K carry up to 16 reps side by side (one running
-// product each), so a thread reads each x once a walk and its sums over reps
-// need no array of 128 registers: 6 instructions an element and rep,
-// issue-bound (cumprod_walk, masked_one_minus).
+// Their walks over K carry up to 16 reps side by side (one running sum or
+// product each, one walk shared by both, scan_walk), so a thread reads each
+// x once a walk and its sums over reps need no array of 128 registers and no
+// shared-memory copy of x: 3 instructions an element and rep for the cumsum,
+// 6 for the cumprod (masked_one_minus), issue-bound.
 //
 // The CUDA-core moments and accumulators hold their chunk in registers and
 // are bound by FP32-pipe issue, one warp instruction a clock a scheduler, an
@@ -103,15 +104,17 @@
 // mma.sync m16n8k8's 313, and beside the split's work it took longer than
 // mma.sync did (tools/tc_rate.py).
 //
-// The bf16 moments: one m16n8k16 product a k-step on x + i rounded to bf16
-// pairs in every rep (1.5 instructions an element: the add and half a
-// cvt.rn.bf16x2), its bound the products at the bf16 peak (0.0087 ms a
-// launch). x comes in float4 loads, in an order of the contraction axis that
-// gives a lane's four A columns of a k-step four adjacent pixels
-// (mom_bf16_pixel), and two reps run their product chains side by side
-// (mom_bf16_reps), so one chain's latency hides behind the other's; their
-// stages (enum Bf16Stage) time the loads, the operand work and the products
-// alone.
+// The bf16 moments and accumulators: one m16n8k16 product a k-step on x + i
+// rounded to bf16 pairs in every rep (1.5 instructions an element: the add
+// and half a cvt.rn.bf16x2), their bound the products at the bf16 peak
+// (0.0087 ms a launch). x comes in vector loads: for the moments float4s, in
+// an order of the contraction axis that gives a lane's four A columns of a
+// k-step four adjacent pixels (mom_bf16_pixel); for the accumulators
+// float2s, in an order of the m-tile's rows that gives a lane's rows g and g
+// + 8 two adjacent pixels (acc_pixel). Two reps run their product chains side
+// by side (bf16_reps, shared by both), so one chain's latency hides behind
+// the other's; their stages (enum Bf16Stage) time the loads, the operand
+// work and the products alone.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (moss_torch/ops/cuda_build.py)
@@ -138,12 +141,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  unsigned short h;
-  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(v));
-  return __uint_as_float(static_cast<uint32_t>(h) << 16);
 }
 
 // 3xTF32 operands as the tensor cores take them. tf32(v), rounded to nearest
@@ -222,28 +219,104 @@ __device__ __forceinline__ uint4 lds_u4(const uint4* p) {
 
 // ---- the reps of a bf16 tensor-core contraction ---------------------------
 
-// c += sum over reps i of A_i @ B, for a warp's fragments preloaded in
-// fragment order: xa[s] the A elements of k-step s (A_i = xa + i, rounded to
-// bf16 pairs packed as a[e] = (xa[2e], xa[2e+1])), bb[s] the B fragment. A
-// rep's product gets its own fragment and is added to c in IEEE f32 adds:
-// the tensor cores' own accumulation is not rounded to nearest, and all reps
-// in one accumulator drift from the plain version by 1e-5 of the max.
-template <int kSteps>
-__device__ __forceinline__ void bf16_reps(const float (&xa)[kSteps][8],
-                                          const uint32_t (&bb)[kSteps][2], int reps,
-                                          float (&c)[4]) {
-  for (int i = 0; i < reps; ++i) {
-    const float fi = static_cast<float>(i);
-    float cb[4] = {0.f, 0.f, 0.f, 0.f};
+// Stages of the bf16 tensor-core moments and accumulators
+// (moments_bf16_kernel, acc_bf16_kernel), for timing what holds them back:
+// kBf16Full the production kernel; kBf16Loads the chunk read, the store and
+// the observer with no reps: each lane sums its elements of m-tile rows g and
+// g + 8 once into its C elements of column 2t; kBf16Operands x + i and the
+// bf16 packs of every rep with no products: each C element sums the pair
+// registers of its slot as f32 (c0 a0, c1 a2, c2 a1, c3 a3); kBf16Products
+// the packs made once, before the reps, and the products of every rep (a
+// rep's sums start from a 0 read from shared memory, so the compiler cannot
+// find the reps' products equal).
+enum Bf16Stage { kBf16Full = 0, kBf16Loads = 1, kBf16Operands = 2, kBf16Products = 3 };
+
+constexpr int kBf16Steps = 128 / 16;  // k-steps of m16n8k16 down a warp's 128-deep contraction: 8
+constexpr int kBf16InFlight = 2;      // reps whose product chains run side by side
+
+// The A fragment of a k-step (mma_bf16) from a lane's elements of m-tile rows
+// g (u) and g + 8 (v), columns 2t, 2t + 1, 2t + 8, 2t + 9 in that order, plus
+// fi, rounded to bf16 pairs
+__device__ __forceinline__ void bf16_a(const float4& u, const float4& v, float fi,
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(u.x + fi, u.y + fi);
+  a[1] = pack_bf16(v.x + fi, v.y + fi);
+  a[2] = pack_bf16(u.z + fi, u.w + fi);
+  a[3] = pack_bf16(v.z + fi, v.w + fi);
+}
+
+// c += kReps reps' bf16 products of a warp, reps i0, i0 + 1, ...: per rep,
+// cb = sum over the k-steps of A_i @ B in the tensor cores from 0 (A_i the
+// packs of x + i, xu and xv: rows g and g + 8 (bf16_a); B the fragments bb),
+// the reps' chains interleaved k-step by k-step, then c += cb in IEEE f32
+// adds, rep after rep: the tensor cores' own accumulation is not rounded to
+// nearest, and all reps in one accumulator would drift from the plain
+// version by 1e-5 of the max. op: the packs of x made once (kBf16Products);
+// zeros: that stage's 0.
+template <int kStage, int kReps>
+__device__ __forceinline__ void bf16_reps(const float4 (&xu)[kBf16Steps],
+                                          const float4 (&xv)[kBf16Steps],
+                                          const uint32_t (&op)[kBf16Steps][4],
+                                          const uint32_t (&bb)[kBf16Steps][2], int i0,
+                                          const float* zeros, float (&c)[4]) {
+  float cb[kReps][4], fi[kReps];
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
+  for (int r = 0; r < kReps; ++r) {
+    fi[r] = static_cast<float>(i0 + r);
+    const float z = kStage == kBf16Products ? lds(zeros + ((i0 + r) & 31)) : 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cb[r][e] = z;
+  }
+#pragma unroll
+  for (int s = 0; s < kBf16Steps; ++s) {
+#pragma unroll
+    for (int r = 0; r < kReps; ++r) {
       uint32_t a[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[e] = pack_bf16(xa[s][2 * e] + fi, xa[s][2 * e + 1] + fi);
-      mma_bf16(cb, a, bb[s][0], bb[s][1]);
+      if constexpr (kStage == kBf16Products) {
+        a[0] = op[s][0], a[1] = op[s][1], a[2] = op[s][2], a[3] = op[s][3];
+      } else {
+        bf16_a(xu[s], xv[s], fi[r], a);
+      }
+      if constexpr (kStage == kBf16Operands) {
+        cb[r][0] += __uint_as_float(a[0]);
+        cb[r][1] += __uint_as_float(a[2]);
+        cb[r][2] += __uint_as_float(a[1]);
+        cb[r][3] += __uint_as_float(a[3]);
+      } else {
+        mma_bf16(cb[r], a, bb[s][0], bb[s][1]);
+      }
     }
+  }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] += cb[e];
+  for (int r = 0; r < kReps; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += cb[r][e];
+}
+
+// c += the bf16 products of reps 0, ..., reps - 1 (bf16_reps), kBf16InFlight
+// at a time, the rest one at a time; or, for kBf16Loads, each lane's elements
+// of rows g (into c[0]) and g + 8 (into c[2]) summed once
+template <int kStage>
+__device__ __forceinline__ void bf16_all_reps(const float4 (&xu)[kBf16Steps],
+                                              const float4 (&xv)[kBf16Steps],
+                                              const uint32_t (&bb)[kBf16Steps][2], int reps,
+                                              const float* zeros, float (&c)[4]) {
+  if constexpr (kStage == kBf16Loads) {
+#pragma unroll
+    for (int s = 0; s < kBf16Steps; ++s) {
+      c[0] = (((c[0] + xu[s].x) + xu[s].y) + xu[s].z) + xu[s].w;
+      c[2] = (((c[2] + xv[s].x) + xv[s].y) + xv[s].z) + xv[s].w;
+    }
+  } else {
+    uint32_t op[kBf16Steps][4] = {};
+    if constexpr (kStage == kBf16Products) {
+#pragma unroll
+      for (int s = 0; s < kBf16Steps; ++s) bf16_a(xu[s], xv[s], 0.f, op[s]);
+    }
+    int i = 0;
+    for (; i + kBf16InFlight <= reps; i += kBf16InFlight)
+      bf16_reps<kStage, kBf16InFlight>(xu, xv, op, bb, i, zeros, c);
+    for (; i < reps; ++i) bf16_reps<kStage, 1>(xu, xv, op, bb, i, zeros, c);
   }
 }
 
@@ -482,20 +555,6 @@ __device__ __forceinline__ void moments_store(const float (&c)[4], float* __rest
   observe<kMomThreads>(v, obs);
 }
 
-// Stages of the bf16 tensor-core moments (moments_bf16_kernel), for timing
-// what holds it back: kBf16Full the production kernel; kBf16Loads the chunk
-// read, the store and the observer with no reps: each lane sums its
-// elements of splat rows g and g + 8 once into its C elements of column 2t;
-// kBf16Operands x + i and the bf16 packs of every rep with no products: each
-// C element sums the pair registers of its slot as f32 (c0 a0, c1 a2, c2 a1,
-// c3 a3); kBf16Products the packs made once, before the reps, and the
-// products of every rep (a rep's sums start from a 0 read from shared
-// memory, so the compiler cannot find the reps' products equal).
-enum Bf16Stage { kBf16Full = 0, kBf16Loads = 1, kBf16Operands = 2, kBf16Products = 3 };
-
-constexpr int kMomBf16Steps = 128 / 16;  // k-steps of m16n8k16 over a warp's 128 pixels: 8
-constexpr int kMomBf16InFlight = 2;      // reps whose product chains run side by side
-
 // The pixel of column col (0-15) of k-step s in warp w's 128-pixel slice of
 // moments_bf16_kernel: lane t's columns 2t, 2t + 1, 2t + 8 and 2t + 9 take
 // the adjacent pixels 16 s + 4 t, ..., + 3 of the slice, so a lane loads each
@@ -507,62 +566,6 @@ constexpr int kMomBf16InFlight = 2;      // reps whose product chains run side b
 // came out bitwise the same in both orders.
 __host__ __device__ constexpr int mom_bf16_pixel(int w, int s, int col) {
   return 128 * w + 16 * s + 4 * ((col & 7) >> 1) + (col & 1) + 2 * (col >> 3);
-}
-
-// The A fragment of a k-step (mma_bf16) from a lane's float4s of splat rows
-// g (u) and g + 8 (v), plus fi, rounded to bf16 pairs
-__device__ __forceinline__ void bf16_a(const float4& u, const float4& v, float fi,
-                                       uint32_t (&a)[4]) {
-  a[0] = pack_bf16(u.x + fi, u.y + fi);
-  a[1] = pack_bf16(v.x + fi, v.y + fi);
-  a[2] = pack_bf16(u.z + fi, u.w + fi);
-  a[3] = pack_bf16(v.z + fi, v.w + fi);
-}
-
-// c += kReps reps' bf16 products of a warp, reps i0, i0 + 1, ...: per rep,
-// cb = sum over the k-steps of A_i @ B in the tensor cores from 0 (A_i the
-// packs of x + i, xu and xv: rows g and g + 8; B the basis fragments bb),
-// the reps' chains interleaved k-step by k-step, then c += cb in IEEE f32
-// adds, rep after rep (each rep's tensor-core sum formed as bf16_reps forms
-// it). op: the packs of x made once (kBf16Products); zeros: that stage's 0.
-template <int kStage, int kReps>
-__device__ __forceinline__ void mom_bf16_reps(const float4 (&xu)[kMomBf16Steps],
-                                              const float4 (&xv)[kMomBf16Steps],
-                                              const uint32_t (&op)[kMomBf16Steps][4],
-                                              const uint32_t (&bb)[kMomBf16Steps][2], int i0,
-                                              const float* zeros, float (&c)[4]) {
-  float cb[kReps][4], fi[kReps];
-#pragma unroll
-  for (int r = 0; r < kReps; ++r) {
-    fi[r] = static_cast<float>(i0 + r);
-    const float z = kStage == kBf16Products ? lds(zeros + ((i0 + r) & 31)) : 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) cb[r][e] = z;
-  }
-#pragma unroll
-  for (int s = 0; s < kMomBf16Steps; ++s) {
-#pragma unroll
-    for (int r = 0; r < kReps; ++r) {
-      uint32_t a[4];
-      if constexpr (kStage == kBf16Products) {
-        a[0] = op[s][0], a[1] = op[s][1], a[2] = op[s][2], a[3] = op[s][3];
-      } else {
-        bf16_a(xu[s], xv[s], fi[r], a);
-      }
-      if constexpr (kStage == kBf16Operands) {
-        cb[r][0] += __uint_as_float(a[0]);
-        cb[r][1] += __uint_as_float(a[2]);
-        cb[r][2] += __uint_as_float(a[1]);
-        cb[r][3] += __uint_as_float(a[3]);
-      } else {
-        mma_bf16(cb[r], a, bb[s][0], bb[s][1]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kReps; ++r)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] += cb[r][e];
 }
 
 // Tensor cores, bf16: a CTA takes 16 splats (one m-tile) and its 8 warps
@@ -586,44 +589,31 @@ moments_bf16_kernel(const float* __restrict__ x, float* __restrict__ out,
   const int g = lane >> 2, t = lane & 3;
   // splat rows g and g + 8, pixels mom_bf16_pixel(warp, s, 2t), ..., + 3
   const float* r0 = x + (blockIdx.x * 16 + g) * kPix + mom_bf16_pixel(warp, 0, 2 * t);
-  float4 xu[kMomBf16Steps], xv[kMomBf16Steps];
+  float4 xu[kBf16Steps], xv[kBf16Steps];
 #pragma unroll
-  for (int s = 0; s < kMomBf16Steps; ++s) {
+  for (int s = 0; s < kBf16Steps; ++s) {
     xu[s] = *reinterpret_cast<const float4*>(r0 + 16 * s);
     xv[s] = *reinterpret_cast<const float4*>(r0 + 8 * kPix + 16 * s);
   }
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  if constexpr (kStage == kBf16Loads) {
+  // the basis column n = g at pixel column px of row py = warp: fy px^ex,
+  // fy = py^ey (0 for n >= 6), exact in f32 and rounded to bf16
+  const int ex = g == 3 ? 2 : g == 1 || g == 4 ? 1 : 0;
+  const int ey = g == 5 ? 2 : g == 2 || g == 4 ? 1 : 0;
+  const float py = static_cast<float>(warp);
+  const float fy = g >= 6 ? 0.f : ey == 2 ? py * py : ey == 1 ? py : 1.f;
+  auto value = [&](int px) {
+    const float f = static_cast<float>(px);
+    return fy * ((ex >= 1 ? f : 1.f) * (ex == 2 ? f : 1.f));
+  };
+  uint32_t bb[kBf16Steps][2];  // B rows 2t, 2t + 1 and 2t + 8, 2t + 9: pixels px, ..., + 3
 #pragma unroll
-    for (int s = 0; s < kMomBf16Steps; ++s) {
-      c[0] = (((c[0] + xu[s].x) + xu[s].y) + xu[s].z) + xu[s].w;
-      c[2] = (((c[2] + xv[s].x) + xv[s].y) + xv[s].z) + xv[s].w;
-    }
-  } else {
-    // the basis column n = g at pixel column px of row py = warp: fy px^ex,
-    // fy = py^ey (0 for n >= 6), exact in f32 and rounded to bf16
-    const int ex = g == 3 ? 2 : g == 1 || g == 4 ? 1 : 0;
-    const int ey = g == 5 ? 2 : g == 2 || g == 4 ? 1 : 0;
-    const float py = static_cast<float>(warp);
-    const float fy = g >= 6 ? 0.f : ey == 2 ? py * py : ey == 1 ? py : 1.f;
-    auto value = [&](int px) {
-      const float f = static_cast<float>(px);
-      return fy * ((ex >= 1 ? f : 1.f) * (ex == 2 ? f : 1.f));
-    };
-    uint32_t bb[kMomBf16Steps][2];  // B rows 2t, 2t + 1 and 2t + 8, 2t + 9: pixels px, ..., + 3
-    uint32_t op[kMomBf16Steps][4] = {};
-#pragma unroll
-    for (int s = 0; s < kMomBf16Steps; ++s) {
-      const int px = mom_bf16_pixel(0, s, 2 * t);
-      bb[s][0] = pack_bf16(value(px), value(px + 1));
-      bb[s][1] = pack_bf16(value(px + 2), value(px + 3));
-      if constexpr (kStage == kBf16Products) bf16_a(xu[s], xv[s], 0.f, op[s]);
-    }
-    int i = 0;
-    for (; i + kMomBf16InFlight <= reps; i += kMomBf16InFlight)
-      mom_bf16_reps<kStage, kMomBf16InFlight>(xu, xv, op, bb, i, zeros, c);
-    for (; i < reps; ++i) mom_bf16_reps<kStage, 1>(xu, xv, op, bb, i, zeros, c);
+  for (int s = 0; s < kBf16Steps; ++s) {
+    const int px = mom_bf16_pixel(0, s, 2 * t);
+    bb[s][0] = pack_bf16(value(px), value(px + 1));
+    bb[s][1] = pack_bf16(value(px + 2), value(px + 3));
   }
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  bf16_all_reps<kStage>(xu, xv, bb, reps, zeros, c);
   moments_store(c, out, obs);
 }
 
@@ -731,6 +721,10 @@ reshape_kernel(const float* __restrict__ x, float* __restrict__ out, float* __re
 constexpr int kAccCudaThreads = 256;
 constexpr int kAccTcThreads = 256;
 constexpr int kAccParts = kPix / 128;  // 128 pixels a CTA: 8
+// acc_bf16_kernel: 4 warps of 16 pixels, 64 pixels a CTA, 16 CTAs a chunk-op
+constexpr int kAccBf16Threads = 128;
+constexpr int kAccBf16Pixels = 16 * kAccBf16Threads / 32;
+constexpr int kAccBf16Parts = kPix / kAccBf16Pixels;
 constexpr int kAccCudaWarps = kAccCudaThreads / 32;
 constexpr int kAccCudaSplats = kK / kAccCudaWarps;  // splats a warp of acc_cuda_kernel takes: 16
 constexpr int kAccCudaPix = 128 / 32;               // adjacent pixels a lane takes: 4
@@ -826,60 +820,72 @@ acc_cuda_kernel(const float* __restrict__ x, const float* __restrict__ sw,
   observe<kAccCudaThreads>(sum, obs);
 }
 
-// Tensor cores, bf16: out^T (1024 x 8) = w^T (1024 x K) @ s^T (K x 8), M =
-// pixels. A warp takes 16 pixels and the whole depth of 128 splats; its A
-// fragments are pixel-major while x is stored splat-major, so each lane
-// gathers its elements by index into registers once, before the reps (no
-// ldmatrix: its .trans form exists for 16-bit elements only).
-__global__ void __launch_bounds__(kAccTcThreads)
-acc_bf16_kernel(const float* __restrict__ x, const float* __restrict__ sw,
-                float* __restrict__ out, float* __restrict__ obs, int reps) {
-  constexpr int kSteps = kK / 16;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int p0 = blockIdx.x * 128 + warp * 16 + g;  // pixel rows g and g + 8
-  const float* srow = sw + g * kK;                  // s row n = g
-  float xa[kSteps][8];
-  uint32_t bb[kSteps][2];
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const int c0 = s * 16 + 2 * t, c8 = c0 + 8;  // splat columns
-    xa[s][0] = x[c0 * kPix + p0];
-    xa[s][1] = x[(c0 + 1) * kPix + p0];
-    xa[s][2] = x[c0 * kPix + p0 + 8];
-    xa[s][3] = x[(c0 + 1) * kPix + p0 + 8];
-    xa[s][4] = x[c8 * kPix + p0];
-    xa[s][5] = x[(c8 + 1) * kPix + p0];
-    xa[s][6] = x[c8 * kPix + p0 + 8];
-    xa[s][7] = x[(c8 + 1) * kPix + p0 + 8];
-    bb[s][0] = pack_bf16(srow[c0], srow[c0 + 1]);
-    bb[s][1] = pack_bf16(srow[c8], srow[c8 + 1]);
-  }
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  bf16_reps(xa, bb, reps, c);
-  // c[0], c[1]: pixel p0, rows n = 2t, 2t+1; c[2], c[3]: pixel p0 + 8
-  if (blockIdx.y == 0) {
-    out[2 * t * kPix + p0] = c[0];
-    out[(2 * t + 1) * kPix + p0] = c[1];
-    out[2 * t * kPix + p0 + 8] = c[2];
-    out[(2 * t + 1) * kPix + p0 + 8] = c[3];
-  }
-  observe<kAccTcThreads>(((c[0] + c[1]) + c[2]) + c[3], obs);
-}
-
-// The pixel, within its CTA's 128, of row r (0-15) of warp w's m-tile in
-// acc_tf32x3_kernel: a lane's rows g and g + 8 are adjacent pixels, so it
-// loads them as one float2. Column col of k-step s is splat 8 s + col.
+// The pixel, within its CTA's pixels, of row r (0-15) of warp w's m-tile in
+// acc_bf16_kernel and acc_tf32x3_kernel: a lane's rows g and g + 8 are
+// adjacent pixels, so it loads them as one float2. A pixel's row enters no
+// sum: each output element sums over the splats of its own pixel.
 __host__ __device__ constexpr int acc_pixel(int w, int r) {
   return 16 * w + 2 * (r & 7) + (r >> 3);
 }
 
+// Tensor cores, bf16: out^T (1024 x 8) = w^T (1024 x K) @ s^T (K x 8), M =
+// pixels. A warp takes 16 pixels (acc_pixel's order: rows g and g + 8 the
+// adjacent pixels p and p + 1) and the whole depth of 128 splats (8 k-steps
+// of m16n8k16, splats 16 s + col); its A fragments are pixel-major while x is
+// stored splat-major (no ldmatrix: its .trans form exists for 16-bit
+// elements only), so each lane loads its 64 elements of x once, before the
+// reps, as 32 float2s, a splat's pixels p and p + 1 each, and keeps its s^T
+// fragments; reps run two at a time (an odd last one alone, bf16_all_reps).
+// A CTA of 4 warps and 4 CTAs an SM (registers at most 128), so that one
+// CTA's read of its 32 KB of x, bound by the L2 (the kBf16Loads stage),
+// overlaps the other CTAs' reps: with 2 CTAs of 8 warps an SM the same body
+// took longer than the parent's, at 4 CTAs of 4 warps less (PERF.md).
+template <int kStage>
+__global__ void __launch_bounds__(kAccBf16Threads, 512 / kAccBf16Threads)
+acc_bf16_kernel(const float* __restrict__ x, const float* __restrict__ sw,
+                float* __restrict__ out, float* __restrict__ obs, int reps) {
+  __shared__ float zeros[32];
+  if constexpr (kStage == kBf16Products) {
+    set_rep_zeros(zeros);
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // rows g and g + 8: pixels p and p + 1
+  const int p = blockIdx.x * kAccBf16Pixels + acc_pixel(warp, g);
+  const float* srow = sw + g * kK;  // s row n = g
+  // pixel p (xu) and p + 1 (xv) of splats c0, c0 + 1, c8, c8 + 1 (bf16_a's columns)
+  float4 xu[kBf16Steps], xv[kBf16Steps];
+  uint32_t bb[kBf16Steps][2];
+#pragma unroll
+  for (int s = 0; s < kBf16Steps; ++s) {
+    const int c0 = s * 16 + 2 * t, c8 = c0 + 8;  // splat columns
+    const float2 u0 = *reinterpret_cast<const float2*>(x + c0 * kPix + p);
+    const float2 u1 = *reinterpret_cast<const float2*>(x + (c0 + 1) * kPix + p);
+    const float2 u8 = *reinterpret_cast<const float2*>(x + c8 * kPix + p);
+    const float2 u9 = *reinterpret_cast<const float2*>(x + (c8 + 1) * kPix + p);
+    xu[s] = make_float4(u0.x, u1.x, u8.x, u9.x);
+    xv[s] = make_float4(u0.y, u1.y, u8.y, u9.y);
+    bb[s][0] = pack_bf16(srow[c0], srow[c0 + 1]);
+    bb[s][1] = pack_bf16(srow[c8], srow[c8 + 1]);
+  }
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  bf16_all_reps<kStage>(xu, xv, bb, reps, zeros, c);
+  // c[0], c[1]: pixel p, rows n = 2t, 2t + 1; c[2], c[3]: pixel p + 1
+  if (blockIdx.y == 0) {
+    *reinterpret_cast<float2*>(out + 2 * t * kPix + p) = make_float2(c[0], c[2]);
+    *reinterpret_cast<float2*>(out + (2 * t + 1) * kPix + p) = make_float2(c[1], c[3]);
+  }
+  observe<kAccBf16Threads>(((c[0] + c[1]) + c[2]) + c[3], obs);
+}
+
 // Tensor cores, 3xTF32: out^T (1024 x 8) = w^T (1024 x K) @ s^T (K x 8), M =
 // pixels. A warp takes 16 pixels (acc_pixel's order) and the whole depth of
-// 128 splats (16 k-steps of m16n8k8); each lane keeps its 64 A elements of x
-// in registers (32 float2 loads) and the CTA's s^T fragments (big and small,
-// 8 KB) lie in shared memory, read again for every two reps by all 8 warps
-// (tf32x3_reps). Two CTAs an SM (registers at most 128).
+// 128 splats (16 k-steps of m16n8k8, column col of k-step s splat 8 s +
+// col); each lane keeps its 64 A elements of x in registers (32 float2
+// loads) and the CTA's s^T fragments (big and small, 8 KB) lie in shared
+// memory, read again for every two reps by all 8 warps (tf32x3_reps). Two
+// CTAs an SM (registers at most 128).
 template <int kStage>
 __global__ void __launch_bounds__(kAccTcThreads, 2)
 acc_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ sw,
@@ -988,49 +994,18 @@ __device__ __forceinline__ float exp2_fast(float v) {
   return r;
 }
 
-// CUDA cores, the cumsum: a thread per pixel walks K = 128 in order; the
-// CTA's 64 columns of x sit in shared memory, read again in every rep, and
-// the thread's 128 sums in registers.
-__global__ void __launch_bounds__(kScanCudaThreads)
-cumsum_cuda_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
-                   int reps) {
-  __shared__ float xs[kK][kScanCudaThreads];
-  const int p0 = blockIdx.x * kScanCudaThreads;
-  for (int k = 0; k < kK; ++k) xs[k][threadIdx.x] = x[k * kPix + p0 + threadIdx.x];
-  __syncthreads();
-  float acc[kK];
-#pragma unroll
-  for (int k = 0; k < kK; ++k) acc[k] = 0.f;
-  for (int i = 0; i < reps; ++i) {
-    const float fi = static_cast<float>(i);
-    float run = 0.f;
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      run = run + (lds(&xs[k][threadIdx.x]) + fi);
-      acc[k] += run;
-    }
-  }
-  float sum = 0.f;
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    sum += acc[k];
-    if (blockIdx.y == 0) out[k * kPix + p0 + threadIdx.x] = acc[k];
-  }
-  observe<kScanCudaThreads>(sum, obs);
-}
+// ---- the CUDA-core scans: the reps inside the walk over the splats ----------
 
-// ---- the CUDA-core cumprod: the reps inside the walk over the splats --------
-
-constexpr int kCumprodGroup = 16;  // reps a walk over K carries side by side, at most
-constexpr int kCumprodBatch = 8;   // splats whose x a thread loads a batch ahead
-// dynamic shared memory of cumprod_cuda_kernel when its reps take more than
+constexpr int kWalkGroup = 16;  // reps a walk over K carries side by side, at most
+constexpr int kWalkBatch = 8;   // splats whose x a thread loads a batch ahead
+// dynamic shared memory of the CUDA-core scans when their reps take more than
 // one walk: the sums of the walks before, [splat][thread]
-constexpr int kCumprodSmem = kK * kScanCudaThreads * 4;  // 32 KB
+constexpr int kWalkSmem = kK * kScanCudaThreads * 4;  // 32 KB
 
 // The walks a launch of `reps` takes: reps / 16 of 16, then one each of 8,
 // 4, 2 and 1 as the rest's bits say
-__host__ __device__ constexpr int cumprod_walks(int reps) {
-  return reps / kCumprodGroup + (reps & 8 ? 1 : 0) + (reps & 4 ? 1 : 0) + (reps & 2 ? 1 : 0) +
+__host__ __device__ constexpr int scan_walks(int reps) {
+  return reps / kWalkGroup + (reps & 8 ? 1 : 0) + (reps & 4 ? 1 : 0) + (reps & 2 ? 1 : 0) +
          (reps & 1 ? 1 : 0);
 }
 
@@ -1047,38 +1022,53 @@ __device__ __forceinline__ float masked_one_minus(float a) {
   return __fmaf_rn(-a, mask, 1.f);
 }
 
+// rep i's constant: the i of x + i (kAdd), the alpha's scale c_i (kMul)
+template <int kOp>
+__device__ __forceinline__ float rep_const(int i) {
+  return kOp == kAdd ? static_cast<float>(i) : rep_scale(i);
+}
+
+// One element of one rep: run, the rep's running sum (kAdd: run + (x + i))
+// or product (kMul: run (1 - a) or run), then s, the splat's sum over reps,
+// + run; each rounded apart, but where fma (the cumprod's last splat, whose
+// product feeds only the add; a constant once the splat loop is unrolled)
+// s + run g in one FMA
+template <int kOp>
+__device__ __forceinline__ void walk_step(float xv, float c, bool fma, float& run, float& s) {
+  if constexpr (kOp == kAdd) {
+    run = __fadd_rn(run, __fadd_rn(xv, c));
+    s = __fadd_rn(s, run);
+  } else if (fma) {
+    s = __fmaf_rn(run, masked_one_minus(alpha_sat(xv, c)), s);
+  } else {
+    run = __fmul_rn(run, masked_one_minus(alpha_sat(xv, c)));
+    s = __fadd_rn(s, run);
+  }
+}
+
 // One walk of a thread's pixel over K for the reps i0, ..., i0 + kReps - 1:
-// a running product each, so per splat x is read once (from L2, a batch of
-// kCumprodBatch loaded while the batch before is worked) and each rep adds
-// its product to the splat's sum, in rep order. The sum starts at 0 in the
-// first walk, else at the walks before's (part: the thread's column of the
-// shared-memory sums, splat k at part[64 k]); the last walk adds it to
-// `total` in splat order and tile 0 stores it to op (the thread's column of
-// out), the others leave it in part. Each output is ((0 + r_0) + r_1) + ...
-// with rep i's r_i formed as a per-rep walk forms it: run = run (1 - a) or
-// run, the product and the add rounded apart, but at the last splat, where
-// the product feeds only the add, one FMA.
-template <int kReps, bool kEnd>
-__device__ __forceinline__ void cumprod_batch(const float (&xb)[kCumprodBatch], int k0,
-                                              const float (&ci)[kReps], float (&run)[kReps],
-                                              float* part, bool first, bool last,
-                                              float* __restrict__ op, float& total) {
+// a running sum or product each, so per splat x is read once (from L2, a
+// batch of kWalkBatch loaded while the batch before is worked) and each rep
+// adds its running value to the splat's sum, in rep order (walk_step). The
+// sum starts at 0 in the first walk (kFirst), else at the walks before's
+// (part: the thread's column of the shared-memory sums, splat k at
+// part[64 k]); the last walk (kLast) adds it to `total` in splat order and
+// tile 0 stores it to op (the thread's column of out), the others leave it
+// in part. Each output is ((0 + r_0) + r_1) + ... with rep i's r_i formed as
+// a per-rep walk forms it. kFirst and kLast are template arguments: as
+// runtime flags they cost a branch or a select a splat.
+template <int kOp, int kReps, bool kEnd, bool kFirst, bool kLast>
+__device__ __forceinline__ void walk_batch(const float (&xb)[kWalkBatch], int k0,
+                                           const float (&c)[kReps], float (&run)[kReps],
+                                           float* part, float* __restrict__ op, float& total) {
 #pragma unroll
-  for (int j = 0; j < kCumprodBatch; ++j) {
+  for (int j = 0; j < kWalkBatch; ++j) {
     const int k = k0 + j;
-    float s = first ? 0.f : part[k * kScanCudaThreads];
+    float s = kFirst ? 0.f : part[k * kScanCudaThreads];
 #pragma unroll
-    for (int r = 0; r < kReps; ++r) {
-      const float a = alpha_sat(xb[j], ci[r]);
-      const float g = masked_one_minus(a);
-      if (kEnd && j + 1 == kCumprodBatch) {
-        s = __fmaf_rn(run[r], g, s);
-      } else {
-        run[r] = __fmul_rn(run[r], g);
-        s = __fadd_rn(s, run[r]);
-      }
-    }
-    if (last) {
+    for (int r = 0; r < kReps; ++r)
+      walk_step<kOp>(xb[j], c[r], kEnd && j + 1 == kWalkBatch, run[r], s);
+    if constexpr (kLast) {
       total += s;
       if (blockIdx.y == 0) op[k * kPix] = s;
     } else {
@@ -1087,45 +1077,59 @@ __device__ __forceinline__ void cumprod_batch(const float (&xb)[kCumprodBatch], 
   }
 }
 
-template <int kReps>
-__device__ __forceinline__ void cumprod_walk(const float* __restrict__ xp, float* part, int i0,
-                                             bool first, bool last, float* __restrict__ op,
-                                             float& total) {
-  float ci[kReps], run[kReps];
+template <int kOp, int kReps, bool kFirst, bool kLast>
+__device__ __forceinline__ void scan_walk(const float* __restrict__ xp, float* part, int i0,
+                                          float* __restrict__ op, float& total) {
+  float c[kReps], run[kReps];
 #pragma unroll
   for (int r = 0; r < kReps; ++r) {
-    ci[r] = rep_scale(i0 + r);
-    run[r] = 1.f;
+    c[r] = rep_const<kOp>(i0 + r);
+    run[r] = kOp == kAdd ? 0.f : 1.f;
   }
-  float xb[kCumprodBatch];
+  float xb[kWalkBatch];
 #pragma unroll
-  for (int j = 0; j < kCumprodBatch; ++j) xb[j] = xp[j * kPix];
+  for (int j = 0; j < kWalkBatch; ++j) xb[j] = xp[j * kPix];
   int k0 = 0;
 #pragma unroll 1
-  for (; k0 + kCumprodBatch < kK; k0 += kCumprodBatch) {
-    float xn[kCumprodBatch];  // the next batch's x
+  for (; k0 + kWalkBatch < kK; k0 += kWalkBatch) {
+    float xn[kWalkBatch];  // the next batch's x
 #pragma unroll
-    for (int j = 0; j < kCumprodBatch; ++j) xn[j] = xp[(k0 + kCumprodBatch + j) * kPix];
-    cumprod_batch<kReps, false>(xb, k0, ci, run, part, first, last, op, total);
+    for (int j = 0; j < kWalkBatch; ++j) xn[j] = xp[(k0 + kWalkBatch + j) * kPix];
+    walk_batch<kOp, kReps, false, kFirst, kLast>(xb, k0, c, run, part, op, total);
 #pragma unroll
-    for (int j = 0; j < kCumprodBatch; ++j) xb[j] = xn[j];
+    for (int j = 0; j < kWalkBatch; ++j) xb[j] = xn[j];
   }
-  cumprod_batch<kReps, true>(xb, k0, ci, run, part, first, last, op, total);
+  walk_batch<kOp, kReps, true, kFirst, kLast>(xb, k0, c, run, part, op, total);
 }
 
-// CUDA cores, the masked cumprod: a thread per pixel, 64 a CTA, walks K
-// with up to 16 reps inside (cumprod_walk): 6 instructions an element and
-// rep (the saturating multiply and the min of alpha_sat, the mask's two
-// FMAs, the product, the add; one of them, the min, on the half-rate ALU
-// pipe), 16 on the thread's running products side by side,
-// and a few dozen registers. A
+// the walk of reps i0, ..., i0 + kReps - 1, the first of the launch's walks
+// where i0 = 0, its last where they end at `reps`
+template <int kOp, int kReps>
+__device__ __forceinline__ void walk(const float* __restrict__ xp, float* part, int i0, int reps,
+                                     float* __restrict__ op, float& total) {
+  const bool first = i0 == 0, last = i0 + kReps == reps;
+  if (first && last)
+    scan_walk<kOp, kReps, true, true>(xp, part, i0, op, total);
+  else if (first)
+    scan_walk<kOp, kReps, true, false>(xp, part, i0, op, total);
+  else if (last)
+    scan_walk<kOp, kReps, false, true>(xp, part, i0, op, total);
+  else
+    scan_walk<kOp, kReps, false, false>(xp, part, i0, op, total);
+}
+
+// CUDA cores, a scan over the splats: a thread per pixel, 64 a CTA, walks K
+// with up to 16 reps inside (scan_walk): the cumsum 3 instructions an element
+// and rep (x + i, the running add, the add into the sum); the masked cumprod
+// 6 (the saturating multiply and the min of alpha_sat, the mask's two FMAs,
+// the product, the add; one of them, the min, on the half-rate ALU pipe), 16
+// on the thread's running values side by side, and a few dozen registers. A
 // launch of more reps walks again, the sums of the walks before in shared
-// memory (kCumprodSmem, given only then). Its stages (enum CudaStage):
+// memory (kWalkSmem, given only then). Its stages (enum CudaStage):
 // kCudaLoads reads x, stores it as the output (tile 0) and observes it.
-template <int kStage>
-__global__ void __launch_bounds__(kScanCudaThreads)
-cumprod_cuda_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
-                    int reps) {
+template <int kOp, int kStage>
+__device__ __forceinline__ void cuda_scan(const float* __restrict__ x, float* __restrict__ out,
+                                          float* __restrict__ obs, int reps) {
   extern __shared__ float part[];
   const int p = blockIdx.x * kScanCudaThreads + threadIdx.x;
   const float* xp = x + p;
@@ -1144,24 +1148,40 @@ cumprod_cuda_kernel(const float* __restrict__ x, float* __restrict__ out, float*
   } else {
     float* my = part + threadIdx.x;
     int i = 0;
-    for (; i + kCumprodGroup <= reps; i += kCumprodGroup)
-      cumprod_walk<kCumprodGroup>(xp, my, i, i == 0, i + kCumprodGroup == reps, op, total);
+    for (; i + kWalkGroup <= reps; i += kWalkGroup)
+      walk<kOp, kWalkGroup>(xp, my, i, reps, op, total);
     // the rest in walks of 8, 4, 2 and 1
     if (reps - i >= 8) {
-      cumprod_walk<8>(xp, my, i, i == 0, i + 8 == reps, op, total);
+      walk<kOp, 8>(xp, my, i, reps, op, total);
       i += 8;
     }
     if (reps - i >= 4) {
-      cumprod_walk<4>(xp, my, i, i == 0, i + 4 == reps, op, total);
+      walk<kOp, 4>(xp, my, i, reps, op, total);
       i += 4;
     }
     if (reps - i >= 2) {
-      cumprod_walk<2>(xp, my, i, i == 0, i + 2 == reps, op, total);
+      walk<kOp, 2>(xp, my, i, reps, op, total);
       i += 2;
     }
-    if (reps - i >= 1) cumprod_walk<1>(xp, my, i, i == 0, true, op, total);
+    if (reps - i >= 1) walk<kOp, 1>(xp, my, i, reps, op, total);
   }
   observe<kScanCudaThreads>(total, obs);
+}
+
+// the inclusive cumsum of x + i (replaces kern_cumsum_vpu, :153)
+template <int kStage>
+__global__ void __launch_bounds__(kScanCudaThreads)
+cumsum_cuda_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
+                   int reps) {
+  cuda_scan<kAdd, kStage>(x, out, obs, reps);
+}
+
+// the masked cumprod of rep i's alpha (replaces kern_cumprod_vpu, :192)
+template <int kStage>
+__global__ void __launch_bounds__(kScanCudaThreads)
+cumprod_cuda_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
+                    int reps) {
+  cuda_scan<kMul, kStage>(x, out, obs, reps);
 }
 
 // The bf16 fragment of the lower-triangular ones L at (row r, col c) of a
@@ -1610,19 +1630,38 @@ int moments_bf16(int stage, const float* x, float* out, float* obs, int reps, in
   }
 }
 
-// the cumprod's sums of earlier walks take shared memory (below the 48 KB a
-// launch may ask for unasked) only where the reps take more than one walk
-int cumprod_cuda(int stage, const float* x, float* out, float* obs, int reps, int tiles,
-                 cudaStream_t s) {
-  const dim3 grid(kScanParts, tiles);
-  if (stage == kCudaFull) {
-    const int smem = cumprod_walks(reps) > 1 ? kCumprodSmem : 0;
-    cumprod_cuda_kernel<kCudaFull><<<grid, kScanCudaThreads, smem, s>>>(x, out, obs, reps);
-  } else if (stage == kCudaLoads) {
-    cumprod_cuda_kernel<kCudaLoads><<<grid, kScanCudaThreads, 0, s>>>(x, out, obs, reps);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+int acc_bf16(int stage, const float* x, const float* sw, float* out, float* obs, int reps,
+             int tiles, cudaStream_t s) {
+  const int n = kAccBf16Threads;
+  switch (stage) {
+    case kBf16Full:
+      return launch(acc_bf16_kernel<kBf16Full>, kAccBf16Parts, n, tiles, s, x, sw, out, obs, reps);
+    case kBf16Loads:
+      return launch(acc_bf16_kernel<kBf16Loads>, kAccBf16Parts, n, tiles, s, x, sw, out, obs, reps);
+    case kBf16Operands:
+      return launch(acc_bf16_kernel<kBf16Operands>, kAccBf16Parts, n, tiles, s, x, sw, out, obs,
+                    reps);
+    case kBf16Products:
+      return launch(acc_bf16_kernel<kBf16Products>, kAccBf16Parts, n, tiles, s, x, sw, out, obs,
+                    reps);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+int scan_cuda(int op, int stage, const float* x, float* out, float* obs, int reps, int tiles,
+              cudaStream_t s) {
+  const dim3 grid(kScanParts, tiles);
+  const int smem = stage == kCudaFull && scan_walks(reps) > 1 ? kWalkSmem : 0;
+  if (op == kAdd && stage == kCudaFull)
+    cumsum_cuda_kernel<kCudaFull><<<grid, kScanCudaThreads, smem, s>>>(x, out, obs, reps);
+  else if (op == kAdd && stage == kCudaLoads)
+    cumsum_cuda_kernel<kCudaLoads><<<grid, kScanCudaThreads, smem, s>>>(x, out, obs, reps);
+  else if (op == kMul && stage == kCudaFull)
+    cumprod_cuda_kernel<kCudaFull><<<grid, kScanCudaThreads, smem, s>>>(x, out, obs, reps);
+  else if (op == kMul && stage == kCudaLoads)
+    cumprod_cuda_kernel<kCudaLoads><<<grid, kScanCudaThreads, smem, s>>>(x, out, obs, reps);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1631,7 +1670,7 @@ int moments_parts(int mode) {
 }
 
 int acc_parts(int mode) {
-  return mode == kCuda || mode == kBf16 || mode == kTf32x3 ? kAccParts : -1;
+  return mode == kBf16 ? kAccBf16Parts : mode == kCuda || mode == kTf32x3 ? kAccParts : -1;
 }
 
 int scan_parts(int op, int mode) {
@@ -1675,8 +1714,7 @@ extern "C" int moss_mxu_acc(const float* x, const float* sw, float* out, float* 
   const auto s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kCuda: return acc_cuda(kCudaFull, x, sw, out, obs, reps, tiles, s);
-    case kBf16:
-      return launch(acc_bf16_kernel, kAccParts, kAccTcThreads, tiles, s, x, sw, out, obs, reps);
+    case kBf16: return acc_bf16(kBf16Full, x, sw, out, obs, reps, tiles, s);
     case kTf32x3: return acc_tf32x3(kTf32Full, x, sw, out, obs, reps, tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1688,9 +1726,8 @@ extern "C" int moss_mxu_scan(const float* x, float* out, float* obs, int reps, i
                              int mode, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const int parts = kScanParts;
-  if (op == kAdd && mode == kCuda)
-    return launch(cumsum_cuda_kernel, parts, kScanCudaThreads, tiles, s, x, out, obs, reps);
-  if (op == kMul && mode == kCuda) return cumprod_cuda(kCudaFull, x, out, obs, reps, tiles, s);
+  if (mode == kCuda && (op == kAdd || op == kMul))
+    return scan_cuda(op, kCudaFull, x, out, obs, reps, tiles, s);
   if (op == kAdd && mode == kBf16) return cumsum_stage<kBf16>(kCsFull, x, out, obs, reps, tiles, s);
   if (op == kAdd && mode == kSplit2)
     return cumsum_stage<kSplit2>(kCsFull, x, out, obs, reps, tiles, s);
@@ -1749,10 +1786,10 @@ extern "C" int moss_mxu_acc_stage(const float* x, const float* sw, float* out, f
   return acc_tf32x3(stage, x, sw, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
 }
 
-// Stage `stage` (enum CudaStage) of the CUDA-core moments, accumulator or
-// cumprod kernel, launched as moss_mxu_moments or moss_mxu_acc with mode 0,
-// or moss_mxu_scan with op 1 and mode 0, is, with its observer (tiles, their
-// parts); cudaErrorInvalidValue for an unknown stage.
+// Stage `stage` (enum CudaStage) of the CUDA-core moments, accumulator,
+// cumsum or cumprod kernel, launched as moss_mxu_moments or moss_mxu_acc with
+// mode 0, or moss_mxu_scan with op 0 or 1 and mode 0, is, with its observer
+// (tiles, their parts); cudaErrorInvalidValue for an unknown stage.
 extern "C" int moss_mxu_moments_cuda_stage(const float* x, float* out, float* obs, int reps,
                                            int tiles, int stage, void* stream) {
   return moments_cuda(stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
@@ -1763,24 +1800,35 @@ extern "C" int moss_mxu_acc_cuda_stage(const float* x, const float* sw, float* o
   return acc_cuda(stage, x, sw, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int moss_mxu_cumprod_cuda_stage(const float* x, float* out, float* obs, int reps,
-                                           int tiles, int stage, void* stream) {
-  return cumprod_cuda(stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+extern "C" int moss_mxu_cumsum_cuda_stage(const float* x, float* out, float* obs, int reps,
+                                          int tiles, int stage, void* stream) {
+  return scan_cuda(kAdd, stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
 }
 
-// Stage `stage` (enum Bf16Stage) of the bf16 moments kernel, launched as
-// moss_mxu_moments with mode 1 is, with its observer (tiles, its parts);
-// cudaErrorInvalidValue for an unknown stage.
+extern "C" int moss_mxu_cumprod_cuda_stage(const float* x, float* out, float* obs, int reps,
+                                           int tiles, int stage, void* stream) {
+  return scan_cuda(kMul, stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+}
+
+// Stage `stage` (enum Bf16Stage) of the bf16 moments or accumulator kernel,
+// launched as moss_mxu_moments or moss_mxu_acc with mode 1 is, with its
+// observer (tiles, their parts); cudaErrorInvalidValue for an unknown stage.
 extern "C" int moss_mxu_moments_bf16_stage(const float* x, float* out, float* obs, int reps,
                                            int tiles, int stage, void* stream) {
   return moments_bf16(stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
 }
 
+extern "C" int moss_mxu_acc_bf16_stage(const float* x, const float* sw, float* out, float* obs,
+                                       int reps, int tiles, int stage, void* stream) {
+  return acc_bf16(stage, x, sw, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+}
+
 // CTAs an SM of a kernel's production form at its block size and with no
 // dynamic shared memory, as the runtime's occupancy query gives them: 0 the
 // CUDA-core moments, 1 the CUDA-core accumulators, 2 the CUDA-core cumprod
-// (its launches of at most 16 reps), 3 the bf16 moments; -1 for an unknown
-// kernel, or the query's error negated.
+// (its launches of at most 16 reps), 3 the bf16 moments, 4 the CUDA-core
+// cumsum (as the cumprod), 5 the bf16 accumulators; -1 for an unknown kernel,
+// or the query's error negated.
 extern "C" int moss_mxu_ctas_per_sm(int kernel) {
   int n = 0;
   cudaError_t e;
@@ -1796,6 +1844,12 @@ extern "C" int moss_mxu_ctas_per_sm(int kernel) {
   else if (kernel == 3)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, moments_bf16_kernel<kBf16Full>,
                                                       kMomThreads, 0);
+  else if (kernel == 4)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, cumsum_cuda_kernel<kCudaFull>,
+                                                      kScanCudaThreads, 0);
+  else if (kernel == 5)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, acc_bf16_kernel<kBf16Full>,
+                                                      kAccBf16Threads, 0);
   else
     return -1;
   return e == cudaSuccess ? n : -static_cast<int>(e);
@@ -1810,10 +1864,10 @@ extern "C" int moss_mxu_tc_order(int family, int* out) {
   constexpr int kWarps = kMomThreads / 32;
   if (family == 2) {
     for (int w = 0; w < kWarps; ++w)
-      for (int s = 0; s < kMomBf16Steps; ++s)
+      for (int s = 0; s < kBf16Steps; ++s)
         for (int col = 0; col < 16; ++col)
-          out[(w * kMomBf16Steps + s) * 16 + col] = mom_bf16_pixel(w, s, col);
-    return kWarps * kMomBf16Steps * 16;
+          out[(w * kBf16Steps + s) * 16 + col] = mom_bf16_pixel(w, s, col);
+    return kWarps * kBf16Steps * 16;
   }
   if (family == 0) {
     for (int w = 0; w < kWarps; ++w)

@@ -46,16 +46,17 @@ operand split once, the split alone), whose kernels take the contraction
 axis in the order mom_pixel and acc_pixel give (the C library's
 moss_mxu_tc_order reports it), bf16_stage for the bf16 moments
 (BF16_STAGES: the chunk's read, the operand work and the products alone),
-whose kernel takes the pixels in mom_bf16_pixel's order, and cuda_stage for
-the CUDA-core moments, accumulators and cumprod (CUDA_STAGES: the chunk's
-read, the store and the observer alone). The CUDA-core moments sum each
-column's 8 rows weighted by 1, py and py^2, then the columns weighted by px
-(kern_moments_vpu's order); the CUDA-core accumulators are register-blocked,
-a lane 4 pixels and a warp 16 splats, the warps' partial sums added in warp
-order; the CUDA-core cumprod walks the splats with up to CUMPROD_GROUP reps
-side by side, which leaves each output's sum over reps in rep order.
-ctas_per_sm gives the occupancy of the CUDA-core kernels and the bf16
-moments.
+whose kernel takes the pixels in mom_bf16_pixel's order, and for the bf16
+accumulators (BF16_FAMILIES), whose kernel takes the m-tile's rows in
+acc_pixel's order, and cuda_stage for the CUDA-core moments, accumulators,
+cumsum and cumprod (CUDA_STAGES: the chunk's read, the store and the
+observer alone). The CUDA-core moments sum each column's 8 rows weighted by
+1, py and py^2, then the columns weighted by px (kern_moments_vpu's order);
+the CUDA-core accumulators are register-blocked, a lane 4 pixels and a warp
+16 splats, the warps' partial sums added in warp order; the CUDA-core cumsum
+and cumprod walk the splats with up to WALK_GROUP reps side by side, which
+leaves each output's sum over reps in rep order. ctas_per_sm gives the
+occupancy of the CUDA-core kernels and the bf16 forms.
 
 A kernel launch runs TILES identical copies of the chunk (the TPU's grid
 of TILES = 256 programs); only tile 0 stores the output, and every CTA
@@ -88,8 +89,8 @@ scan_launches = 0     # moss_mxu_scan
 stage_launches = 0    # moss_mxu_scan_stage
 cumsum_stage_launches = 0  # moss_mxu_cumsum_stage
 tf32x3_stage_launches = 0  # moss_mxu_moments_stage, moss_mxu_acc_stage
-cuda_stage_launches = 0  # moss_mxu_{moments,acc,cumprod}_cuda_stage
-bf16_stage_launches = 0  # moss_mxu_moments_bf16_stage
+cuda_stage_launches = 0  # moss_mxu_{moments,acc,cumsum,cumprod}_cuda_stage
+bf16_stage_launches = 0  # moss_mxu_{moments,acc}_bf16_stage
 # launches of each of RUNS's forms through its family's wrapper, by run name
 form_launches = {}
 
@@ -112,24 +113,28 @@ TF32X3_STAGES = ("full", "products", "split")
 # a warp walks in a rep, pixels a moments warp covers
 TF32X3_WARPS, TF32X3_STEPS, MOM_SLICE = 8, 16, 128
 
-# the CUDA-core moments, accumulator and cumprod kernels' stages, by their
-# code in csrc/reduce_scan.cu (enum CudaStage)
+# the CUDA-core moments, accumulator, cumsum and cumprod kernels' stages, by
+# their code in csrc/reduce_scan.cu (enum CudaStage)
 CUDA_STAGES = ("full", "loads")
-CUDA_FAMILIES = ("moments", "acc", "cumprod")
+CUDA_FAMILIES = ("moments", "acc", "cumsum", "cumprod")
 # their shapes (csrc/reduce_scan.cu): warps a CTA of the moments and
 # accumulator kernels, adjacent pixel columns a moments lane takes, splats an
 # accumulator warp takes and adjacent pixels an accumulator lane takes; reps
-# a cumprod walk carries at most and splats a cumprod thread loads ahead
+# a scan's walk carries at most and splats a scan's thread loads ahead
 CUDA_WARPS, MOM_CUDA_COLS, ACC_CUDA_SPLATS, ACC_CUDA_PIX = 8, 4, 16, 4
-CUMPROD_GROUP, CUMPROD_BATCH = 16, 8
+WALK_GROUP, WALK_BATCH = 16, 8
 
-# the bf16 moments kernel's stages, by their code in csrc/reduce_scan.cu (enum
-# Bf16Stage), its k-steps of 16 pixels a warp walks in a rep (8 warps a CTA,
-# TF32X3_WARPS) and the reps whose product chains run side by side
+# the bf16 moments and accumulator kernels' stages, by their code in
+# csrc/reduce_scan.cu (enum Bf16Stage), their k-steps of 16 a warp walks in a
+# rep (pixels of the moments, 8 warps a CTA, TF32X3_WARPS; splats of the
+# accumulators, ACC_BF16_WARPS warps of 16 pixels a CTA) and the reps whose
+# product chains run side by side
 BF16_STAGES = ("full", "loads", "operands", "products")
-MOM_BF16_STEPS, MOM_BF16_IN_FLIGHT = 8, 2
+BF16_FAMILIES = ("moments", "acc")
+BF16_STEPS, BF16_IN_FLIGHT, ACC_BF16_WARPS = 8, 2, 4
 # the kernels ctas_per_sm knows, in the order of moss_mxu_ctas_per_sm's codes
-CTAS_KERNELS = ("moments_cuda", "acc_cuda", "cumprod_cuda", "moments_bf16")
+CTAS_KERNELS = ("moments_cuda", "acc_cuda", "cumprod_cuda", "moments_bf16", "cumsum_cuda",
+                "acc_bf16")
 
 MODES = ("cuda", "bf16", "tf32x3")
 SCAN_MODES = {"add": ("cuda", "bf16", "split2"), "mul": ("cuda", "split2")}
@@ -167,8 +172,10 @@ _SIGNATURES = {  # pointers, then reps, tiles, [op,] [mode]
     "moss_mxu_acc_stage": [_PTR] * 4 + [_INT] * 3,
     "moss_mxu_moments_cuda_stage": [_PTR] * 3 + [_INT] * 3,
     "moss_mxu_acc_cuda_stage": [_PTR] * 4 + [_INT] * 3,
+    "moss_mxu_cumsum_cuda_stage": [_PTR] * 3 + [_INT] * 3,
     "moss_mxu_cumprod_cuda_stage": [_PTR] * 3 + [_INT] * 3,
     "moss_mxu_moments_bf16_stage": [_PTR] * 3 + [_INT] * 3,
+    "moss_mxu_acc_bf16_stage": [_PTR] * 4 + [_INT] * 3,
 }
 
 
@@ -273,8 +280,8 @@ def mom_pixel(w: int, s: int, col: int) -> int:
 
 
 def acc_pixel(w: int, r: int) -> int:
-    """csrc/reduce_scan.cu::acc_pixel: the pixel (of its CTA's 128) of row r of
-    warp w's m-tile in the accumulator kernel."""
+    """csrc/reduce_scan.cu::acc_pixel: the pixel (of its CTA's) of row r of
+    warp w's m-tile in the bf16 and 3xTF32 accumulator kernels."""
     return 16 * w + 2 * (r & 7) + (r >> 3)
 
 
@@ -297,7 +304,7 @@ def mom_bf16_pixel(w: int, s: int, col: int) -> int:
 def bf16_order_plain():
     """mom_bf16_pixel over (warp, k-step, column), (8, 8, 16)."""
     return torch.tensor([[[mom_bf16_pixel(w, s, c) for c in range(16)]
-                          for s in range(MOM_BF16_STEPS)] for w in range(TF32X3_WARPS)])
+                          for s in range(BF16_STEPS)] for w in range(TF32X3_WARPS)])
 
 
 def _c_order(code: int, want):
@@ -507,6 +514,33 @@ def scan(x, reps: int = REPS, op: str = "add", mode: str = "cuda"):
     return res
 
 
+def _scan_op(family):
+    return "add" if family == "cumsum" else "mul"
+
+
+def _out_shape(family):
+    return {"moments": (K, 8), "acc": (8, H, W)}.get(family, (K, H, W))
+
+
+def _family_parts(family, mode):
+    """The observer's columns of the kernel of `family` at `mode`."""
+    if family in ("cumsum", "cumprod"):
+        return _parts("moss_mxu_scan", _OP_CODE[_scan_op(family)], _MODE_CODE[mode])
+    return _parts(f"moss_mxu_{family}", _MODE_CODE[mode])
+
+
+def _launch_stage(symbol, family, mode, x, s, reps, *codes):
+    """Launch a stage of `family`'s kernel at `mode` through its C entry point
+    `symbol` with `codes` (the mode where the entry point takes it, then the
+    stage) after reps and TILES: (out, observer)."""
+    out = torch.empty(_out_shape(family), dtype=torch.float32, device=x.device)
+    obs = torch.empty((TILES, _family_parts(family, mode)), dtype=torch.float32, device=x.device)
+    ptrs = [x.data_ptr()] + ([s.data_ptr()] if family == "acc" else [])
+    cuda_build.launch("reduce_scan", symbol, _SIGNATURES[symbol], x.device, *ptrs, out.data_ptr(),
+                      obs.data_ptr(), reps, TILES, *codes)
+    return out, obs
+
+
 def scan_stage_plain(x, stage: str, reps: int = REPS):
     """What stage `stage` of the log-space cumprod kernel returns, summed over
     the reps, with a the rep's alpha masked to 0 where a <= 0.003: "full" the
@@ -542,14 +576,10 @@ def scan_stage(x, stage: str, reps: int = REPS):
         raise ValueError(f"stage {stage!r}: expected one of {SCAN_STAGES}")
     if x.device.type == "cpu":
         return scan_stage_plain(x, stage, reps), None
-    out = torch.empty((K, H, W), dtype=torch.float32, device=x.device)
-    obs = torch.empty((TILES, _parts("moss_mxu_scan", _OP_CODE["mul"], _MODE_CODE["split2"])),
-                      dtype=torch.float32, device=x.device)
-    cuda_build.launch("reduce_scan", "moss_mxu_scan_stage", _SIGNATURES["moss_mxu_scan_stage"],
-                      x.device, x.data_ptr(), out.data_ptr(), obs.data_ptr(), reps, TILES,
-                      SCAN_STAGES.index(stage))
+    res = _launch_stage("moss_mxu_scan_stage", "cumprod", "split2", x, None, reps,
+                        SCAN_STAGES.index(stage))
     stage_launches += 1
-    return out, obs
+    return res
 
 
 def _pair_register(lo_elem, hi_elem):
@@ -607,15 +637,10 @@ def cumsum_stage(x, mode: str, stage: str, reps: int = REPS):
     _check(x, reps, "cumsum_stage")
     if x.device.type == "cpu":
         return cumsum_stage_plain(x, mode, stage, reps), None
-    out = torch.empty((K, H, W), dtype=torch.float32, device=x.device)
-    obs = torch.empty((TILES, _parts("moss_mxu_scan", _OP_CODE["add"], _MODE_CODE[mode])),
-                      dtype=torch.float32, device=x.device)
-    cuda_build.launch("reduce_scan", "moss_mxu_cumsum_stage",
-                      _SIGNATURES["moss_mxu_cumsum_stage"], x.device, x.data_ptr(),
-                      out.data_ptr(), obs.data_ptr(), reps, TILES, _MODE_CODE[mode],
-                      CUMSUM_STAGES.index(stage))
+    res = _launch_stage("moss_mxu_cumsum_stage", "cumsum", mode, x, None, reps, _MODE_CODE[mode],
+                        CUMSUM_STAGES.index(stage))
     cumsum_stage_launches += 1
-    return out, obs
+    return res
 
 
 def _slot_onehot(family: str, device):
@@ -684,16 +709,10 @@ def tf32x3_stage(family: str, x, s, stage: str, reps: int = REPS):
     _check(x, reps, "tf32x3_stage", s if family == "acc" else None)
     if x.device.type == "cpu":
         return tf32x3_stage_plain(family, x, s, stage, reps), None
-    symbol = f"moss_mxu_{family}_stage"
-    out = torch.empty((K, 8) if family == "moments" else (8, H, W), dtype=torch.float32,
-                      device=x.device)
-    obs = torch.empty((TILES, _parts(f"moss_mxu_{family}", _MODE_CODE["tf32x3"])),
-                      dtype=torch.float32, device=x.device)
-    ptrs = [x.data_ptr()] + ([s.data_ptr()] if family == "acc" else [])
-    cuda_build.launch("reduce_scan", symbol, _SIGNATURES[symbol], x.device, *ptrs, out.data_ptr(),
-                      obs.data_ptr(), reps, TILES, TF32X3_STAGES.index(stage))
+    res = _launch_stage(f"moss_mxu_{family}_stage", family, "tf32x3", x, s, reps,
+                        TF32X3_STAGES.index(stage))
     tf32x3_stage_launches += 1
-    return out, obs
+    return res
 
 
 def _cuda_stage_args(family, stage, what):
@@ -705,16 +724,16 @@ def _cuda_stage_args(family, stage, what):
 
 def cuda_stage_plain(family: str, x, s, stage: str, reps: int = REPS):
     """What stage `stage` of the CUDA-core moments ("moments"), accumulator
-    ("acc") or cumprod ("cumprod") kernel returns: "full" the function
-    (moments_plain, acc_plain at mode "cuda", scan_plain at op "mul");
-    "loads" for the contractions the sum of x over the contracted axis in the
-    first output, the moments' columns 0 and 6 (S0) or the accumulators'
-    rows 0 and 5, every other output 0, for the cumprod x itself, whatever
-    `reps`."""
+    ("acc"), cumsum ("cumsum") or cumprod ("cumprod") kernel returns: "full"
+    the function (moments_plain, acc_plain at mode "cuda", scan_plain at op
+    "add" or "mul"); "loads" for the contractions the sum of x over the
+    contracted axis in the first output, the moments' columns 0 and 6 (S0) or
+    the accumulators' rows 0 and 5, every other output 0, for the scans x
+    itself, whatever `reps`."""
     _cuda_stage_args(family, stage, "cuda_stage_plain")
     if stage == "full":
         return run_plain(f"{family}_cuda", x, s, reps)
-    if family == "cumprod":
+    if family in ("cumsum", "cumprod"):
         return x.clone()
     g0, lead = _rows(x)
     if family == "moments":
@@ -727,81 +746,87 @@ def cuda_stage_plain(family: str, x, s, stage: str, reps: int = REPS):
 
 
 def cuda_stage(family: str, x, s, stage: str, reps: int = REPS):
-    """(out, observer) of stage `stage` of the CUDA-core moments, accumulator
-    or cumprod kernel: "full" is that kernel (mode "cuda"), "loads" leaves
-    out the reps, so its time says what the chunk's read, the store and the
-    observer cost. s is read by "acc" only. Counted in
+    """(out, observer) of stage `stage` of the CUDA-core moments, accumulator,
+    cumsum or cumprod kernel: "full" is that kernel (mode "cuda"), "loads"
+    leaves out the reps, so its time says what the chunk's read, the store
+    and the observer cost. s is read by "acc" only. Counted in
     `cuda_stage_launches`; on a CPU tensor, cuda_stage_plain."""
     global cuda_stage_launches
     _cuda_stage_args(family, stage, "cuda_stage")
     _check(x, reps, "cuda_stage", s if family == "acc" else None)
     if x.device.type == "cpu":
         return cuda_stage_plain(family, x, s, stage, reps), None
-    symbol = f"moss_mxu_{family}_cuda_stage"
-    out = torch.empty({"moments": (K, 8), "acc": (8, H, W), "cumprod": (K, H, W)}[family],
-                      dtype=torch.float32, device=x.device)
-    parts = (_parts("moss_mxu_scan", _OP_CODE["mul"], _MODE_CODE["cuda"]) if family == "cumprod"
-             else _parts(f"moss_mxu_{family}", _MODE_CODE["cuda"]))
-    obs = torch.empty((TILES, parts), dtype=torch.float32, device=x.device)
-    ptrs = [x.data_ptr()] + ([s.data_ptr()] if family == "acc" else [])
-    cuda_build.launch("reduce_scan", symbol, _SIGNATURES[symbol], x.device, *ptrs, out.data_ptr(),
-                      obs.data_ptr(), reps, TILES, CUDA_STAGES.index(stage))
+    res = _launch_stage(f"moss_mxu_{family}_cuda_stage", family, "cuda", x, s, reps,
+                        CUDA_STAGES.index(stage))
     cuda_stage_launches += 1
-    return out, obs
+    return res
 
 
-def _bf16_stage_args(stage, what):
+def _bf16_stage_args(family, stage, what):
+    if family not in BF16_FAMILIES:
+        raise ValueError(f"{what}: family {family!r} is not one of {BF16_FAMILIES}")
     if stage not in BF16_STAGES:
         raise ValueError(f"{what}: stage {stage!r}: expected one of {BF16_STAGES}")
 
 
-def bf16_stage_plain(x, stage: str, reps: int = REPS):
-    """What stage `stage` of the bf16 moments kernel returns, (K, 8): "full"
-    the moments at mode "bf16" (moments_plain); "loads" x summed into column
-    2t over the pixels p with (p % 16) // 4 == t (lane t's of every k-step,
-    mom_bf16_pixel), the odd columns 0, whatever `reps`; "operands" the sum
-    over reps of the pair registers of v = x + i (_pair_register): of pixels
-    p, p + 1 into column 2t, of p + 2, p + 3 into column 2t + 1, p = 16 j + 4 t;
-    "products" the reps' sums of bf16(x) @ bf16(basis), x rounded once."""
-    _bf16_stage_args(stage, "bf16_stage_plain")
+def bf16_stage_plain(family: str, x, s, stage: str, reps: int = REPS):
+    """What stage `stage` of the bf16 moments ("moments", (K, 8)) or
+    accumulator ("acc", (8, 8, 128)) kernel returns: "full" the function at
+    mode "bf16" (moments_plain, acc_plain); "loads" x summed once, whatever
+    `reps`, into the even output columns (moments) or rows (acc) 2t by the
+    lane t that holds it: over the pixels p with (p % 16) // 4 == t
+    (mom_bf16_pixel), over the splats k with (k % 8) // 2 == t; "operands" the
+    sum over reps of the pair registers of v = x + i (_pair_register): for
+    the moments, of pixels p, p + 1 into column 2t and of p + 2, p + 3 into
+    column 2t + 1, p = 16 j + 4 t; for the accumulators, of splats 2j, 2j + 1
+    into row _slot_column(j % 8); "products" the reps' sums of the product of
+    bf16(x) and bf16 of the basis or of s, x rounded once."""
+    _bf16_stage_args(family, stage, "bf16_stage_plain")
     if stage == "full":
-        return moments_plain(x, reps, "bf16")
+        return moments_plain(x, reps, "bf16") if family == "moments" else acc_plain(x, s, reps,
+                                                                                    "bf16")
     g0, lead = _rows(x)
-    out = torch.zeros((*lead, K, 8), device=x.device)
-    if stage == "loads":
-        out[..., 0::2] = g0.reshape(*lead, K, PIX // 16, 4, 4).sum((-3, -1))
-        return out
+    moments_ = family == "moments"
+    out = torch.zeros((*lead, K, 8) if moments_ else (*lead, 8, PIX), device=x.device)
     if stage == "products":
-        cs = _mm(g0, basis(x.device), "bf16")
+        cs = _mm(g0, basis(x.device), "bf16") if moments_ else _mm(s, g0, "bf16")
         for _ in range(reps):
             out = out + cs
-        return out
-    for i in range(reps):
-        hi = round_bf16(g0 + float(i)).reshape(*lead, K, PIX // 16, 4, 4)
-        pairs = torch.stack([_pair_register(hi[..., 0], hi[..., 1]),
-                             _pair_register(hi[..., 2], hi[..., 3])], -1)  # (.., K, j, t, 2)
-        out = out + pairs.sum(-3).reshape(*lead, K, 8)
-    return out
+    elif moments_ and stage == "loads":
+        out[..., 0::2] = g0.reshape(*lead, K, PIX // 16, 4, 4).sum((-3, -1))
+    elif moments_:
+        for i in range(reps):
+            hi = round_bf16(g0 + float(i)).reshape(*lead, K, PIX // 16, 4, 4)
+            pairs = torch.stack([_pair_register(hi[..., 0], hi[..., 1]),
+                                 _pair_register(hi[..., 2], hi[..., 3])], -1)  # (.., K, j, t, 2)
+            out = out + pairs.sum(-3).reshape(*lead, K, 8)
+    elif stage == "loads":
+        out[..., 0::2, :] = g0.reshape(*lead, K // 8, 4, 2, PIX).sum((-4, -2))
+    else:
+        rows = [_slot_column(col) for col in range(8)]
+        for i in range(reps):
+            hi = round_bf16(g0 + float(i))
+            pairs = _pair_register(hi[..., 0::2, :], hi[..., 1::2, :])  # (.., K / 2, PIX)
+            by_col = pairs.reshape(*lead, K // 16, 8, PIX).sum(-3)       # (.., j % 8, PIX)
+            out = out + by_col[..., [rows.index(n) for n in range(8)], :]
+    return out if moments_ else out.reshape(*lead, 8, H, W)
 
 
-def bf16_stage(x, stage: str, reps: int = REPS):
-    """(out (K, 8), observer) of stage `stage` of the bf16 moments kernel:
-    "full" is that kernel (moments at mode "bf16"), the others leave out
-    part of its work, so their times say what holds it back. Counted in
-    `bf16_stage_launches`; on a CPU tensor, bf16_stage_plain."""
+def bf16_stage(family: str, x, s, stage: str, reps: int = REPS):
+    """(out, observer) of stage `stage` of the bf16 moments or accumulator
+    kernel: "full" is that kernel (mode "bf16"), the others leave out part of
+    its work, so their times say what holds it back. s is read by "acc"
+    only. Counted in `bf16_stage_launches`; on a CPU tensor,
+    bf16_stage_plain."""
     global bf16_stage_launches
-    _bf16_stage_args(stage, "bf16_stage")
-    _check(x, reps, "bf16_stage")
+    _bf16_stage_args(family, stage, "bf16_stage")
+    _check(x, reps, "bf16_stage", s if family == "acc" else None)
     if x.device.type == "cpu":
-        return bf16_stage_plain(x, stage, reps), None
-    out = torch.empty((K, 8), dtype=torch.float32, device=x.device)
-    obs = torch.empty((TILES, _parts("moss_mxu_moments", _MODE_CODE["bf16"])),
-                      dtype=torch.float32, device=x.device)
-    cuda_build.launch("reduce_scan", "moss_mxu_moments_bf16_stage",
-                      _SIGNATURES["moss_mxu_moments_bf16_stage"], x.device, x.data_ptr(),
-                      out.data_ptr(), obs.data_ptr(), reps, TILES, BF16_STAGES.index(stage))
+        return bf16_stage_plain(family, x, s, stage, reps), None
+    res = _launch_stage(f"moss_mxu_{family}_bf16_stage", family, "bf16", x, s, reps,
+                        BF16_STAGES.index(stage))
     bf16_stage_launches += 1
-    return out, obs
+    return res
 
 
 def ctas_per_sm(name: str) -> int:
@@ -817,10 +842,6 @@ def ctas_per_sm(name: str) -> int:
 
 
 # ---- the twelve runs by name ----------------------------------------------------
-
-def _scan_op(family):
-    return "add" if family == "cumsum" else "mul"
-
 
 def run(name: str, x, s, reps: int = REPS):
     """Run `name` of RUNS through its wrapper: (out, observer)."""

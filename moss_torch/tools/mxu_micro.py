@@ -20,12 +20,12 @@ carry on an operand made once, the operand work alone, the other carry,
 ops.reduce_scan.CUMSUM_STAGES), of the log-space cumprod kernel (products,
 logs and exps alone, ops.reduce_scan.SCAN_STAGES), of the 3xTF32 moments
 and accumulator kernels (the products on an operand split once, the split
-alone, ops.reduce_scan.TF32X3_STAGES), of the bf16 moments kernel (the
-chunk's read, the operand work and the products alone,
-ops.reduce_scan.BF16_STAGES) and of the CUDA-core moments, accumulator and
-cumprod kernels (the chunk's read, the store and the observer alone,
-ops.reduce_scan.CUDA_STAGES), each against its plain version and timed,
-which say what holds them back.
+alone, ops.reduce_scan.TF32X3_STAGES), of the bf16 moments and accumulator
+kernels (the chunk's read, the operand work and the products alone,
+ops.reduce_scan.BF16_STAGES) and of the CUDA-core moments, accumulator,
+cumsum and cumprod kernels (the chunk's read, the store and the observer
+alone, ops.reduce_scan.CUDA_STAGES), each against its plain version and
+timed, which say what holds them back.
 
     python -m moss_torch.tools.mxu_micro
 
@@ -286,23 +286,26 @@ def tf32x3_stages(x, s, time_ms, timing=None):
     return rows
 
 
-def bf16_stages(x, time_ms, timing=None):
-    """The bf16 moments kernel's stages (rs.BF16_STAGES) on the chunk: each
-    against its plain version (raising past RTOL of the max), its observers
-    equal across tiles, its ms; {stage: row}."""
+def bf16_stages(x, s, time_ms, timing=None):
+    """The bf16 moments and accumulator kernels' stages (rs.BF16_STAGES) on
+    the chunk: each against its plain version (raising past RTOL of the max),
+    its observers equal across tiles, its ms; {family: {stage: row}}."""
     rows = {}
-    for stage in rs.BF16_STAGES:
-        out, obs = rs.bf16_stage(x, stage)
-        row = _stage_row(f"moments bf16 stage {stage}", out, obs, rs.bf16_stage_plain(x, stage),
-                         lambda: rs.bf16_stage(x, stage), time_ms, timing)
-        rows[stage] = row
-        print(f"moments TC bf16 stage {stage:8s} {row['ms']:8.4f} ms  err "
-              f"{row['scaled_err']:.1e}")
+    for family in rs.BF16_FAMILIES:
+        rows[family] = {}
+        for stage in rs.BF16_STAGES:
+            out, obs = rs.bf16_stage(family, x, s, stage)
+            row = _stage_row(f"{family} bf16 stage {stage}", out, obs,
+                             rs.bf16_stage_plain(family, x, s, stage),
+                             lambda: rs.bf16_stage(family, x, s, stage), time_ms, timing)
+            rows[family][stage] = row
+            print(f"{family:7s} TC bf16 stage {stage:8s} {row['ms']:8.4f} ms  err "
+                  f"{row['scaled_err']:.1e}")
     return rows
 
 
 def cuda_stages(x, s, time_ms, timing=None):
-    """The CUDA-core moments, accumulator and cumprod kernels' stages
+    """The CUDA-core moments, accumulator, cumsum and cumprod kernels' stages
     (rs.CUDA_STAGES) on the chunk: each against its plain version (raising
     past RTOL of the max), its observers equal across tiles, its ms;
     {family: {stage: row}}."""
@@ -377,7 +380,7 @@ def main(device=None, timing=None, tiles=TILES):
             "numeric": numeric_lines(outs, x), "cumsum_stages": cumsum_stages(x, time_ms, timing),
             "scan_stages": scan_stages(x, time_ms, timing),
             "tf32x3_stages": tf32x3_stages(x, s, time_ms, timing),
-            "bf16_stages": bf16_stages(x, time_ms, timing),
+            "bf16_stages": bf16_stages(x, s, time_ms, timing),
             "cuda_stages": cuda_stages(x, s, time_ms, timing)}
 
 

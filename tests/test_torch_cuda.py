@@ -623,7 +623,7 @@ def test_tf32x3_stage_matches_plain(cuda_device, family, stage, reps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("reps", [rs.REPS, 3])
+@pytest.mark.parametrize("reps", [rs.REPS, 3, rs.REPS // 3, 4 * rs.REPS])
 @pytest.mark.parametrize("stage", rs.CUDA_STAGES)
 @pytest.mark.parametrize("family", rs.CUDA_FAMILIES)
 def test_cuda_stage_matches_plain(cuda_device, family, stage, reps):
@@ -646,39 +646,42 @@ def test_cuda_stage_matches_plain(cuda_device, family, stage, reps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("reps", [rs.REPS, rs.REPS // 3, 4 * rs.REPS])
+@pytest.mark.parametrize("reps", [rs.REPS, 3, rs.REPS // 3, 4 * rs.REPS])
 @pytest.mark.parametrize("stage", rs.BF16_STAGES)
-def test_bf16_stage_matches_plain(cuda_device, stage, reps):
-    """Each stage of the bf16 moments kernel against its plain version (1e-5
-    of the max), observers bitwise equal across tiles, one launch; "full"
-    bitwise the production kernel, which fits two CTAs an SM."""
+@pytest.mark.parametrize("family", rs.BF16_FAMILIES)
+def test_bf16_stage_matches_plain(cuda_device, family, stage, reps):
+    """Each stage of the bf16 moments and accumulator kernels against its
+    plain version (1e-5 of the max), observers bitwise equal across tiles,
+    one launch; "full" bitwise the production kernel, which fits two CTAs an
+    SM."""
     x, s = _chunk(cuda_device)
     before = rs.bf16_stage_launches
-    out, obs = rs.bf16_stage(x, stage, reps)
+    out, obs = rs.bf16_stage(family, x, s, stage, reps)
     torch.cuda.synchronize()
     assert rs.bf16_stage_launches == before + 1
-    plain = rs.bf16_stage_plain(x, stage, reps)
+    plain = rs.bf16_stage_plain(family, x, s, stage, reps)
     err = float((out - plain).abs().max()) / float(plain.abs().max())
     assert err <= 1e-5 and torch.isfinite(out).all(), err
     assert torch.equal(obs, obs[:1].expand_as(obs))
     if stage == "full":
-        assert torch.equal(out, rs.run("moments_bf16", x, s, reps=reps)[0])
-    assert rs.ctas_per_sm("moments_bf16") >= 2
+        assert torch.equal(out, rs.run(f"{family}_bf16", x, s, reps=reps)[0])
+    assert rs.ctas_per_sm(f"{family}_bf16") >= 2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("reps", [rs.REPS // 3, 4 * rs.REPS])
-@pytest.mark.parametrize("name", ["cumprod_cuda", "moments_bf16"])
+@pytest.mark.parametrize("name", ["cumprod_cuda", "moments_bf16", "cumsum_cuda", "acc_bf16"])
 def test_redesigned_kernels_at_more_reps(cuda_device, name, reps):
-    """The CUDA-core cumprod (its reps in walks of 16, 4 and 1) and the bf16
-    moments (two reps in flight, an odd one alone) at REPS / 3 and 4 REPS,
-    beside test_reduce_scan_matches_plain's REPS and 3: kernel within 1e-5 of
-    the max of plain, observers bitwise equal, one launch."""
+    """The CUDA-core cumprod and cumsum (their reps in walks of 16, 4 and 1)
+    and the bf16 moments and accumulators (two reps in flight, an odd one
+    alone) at REPS / 3 and 4 REPS, beside test_reduce_scan_matches_plain's
+    REPS and 3: kernel within 1e-5 of the max of plain, observers bitwise
+    equal, one launch."""
     x, s = _chunk(cuda_device)
     before = rs.launch_counts()
     out, obs = rs.run(name, x, s, reps=reps)
     torch.cuda.synchronize()
-    key = "scan" if name == "cumprod_cuda" else "moments"
+    key = {"cumprod": "scan", "cumsum": "scan"}.get(rs.RUN[name][1], rs.RUN[name][1])
     assert rs.launch_counts()[key] == before[key] + 1
     plain = rs.run_plain(name, x, s, reps=reps)
     err = float((out - plain).abs().max()) / float(plain.abs().max())

@@ -255,8 +255,10 @@ def test_the_tool_on_the_cpu(capsys):
     assert all(list(rows) == list(rs.CUDA_STAGES) and
                all(r["scaled_err"] == 0.0 for r in rows.values())
                for rows in res["cuda_stages"].values())
-    assert list(res["bf16_stages"]) == list(rs.BF16_STAGES)
-    assert all(r["scaled_err"] == 0.0 for r in res["bf16_stages"].values())
+    assert list(res["bf16_stages"]) == list(rs.BF16_FAMILIES)
+    assert all(list(rows) == list(rs.BF16_STAGES) and
+               all(r["scaled_err"] == 0.0 for r in rows.values())
+               for rows in res["bf16_stages"].values())
     # the CUDA-core moments' bound: the separable form's least work, 48 f32
     # operations (an FMA 2) per 8-row column, at the f32 peak
     moments = res["runs"]["moments_cuda"]
@@ -864,7 +866,7 @@ def test_cuda_stage_plain_on_the_cpu(data, plain_out, family, stage, reps):
     """A stage of the CUDA-core kernels on CPU tensors is its plain version,
     with no launch: "full" the run's plain version; "loads" x summed over
     the contracted axis into the first output and its repeat, in float64
-    within RTOL (the cumprod's: x itself), whatever reps."""
+    within RTOL (the scans': x itself), whatever reps."""
     x, s = torch.as_tensor(data["x"]), torch.as_tensor(data["s"])
     before = (rs.cuda_stage_launches, dict(rs.form_launches))
     out, obs = rs.cuda_stage(family, x, s, stage, reps)
@@ -874,7 +876,7 @@ def test_cuda_stage_plain_on_the_cpu(data, plain_out, family, stage, reps):
         assert torch.equal(out, rs.run_plain(f"{family}_cuda", x, s, reps))
         if reps == rs.REPS:
             np.testing.assert_array_equal(out.numpy(), plain_out[f"{family}_cuda"])
-    elif family == "cumprod":
+    elif family in ("cumsum", "cumprod"):
         np.testing.assert_array_equal(out.numpy(), data["x"])
     else:
         g = data["x"].reshape(mm.K, mm.PIX).astype(np.float64)
@@ -940,7 +942,7 @@ def test_compare_summary_and_modes():
 # ---- the CUDA-core cumprod's walks and the bf16 moments' order of pixels --------------
 #
 # csrc/reduce_scan.cu's cumprod_cuda_kernel walks a pixel's 128 splats once
-# for up to CUMPROD_GROUP reps side by side (reps // 16 walks of 16, then one
+# for up to WALK_GROUP reps side by side (reps // 16 walks of 16, then one
 # each of 8, 4, 2 and 1 as the rest's bits say): per splat each rep's
 # alpha_sat, the mask, the running product, and the product added to the
 # splat's sum in rep order, the sum carried from walk to walk. Its
@@ -949,10 +951,11 @@ def test_compare_summary_and_modes():
 # m16n8k16 products, two reps' chains side by side, into its sum.
 
 
-def cumprod_walk_sizes(reps):
-    """The reps of each walk of cumprod_cuda_kernel, in order."""
-    sizes = [rs.CUMPROD_GROUP] * (reps // rs.CUMPROD_GROUP)
-    return sizes + [b for b in (8, 4, 2, 1) if reps % rs.CUMPROD_GROUP & b]
+def walk_sizes(reps):
+    """The reps of each walk of cumprod_cuda_kernel and cumsum_cuda_kernel, in
+    order."""
+    sizes = [rs.WALK_GROUP] * (reps // rs.WALK_GROUP)
+    return sizes + [b for b in (8, 4, 2, 1) if reps % rs.WALK_GROUP & b]
 
 
 def alpha_sat_model(x, c):
@@ -970,7 +973,7 @@ def cumprod_walk_model(x, reps, fma_last):
     g0 = np.asarray(x, np.float32).reshape(rs.K, rs.PIX)
     acc = np.zeros((rs.K, rs.PIX), np.float32)
     i0 = 0
-    for size in cumprod_walk_sizes(reps):
+    for size in walk_sizes(reps):
         c = [np.float32(0.01 * (i + 1)) for i in range(i0, i0 + size)]
         run = np.ones((size, rs.PIX), np.float32)
         for k in range(rs.K):
@@ -999,7 +1002,7 @@ def test_cumprod_walk_order_is_the_plain_order(data, reps):
     within RTOL, and in the Pallas kernel's interpret-mode output's RTOL."""
     x = torch.as_tensor(data["x"])
     plain = rs.scan_plain(x, reps, "mul", "cuda").numpy()
-    assert sum(cumprod_walk_sizes(reps)) == reps
+    assert sum(walk_sizes(reps)) == reps
     np.testing.assert_array_equal(cumprod_walk_model(data["x"], reps, fma_last=False), plain)
     fused = cumprod_walk_model(data["x"], reps, fma_last=True)
     differs = np.argwhere(fused != plain)
@@ -1057,7 +1060,7 @@ def test_bf16_moments_order_covers_the_chunk_and_loads_in_float4():
     adjacent pixels, and lane t's columns 2t, 2t + 1, 2t + 8, 2t + 9 are the
     four adjacent pixels of one float4, 16-byte aligned (a multiple of 4)."""
     order = rs.bf16_order_plain()
-    assert order.shape == (rs.TF32X3_WARPS, rs.MOM_BF16_STEPS, 16)
+    assert order.shape == (rs.TF32X3_WARPS, rs.BF16_STEPS, 16)
     assert sorted(order.reshape(-1).tolist()) == list(range(rs.PIX))
     assert torch.equal(order // rs.W, torch.arange(8).view(8, 1, 1).expand_as(order))
     assert torch.equal(order.sort(-1).values - order[..., :1].min(-1, keepdim=True).values,
@@ -1080,7 +1083,7 @@ def bf16_moments_kernel_model(x, reps):
     for i in range(reps):
         a = rs.round_bf16(g0 + float(i))
         cb = torch.zeros_like(c)
-        for st in range(rs.MOM_BF16_STEPS):
+        for st in range(rs.BF16_STEPS):
             p = order[:, st]                                   # (warp, col)
             cb = _mma_model(cb, a[:, p].permute(1, 0, 2), b[p])
         c = c + cb
@@ -1106,55 +1109,74 @@ def test_bf16_moments_order_within_rtol(data, pallas_out, reps, monkeypatch):
     assert _err_of_max(got.numpy()[:, :6], pallas[:, :6].astype(np.float64)) <= BF16_VS_F32_RTOL
 
 
-def _bf16_stage_np(x, stage, reps):
-    """The bf16 moments' stage in numpy, float64 sums, its lane map written
-    out anew: lane t of every k-step holds pixels p with p % 16 in 4t, ...,
-    4t + 3; the pairs (p, p + 1) of it, p % 4 = 0, feed column 2t, (p + 2,
-    p + 3) column 2t + 1."""
+def _bf16_stage_np(family, x, s, stage, reps):
+    """The bf16 moments' or accumulators' stage in numpy, float64 sums, their
+    lane maps written out anew. Moments: lane t of every k-step holds pixels
+    p with p % 16 in 4t, ..., 4t + 3; the pairs (p, p + 1) of it, p % 4 = 0,
+    feed column 2t, (p + 2, p + 3) column 2t + 1. Accumulators: lane t holds
+    the splats k with k % 16 in 2t, 2t + 1 (the pair feeding row 2t) and 2t +
+    8, 2t + 9 (row 2t + 1) of every pixel."""
     g = np.asarray(x, np.float32).reshape(mm.K, mm.PIX)
-    p = np.arange(mm.PIX)
-    t = (p % 16) // 4
-    out = np.zeros((mm.K, 8))
+    moments = family == "moments"
+    if moments:
+        lane_of = (np.arange(mm.PIX) % 16) // 4           # by pixel
+        q = np.arange(mm.PIX // 2)                         # the pair of pixels 2q, 2q + 1
+        row_of_pair = 2 * ((2 * q % 16) // 4) + (q % 2)
+        out = np.zeros((mm.K, 8))
+    else:
+        lane_of = (np.arange(mm.K) % 8) // 2               # by splat
+        j = np.arange(mm.K // 2)                           # the pair of splats 2j, 2j + 1
+        row_of_pair = 2 * ((2 * j % 16) % 8 // 2) + (2 * j % 16) // 8
+        out = np.zeros((8, mm.PIX))
     if stage == "loads":
         for lane in range(4):
-            out[:, 2 * lane] = g[:, t == lane].astype(np.float64).sum(1)
+            if moments:
+                out[:, 2 * lane] = g[:, lane_of == lane].astype(np.float64).sum(1)
+            else:
+                out[2 * lane] = g[lane_of == lane].astype(np.float64).sum(0)
         return out
     if stage == "products":
-        b = np.asarray(rs.round_bf16(rs.basis()), np.float64)
-        return reps * (np.asarray(rs.round_bf16(torch.as_tensor(g)), np.float64) @ b)
+        gb = np.asarray(rs.round_bf16(torch.as_tensor(g)), np.float64)
+        if moments:
+            return reps * (gb @ np.asarray(rs.round_bf16(rs.basis()), np.float64))
+        return reps * (np.asarray(rs.round_bf16(torch.as_tensor(s)), np.float64) @ gb)
     for i in range(reps):
         hi = np.asarray(rs.round_bf16(torch.as_tensor(g + np.float32(i))), np.float32)
         bits = hi.view(np.uint32)
-        pair = ((bits[:, 1::2] & 0xFFFF0000) | (bits[:, 0::2] >> 16)).view(np.float32)  # (K, 512)
-        q = np.arange(mm.PIX // 2)                  # the pair of pixels 2q, 2q + 1
-        col = 2 * ((2 * q % 16) // 4) + (q % 2)
         for n in range(8):
-            out[:, n] += pair[:, col == n].astype(np.float64).sum(1)
+            if moments:  # (K, 512), the low half the lower pixel
+                pair = ((bits[:, 1::2] & 0xFFFF0000) | (bits[:, 0::2] >> 16)).view(np.float32)
+                out[:, n] += pair[:, row_of_pair == n].astype(np.float64).sum(1)
+            else:        # (64, PIX), the low half the lower splat
+                pair = ((bits[1::2] & 0xFFFF0000) | (bits[0::2] >> 16)).view(np.float32)
+                out[n] += pair[row_of_pair == n].astype(np.float64).sum(0)
     return out
 
 
 @pytest.mark.parametrize("reps", [rs.REPS, rs.REPS // 3])
 @pytest.mark.parametrize("stage", rs.BF16_STAGES)
-def test_bf16_stage_plain_on_the_cpu(data, plain_out, stage, reps):
-    """A stage of the bf16 moments kernel on CPU tensors is its plain
-    version, with no launch, and that is the stage's function (numpy,
-    float64 sums) within RTOL: "full" the bf16 moments themselves, "loads"
-    x summed by lane, "operands" the pair registers summed by slot,
+@pytest.mark.parametrize("family", rs.BF16_FAMILIES)
+def test_bf16_stage_plain_on_the_cpu(data, plain_out, family, stage, reps):
+    """A stage of the bf16 moments or accumulator kernel on CPU tensors is
+    its plain version, with no launch, and that is the stage's function
+    (numpy, float64 sums) within RTOL: "full" the bf16 function itself,
+    "loads" x summed by lane, "operands" the pair registers summed by slot,
     "products" the reps' products on x rounded once."""
-    x = torch.as_tensor(data["x"])
+    x, s = torch.as_tensor(data["x"]), torch.as_tensor(data["s"])
     before = (rs.bf16_stage_launches, dict(rs.form_launches))
-    out, obs = rs.bf16_stage(x, stage, reps)
+    out, obs = rs.bf16_stage(family, x, s, stage, reps)
     assert obs is None and (rs.bf16_stage_launches, rs.form_launches) == before
-    assert torch.equal(out, rs.bf16_stage_plain(x, stage, reps))
+    assert torch.equal(out, rs.bf16_stage_plain(family, x, s, stage, reps))
+    name = f"{family}_bf16"
     if stage == "full":
-        assert torch.equal(out, rs.moments_plain(x, reps, "bf16"))
+        assert torch.equal(out, rs.run_plain(name, x, s, reps))
         if reps == rs.REPS:
-            np.testing.assert_array_equal(out.numpy(), plain_out["moments_bf16"])
+            np.testing.assert_array_equal(out.numpy(), plain_out[name])
     else:
-        want = _bf16_stage_np(data["x"], stage, reps)
-        assert _err_of_max(out.numpy(), want) <= mxu_micro.RTOL
+        want = _bf16_stage_np(family, data["x"], data["s"], stage, reps)
+        assert _err_of_max(out.numpy().reshape(want.shape), want) <= mxu_micro.RTOL
     with pytest.raises(ValueError):
-        rs.bf16_stage(x, stage + "_", reps)
+        rs.bf16_stage(family, x, s, stage + "_", reps)
 
 
 def test_redesigned_constants_are_the_kernels():
@@ -1168,10 +1190,11 @@ def test_redesigned_constants_are_the_kernels():
     def const(name):
         return re.search(rf"constexpr int {name} = ([^;]*);", src).group(1).split("//")[0].strip()
 
-    assert int(const("kCumprodGroup")) == rs.CUMPROD_GROUP
-    assert int(const("kCumprodBatch")) == rs.CUMPROD_BATCH and rs.K % rs.CUMPROD_BATCH == 0
-    assert const("kMomBf16Steps") == "128 / 16" and rs.MOM_BF16_STEPS == 128 // 16
-    assert int(const("kMomBf16InFlight")) == rs.MOM_BF16_IN_FLIGHT
+    assert int(const("kWalkGroup")) == rs.WALK_GROUP
+    assert int(const("kWalkBatch")) == rs.WALK_BATCH and rs.K % rs.WALK_BATCH == 0
+    assert const("kBf16Steps") == "128 / 16" and rs.BF16_STEPS == 128 // 16
+    assert int(const("kBf16InFlight")) == rs.BF16_IN_FLIGHT
+    assert int(const("kAccBf16Threads")) // 32 == rs.ACC_BF16_WARPS
     enum = re.search(r"enum Bf16Stage \{([^}]*)\}", src).group(1)
     names = [v.split("=")[0].strip()[len("kBf16"):].lower() for v in enum.split(",")]
     assert tuple(names) == rs.BF16_STAGES
@@ -1180,8 +1203,130 @@ def test_redesigned_constants_are_the_kernels():
                          r"\(&n, (\w+)_kernel<", body)
     assert [int(k) for k, _ in kernels] == list(range(len(rs.CTAS_KERNELS)))
     assert tuple(n for _, n in kernels) == rs.CTAS_KERNELS
-    # the walks' decomposition: cumprod_walks' count, the model's sizes
-    walks = re.search(r"return reps / kCumprodGroup([^;]*);", src).group(1)
+    # the walks' decomposition: scan_walks' count, the model's sizes
+    walks = re.search(r"return reps / kWalkGroup([^;]*);", src).group(1)
     assert walks.count("reps &") == 4
     for reps in range(0, 70):
-        assert len(cumprod_walk_sizes(reps)) == reps // 16 + bin(reps % 16).count("1")
+        assert len(walk_sizes(reps)) == reps // 16 + bin(reps % 16).count("1")
+
+
+# ---- the CUDA-core cumsum's walks and the bf16 accumulators' order of rows ------------
+#
+# csrc/reduce_scan.cu's cumsum_cuda_kernel takes the cumprod's walks
+# (scan_walk, walk_sizes): per splat each rep's x + i, the running add, and
+# the running sum added to the splat's sum in rep order, the sum carried from
+# walk to walk; no product, so no FMA. Its acc_bf16_kernel takes pixel
+# 16 w + 2 g (+ 1) as row g (g + 8) of warp w's m-tile (acc_pixel), loads a
+# splat's two pixels as one float2, and adds per rep a chain of 8 m16n8k16
+# products over the splats in order, two reps' chains side by side, into its
+# sum.
+
+
+def cumsum_walk_model(x, reps):
+    """The cumsum kernel's sums in float32, walk by walk, the reps inside the
+    walk over the splats."""
+    g0 = np.asarray(x, np.float32).reshape(rs.K, rs.PIX)
+    acc = np.zeros((rs.K, rs.PIX), np.float32)
+    i0 = 0
+    for size in walk_sizes(reps):
+        run = np.zeros((size, rs.PIX), np.float32)
+        for k in range(rs.K):
+            s = acc[k]
+            for r in range(size):
+                run[r] = run[r] + (g0[k] + np.float32(i0 + r))
+                s = s + run[r]
+            acc[k] = s
+        i0 += size
+    return acc.reshape(rs.K, rs.H, rs.W)
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, rs.REPS // 3, 4 * rs.REPS])
+def test_cumsum_walk_order_is_the_plain_order(data, pallas_out, reps, monkeypatch):
+    """The reps moved inside the walk change no operation of any output: each
+    is still ((0 + r_0) + r_1) + ... in rep order, each r_i formed splat by
+    splat in the same adds, so the walks' model is bitwise
+    scan_plain(op="add") at REPS (one walk), REPS / 3 (walks of 4 and 1) and
+    4 REPS (four walks), and within RTOL of kern_cumsum_vpu in interpret
+    mode, its REPS set to reps."""
+    x = torch.as_tensor(data["x"])
+    assert sum(walk_sizes(reps)) == reps
+    got = cumsum_walk_model(data["x"], reps)
+    np.testing.assert_array_equal(got, rs.scan_plain(x, reps, "add", "cuda").numpy())
+    pallas = (pallas_out["cumsum_cuda"] if reps == rs.REPS
+              else _jax_vpu("cumsum_cuda", data, reps, monkeypatch))
+    assert _err_of_max(got, pallas.astype(np.float64)) <= mxu_micro.RTOL
+
+
+def test_bf16_acc_rows_cover_the_cta_and_load_in_float2():
+    """acc_bf16_kernel's loads, its address arithmetic written out: lane (g,
+    t) of warp w reads splats 16 s + 2 t + e (e in 0, 1, 8, 9) at pixel p =
+    acc_pixel(w, g) and p + 1, its rows g and g + 8, as one float2. Over the
+    CTA's ACC_BF16_WARPS warps the rows take each of its 16 ACC_BF16_WARPS
+    pixels once, every float2 is 8-byte aligned, and the loads read each
+    (splat, pixel) of the CTA's columns of x once."""
+    pixels = 16 * rs.ACC_BF16_WARPS
+    assert rs.PIX % pixels == 0
+    order = rs.tf32x3_order_plain("acc")[:rs.ACC_BF16_WARPS]     # (warp, row), acc_pixel
+    assert sorted(order.reshape(-1).tolist()) == list(range(pixels))
+    read = np.zeros((rs.K, pixels), int)
+    for w in range(rs.ACC_BF16_WARPS):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            p = rs.acc_pixel(w, g)
+            assert p + 1 == rs.acc_pixel(w, g + 8) and p % 2 == 0
+            for st in range(rs.BF16_STEPS):
+                for e in (0, 1, 8, 9):
+                    read[16 * st + 2 * t + e, p:p + 2] += 1
+    assert (read == 1).all()
+
+
+def acc_bf16_kernel_model(x, s, reps):
+    """The bf16 accumulators kernel's sums in float32: per rep and pixel, cb
+    down its 8 k-steps, each m16n8k16 product's 16 splat columns in order
+    added to it one by one, each product exact; c += cb rep after rep. Which
+    m-tile row a pixel takes enters no sum."""
+    g0 = x.reshape(rs.K, rs.PIX)
+    b = rs.round_bf16(s.T.contiguous())                          # (K, 8)
+    c = torch.zeros((rs.PIX, 8))
+    for i in range(reps):
+        a = rs.round_bf16((g0 + float(i)).T.contiguous())         # (PIX, K)
+        cb = torch.zeros_like(c)
+        for st in range(rs.BF16_STEPS):
+            k = slice(16 * st, 16 * st + 16)
+            cb = _mma_model(cb, a[:, k], b[k])
+        c = c + cb
+    return c.T.reshape(8, rs.H, rs.W)
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, rs.REPS // 3, 4 * rs.REPS])
+def test_bf16_acc_order_within_rtol(data, pallas_out, reps, monkeypatch):
+    """The bf16 accumulators' order of f32 sums (the model above) lies within
+    RTOL of acc_plain at mode bf16, the contract the kernel is held to on the
+    card, and within BF16_VS_F32_RTOL of kern_acc_mxu at DEFAULT in
+    interpret mode (which on the CPU does not round to bf16)."""
+    x, s = torch.as_tensor(data["x"]), torch.as_tensor(data["s"])
+    got = acc_bf16_kernel_model(x, s, reps)
+    want = rs.acc_plain(x, s, reps, "bf16")
+    assert got.shape == want.shape
+    assert mxu_micro.scaled_err(got, want) <= mxu_micro.RTOL
+    pallas = (pallas_out["acc_bf16"] if reps == rs.REPS
+              else _jax_vpu("acc_bf16", data, reps, monkeypatch))
+    assert _err_of_max(got.numpy(), pallas.astype(np.float64)) <= BF16_VS_F32_RTOL
+
+
+def test_stage_entry_points_are_the_kernels():
+    """Each family of ops/reduce_scan.py's CUDA-core and bf16 stages has its C
+    entry point, moss_mxu_<family>_cuda_stage or moss_mxu_<family>_bf16_stage,
+    with the signature the wrappers give it."""
+    import re
+
+    src = open(CU).read()
+    for families, kind in ((rs.CUDA_FAMILIES, "cuda"), (rs.BF16_FAMILIES, "bf16")):
+        for family in families:
+            symbol = f"moss_mxu_{family}_{kind}_stage"
+            sig = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src)
+            assert sig, symbol
+            params = [a.strip() for a in sig.group(1).split(",")]
+            pointers = sum("*" in a for a in params) - 1          # the stream is void*
+            ints = sum(a.startswith("int ") for a in params)
+            assert rs._SIGNATURES[symbol] == [rs._PTR] * pointers + [rs._INT] * ints, symbol
