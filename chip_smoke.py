@@ -147,8 +147,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              steps under observability.profile_trace, whose trace must name
              both blend kernels
  17. tool_sort  the two sort-pass kernels against their plain versions,
-             exactly, at every stride of a 2^19-key network; a pass's time
-             against R; then moss_torch.tools.sort_micro, counted
+             exactly, at every stride of a 2^19-key network; the row pass's
+             time against R; then moss_torch.tools.sort_micro, counted, which
+             times the lane pass at each stride at R and 4R (the 4R > 1.5 R
+             gate at every stride), with r = 0 and as an empty kernel on its
+             grid, and prices the network with each stride's own time; the
+             lane pass's SASS by stride
  18. tool_conv  the two 3x3 conv kernels against their plain version: the
              CUDA-core kernel in f32 (atol 1e-4) at the JAX tool's check()
              shapes and the eight VGG16 layer shapes, the tensor-core kernel
@@ -174,8 +178,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              the stages of the tensor-core cumsums, the log-space cumprod,
              the 3xTF32 kernels, the bf16 moments and the CUDA-core kernels
              against their plain versions (1e-5 of the max) and times them;
-             registers and CTAs an SM of the CUDA-core kernels and the bf16
-             moments
+             registers and CTAs an SM of the CUDA-core kernels (the reshape
+             too) and the bf16 forms
  21. timing  how many runs cuda_ms took again because the host had not
              queued them before their spin ended (0: every time above is the
              first run's), by phase and by kernel
@@ -2496,27 +2500,16 @@ def phase_sharded(dev, train_ts, smi):
 
 
 def phase_tool_sort(dev):
-    """The sort passes against their plain versions at every stride of the
-    tool's 2^19-key network, a pass's time against R, then the tool."""
+    """The row pass against its plain version at every row stride of the
+    tool's 2^19-key network, then the tool, which holds the lane pass at every
+    stride and the row pass at S = 64 to their plain versions and times each
+    at R and 4R."""
     R = sort_pass.R
     x = torch.as_tensor(np.random.default_rng(0).integers(
         0, 1 << 30, (sort_pass.ROWS, sort_pass.LANES), np.int32), device=dev)
-    for s in (1, 2, 4, 8, 16, 32, 64):
-        if not torch.equal(sort_pass.lane_pass(x, s, R), sort_pass.lane_pass_plain(x, s, R)):
-            raise AssertionError(f"lane pass at stride {s} differs from its plain version")
     for s in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048):
         if not torch.equal(sort_pass.row_pass(x, s, R), sort_pass.row_pass_plain(x, s, R)):
             raise AssertionError(f"row pass at stride {s} differs from its plain version")
-    # a compare-exchange is idempotent: if the compiler had folded the
-    # repeats, four times R would take about the time of R
-    vs_r = {}
-    for name, fn in (("lane_s64", lambda r: sort_pass.lane_pass(x, 64, r)),
-                     ("lane_s1", lambda r: sort_pass.lane_pass(x, 1, r)),
-                     ("row_S64", lambda r: sort_pass.row_pass(x, 64, r))):
-        vs_r[name] = {r: cuda_ms(lambda r=r: fn(r), site=f"sort_{name.split('_')[0]}_pass")
-                      for r in (R, 4 * R)}
-        if vs_r[name][4 * R] < 1.5 * vs_r[name][R]:
-            raise AssertionError(f"{name}: {vs_r[name]} ms at R and 4R; the repeats were folded")
     plain = {"lane": cuda_ms(lambda: sort_pass.lane_pass_plain(x, 64, R), n=5, reps=2,
                              site="sort_lane_pass plain"),
              "row": cuda_ms(lambda: sort_pass.row_pass_plain(x, 64, R), n=5, reps=2,
@@ -2527,18 +2520,33 @@ def phase_tool_sort(dev):
     launches = {"lane": sort_pass.lane_launches, "row": sort_pass.row_launches}
     if min(launches.values()) == 0:
         raise AssertionError(f"the sort tool launched the pass kernels {launches} times")
+    # a compare-exchange is idempotent: if the compiler had folded the
+    # repeats, four times R would take about the time of R
+    vs_r = {**{f"lane_s{s}": t for s, t in res["lane_ms_by_stride"].items()},
+            "row_S64": res["row_ms_vs_reps"]}
+    for name, t in vs_r.items():
+        if t[4 * R] < 1.5 * t[R]:
+            raise AssertionError(f"{name}: {t} ms at R and 4R; the repeats were folded")
     # one launch = R passes over the block: read once, written once, one
     # int32 min or max per element and pass
     t_bytes = 2 * x.numel() * 4 / PEAK_BYTES
     t_ops = R * x.numel() / PEAK_INT32
     bound = {"bound_ms": 1e3 * max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes > t_ops else "operations"}
-    rows = {k: {"ms": res[f"{k}_pass_ms"] * R, "plain_ms": plain[k], "max_abs_err": 0.0, **bound}
-            for k in ("lane", "row")}
+             "bound_by": "bytes" if t_bytes > t_ops else "operations",
+             "issue_floor_ms": res["issue_floor_ms"]}
+    # the library cell: torch.sort of the block's 2^19 keys, a whole sort and not a pass
+    rows = {k: {"ms": res[f"{k}_pass_ms"] * R, "plain_ms": plain[k], "max_abs_err": 0.0,
+                "library_ms": res["torch_sort_ms"][x.numel()], **bound} for k in ("lane", "row")}
+    # static instructions (cuobjdump -sass) of the lane pass at each stride
+    sass = cuda_build.sass_opcodes("sort_pass", "lane_pass_kernel")
+    for kernel, ops in sass.items():
+        print(f"sass sort_pass: {kernel}: " + ", ".join(f"{k} {v}" for k, v in
+                                                        list(ops.items())[:12]), flush=True)
     emit({"phase": "tool_sort", "keys": x.numel(), "reps": R, "ms_vs_reps": vs_r,
           "launches": launches, "plain_ms_per_launch": plain,
           **{k: v for k, v in res.items() if k != "torch_sort_ms"},
-          "torch_sort_ms": {str(k): v for k, v in res["torch_sort_ms"].items()}, **bound})
+          "torch_sort_ms": {str(k): v for k, v in res["torch_sort_ms"].items()}, **bound,
+          "sass": sass})
     return rows, launches
 
 
@@ -2752,9 +2760,10 @@ def phase_tool_mxu(dev):
     """The twelve reduction and scan runs: their observers across tiles and a
     launch's time against REPS; the card test of the CUDA-core moments,
     accumulators, cumsum and cumprod, the two tensor-core cumsums, the
-    log-space cumprod, the two 3xTF32 forms and the bf16 moments and
-    accumulators three times over (the CUDA-core cumsum and cumprod and the
-    bf16 forms also at REPS / 3 and 4 REPS); the moments against an f64 sum
+    log-space cumprod, the two 3xTF32 forms, the bf16 moments and
+    accumulators and the reshape three times over (the CUDA-core cumsum and
+    cumprod, the bf16 forms and the reshape also at REPS / 3 and 4 REPS); the
+    moments against an f64 sum
     (the f32-class forms gated at 1e-6, bf16 reported); the tensor-core
     layout tables and tc_rate; then the tool, counted, which holds each run
     to its plain version (raising past mxu_micro.RTOL) and times it, with
@@ -2780,9 +2789,9 @@ def phase_tool_mxu(dev):
     # the card test's cases tests/test_torch_cuda.py::test_reduce_scan_matches_plain
     # [moments_cuda-*, acc_cuda-*, cumsum_bf16-*, cumsum_split2-*, cumprod_logsplit2-*,
     # moments_tf32x3-*, acc_tf32x3-*, cumprod_cuda-*, moments_bf16-*, cumsum_cuda-*,
-    # acc_bf16-*], three times over, the last four also at the reps of
+    # acc_bf16-*, reshape_only-*], three times over, the last five also at the reps of
     # test_redesigned_kernels_at_more_reps: kernel within RTOL of plain, observers equal
-    redesigned = ("cumprod_cuda", "moments_bf16", "cumsum_cuda", "acc_bf16")
+    redesigned = ("cumprod_cuda", "moments_bf16", "cumsum_cuda", "acc_bf16", "reshape_only")
     for name in ("moments_cuda", "acc_cuda", "cumsum_bf16", "cumsum_split2",
                  "cumprod_logsplit2", "moments_tf32x3", "acc_tf32x3", *redesigned):
         repeats = []
@@ -2854,7 +2863,8 @@ def phase_tool_mxu(dev):
             "variants": {n: {"launches": forms.get(n, 0),
                              **{k: rows[n][k] for k in ("ms", "ns_per_chunk_op", "bound_ms",
                                                         "bound_by", "plain_ms", "library_ms",
-                                                        "max_abs_err", "sfu_bound_ms")
+                                                        "max_abs_err", "sfu_bound_ms",
+                                                        "issue_floor_ms")
                                 if k in rows[n]}}
                          for n in names}}
     kernels["mxu_scan"]["cumprod_stage_ms"] = {k: v["ms"] for k, v in res["scan_stages"].items()}
@@ -2866,7 +2876,8 @@ def phase_tool_mxu(dev):
     for kname, family, key in (("mxu_moments", "moments", "cuda_stage_ms"),
                                ("mxu_acc", "acc", "cuda_stage_ms"),
                                ("mxu_scan", "cumprod", "cuda_stage_ms"),
-                               ("mxu_scan", "cumsum", "cumsum_cuda_stage_ms")):
+                               ("mxu_scan", "cumsum", "cumsum_cuda_stage_ms"),
+                               ("mxu_reshape", "reshape", "cuda_stage_ms")):
         kernels[kname][key] = {k: v["ms"] for k, v in res["cuda_stages"][family].items()}
     for kname, family in (("mxu_moments", "moments"), ("mxu_acc", "acc")):
         kernels[kname]["bf16_stage_ms"] = {
@@ -2877,7 +2888,8 @@ def phase_tool_mxu(dev):
     sass = {}
     for prefix in ("scan_tc_kernel", "moments_tf32x3_kernel", "acc_tf32x3_kernel",
                    "moments_bf16_kernel", "acc_bf16_kernel", "moments_cuda_kernel",
-                   "acc_cuda_kernel", "cumsum_cuda_kernel", "cumprod_cuda_kernel"):
+                   "acc_cuda_kernel", "cumsum_cuda_kernel", "cumprod_cuda_kernel",
+                   "reshape_kernel"):
         sass.update(cuda_build.sass_opcodes("reduce_scan", prefix))
     for kernel, ops in sass.items():
         print(f"sass reduce_scan: {kernel}: " + ", ".join(f"{k} {v}" for k, v in
@@ -3044,12 +3056,14 @@ def main():
                **{k: v["segment_sum"] for k, v in families.items()}},
               bwd["segment"], "1e-5 of the max against index_add_; grads as rasterize_bwd",
               library_ms=bwd["segment"]["library_ms"], by_input=family_rows("segment_sum")),
-        entry("sort_lane_pass", "moss_torch/csrc/sort_pass.cu", "tools/sort_micro.py:47",
-              sort_launches["lane"], {"tools": sort_launches["lane"]}, sort_rows["lane"],
-              "exact, every stride; ms per launch of R = 64 passes at s = 64"),
-        entry("sort_row_pass", "moss_torch/csrc/sort_pass.cu", "tools/sort_micro.py:68",
-              sort_launches["row"], {"tools": sort_launches["row"]}, sort_rows["row"],
-              "exact, every stride; ms per launch of R = 64 passes at S = 64"),
+        *(entry(f"sort_{k}_pass", "moss_torch/csrc/sort_pass.cu", f"tools/sort_micro.py:{line}",
+                sort_launches[k], {"tools": sort_launches[k]}, sort_rows[k],
+                f"exact, every stride; ms per launch of R = 64 passes at {at} = 64",
+                library_ms=sort_rows[k]["library_ms"],
+                library_call="torch.sort of the 2^19 keys: a whole sort, not a pass",
+                issue_floor_ms=sort_rows[k]["issue_floor_ms"],
+                issue_floor="one IMNMX an element and pass, 64 lanes a clock an SM")
+          for k, line, at in (("lane", 47, "s"), ("row", 68, "S"))),
         *(entry(name, "moss_torch/csrc/conv3x3.cu", "tools/conv_pallas_proto.py:28",
                 conv_launches[name], {"tools": conv_launches[name]}, conv_rows[name], tol,
                 library_ms=conv_rows[name]["library_ms"], **extra)
@@ -3082,9 +3096,11 @@ def main():
                 **({"tf32x3_stage_ms": mxu_rows[kname]["tf32x3_stage_ms"],
                     "stage_launches": mxu_stage_launches["tf32x3"]}
                    if kname in ("mxu_moments", "mxu_acc") else {}),
-                **({"cuda_stage_ms": mxu_rows[kname]["cuda_stage_ms"],
-                    "cuda_stage_launches": mxu_stage_launches["cuda"]}
-                   if kname != "mxu_reshape" else {}),
+                **({"issue_floor_ms": mxu_rows[kname]["variants"]["reshape_only"]["issue_floor_ms"],
+                    "issue_floor": "2 FADDs an element and rep, 128 lanes a clock an SM"}
+                   if kname == "mxu_reshape" else {}),
+                cuda_stage_ms=mxu_rows[kname]["cuda_stage_ms"],
+                cuda_stage_launches=mxu_stage_launches["cuda"],
                 **({"cumsum_cuda_stage_ms": mxu_rows[kname]["cumsum_cuda_stage_ms"]}
                    if kname == "mxu_scan" else {}),
                 **({"bf16_stage_ms": mxu_rows[kname]["bf16_stage_ms"],

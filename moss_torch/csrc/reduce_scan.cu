@@ -8,7 +8,7 @@
 //   moss_mxu_moments  moments_cuda_kernel<stage>, moments_bf16_kernel<stage>,
 //                     moments_tf32x3_kernel<stage>: kern_moments_vpu (:58),
 //                     kern_moments_mxu (:81)
-//   moss_mxu_reshape  reshape_kernel: kern_reshape_only (:94)
+//   moss_mxu_reshape  reshape_kernel<stage>: kern_reshape_only (:94)
 //   moss_mxu_acc      acc_cuda_kernel<stage>, acc_bf16_kernel<stage>,
 //                     acc_tf32x3_kernel<stage>: kern_acc_vpu (:102),
 //                     kern_acc_mxu (:116)
@@ -444,12 +444,13 @@ constexpr int kMomThreads = 256;
 constexpr int kMomCudaParts = kK / (kMomThreads / 32);  // a warp per splat: 16
 constexpr int kMomTcParts = kK / 16;                    // 16 splats a CTA: 8
 
-// Stages of the CUDA-core moments and accumulator kernels (moments_cuda_kernel,
-// acc_cuda_kernel), for timing what holds them back: kCudaFull the
-// production kernel; kCudaLoads the chunk read, the store and the observer
-// with no reps: each thread sums its elements of x once into the first
-// output (the moments' S0, the accumulators' row 0; the repeated columns or
-// rows as in full), every other output 0.
+// Stages of the CUDA-core moments, accumulator and reshape kernels
+// (moments_cuda_kernel, acc_cuda_kernel, reshape_kernel), for timing what
+// holds them back: kCudaFull the production kernel; kCudaLoads the chunk
+// read, the store and the observer with no reps: each thread sums its
+// elements of x once into the first output (the moments' S0, the
+// accumulators' row 0; the repeated columns or rows as in full), every other
+// output 0; the reshape's each output its 8 rows of x.
 enum CudaStage { kCudaFull = 0, kCudaLoads = 1 };
 
 constexpr int kMomCudaCols = 4;  // adjacent pixel columns a lane of moments_cuda_kernel takes
@@ -689,31 +690,97 @@ moments_tf32x3_kernel(const float* __restrict__ x, float* __restrict__ out,
 // ---- reshape only: out (K, 128) = sum over the 8 rows of sum_i (x + i) ----
 
 constexpr int kReshapeThreads = 256;
-constexpr int kReshapeParts = kK * kW / kReshapeThreads;  // 64
+constexpr int kReshapeCols = 4;  // adjacent columns a thread takes: a float4 of each row
+constexpr int kReshapeParts = kK * kW / (kReshapeThreads * kReshapeCols);  // 16
+constexpr int kReshapeTiles = 16;  // tiles a CTA walks, one after another
+static_assert(kW % kReshapeCols == 0, "a thread's columns lie in one row of the chunk");
 
-// A thread per output element (k, w) holds its 8 rows: the floor of reading
-// the chunk and adding, with no contraction.
-__global__ void __launch_bounds__(kReshapeThreads)
-reshape_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
-               int reps) {
-  const int e = blockIdx.x * kReshapeThreads + threadIdx.x;  // k * 128 + w
-  const float* src = x + (e / kW) * kPix + e % kW;
-  float xv[8], acc[8];
+// A thread's 4 columns of the 8 rows of one tile's chunk. The load is a
+// volatile asm statement, so the compiler can neither merge two tiles' reads
+// (they read the same addresses) nor move a read past the reps before it.
+__device__ __forceinline__ void reshape_rows(const float* src, float4 (&xv)[8]) {
+#pragma unroll
+  for (int h = 0; h < 8; ++h)
+    asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(xv[h].x), "=f"(xv[h].y), "=f"(xv[h].z), "=f"(xv[h].w)
+                 : "l"(src + h * kW));
+}
+
+// One tile of reshape_kernel: per column c and row h the sum a = a + (x + i)
+// for i = 0, ..., reps - 1 in order (i carried as an exact float), then the 8
+// rows summed in row order; only tile 0 stores; each warp's sum of its
+// threads' (v.x + v.y) + (v.z + v.w) goes to warp_sum, the tile's row of the
+// CTA's observers. kCudaLoads sums the 8 rows of x once.
+template <int kStage>
+__device__ __forceinline__ void reshape_tile(const float4 (&xv)[8], int reps, int tile,
+                                             float* out, float* warp_sum) {
+  float a[8][kReshapeCols];
 #pragma unroll
   for (int h = 0; h < 8; ++h) {
-    xv[h] = src[h * kW];
-    acc[h] = 0.f;
+    if constexpr (kStage == kCudaLoads) {
+      a[h][0] = xv[h].x, a[h][1] = xv[h].y, a[h][2] = xv[h].z, a[h][3] = xv[h].w;
+    } else {
+      a[h][0] = a[h][1] = a[h][2] = a[h][3] = 0.f;
+    }
   }
-  for (int i = 0; i < reps; ++i) {
-    const float fi = static_cast<float>(i);
+  if constexpr (kStage == kCudaFull) {
+    float fi = 0.f;
+#pragma unroll 2
+    for (int i = 0; i < reps; ++i) {
 #pragma unroll
-    for (int h = 0; h < 8; ++h) acc[h] = acc[h] + (xv[h] + fi);
+      for (int h = 0; h < 8; ++h) {
+        a[h][0] = a[h][0] + (xv[h].x + fi);
+        a[h][1] = a[h][1] + (xv[h].y + fi);
+        a[h][2] = a[h][2] + (xv[h].z + fi);
+        a[h][3] = a[h][3] + (xv[h].w + fi);
+      }
+      fi += 1.f;
+    }
   }
-  float v = acc[0];
+  float4 v = make_float4(a[0][0], a[0][1], a[0][2], a[0][3]);
 #pragma unroll
-  for (int h = 1; h < 8; ++h) v += acc[h];
-  if (blockIdx.y == 0) out[e] = v;
-  observe<kReshapeThreads>(v, obs);
+  for (int h = 1; h < 8; ++h) v.x += a[h][0], v.y += a[h][1], v.z += a[h][2], v.w += a[h][3];
+  const int e = (blockIdx.x * kReshapeThreads + threadIdx.x) * kReshapeCols;  // k * 128 + w
+  if (tile == 0) *reinterpret_cast<float4*>(out + e) = v;
+  float s = (v.x + v.y) + (v.z + v.w);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = s;
+}
+
+// CUDA cores, bound by FP32-pipe issue: 2 FADDs an element and rep. Here a
+// thread takes 4 adjacent columns w of one splat k (a float4 of each of the 8
+// rows, 32 chains) and a CTA the part of 1,024 outputs it names for
+// kReshapeTiles tiles in turn, so the grid is (parts, tiles / 16); the form
+// with one output a thread took 16,384 CTAs of 8 scalar loads. A tile's 8
+// loads come before its reps and overlap none of them: a CTA re-reads its
+// part's 32 KB at every tile, and those reads cost what they cost the CTA's
+// first tile only where the SM's L1 still holds the part (PERF.md). The
+// warps' sums of every tile wait in shared memory, and one barrier after the
+// last tile lets thread j add tile j's in warp order: no barrier holds a
+// tile's warps together.
+template <int kStage>
+__global__ void __launch_bounds__(kReshapeThreads, 2)
+reshape_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ obs,
+               int reps, int tiles) {
+  constexpr int kWarps = kReshapeThreads / 32;
+  static_assert(kReshapeTiles <= kReshapeThreads, "a thread sums each tile's observer");
+  __shared__ float warp_sum[kReshapeTiles][kWarps];
+  const int e = (blockIdx.x * kReshapeThreads + threadIdx.x) * kReshapeCols;
+  const float* src = x + (e / kW) * kPix + e % kW;
+  const int t0 = blockIdx.y * kReshapeTiles, t1 = min(tiles, t0 + kReshapeTiles);
+  for (int t = t0; t < t1; ++t) {
+    float4 xv[8];
+    reshape_rows(src, xv);
+    reshape_tile<kStage>(xv, reps, t, out, warp_sum[t - t0]);
+  }
+  __syncthreads();
+  if (threadIdx.x < t1 - t0) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += warp_sum[threadIdx.x][w];
+    obs[(t0 + threadIdx.x) * gridDim.x + blockIdx.x] = s;
+  }
 }
 
 // ---- accumulators: out (8, 1024) = sum_i s (8, K) @ (x + i) (K, 1024) ----
@@ -1611,6 +1678,18 @@ int acc_cuda(int stage, const float* x, const float* sw, float* out, float* obs,
   }
 }
 
+int reshape_cuda(int stage, const float* x, float* out, float* obs, int reps, int tiles,
+                 cudaStream_t s) {
+  const dim3 grid(kReshapeParts, (tiles + kReshapeTiles - 1) / kReshapeTiles);
+  if (stage == kCudaFull)
+    reshape_kernel<kCudaFull><<<grid, kReshapeThreads, 0, s>>>(x, out, obs, reps, tiles);
+  else if (stage == kCudaLoads)
+    reshape_kernel<kCudaLoads><<<grid, kReshapeThreads, 0, s>>>(x, out, obs, reps, tiles);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int moments_bf16(int stage, const float* x, float* out, float* obs, int reps, int tiles,
                  cudaStream_t s) {
   switch (stage) {
@@ -1703,8 +1782,7 @@ extern "C" int moss_mxu_reshape_parts() { return kReshapeParts; }
 
 extern "C" int moss_mxu_reshape(const float* x, float* out, float* obs, int reps, int tiles,
                                 void* stream) {
-  return launch(reshape_kernel, kReshapeParts, kReshapeThreads, tiles,
-                static_cast<cudaStream_t>(stream), x, out, obs, reps);
+  return reshape_cuda(kCudaFull, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int moss_mxu_acc_parts(int mode) { return acc_parts(mode); }
@@ -1787,9 +1865,10 @@ extern "C" int moss_mxu_acc_stage(const float* x, const float* sw, float* out, f
 }
 
 // Stage `stage` (enum CudaStage) of the CUDA-core moments, accumulator,
-// cumsum or cumprod kernel, launched as moss_mxu_moments or moss_mxu_acc with
-// mode 0, or moss_mxu_scan with op 0 or 1 and mode 0, is, with its observer
-// (tiles, their parts); cudaErrorInvalidValue for an unknown stage.
+// reshape, cumsum or cumprod kernel, launched as moss_mxu_moments or
+// moss_mxu_acc with mode 0, moss_mxu_reshape, or moss_mxu_scan with op 0 or 1
+// and mode 0, is, with its observer (tiles, their parts);
+// cudaErrorInvalidValue for an unknown stage.
 extern "C" int moss_mxu_moments_cuda_stage(const float* x, float* out, float* obs, int reps,
                                            int tiles, int stage, void* stream) {
   return moments_cuda(stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
@@ -1798,6 +1877,11 @@ extern "C" int moss_mxu_moments_cuda_stage(const float* x, float* out, float* ob
 extern "C" int moss_mxu_acc_cuda_stage(const float* x, const float* sw, float* out, float* obs,
                                        int reps, int tiles, int stage, void* stream) {
   return acc_cuda(stage, x, sw, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int moss_mxu_reshape_cuda_stage(const float* x, float* out, float* obs, int reps,
+                                           int tiles, int stage, void* stream) {
+  return reshape_cuda(stage, x, out, obs, reps, tiles, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int moss_mxu_cumsum_cuda_stage(const float* x, float* out, float* obs, int reps,
@@ -1827,8 +1911,8 @@ extern "C" int moss_mxu_acc_bf16_stage(const float* x, const float* sw, float* o
 // dynamic shared memory, as the runtime's occupancy query gives them: 0 the
 // CUDA-core moments, 1 the CUDA-core accumulators, 2 the CUDA-core cumprod
 // (its launches of at most 16 reps), 3 the bf16 moments, 4 the CUDA-core
-// cumsum (as the cumprod), 5 the bf16 accumulators; -1 for an unknown kernel,
-// or the query's error negated.
+// cumsum (as the cumprod), 5 the bf16 accumulators, 6 the reshape; -1 for an
+// unknown kernel, or the query's error negated.
 extern "C" int moss_mxu_ctas_per_sm(int kernel) {
   int n = 0;
   cudaError_t e;
@@ -1850,6 +1934,9 @@ extern "C" int moss_mxu_ctas_per_sm(int kernel) {
   else if (kernel == 5)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, acc_bf16_kernel<kBf16Full>,
                                                       kAccBf16Threads, 0);
+  else if (kernel == 6)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, reshape_kernel<kCudaFull>,
+                                                      kReshapeThreads, 0);
   else
     return -1;
   return e == cudaSuccess ? n : -static_cast<int>(e);

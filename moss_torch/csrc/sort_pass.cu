@@ -13,14 +13,21 @@
 //
 // What bounds it on the H100: the block is read once and written once
 // (4 MB at 2^19 keys, about 1.3 us at 3.35 TB/s); each repeat is one int32
-// min or max per element, 2^19 operations. At R = 64 the operations bound
-// it, as they did the TPU kernel. What the design does about it: the data
-// stay in registers across the repeats, the counterpart of VMEM. In the lane
-// pass one warp owns a row and each thread holds its four elements lane,
-// lane + 32, lane + 64, lane + 96, so a stride under 32 exchanges through
-// __shfl_xor_sync and a stride of 32 or 64 pairs two registers of the same
-// thread, with neither a shuffle nor shared memory. In the row pass one
-// thread loads both elements of a pair and exchanges them in registers.
+// min or max per element, 2^19 operations, on the ALU pipe (64 lanes a clock
+// an SM, half the FP32 rate), and a pass at a stride that pairs two threads
+// one shuffle an element besides (32 lanes a clock an SM). At R = 64 the
+// operations bound it, as they did the TPU kernel. What the design does about
+// it: the data stay in registers across the repeats, the counterpart of VMEM.
+// In the lane pass one warp owns a row and thread `lane` holds the int2s at
+// elements 2 lane and 64 + 2 lane, so the block is read and written in
+// 8-byte accesses by 512 CTAs of 8 warps, one wave; strides 1 and 64 (32 of
+// a 2^19-key network's 112 lane passes) pair two registers of one thread,
+// and 2-32 exchange through __shfl_xor_sync. One map serves all seven
+// strides, as a network that keeps its block in registers from pass to pass
+// needs. Maps of more elements a thread keep more strides in registers but
+// make a launch's read and write dearer, and the s = 64 pass with them
+// (PERF.md). In the row pass one thread loads both elements of a pair and
+// exchanges them in registers.
 //
 // A compare-exchange is idempotent: min(min(a, b), max(a, b)) = min(a, b),
 // and the compiler may fold R repeats into one. The barrier that keeps each
@@ -34,10 +41,17 @@
 
 namespace {
 
-constexpr int kLanes = 128;             // elements per row
-constexpr int kPerThread = kLanes / 32;  // lane pass: a row's elements per thread
-constexpr int kThreads = 256;
+constexpr int kLanes = 128;  // elements per row
+constexpr int kThreads = 256;  // row pass
 constexpr unsigned kFull = 0xffffffffu;
+
+// The lane pass's map of elements to threads: a warp a row, thread `lane`
+// holding elements 64 k + 2 lane + c, k < 2, c < 2, in v[k][c]: its int2 k.
+// The CTA is 8 warps, 8 rows.
+constexpr int kLaneVec = 2;                          // adjacent elements of an int2
+constexpr int kLaneVecs = kLanes / (32 * kLaneVec);  // int2s a thread: 2
+constexpr int kLaneWarps = 8;
+constexpr int kLaneThreads = 32 * kLaneWarps;
 
 __device__ __forceinline__ void opaque(int& v) { asm volatile("" : "+r"(v)); }
 
@@ -47,38 +61,59 @@ __device__ __forceinline__ void exchange(int& lo, int& hi) {
   hi = max(a, hi);
 }
 
-// One warp per row; thread `lane` holds elements lane + 32 k, k < 4.
+// One repeat of the pass on a thread's registers. Stride 1 pairs the two
+// elements of an int2 and 64 the two int2s of a thread, with neither a
+// shuffle nor shared memory; 2-32 pair lane l with l ^ (stride / 2) through
+// __shfl_xor_sync, the lower keeping the min.
 template <int kStride>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void lane_step(int (&v)[kLaneVecs][kLaneVec], bool lower) {
+  if constexpr (kStride == 1) {
+#pragma unroll
+    for (int k = 0; k < kLaneVecs; ++k) exchange(v[k][0], v[k][1]);
+  } else if constexpr (kStride < 32 * kLaneVec) {
+#pragma unroll
+    for (int k = 0; k < kLaneVecs; ++k)
+#pragma unroll
+      for (int c = 0; c < kLaneVec; ++c) {
+        const int p = __shfl_xor_sync(kFull, v[k][c], kStride / kLaneVec);
+        v[k][c] = lower ? min(v[k][c], p) : max(v[k][c], p);
+      }
+  } else {
+#pragma unroll
+    for (int c = 0; c < kLaneVec; ++c) exchange(v[0][c], v[1][c]);
+  }
+#pragma unroll
+  for (int k = 0; k < kLaneVecs; ++k)
+#pragma unroll
+    for (int c = 0; c < kLaneVec; ++c) opaque(v[k][c]);
+}
+
+// One warp per row. The repeats are unrolled 16 deep where a pass stays in
+// registers, so that the loop's own ALU instructions stay small beside its
+// IMNMXs; the shuffled strides keep the compiler's unrolling.
+template <int kStride>
+__global__ void __launch_bounds__(kLaneThreads)
 lane_pass_kernel(const int* __restrict__ x, int* __restrict__ out, int rows, int reps) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int row = blockIdx.x * kLaneWarps + (threadIdx.x >> 5);
   if (row >= rows) return;  // whole warps only
-  const int* src = x + static_cast<size_t>(row) * kLanes;
-  int v[kPerThread];
+  const bool lower = (lane & (kStride / kLaneVec)) == 0;  // read by the shuffled strides only
+  const size_t at = static_cast<size_t>(row) * kLanes + kLaneVec * lane;
+  int v[kLaneVecs][kLaneVec];
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) v[k] = src[k * 32 + lane];
-  for (int r = 0; r < reps; ++r) {
-    if constexpr (kStride < 32) {
-      const bool lower = (lane & kStride) == 0;
-#pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        const int p = __shfl_xor_sync(kFull, v[k], kStride);
-        v[k] = lower ? min(v[k], p) : max(v[k], p);
-      }
-    } else if constexpr (kStride == 32) {  // elements l and l + 32: registers k, k + 1
-      exchange(v[0], v[1]);
-      exchange(v[2], v[3]);
-    } else {                                // kStride == 64: registers k, k + 2
-      exchange(v[0], v[2]);
-      exchange(v[1], v[3]);
-    }
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) opaque(v[k]);
+  for (int k = 0; k < kLaneVecs; ++k) {
+    const int2 u = *reinterpret_cast<const int2*>(x + at + k * 32 * kLaneVec);
+    v[k][0] = u.x, v[k][1] = u.y;
   }
-  int* dst = out + static_cast<size_t>(row) * kLanes;
+  if constexpr (kStride == 1 || kStride == 32 * kLaneVec) {
+#pragma unroll 16
+    for (int r = 0; r < reps; ++r) lane_step<kStride>(v, lower);
+  } else {
+    for (int r = 0; r < reps; ++r) lane_step<kStride>(v, lower);
+  }
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) dst[k * 32 + lane] = v[k];
+  for (int k = 0; k < kLaneVecs; ++k)
+    *reinterpret_cast<int2*>(out + at + k * 32 * kLaneVec) = make_int2(v[k][0], v[k][1]);
 }
 
 // One thread per pair of elements (row r, lane) and (row r + S, lane).
@@ -102,11 +137,17 @@ row_pass_kernel(const int* __restrict__ x, int* __restrict__ out, int rows, int 
   out[hi_at] = hi;
 }
 
+// The lane pass's grid and block, and an empty kernel launched on them: its
+// time is the launch's alone, beside the pass's with r = 0 (the read and the
+// write) and with r repeats.
+dim3 lane_grid(int rows) { return dim3((rows + kLaneWarps - 1) / kLaneWarps); }
+
+__global__ void __launch_bounds__(kLaneThreads)
+lane_empty_kernel(const int* __restrict__, int* __restrict__, int, int) {}
+
 template <int kStride>
 cudaError_t launch_lane(const int* x, int* out, int rows, int reps, cudaStream_t stream) {
-  const int warps = kThreads / 32;
-  lane_pass_kernel<kStride><<<(rows + warps - 1) / warps, kThreads, 0, stream>>>(x, out, rows,
-                                                                              reps);
+  lane_pass_kernel<kStride><<<lane_grid(rows), kLaneThreads, 0, stream>>>(x, out, rows, reps);
   return cudaGetLastError();
 }
 
@@ -128,6 +169,14 @@ extern "C" int moss_sort_lane_pass(const int* x, int* out, int rows, int stride,
     case 64: return static_cast<int>(launch_lane<64>(x, out, rows, reps, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The empty kernel on the lane pass's grid for `rows` rows, with its arguments.
+extern "C" int moss_sort_lane_empty(const int* x, int* out, int rows, int stride, int reps,
+                                    void* stream) {
+  lane_empty_kernel<<<lane_grid(rows), kLaneThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, out, rows, reps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int moss_sort_row_pass(const int* x, int* out, int rows, int stride_rows, int reps,

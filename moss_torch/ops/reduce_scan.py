@@ -49,7 +49,7 @@ moss_mxu_tc_order reports it), bf16_stage for the bf16 moments
 whose kernel takes the pixels in mom_bf16_pixel's order, and for the bf16
 accumulators (BF16_FAMILIES), whose kernel takes the m-tile's rows in
 acc_pixel's order, and cuda_stage for the CUDA-core moments, accumulators,
-cumsum and cumprod (CUDA_STAGES: the chunk's read, the store and the
+cumsum, cumprod and reshape (CUDA_STAGES: the chunk's read, the store and the
 observer alone). The CUDA-core moments sum each column's 8 rows weighted by
 1, py and py^2, then the columns weighted by px (kern_moments_vpu's order);
 the CUDA-core accumulators are register-blocked, a lane 4 pixels and a warp
@@ -113,16 +113,22 @@ TF32X3_STAGES = ("full", "products", "split")
 # a warp walks in a rep, pixels a moments warp covers
 TF32X3_WARPS, TF32X3_STEPS, MOM_SLICE = 8, 16, 128
 
-# the CUDA-core moments, accumulator, cumsum and cumprod kernels' stages, by
-# their code in csrc/reduce_scan.cu (enum CudaStage)
+# the CUDA-core moments, accumulator, cumsum, cumprod and reshape kernels'
+# stages, by their code in csrc/reduce_scan.cu (enum CudaStage), and the run
+# of RUNS each family's production form is
 CUDA_STAGES = ("full", "loads")
-CUDA_FAMILIES = ("moments", "acc", "cumsum", "cumprod")
+CUDA_FAMILIES = ("moments", "acc", "cumsum", "cumprod", "reshape")
+CUDA_RUNS = {"moments": "moments_cuda", "acc": "acc_cuda", "cumsum": "cumsum_cuda",
+             "cumprod": "cumprod_cuda", "reshape": "reshape_only"}
 # their shapes (csrc/reduce_scan.cu): warps a CTA of the moments and
 # accumulator kernels, adjacent pixel columns a moments lane takes, splats an
 # accumulator warp takes and adjacent pixels an accumulator lane takes; reps
 # a scan's walk carries at most and splats a scan's thread loads ahead
 CUDA_WARPS, MOM_CUDA_COLS, ACC_CUDA_SPLATS, ACC_CUDA_PIX = 8, 4, 16, 4
 WALK_GROUP, WALK_BATCH = 16, 8
+# the reshape kernel's shapes (csrc/reduce_scan.cu): threads a CTA, adjacent
+# columns a thread takes (a float4 of each of the 8 rows), tiles a CTA walks
+RESHAPE_THREADS, RESHAPE_COLS, RESHAPE_TILES = 256, 4, 16
 
 # the bf16 moments and accumulator kernels' stages, by their code in
 # csrc/reduce_scan.cu (enum Bf16Stage), their k-steps of 16 a warp walks in a
@@ -134,7 +140,7 @@ BF16_FAMILIES = ("moments", "acc")
 BF16_STEPS, BF16_IN_FLIGHT, ACC_BF16_WARPS = 8, 2, 4
 # the kernels ctas_per_sm knows, in the order of moss_mxu_ctas_per_sm's codes
 CTAS_KERNELS = ("moments_cuda", "acc_cuda", "cumprod_cuda", "moments_bf16", "cumsum_cuda",
-                "acc_bf16")
+                "acc_bf16", "reshape")
 
 MODES = ("cuda", "bf16", "tf32x3")
 SCAN_MODES = {"add": ("cuda", "bf16", "split2"), "mul": ("cuda", "split2")}
@@ -173,6 +179,7 @@ _SIGNATURES = {  # pointers, then reps, tiles, [op,] [mode]
     "moss_mxu_moments_cuda_stage": [_PTR] * 3 + [_INT] * 3,
     "moss_mxu_acc_cuda_stage": [_PTR] * 4 + [_INT] * 3,
     "moss_mxu_cumsum_cuda_stage": [_PTR] * 3 + [_INT] * 3,
+    "moss_mxu_reshape_cuda_stage": [_PTR] * 3 + [_INT] * 3,
     "moss_mxu_cumprod_cuda_stage": [_PTR] * 3 + [_INT] * 3,
     "moss_mxu_moments_bf16_stage": [_PTR] * 3 + [_INT] * 3,
     "moss_mxu_acc_bf16_stage": [_PTR] * 4 + [_INT] * 3,
@@ -519,13 +526,15 @@ def _scan_op(family):
 
 
 def _out_shape(family):
-    return {"moments": (K, 8), "acc": (8, H, W)}.get(family, (K, H, W))
+    return {"moments": (K, 8), "acc": (8, H, W), "reshape": (K, W)}.get(family, (K, H, W))
 
 
 def _family_parts(family, mode):
     """The observer's columns of the kernel of `family` at `mode`."""
     if family in ("cumsum", "cumprod"):
         return _parts("moss_mxu_scan", _OP_CODE[_scan_op(family)], _MODE_CODE[mode])
+    if family == "reshape":
+        return _parts("moss_mxu_reshape")
     return _parts(f"moss_mxu_{family}", _MODE_CODE[mode])
 
 
@@ -724,17 +733,19 @@ def _cuda_stage_args(family, stage, what):
 
 def cuda_stage_plain(family: str, x, s, stage: str, reps: int = REPS):
     """What stage `stage` of the CUDA-core moments ("moments"), accumulator
-    ("acc"), cumsum ("cumsum") or cumprod ("cumprod") kernel returns: "full"
-    the function (moments_plain, acc_plain at mode "cuda", scan_plain at op
-    "add" or "mul"); "loads" for the contractions the sum of x over the
-    contracted axis in the first output, the moments' columns 0 and 6 (S0) or
-    the accumulators' rows 0 and 5, every other output 0, for the scans x
-    itself, whatever `reps`."""
+    ("acc"), cumsum ("cumsum"), cumprod ("cumprod") or reshape ("reshape")
+    kernel returns: "full" the function (its run of CUDA_RUNS); "loads" for
+    the contractions the sum of x over the contracted axis in the first
+    output, the moments' columns 0 and 6 (S0) or the accumulators' rows 0 and
+    5, every other output 0, for the scans x itself, for the reshape x summed
+    over the 8 rows, whatever `reps`."""
     _cuda_stage_args(family, stage, "cuda_stage_plain")
     if stage == "full":
-        return run_plain(f"{family}_cuda", x, s, reps)
+        return run_plain(CUDA_RUNS[family], x, s, reps)
     if family in ("cumsum", "cumprod"):
         return x.clone()
+    if family == "reshape":
+        return x.sum(-2)
     g0, lead = _rows(x)
     if family == "moments":
         out = torch.zeros((*lead, K, 8), device=x.device)
@@ -747,9 +758,9 @@ def cuda_stage_plain(family: str, x, s, stage: str, reps: int = REPS):
 
 def cuda_stage(family: str, x, s, stage: str, reps: int = REPS):
     """(out, observer) of stage `stage` of the CUDA-core moments, accumulator,
-    cumsum or cumprod kernel: "full" is that kernel (mode "cuda"), "loads"
-    leaves out the reps, so its time says what the chunk's read, the store
-    and the observer cost. s is read by "acc" only. Counted in
+    cumsum, cumprod or reshape kernel: "full" is that kernel (mode "cuda"),
+    "loads" leaves out the reps, so its time says what the chunk's read, the
+    store and the observer cost. s is read by "acc" only. Counted in
     `cuda_stage_launches`; on a CPU tensor, cuda_stage_plain."""
     global cuda_stage_launches
     _cuda_stage_args(family, stage, "cuda_stage")

@@ -22,12 +22,18 @@ import torch
 from . import cuda_build
 
 LANES = 128  # csrc/sort_pass.cu kLanes
+# the lane pass's map of a row to threads (csrc/sort_pass.cu): a warp a row,
+# thread `lane` holding elements lane_element(lane, k, c) for k < LANE_VECS,
+# c < LANE_VEC, its k-th int2; CTAs of LANE_WARPS warps
+LANE_VEC, LANE_WARPS = 2, 8
+LANE_VECS = LANES // (32 * LANE_VEC)
 # tools/sort_micro.py's block and repeat count: 2^19 keys, R = 64
 ROWS, R = 4096, 64
 
 # kernel launches since the last reset (set to 0 to count a run)
 lane_launches = 0  # moss_sort_lane_pass
 row_launches = 0   # moss_sort_row_pass
+empty_launches = 0  # moss_sort_lane_empty
 
 # x, out; rows, stride, reps
 _SIGNATURE = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
@@ -41,6 +47,20 @@ def network_passes(n_keys: int):
     lane = sum(min(k, 7) for k in range(1, n_stages + 1))
     row = sum(max(k - 7, 0) for k in range(1, n_stages + 1))
     return lane, row
+
+
+def lane_element(lane: int, k: int, c: int) -> int:
+    """The element of a row that thread `lane` of the row's warp holds in
+    register (k, c) in the lane pass's kernel: element c of its int2 k."""
+    return 32 * LANE_VEC * k + LANE_VEC * lane + c
+
+
+def lane_passes_by_stride(n_keys: int):
+    """{stride: lane passes at that stride} of the network of network_passes:
+    stage k has one pass at each stride below 2^k, so stride 2^j has
+    n_stages - j of them."""
+    n_stages = n_keys.bit_length() - 1
+    return {1 << j: n_stages - j for j in range(min(n_stages, LANES.bit_length() - 1))}
 
 
 def lane_pass_plain(x, stride: int, r: int = 1):
@@ -80,11 +100,26 @@ def lane_pass(x, stride: int, r: int = 1):
         raise ValueError(f"lane_pass: stride {stride} must be below {LANES}")
     if x.device.type == "cpu":
         return lane_pass_plain(x, stride, r)
+    if x.data_ptr() % 8:
+        raise ValueError("lane_pass: the kernel reads x in int2s; x must be 8-byte aligned")
     out = torch.empty_like(x)
     cuda_build.launch("sort_pass", "moss_sort_lane_pass", _SIGNATURE, x.device,
                       x.data_ptr(), out.data_ptr(), x.shape[0], stride, r)
     lane_launches += 1
     return out
+
+
+def lane_pass_empty(x):
+    """Launch an empty kernel on the lane pass's grid for x (rows, 128) int32:
+    the launch's time alone, beside lane_pass(x, s, 0)'s read and write. On a
+    CPU tensor it does nothing."""
+    global empty_launches
+    _check(x, 1, 0, "lane_pass_empty")
+    if x.device.type == "cpu":
+        return
+    cuda_build.launch("sort_pass", "moss_sort_lane_empty", _SIGNATURE, x.device,
+                      x.data_ptr(), x.data_ptr(), x.shape[0], 1, 0)
+    empty_launches += 1
 
 
 def row_pass(x, stride_rows: int, r: int = 1):

@@ -1,7 +1,7 @@
 """Time one family of kernels of two checkouts of this repository on one card,
 in turns.
 
-    python -m moss_torch.tools.compare OTHER_ROOT [--what conv|mxu] [--json FILE]
+    python -m moss_torch.tools.compare OTHER_ROOT [--what conv|mxu|sort] [--json FILE]
 
 Runs four child processes in the order OTHER, THIS, THIS, OTHER. Each imports
 its own checkout's moss_torch, which builds that checkout's kernels into the
@@ -15,13 +15,19 @@ checkout's build directory, and times them:
   mxu   the twelve reduction and scan runs (csrc/reduce_scan.cu): each of
         ops.reduce_scan.RUNS through rs.run on mxu_micro.inputs, with cuda_ms
         at mxu_micro.TIMING, and a sha256 of each run's output
+  sort  the two sort passes (csrc/sort_pass.cu) on the tools' (4096, 128)
+        int32 block: the lane pass at each stride 1-64 and the row pass at
+        each stride 1-2048, each at R and 4R repeats, with cuda_ms at its
+        defaults; whether each output at R equals its plain version, and a
+        sha256 of it
 
 Prints one JSON line per turn, then each root's per-entry median over its two
 turns and its sums, the entries whose output digests are the same in all four
-turns (bitwise equal across the checkouts), and the card's name and power
-limit. Both checkouts need
-those entry points: every checkout since the f32 conv kernel was added (conv)
-or since the reduce_scan kernels were (mxu). Runs on the GPU only.
+turns (bitwise equal across the checkouts), for sort each entry's 4R over R
+time (a pass folded by the compiler would give about 1), and the card's name
+and power limit. Both checkouts need those entry points: every checkout since
+the f32 conv kernel was added (conv), since the reduce_scan kernels were
+(mxu) or since the sort passes were (sort). Runs on the GPU only.
 """
 from __future__ import annotations
 
@@ -72,7 +78,27 @@ with rs.full_f32():
         digests[name] = hashlib.sha256(rs.run(name, x, s)[0].cpu().numpy().tobytes()).hexdigest()
 print("RESULT " + json.dumps({**out, "digests": digests}), flush=True)
 """,
+    "sort": _PRELUDE + r"""
+from moss_torch.ops import sort_pass as sp
+import hashlib
+import numpy as np
+x = torch.as_tensor(np.random.default_rng(0).integers(0, 1 << 30, (sp.ROWS, sp.LANES), np.int32),
+                    device=dev)
+passes = {"lane": (sp.lane_pass, sp.lane_pass_plain, [1 << j for j in range(7)]),
+          "row": (sp.row_pass, sp.row_pass_plain, [1 << j for j in range(12)])}
+out, exact, digests = {}, {}, {}
+for kind, (fn, plain, strides) in passes.items():
+    for reps, r in (("R", sp.R), ("4R", 4 * sp.R)):
+        out[f"{kind}_{reps}"] = {f"s{s}": cuda_ms(lambda: fn(x, s, r)) for s in strides}
+    for s in strides:
+        got = fn(x, s, sp.R)
+        exact[f"{kind}_s{s}"] = bool(torch.equal(got, plain(x, s, sp.R)))
+        digests[f"{kind}_s{s}"] = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+print("RESULT " + json.dumps({**out, "exact": exact, "digests": digests}), flush=True)
+""",
 }
+# the kinds of a RESULT that hold no times
+UNTIMED = ("digests", "exact")
 
 
 def turn(root: str, what: str) -> dict:
@@ -88,10 +114,17 @@ def turn(root: str, what: str) -> dict:
 
 def summary(turns) -> dict:
     """Each entry's median over the turns, and each kind's sum of them (the
-    timed kinds: all but "digests")."""
+    timed kinds: all but UNTIMED)."""
     med = {k: {e: float(np.median([t[k][e] for t in turns])) for e in turns[0][k]}
-           for k in turns[0] if k != "digests"}
+           for k in turns[0] if k not in UNTIMED}
     return {**med, **{f"sum_{k}": sum(med[k].values()) for k in med}}
+
+
+def fold_ratios(med) -> dict:
+    """{pass: {stride: its 4R time over its R time}} of a sort summary, whose
+    kinds <pass>_R and <pass>_4R hold each stride's time."""
+    return {k: {s: med[f"{k}_4R"][s] / ms for s, ms in med[f"{k}_R"].items()}
+            for k in ("lane", "row")}
 
 
 def same_outputs(turns) -> dict:
@@ -122,9 +155,20 @@ def main(argv=None):
               "other": {"root": other, **summary([turns[0], turns[3]])},
               "this": {"root": THIS_ROOT, **summary([turns[1], turns[2]])},
               "bitwise_equal": same_outputs(turns)}
+    if "exact" in turns[0]:
+        result["exact_in_all_turns"] = {e: all(t["exact"][e] for t in turns)
+                                        for e in turns[0]["exact"]}
+        print("exact against the plain version in all four turns: " + "  ".join(
+            f"{e} {ok}" for e, ok in result["exact_in_all_turns"].items()), flush=True)
+    if args.what == "sort":
+        result["fold_ratio"] = {name: fold_ratios(result[name]) for name in ("other", "this")}
+        for name in ("other", "this"):
+            print(f"{name} 4R / R: " + "; ".join(
+                f"{k}: " + "  ".join(f"{e} {q:.2f}" for e, q in v.items())
+                for k, v in result["fold_ratio"][name].items()), flush=True)
     for name in ("other", "this"):
         r = result[name]
-        kinds = [k for k in turns[0] if k != "digests"]
+        kinds = [k for k in turns[0] if k not in UNTIMED]
         print(f"{name} ({r['root']}): " + "; ".join(
             f"{k}: " + "  ".join(f"{e} {ms:.5f}" for e, ms in r[k].items())
             + f"  sum {r['sum_' + k]:.5f} ms" for k in kinds), flush=True)

@@ -48,6 +48,7 @@ PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 MUFU_PER_CLOCK = 16 * 132  # transcendental ops a clock: 16 an SM, 132 SMs
+FP32_PER_CLOCK = 128 * 132  # FP32-pipe lanes a clock: 128 an SM (one warp instruction a scheduler)
 ELEMS = K * PIX  # elements of a chunk
 # transcendentals a run's function takes per element and rep: the log-space
 # cumprod's logarithm and exponential
@@ -94,6 +95,11 @@ OPS = {
     "cumprod_cuda": (0, None, 7),
     "cumprod_logsplit2": (0, None, 9),
 }
+# FP32-pipe instructions an element and rep of the runs made of adds alone:
+# their issue floor, at FP32_PER_CLOCK and the SM clock, sits above the bound,
+# which counts an FMA as two operations (the reshape's x + i and the add, the
+# cumsum's x + i, the running add and the add into the sum)
+FADDS = {"reshape_only": 2, "cumsum_cuda": 3}
 # passes of the triangular product of the tensor-core scans
 SCAN_TC_PASSES = {"cumsum_bf16": 1, "cumsum_split2": 2, "cumprod_logsplit2": 2}
 OUT_ELEMS = {"moments": K * 8, "reshape": K * 128, "acc": 8 * PIX, "cumsum": ELEMS,
@@ -126,7 +132,8 @@ def bound(name, clock_hz=None):
     a tensor-core scan also the bound of its formulation, the FLOPs of the
     blocks of L it multiplies at the bf16 peak; for a run with transcendentals, given
     the SM clock, their time were they all MUFU ops (sfu_bound_ms), at
-    MUFU_PER_CLOCK."""
+    MUFU_PER_CLOCK; for a run of FADDS, given the SM clock, the time of its
+    adds at one warp instruction a clock a scheduler (issue_floor_ms)."""
     family = rs.RUN[name][1]
     tc_flops, tc_peak, f32_per_elem = OPS[name]
     bytes_ = 4 * (ELEMS + (8 * K if family == "acc" else 0) + OUT_ELEMS[family])
@@ -146,6 +153,10 @@ def bound(name, clock_hz=None):
         row["transcendentals"] = chunk_ops * ELEMS * TRANSCENDENTALS[name]
         row["sm_clock_hz"] = clock_hz
         row["sfu_bound_ms"] = 1e3 * row["transcendentals"] / (MUFU_PER_CLOCK * clock_hz)
+    if name in FADDS and clock_hz:
+        row["sm_clock_hz"] = clock_hz
+        row["issue_floor_ms"] = (1e3 * chunk_ops * ELEMS * FADDS[name]
+                                 / (FP32_PER_CLOCK * clock_hz))
     return row
 
 
@@ -376,6 +387,10 @@ def main(device=None, timing=None, tiles=TILES):
                 print(f"{'':24s} SFU bound {row['sfu_bound_ms']:.4f} ms: "
                       f"{row['transcendentals']:.4g} transcendentals at {MUFU_PER_CLOCK} a "
                       f"clock, {clock_hz / 1e9:.3f} GHz")
+            if "issue_floor_ms" in row:
+                print(f"{'':24s} FADD issue floor {row['issue_floor_ms']:.4f} ms: {FADDS[name]} an "
+                      f"element and rep at {FP32_PER_CLOCK} a clock, "
+                      f"{row['sm_clock_hz'] / 1e9:.3f} GHz")
     return {"device": device_name(dev), "reps": REPS, "tiles": TILES, "runs": rows,
             "numeric": numeric_lines(outs, x), "cumsum_stages": cumsum_stages(x, time_ms, timing),
             "scan_stages": scan_stages(x, time_ms, timing),

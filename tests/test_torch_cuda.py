@@ -23,16 +23,17 @@ the pixels as termination-threshold flips; depth atol 1e-4); grads at
 tests/test_rasterize_tpu.py:150 (divide by max|g_ref|, atol 5e-4), bg rtol 1e-4.
 Segment sum: 1e-5 of the max against its plain version and index_add_, and
 bit for bit its own order of adds (tests/_segment_order.py). Sort passes:
-exact. Conv: f32 atol 1e-4 (tools/conv_pallas_proto.py:102), bf16
+exact, the lane pass at every stride on row counts that fill no whole CTA and
+with r = 0. Conv: f32 atol 1e-4 (tools/conv_pallas_proto.py:102), bf16
 max |y - y_plain| <= 2e-2 max |y_plain| (tests/test_losses_parity.py:108),
 two calls bitwise equal; the tensor-core kernel's ablated stages exactly
 their plain version.
 Reductions and scans: max |out - plain| <= 1e-5 max |plain|, the plain version
 rounding a tensor-core form's operands as its kernel does; observers bitwise
 equal across tiles; the same for the stages of the tensor-core cumsums, of the
-log-space cumprod kernel, of the CUDA-core moments, accumulator and cumprod kernels and
-of the bf16 moments (at least two CTAs an SM; the last two also at REPS / 3 and 4 REPS,
-where they walk or pair their reps otherwise) and of the 3xTF32 moments and
+log-space cumprod kernel, of the CUDA-core moments, accumulator, cumsum, cumprod and reshape
+kernels and of the bf16 moments (at least two CTAs an SM; the redesigned ones also at REPS / 3
+and 4 REPS, where they walk or pair their reps otherwise) and of the 3xTF32 moments and
 accumulator kernels; the tensor-core moments' and accumulators' layout tables are
 the C library's, and the tensor cores read the unmasked TF32 operands as
 cvt.rna's, bit for bit (csrc/tc_rate.cu). The
@@ -357,14 +358,31 @@ def _block(device, rows, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,r", [(72, 3), (72, 0), (4096, 3), (70, 3)],
+                         ids=["72x3", "72x0", "4096x3", "70x3"])
 @pytest.mark.parametrize("stride", [1, 2, 4, 8, 16, 32, 64])
-def test_lane_pass_matches_plain(cuda_device, stride):
-    x = _block(cuda_device, 72)
+def test_lane_pass_matches_plain(cuda_device, stride, rows, r):
+    """Exact at every stride, on 72 and 70 rows (neither a multiple of a
+    CTA's rows), on the tool's 4,096, and with r = 0 (a copy)."""
+    x = _block(cuda_device, rows)
     before = sort_pass.lane_launches
-    got = sort_pass.lane_pass(x, stride, 3)
+    got = sort_pass.lane_pass(x, stride, r)
     torch.cuda.synchronize()
     assert sort_pass.lane_launches == before + 1
-    assert torch.equal(got, sort_pass.lane_pass_plain(x, stride, 3))
+    assert torch.equal(got, sort_pass.lane_pass_plain(x, stride, r))
+    if r == 0:
+        assert torch.equal(got, x)
+
+
+@pytest.mark.cuda
+def test_lane_pass_empty_launches_nothing_else(cuda_device):
+    """The empty kernel on the lane pass's grid: one launch, counted, x unchanged."""
+    x = _block(cuda_device, sort_pass.ROWS)
+    before, copy = sort_pass.empty_launches, x.clone()
+    sort_pass.lane_pass_empty(x)
+    torch.cuda.synchronize()
+    assert sort_pass.empty_launches == before + 1
+    assert torch.equal(x, copy)
 
 
 @pytest.mark.cuda
@@ -627,10 +645,10 @@ def test_tf32x3_stage_matches_plain(cuda_device, family, stage, reps):
 @pytest.mark.parametrize("stage", rs.CUDA_STAGES)
 @pytest.mark.parametrize("family", rs.CUDA_FAMILIES)
 def test_cuda_stage_matches_plain(cuda_device, family, stage, reps):
-    """Each stage of the CUDA-core moments, accumulator and cumprod kernels
-    against its plain version (1e-5 of the max), observers bitwise equal
-    across tiles, one launch; "full" bitwise the production kernel; the
-    kernels fit at least two CTAs an SM."""
+    """Each stage of the CUDA-core moments, accumulator, cumsum, cumprod and
+    reshape kernels against its plain version (1e-5 of the max), observers
+    bitwise equal across tiles, one launch; "full" bitwise the production
+    kernel; the kernels fit at least two CTAs an SM."""
     x, s = _chunk(cuda_device)
     before = rs.cuda_stage_launches
     out, obs = rs.cuda_stage(family, x, s, stage, reps)
@@ -641,8 +659,8 @@ def test_cuda_stage_matches_plain(cuda_device, family, stage, reps):
     assert err <= 1e-5 and torch.isfinite(out).all(), err
     assert torch.equal(obs, obs[:1].expand_as(obs))
     if stage == "full":
-        assert torch.equal(out, rs.run(f"{family}_cuda", x, s, reps=reps)[0])
-    assert rs.ctas_per_sm(f"{family}_cuda") >= 2
+        assert torch.equal(out, rs.run(rs.CUDA_RUNS[family], x, s, reps=reps)[0])
+    assert rs.ctas_per_sm("reshape" if family == "reshape" else rs.CUDA_RUNS[family]) >= 2
 
 
 @pytest.mark.cuda
@@ -670,13 +688,14 @@ def test_bf16_stage_matches_plain(cuda_device, family, stage, reps):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("reps", [rs.REPS // 3, 4 * rs.REPS])
-@pytest.mark.parametrize("name", ["cumprod_cuda", "moments_bf16", "cumsum_cuda", "acc_bf16"])
+@pytest.mark.parametrize("name", ["cumprod_cuda", "moments_bf16", "cumsum_cuda", "acc_bf16",
+                                  "reshape_only"])
 def test_redesigned_kernels_at_more_reps(cuda_device, name, reps):
-    """The CUDA-core cumprod and cumsum (their reps in walks of 16, 4 and 1)
-    and the bf16 moments and accumulators (two reps in flight, an odd one
-    alone) at REPS / 3 and 4 REPS, beside test_reduce_scan_matches_plain's
-    REPS and 3: kernel within 1e-5 of the max of plain, observers bitwise
-    equal, one launch."""
+    """The CUDA-core cumprod and cumsum (their reps in walks of 16, 4 and 1),
+    the bf16 moments and accumulators (two reps in flight, an odd one alone)
+    and the reshape at REPS / 3 and 4 REPS, beside
+    test_reduce_scan_matches_plain's REPS and 3: kernel within 1e-5 of the
+    max of plain, observers bitwise equal, one launch."""
     x, s = _chunk(cuda_device)
     before = rs.launch_counts()
     out, obs = rs.run(name, x, s, reps=reps)

@@ -866,18 +866,23 @@ def test_cuda_stage_plain_on_the_cpu(data, plain_out, family, stage, reps):
     """A stage of the CUDA-core kernels on CPU tensors is its plain version,
     with no launch: "full" the run's plain version; "loads" x summed over
     the contracted axis into the first output and its repeat, in float64
-    within RTOL (the scans': x itself), whatever reps."""
+    within RTOL (the scans': x itself; the reshape's: x summed over the 8
+    rows), whatever reps."""
     x, s = torch.as_tensor(data["x"]), torch.as_tensor(data["s"])
     before = (rs.cuda_stage_launches, dict(rs.form_launches))
     out, obs = rs.cuda_stage(family, x, s, stage, reps)
     assert obs is None and (rs.cuda_stage_launches, rs.form_launches) == before
     assert torch.equal(out, rs.cuda_stage_plain(family, x, s, stage, reps))
     if stage == "full":
-        assert torch.equal(out, rs.run_plain(f"{family}_cuda", x, s, reps))
+        assert torch.equal(out, rs.run_plain(rs.CUDA_RUNS[family], x, s, reps))
         if reps == rs.REPS:
-            np.testing.assert_array_equal(out.numpy(), plain_out[f"{family}_cuda"])
+            np.testing.assert_array_equal(out.numpy(), plain_out[rs.CUDA_RUNS[family]])
     elif family in ("cumsum", "cumprod"):
         np.testing.assert_array_equal(out.numpy(), data["x"])
+    elif family == "reshape":
+        assert out.shape == (mm.K, mm.W)
+        want = data["x"].astype(np.float64).sum(1)
+        assert _err_of_max(out.numpy(), want) <= mxu_micro.RTOL
     else:
         g = data["x"].reshape(mm.K, mm.PIX).astype(np.float64)
         if family == "moments":
@@ -925,7 +930,7 @@ def test_compare_summary_and_modes():
     sum; a child script per kind of kernel."""
     from moss_torch.tools import compare
 
-    assert sorted(compare.CHILD) == ["conv", "mxu"]
+    assert sorted(compare.CHILD) == ["conv", "mxu", "sort"]
     turns = [{"runs": {"a": 1.0, "b": 4.0}}, {"runs": {"a": 3.0, "b": 2.0}}]
     got = compare.summary(turns)
     assert got == {"runs": {"a": 2.0, "b": 3.0}, "sum_runs": 5.0}
@@ -935,8 +940,12 @@ def test_compare_summary_and_modes():
     turns = [{**t, "digests": d} for t, d in zip(turns + turns[:1], digests)]
     assert compare.summary(turns) == {"runs": {"a": 1.0, "b": 4.0}, "sum_runs": 5.0}
     assert compare.same_outputs(turns) == {"a": True, "b": False}
+    # the sort turns' 4R over R, by pass and stride
+    sort = compare.summary([{"lane_R": {"s1": 1.0}, "lane_4R": {"s1": 2.5},
+                             "row_R": {"s1": 2.0}, "row_4R": {"s1": 4.0}, "exact": {}}])
+    assert compare.fold_ratios(sort) == {"lane": {"s1": 2.5}, "row": {"s1": 2.0}}
     with pytest.raises(SystemExit):
-        compare.main(["root", "--what", "sort"])
+        compare.main(["root", "--what", "scan"])
 
 
 # ---- the CUDA-core cumprod's walks and the bf16 moments' order of pixels --------------
@@ -1180,9 +1189,9 @@ def test_bf16_stage_plain_on_the_cpu(data, plain_out, family, stage, reps):
 
 
 def test_redesigned_constants_are_the_kernels():
-    """The cumprod's and the bf16 moments' shapes, stages and the occupancy
-    query's kernels that ops/reduce_scan.py and the models above copy are
-    csrc/reduce_scan.cu's."""
+    """The cumprod's, the bf16 moments' and the reshape's shapes, stages and
+    the occupancy query's kernels that ops/reduce_scan.py and the models
+    above copy are csrc/reduce_scan.cu's."""
     import re
 
     src = open(CU).read()
@@ -1195,6 +1204,10 @@ def test_redesigned_constants_are_the_kernels():
     assert const("kBf16Steps") == "128 / 16" and rs.BF16_STEPS == 128 // 16
     assert int(const("kBf16InFlight")) == rs.BF16_IN_FLIGHT
     assert int(const("kAccBf16Threads")) // 32 == rs.ACC_BF16_WARPS
+    assert int(const("kReshapeThreads")) == rs.RESHAPE_THREADS
+    assert int(const("kReshapeCols")) == rs.RESHAPE_COLS and rs.W % rs.RESHAPE_COLS == 0
+    assert int(const("kReshapeTiles")) == rs.RESHAPE_TILES
+    assert const("kReshapeParts") == "kK * kW / (kReshapeThreads * kReshapeCols)"
     enum = re.search(r"enum Bf16Stage \{([^}]*)\}", src).group(1)
     names = [v.split("=")[0].strip()[len("kBf16"):].lower() for v in enum.split(",")]
     assert tuple(names) == rs.BF16_STAGES
@@ -1330,3 +1343,85 @@ def test_stage_entry_points_are_the_kernels():
             pointers = sum("*" in a for a in params) - 1          # the stream is void*
             ints = sum(a.startswith("int ") for a in params)
             assert rs._SIGNATURES[symbol] == [rs._PTR] * pointers + [rs._INT] * ints, symbol
+
+
+# ---- the reshape kernel's map and order of adds -----------------------------------
+#
+# csrc/reduce_scan.cu's reshape_kernel gives thread j of CTA column b the 4
+# adjacent outputs e = 4 (256 b + j), ..., e + 3 (e = 128 k + w) and reads
+# them as a float4 of each of the 8 rows of splat k; a CTA walks
+# RESHAPE_TILES tiles, each tile's 8 loads before its reps. Per output:
+# a = a + (x + i) for i = 0, ..., reps - 1, i carried as a float that counts
+# up by 1, then the 8 rows summed in row order.
+
+
+def reshape_parent_model(x, reps):
+    """The order of the one-output-a-thread kernel, per element in float32:
+    acc_h = ((0 + (x + 0)) + (x + 1)) + ..., i converted to float each rep,
+    then ((acc_0 + acc_1) + acc_2) + ... + acc_7."""
+    g = np.asarray(x, np.float32)                           # (K, 8, 128)
+    acc = np.zeros_like(g)
+    for i in range(reps):
+        acc = (acc + (g + np.float32(i))).astype(np.float32)
+    v = acc[:, 0]
+    for h in range(1, rs.H):
+        v = (v + acc[:, h]).astype(np.float32)
+    return v
+
+
+def reshape_kernel_model(x, reps):
+    """reshape_kernel's sums, thread by thread: each thread's 4 columns of
+    its 8 float4 rows, the rep's float counted up by 1.0 (exact below 2^24),
+    rows summed in row order."""
+    g = np.asarray(x, np.float32).reshape(rs.K, rs.H, rs.W // rs.RESHAPE_COLS, rs.RESHAPE_COLS)
+    a = np.zeros_like(g)
+    fi = np.float32(0)
+    for _ in range(reps):
+        a = (a + (g + fi)).astype(np.float32)
+        fi = np.float32(fi + np.float32(1))
+    v = a[:, 0]
+    for h in range(1, rs.H):
+        v = (v + a[:, h]).astype(np.float32)
+    return v.reshape(rs.K, rs.W)
+
+
+@pytest.mark.parametrize("reps", [rs.REPS, rs.REPS // 3, 4 * rs.REPS])
+def test_reshape_kernel_order_is_the_parent_order(data, pallas_out, reps, monkeypatch):
+    """Four columns a thread and a float rep counter change no operation of
+    any output: the kernel's model is bitwise the one-element-a-thread
+    order at REPS, REPS / 3 and 4 REPS, and within RTOL of reshape_only_plain
+    and of kern_reshape_only in interpret mode, its REPS set to reps."""
+    got = reshape_kernel_model(data["x"], reps)
+    np.testing.assert_array_equal(got, reshape_parent_model(data["x"], reps))
+    plain = rs.reshape_only_plain(torch.as_tensor(data["x"]), reps).numpy()
+    assert _err_of_max(got, plain.astype(np.float64)) <= mxu_micro.RTOL
+    pallas = (pallas_out["reshape_only"] if reps == rs.REPS
+              else _jax_vpu("reshape_only", data, reps, monkeypatch))
+    assert _err_of_max(got, pallas.astype(np.float64)) <= mxu_micro.RTOL
+
+
+def test_reshape_map_covers_the_chunk_once_in_float4s():
+    """reshape_kernel's loads, its address arithmetic written out: thread j of
+    CTA column b reads x[k, h, w:w + 4] for the 8 rows h, w a multiple of 4
+    (16-byte aligned), e = 4 (256 b + j) = 128 k + w; over the parts
+    (kReshapeParts CTA columns) the reads take each element of the chunk
+    once and the outputs each (k, w) once; a warp's float4s of a row are 512
+    contiguous bytes; tiles group into CTAs of RESHAPE_TILES."""
+    parts = rs.K * rs.W // (rs.RESHAPE_THREADS * rs.RESHAPE_COLS)
+    read = np.zeros(rs.K * rs.PIX, int)
+    written = np.zeros(rs.K * rs.W, int)
+    for b in range(parts):
+        for j in range(rs.RESHAPE_THREADS):
+            e = (b * rs.RESHAPE_THREADS + j) * rs.RESHAPE_COLS
+            k, w = divmod(e, rs.W)
+            assert w % rs.RESHAPE_COLS == 0
+            written[e:e + rs.RESHAPE_COLS] += 1
+            for h in range(rs.H):
+                at = k * rs.PIX + h * rs.W + w
+                assert at % 4 == 0
+                read[at:at + rs.RESHAPE_COLS] += 1
+        for warp in range(rs.RESHAPE_THREADS // 32):
+            first = (b * rs.RESHAPE_THREADS + 32 * warp) * rs.RESHAPE_COLS
+            assert first % rs.W == 0  # a warp's 32 float4s are one row of one splat
+    assert (read == 1).all() and (written == 1).all()
+    assert rs.TILES % rs.RESHAPE_TILES == 0
