@@ -26,8 +26,13 @@
 // strides, as a network that keeps its block in registers from pass to pass
 // needs. Maps of more elements a thread keep more strides in registers but
 // make a launch's read and write dearer, and the s = 64 pass with them
-// (PERF.md). In the row pass one thread loads both elements of a pair and
-// exchanges them in registers.
+// (PERF.md). The row pass runs on the same grid with the same access width:
+// a warp takes 64 lanes of one pair of rows, thread `lane` the int2 at the
+// same two lanes of both rows, and exchanges them in registers. Its index
+// math is a mask and an add, no run-time divide by the stride, and its
+// repeats unroll 16 deep. One thread a pair of 4-byte elements, on twice the
+// CTAs and with a divide by the stride, cost a launch about 0.0005 ms more
+// on the H100 (PERF.md).
 //
 // A compare-exchange is idempotent: min(min(a, b), max(a, b)) = min(a, b),
 // and the compiler may fold R repeats into one. The barrier that keeps each
@@ -42,7 +47,6 @@
 namespace {
 
 constexpr int kLanes = 128;  // elements per row
-constexpr int kThreads = 256;  // row pass
 constexpr unsigned kFull = 0xffffffffu;
 
 // The lane pass's map of elements to threads: a warp a row, thread `lane`
@@ -52,6 +56,15 @@ constexpr int kLaneVec = 2;                          // adjacent elements of an 
 constexpr int kLaneVecs = kLanes / (32 * kLaneVec);  // int2s a thread: 2
 constexpr int kLaneWarps = 8;
 constexpr int kLaneThreads = 32 * kLaneWarps;
+
+// The row pass's map: a warp takes 64 lanes of one pair of rows, thread
+// `lane` the int2 at lanes 64 h + 2 lane of each row, h the warp's half of
+// the pair. The CTA is 8 warps, 4 pairs of rows.
+constexpr int kRowVec = 2;                           // adjacent elements of an int2
+constexpr int kRowHalves = kLanes / (32 * kRowVec);  // warps a pair of rows: 2
+constexpr int kRowWarps = 8;
+constexpr int kRowThreads = 32 * kRowWarps;
+static_assert(kRowHalves == 2, "row_pass_kernel takes a warp's half of its pair as warp & 1");
 
 __device__ __forceinline__ void opaque(int& v) { asm volatile("" : "+r"(v)); }
 
@@ -116,25 +129,30 @@ lane_pass_kernel(const int* __restrict__ x, int* __restrict__ out, int rows, int
     *reinterpret_cast<int2*>(out + at + k * 32 * kLaneVec) = make_int2(v[k][0], v[k][1]);
 }
 
-// One thread per pair of elements (row r, lane) and (row r + S, lane).
-__global__ void __launch_bounds__(kThreads)
+// One warp per 64 lanes of a pair of rows, thread `lane` holding the int2 at
+// lanes 64 h + 2 lane of both rows (h = warp & 1), exchanged in registers:
+// the lane pass's grid and access width. The lower row of pair p is
+// p + (p & -S): p = q S + m gives 2 q S + m, with S a power of two.
+__global__ void __launch_bounds__(kRowThreads)
 row_pass_kernel(const int* __restrict__ x, int* __restrict__ out, int rows, int stride_rows,
                 int reps) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= rows / 2 * kLanes) return;
-  const int lane = i % kLanes;
-  const int pair_row = i / kLanes;  // < rows / 2
-  const int r = pair_row / stride_rows * 2 * stride_rows + pair_row % stride_rows;
-  const size_t lo_at = static_cast<size_t>(r) * kLanes + lane;
+  const int warp = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (warp >= rows / 2 * kRowHalves) return;  // whole warps only
+  const int pair = warp >> 1;
+  const int row = pair + (pair & -stride_rows);
+  const size_t lo_at = static_cast<size_t>(row) * kLanes + (warp & 1) * 32 * kRowVec +
+                       kRowVec * (threadIdx.x & 31);
   const size_t hi_at = lo_at + static_cast<size_t>(stride_rows) * kLanes;
-  int lo = x[lo_at], hi = x[hi_at];
+  int2 lo = *reinterpret_cast<const int2*>(x + lo_at);
+  int2 hi = *reinterpret_cast<const int2*>(x + hi_at);
+#pragma unroll 16
   for (int k = 0; k < reps; ++k) {
-    exchange(lo, hi);
-    opaque(lo);
-    opaque(hi);
+    exchange(lo.x, hi.x);
+    exchange(lo.y, hi.y);
+    opaque(lo.x), opaque(lo.y), opaque(hi.x), opaque(hi.y);
   }
-  out[lo_at] = lo;
-  out[hi_at] = hi;
+  *reinterpret_cast<int2*>(out + lo_at) = lo;
+  *reinterpret_cast<int2*>(out + hi_at) = hi;
 }
 
 // The lane pass's grid and block, and an empty kernel launched on them: its
@@ -181,8 +199,8 @@ extern "C" int moss_sort_lane_empty(const int* x, int* out, int rows, int stride
 
 extern "C" int moss_sort_row_pass(const int* x, int* out, int rows, int stride_rows, int reps,
                                   void* stream) {
-  const int pairs = rows / 2 * kLanes;
-  row_pass_kernel<<<(pairs + kThreads - 1) / kThreads, kThreads, 0,
+  const int warps = rows / 2 * kRowHalves;
+  row_pass_kernel<<<(warps + kRowWarps - 1) / kRowWarps, kRowThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(x, out, rows, stride_rows, reps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,12 @@ times; the lower position of each pair keeps the min, the upper the max:
   row_pass(x, stride_rows, r): rows [g, g + S) pair with [g + S, g + 2S)
 
 A pass is idempotent, so r repeats give the result of one; the repeats are
-there to time a pass with the data on chip. On a CPU tensor the wrappers run
-the plain version; on a CUDA tensor they launch the kernel or raise.
+there to time a pass with the data on chip. Both kernels keep a thread's
+elements in registers across the repeats and read and write them in int2s,
+on one grid of CTAs of 8 warps: the lane pass a warp a row (lane_element),
+the row pass a warp 64 lanes of a pair of rows (row_elements). On a CPU
+tensor the wrappers run the plain version; on a CUDA tensor they launch the
+kernel or raise.
 """
 from __future__ import annotations
 
@@ -27,6 +31,11 @@ LANES = 128  # csrc/sort_pass.cu kLanes
 # c < LANE_VEC, its k-th int2; CTAs of LANE_WARPS warps
 LANE_VEC, LANE_WARPS = 2, 8
 LANE_VECS = LANES // (32 * LANE_VEC)
+# the row pass's map (csrc/sort_pass.cu): a warp takes 64 lanes of one pair of
+# rows, thread `lane` the int2 at the same lanes of both rows, row_elements(warp,
+# lane, c, S); ROW_HALVES warps a pair, CTAs of ROW_WARPS warps
+ROW_VEC, ROW_WARPS = 2, 8
+ROW_HALVES = LANES // (32 * ROW_VEC)
 # tools/sort_micro.py's block and repeat count: 2^19 keys, R = 64
 ROWS, R = 4096, 64
 
@@ -55,12 +64,33 @@ def lane_element(lane: int, k: int, c: int) -> int:
     return 32 * LANE_VEC * k + LANE_VEC * lane + c
 
 
+def row_elements(warp: int, lane: int, c: int, stride_rows: int):
+    """(lower, upper): the elements of a (rows, 128) block, flat, that thread
+    `lane` of warp `warp` holds in register c of its lower and upper int2 in
+    the row pass's kernel at stride S = stride_rows. The warp's pair p lies at
+    rows p + (p & -S) and that + S: p = q S + m gives 2 q S + m."""
+    pair, half = divmod(warp, ROW_HALVES)
+    row = pair + (pair & -stride_rows)
+    lower = row * LANES + 32 * ROW_VEC * half + ROW_VEC * lane + c
+    return lower, lower + stride_rows * LANES
+
+
 def lane_passes_by_stride(n_keys: int):
     """{stride: lane passes at that stride} of the network of network_passes:
     stage k has one pass at each stride below 2^k, so stride 2^j has
     n_stages - j of them."""
     n_stages = n_keys.bit_length() - 1
     return {1 << j: n_stages - j for j in range(min(n_stages, LANES.bit_length() - 1))}
+
+
+def row_passes_by_stride(n_keys: int):
+    """{stride in rows: row passes at that stride} of the network of
+    network_passes: a row stride of 2^j rows is an element stride of
+    2^(j + 7), which each stage above j + 7 passes once, so 2^j has
+    n_stages - 7 - j of them (12 - j at 2^19 keys, 78 in all)."""
+    n_stages = n_keys.bit_length() - 1
+    lane_bits = LANES.bit_length() - 1
+    return {1 << j: n_stages - lane_bits - j for j in range(max(n_stages - lane_bits, 0))}
 
 
 def lane_pass_plain(x, stride: int, r: int = 1):
@@ -130,6 +160,8 @@ def row_pass(x, stride_rows: int, r: int = 1):
         raise ValueError(f"row_pass: {x.shape[0]} rows are not groups of 2 x {stride_rows}")
     if x.device.type == "cpu":
         return row_pass_plain(x, stride_rows, r)
+    if x.data_ptr() % 8:
+        raise ValueError("row_pass: the kernel reads x in int2s; x must be 8-byte aligned")
     out = torch.empty_like(x)
     cuda_build.launch("sort_pass", "moss_sort_row_pass", _SIGNATURE, x.device,
                       x.data_ptr(), out.data_ptr(), x.shape[0], stride_rows, r)

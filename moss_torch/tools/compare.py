@@ -24,7 +24,8 @@ checkout's build directory, and times them:
 Prints one JSON line per turn, then each root's per-entry median over its two
 turns and its sums, the entries whose output digests are the same in all four
 turns (bitwise equal across the checkouts), for sort each entry's 4R over R
-time (a pass folded by the compiler would give about 1), and the card's name
+time (a pass folded by the compiler would give about 1) and each root's
+2^19-key network with every pass at its own stride's time, and the card's name
 and power limit. Both checkouts need those entry points: every checkout since
 the f32 conv kernel was added (conv), since the reduce_scan kernels were
 (mxu) or since the sort passes were (sort). Runs on the GPU only.
@@ -127,6 +128,17 @@ def fold_ratios(med) -> dict:
             for k in ("lane", "row")}
 
 
+def network_by_stride_ms(med) -> float:
+    """ms of the tools' 2^19-key bitonic network from a sort summary: each
+    lane and row pass at its own stride's median time at R over R
+    (sort_micro's network_by_stride_ms)."""
+    from ..ops.sort_pass import LANES, R, ROWS, lane_passes_by_stride, row_passes_by_stride
+
+    n_keys = ROWS * LANES
+    passes = {"lane": lane_passes_by_stride(n_keys), "row": row_passes_by_stride(n_keys)}
+    return sum(n * med[f"{k}_R"][f"s{s}"] / R for k, by in passes.items() for s, n in by.items())
+
+
 def same_outputs(turns) -> dict:
     """{entry: whether every turn gave its output the same digest}, for the
     kinds that report digests; {} for the others."""
@@ -162,6 +174,11 @@ def main(argv=None):
             f"{e} {ok}" for e, ok in result["exact_in_all_turns"].items()), flush=True)
     if args.what == "sort":
         result["fold_ratio"] = {name: fold_ratios(result[name]) for name in ("other", "this")}
+        result["network_by_stride_ms"] = {name: network_by_stride_ms(result[name])
+                                          for name in ("other", "this")}
+        print("network_by_stride_ms (each lane and row pass at its own stride's median): " +
+              "  ".join(f"{name} {ms:.5f}" for name, ms in result["network_by_stride_ms"].items()),
+              flush=True)
         for name in ("other", "this"):
             print(f"{name} 4R / R: " + "; ".join(
                 f"{k}: " + "  ".join(f"{e} {q:.2f}" for e, q in v.items())

@@ -386,14 +386,19 @@ def test_lane_pass_empty_launches_nothing_else(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stride_rows", [1, 4, 64])
-def test_row_pass_matches_plain(cuda_device, stride_rows):
-    x = _block(cuda_device, 256)
+@pytest.mark.parametrize("r", [0, 1, sort_pass.R], ids=["r0", "r1", "R"])
+@pytest.mark.parametrize("stride_rows", [1 << j for j in range(12)])
+def test_row_pass_matches_plain(cuda_device, stride_rows, r):
+    """Exact at every row stride of the tool's 2^19-key network, on its
+    4,096 rows, with r = 0 (a copy), 1 and R."""
+    x = _block(cuda_device, sort_pass.ROWS)
     before = sort_pass.row_launches
-    got = sort_pass.row_pass(x, stride_rows, 3)
+    got = sort_pass.row_pass(x, stride_rows, r)
     torch.cuda.synchronize()
     assert sort_pass.row_launches == before + 1
-    assert torch.equal(got, sort_pass.row_pass_plain(x, stride_rows, 3))
+    assert torch.equal(got, sort_pass.row_pass_plain(x, stride_rows, r))
+    if r == 0:
+        assert torch.equal(got, x)
 
 
 @pytest.mark.cuda

@@ -174,3 +174,104 @@ def test_lane_pass_empty_on_the_cpu_does_nothing(block):
     before, copy = sort_pass.empty_launches, x.clone()
     assert sort_pass.lane_pass_empty(x) is None
     assert sort_pass.empty_launches == before and torch.equal(x, copy)
+
+
+# ---- the row pass kernel's map of elements to threads --------------------------------
+#
+# csrc/sort_pass.cu's row_pass_kernel gives a pair of rows two warps; thread
+# `lane` of warp w holds the int2 at lanes 64 (w % 2) + 2 lane of the pair's
+# lower row in one register pair and of its upper row in the other
+# (sort_pass.row_elements), and exchanges them lane for lane, the lower row
+# keeping the min. CTAs of 8 warps cover the block, the tail warps of the last
+# one idle.
+
+ROW_STRIDES = [1 << j for j in range(12)]
+
+
+def _row_map(rows, stride_rows):
+    """(lower, upper) flat elements of each launched (warp, lane, c), as the
+    kernel's grid reaches them: arrays (warps, 32, 2)."""
+    warps_needed = rows // 2 * sort_pass.ROW_HALVES
+    grid = -(-warps_needed // sort_pass.ROW_WARPS)
+    warp = np.arange(grid * sort_pass.ROW_WARPS)
+    warp = warp[warp < warps_needed]                      # the kernel's early return
+    lo, hi = sort_pass.row_elements(warp[:, None, None], np.arange(32)[None, :, None],
+                                    np.arange(sort_pass.ROW_VEC)[None, None, :], stride_rows)
+    return lo, hi
+
+
+def row_pass_kernel_model(x, stride_rows, r):
+    """The kernel's r repeats of a row pass at stride_rows on x (rows, 128), in
+    numpy: the registers gathered by the map, exchanged, scattered back."""
+    flat = np.asarray(x).reshape(-1)
+    lo_at, hi_at = _row_map(np.asarray(x).shape[0], stride_rows)
+    lo, hi = flat[lo_at], flat[hi_at]
+    for _ in range(r):
+        lo, hi = np.minimum(lo, hi), np.maximum(lo, hi)
+    out = np.empty_like(flat)
+    out[lo_at], out[hi_at] = lo, hi
+    return out.reshape(np.asarray(x).shape)
+
+
+@pytest.mark.parametrize("rows,stride_rows", [(sm.ROWS, s) for s in ROW_STRIDES]
+                         + [(256, s) for s in ROW_STRIDES[:8]])
+def test_row_map_covers_the_block_in_pairs(rows, stride_rows):
+    """Every element of the block once, as the (lower, upper) pairs of the
+    plain version: the lower in a row r with r % 2S < S, the upper S rows
+    below it in the same lane; each int2 two adjacent, 8-byte aligned
+    elements; a warp's 32 int2s of one row 256 contiguous bytes."""
+    lo, hi = _row_map(rows, stride_rows)
+    assert lo.shape == (rows, 32, sort_pass.ROW_VEC)
+    both = np.concatenate([lo.reshape(-1), hi.reshape(-1)])
+    assert np.array_equal(np.sort(both), np.arange(rows * sort_pass.LANES))
+    lo_row, lo_lane = np.divmod(lo, sort_pass.LANES)
+    hi_row, hi_lane = np.divmod(hi, sort_pass.LANES)
+    assert (lo_row % (2 * stride_rows) < stride_rows).all()
+    assert (hi_row == lo_row + stride_rows).all() and (hi_lane == lo_lane).all()
+    assert (lo[..., 0] % 2 == 0).all() and (np.diff(lo, axis=-1) == 1).all()
+    assert (np.diff(lo[..., 0], axis=1) == sort_pass.ROW_VEC).all()
+    assert (lo_row == lo_row[:, :1, :1]).all()             # a warp's lanes lie in one row
+
+
+@pytest.mark.parametrize("stride_rows", [1, 64, 2048])
+def test_row_map_model_matches_pallas(block, stride_rows):
+    """Driven through the map, the kernel's exchanges are exactly
+    _row_pass_kernel in interpret mode, with its R repeats."""
+    want = _pallas(sm._row_pass_kernel, block, stride_rows=stride_rows)
+    np.testing.assert_array_equal(row_pass_kernel_model(block, stride_rows, sm.R), want)
+
+
+def test_row_map_constants_are_the_kernels():
+    """ops/sort_pass.py's copy of the row pass's map and CTA is
+    csrc/sort_pass.cu's, and the kernel's index arithmetic is row_elements'."""
+    import re
+
+    src = open(os.path.join(REPO, "moss_torch", "csrc", "sort_pass.cu")).read()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]*);", src).group(1).split("//")[0].strip()
+
+    assert int(const("kRowVec")) == sort_pass.ROW_VEC
+    assert int(const("kRowWarps")) == sort_pass.ROW_WARPS
+    assert const("kRowHalves") == "kLanes / (32 * kRowVec)"
+    assert sort_pass.ROW_HALVES == 2
+    kernel = src[src.index("row_pass_kernel(const int*"):src.index("// The lane pass's grid")]
+    for line in ("const int pair = warp >> 1;", "const int row = pair + (pair & -stride_rows);",
+                 "(warp & 1) * 32 * kRowVec", "kRowVec * (threadIdx.x & 31)",
+                 "lo_at + static_cast<size_t>(stride_rows) * kLanes"):
+        assert line in kernel, line
+    assert "/" not in kernel.replace("//", "").replace("rows / 2", "")  # no run-time divide
+
+
+def test_row_pass_by_stride_counts():
+    """Stage k of the 2^19-key network has one row pass at each row stride
+    below 2^(k - 7): row stride 2^j has 12 - j of them, 78 in all, the row
+    passes of network_passes at any size."""
+    n = sm.ROWS * sm.LANES
+    by_stride = sort_pass.row_passes_by_stride(n)
+    assert by_stride == {1 << j: 12 - j for j in range(12)}
+    assert sum(by_stride.values()) == 78 == sort_pass.network_passes(n)[1]
+    for k in range(1, 21):
+        assert sum(sort_pass.row_passes_by_stride(1 << k).values()) == \
+            sort_pass.network_passes(1 << k)[1]
+    assert sort_pass.row_passes_by_stride(1 << 7) == {}
