@@ -57,6 +57,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              frame (counts set to 0 just before the run and read just after);
              a second run bitwise equal in params, valid, moments and metrics;
              ms per iteration outside densify rounds, per round, per eval frame
+ 7b. engines  the trainer's dispatch engines (train/trainer.py): phase 7's
+             scene, frames, crop, loss and schedule once per engine (eager,
+             queued, scan); every queued segment under torch.cuda's sync
+             debug mode "error" (a host sync inside a segment fails the run);
+             the scan engine's state (a CUDA graph of the step, replayed) and
+             the queued one's bitwise eager's after iterations 20 and 60, its
+             evals the same; rows 1, 2, 2b and svd3 launched in every run
+             (their wrappers' counts: under scan only each capture's warm-up
+             step; the profiled replays' trace must name all four kernels
+             every step, and the kernels line gives scan's replays x calls
+             captured apart from its launches); a forced overflow (half the
+             probed pair need installed) counted, healed and regrown, the next
+             segment reading 0; per engine ms per iteration outside rounds,
+             evals and budget probes, a profiled call's kernel launches, graph
+             launches, syncs and idle share a step, captures and ms per capture,
+             the graph pool's MB and the budgets installed; rows 1, 2 and 2b
+             at the budgeted capacity against the live list's (bitwise) and
+             the plain blend of the kept pairs, with both times; csrc/svd3.cu
+             against torch.linalg.svd on the pose MLPs' rotations and on a
+             general batch of random matrices (svd3_check)
   8. checkpoint  save, resume, reload and serve the trained avatar: the
              trainer phase's run wrote chkpnt30.npz (the state after step 30,
              its round and its opacity reset); a fresh Trainer resume_latest's
@@ -185,12 +205,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              first run's), by phase and by kernel
 
 Each tool phase sets its kernels' launch counts to 0 just before it drives
-the tool's main() and reads them just after. Then the kernels line and the
-last line {"ok": true, "device": {...}}.
+the tool's main() and reads them just after; each training path sets those
+of the blend kernels, the segment sum and svd3 to 0 just before its run and
+reads them just after (launch_counts). Then the kernels line and the last
+line {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; builds into build/moss_torch/.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -217,7 +240,7 @@ from moss_torch.models import gaussians as G
 from moss_torch.models import smpl as S
 from moss_torch.models.lbs_field import LBSField
 from moss_torch.models.pose_refine import PoseRefine
-from moss_torch.ops import bwd_stages, conv3x3 as conv, cuda_build, lpips, \
+from moss_torch.ops import binning, bwd_stages, conv3x3 as conv, cuda_build, fisher, lpips, \
     rasterize_cuda as rc, reduce_scan as rs, sort_pass, split_blend
 from moss_torch.ops.knn import knn
 from moss_torch.ops.rasterize_ref import rasterize_reference
@@ -236,7 +259,9 @@ from moss_torch.train import optim
 from moss_torch.train.losses import compute_losses, crop_window
 from moss_torch.train.optim import GAUSS_GROUPS, AdamState
 from moss_torch.train.network_gui import NetworkGUI, quantize
-from moss_torch.train.train_step import TrainState, active_sh_degree, make_train_step
+from moss_torch.train.train_step import (TrainState, TrainStep, active_sh_degree,
+                                         device_state, make_train_many, make_train_step,
+                                         stage_frames)
 from moss_torch.train.trainer import Trainer
 
 HW = 512
@@ -265,7 +290,7 @@ GRAD_ATOL, BG_RTOL = 5e-4, 1e-4
 # the segment sum against its plain version and index_add_: max |a - b| / max |b|
 SEGMENT_RTOL = 1e-5
 # the CUDA sources under moss_torch/csrc
-KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum", "sort_pass", "conv3x3",
+KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum", "svd3", "sort_pass", "conv3x3",
            "reduce_scan", "tc_rate")
 PEAK_BF16 = 989e12  # dense bf16 FLOP/s on the tensor cores
 # the sort passes' int32 min and max, counted at the f32 rate above: the
@@ -905,7 +930,7 @@ def phase_train(dev, H=HW, n_verts=N_VERTS, capacity=CAPACITY, n_live=N_LIVE,
           **measure_kernel(proj, step.bg, H, H)[1]})
 
     # the training path, driven once: warm-up and timed steps
-    rc.launches = rc.bwd_launches = rc.segment_launches = 0
+    zero_launch_counts()
     times, losses = [], []
     for i in range(warmup + steps):
         k = i % n_frames
@@ -917,9 +942,8 @@ def phase_train(dev, H=HW, n_verts=N_VERTS, capacity=CAPACITY, n_live=N_LIVE,
         losses.append(float(logs["loss"]))
         if int(logs["raster_overflow"]) != 0:
             raise AssertionError("the pair list overflowed")
-    launches = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
-                "segment_sum": rc.segment_launches}
-    if any(n != warmup + steps for n in launches.values()):
+    launches = launch_counts()
+    if any(n != warmup + steps for n in blend(launches).values()):
         raise AssertionError(f"{warmup + steps} steps launched the kernels {launches} times")
     gs = ts.gstate
     if not all(math.isfinite(x) for x in losses):
@@ -1127,7 +1151,7 @@ def trainer_run(dev, scene, frames, lp, timed=False, ckpt_dir=None):
             return out
         return run
 
-    step, densify = tr.step_fn, clocked(tr.densify, "densify")
+    densify = clocked(tr.densify, "densify")
 
     def counted_densify(it):
         if timed:
@@ -1140,12 +1164,24 @@ def trainer_run(dev, scene, frames, lp, timed=False, ckpt_dir=None):
             raise AssertionError(f"round {it}: {live} live in {cfg.model.capacity}")
         return stats
 
-    tr.step_fn = clocked(step, "step")
     tr.densify = counted_densify
     tr.evaluate = clocked(tr.evaluate, "eval")
-    tr.train(ckpt_fn=None if ckpt_dir is None else lambda it: tr.save(
-        os.path.join(ckpt_dir, f"chkpnt{it}.npz")) if it == RESUME_AT else None)
+    with clocked_steps(clocked):
+        tr.train(ckpt_fn=None if ckpt_dir is None else lambda it: tr.save(
+            os.path.join(ckpt_dir, f"chkpnt{it}.npz")) if it == RESUME_AT else None)
     return tr, rounds, times, cuts
+
+
+@contextlib.contextmanager
+def clocked_steps(clocked):
+    """Every TrainStep call clocked (clocked(fn, "step")), the steps the
+    trainer rebuilds when a budget grows included."""
+    call = TrainStep.__call__
+    TrainStep.__call__ = clocked(call, "step")
+    try:
+        yield
+    finally:
+        TrainStep.__call__ = call
 
 
 def phase_trainer(dev, H=HW, n_verts=N_VERTS, ckpt_dir=CKPT_DIR):
@@ -1158,14 +1194,13 @@ def phase_trainer(dev, H=HW, n_verts=N_VERTS, ckpt_dir=CKPT_DIR):
     lp = lpips.init_random(3407, device=dev)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     os.makedirs(ckpt_dir)
-    rc.launches = rc.bwd_launches = rc.segment_launches = 0
+    zero_launch_counts()
     tr, rounds, times, cuts = trainer_run(dev, scene, frames, lp, timed=True, ckpt_dir=ckpt_dir)
-    launches = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
-                "segment_sum": rc.segment_launches}
+    launches = launch_counts()
     iters = TRAINER["iterations"]
     eval_frames = len(TRAINER_EVALS) * (len(frames) - TRAIN_FRAMES)
     want = {"rasterize_fwd": iters + eval_frames, "rasterize_bwd": iters, "segment_sum": iters}
-    if launches != want:
+    if blend(launches) != want:
         raise AssertionError(f"the trainer launched the kernels {launches} times, not {want}")
     hist = tr.metrics_history
     psnr = {m["iteration"]: m["psnr"] for m in hist}
@@ -1208,6 +1243,452 @@ def phase_trainer(dev, H=HW, n_verts=N_VERTS, ckpt_dir=CKPT_DIR):
           "launches": launches, "bitwise_repeat": True,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return launches, cuts, (tr, scene, frames, lp)
+
+
+# the engines phase: the trainer phase's scene and schedule under each of the
+# trainer's dispatch engines, states compared at ENGINE_CHECKS; steps of a
+# profiled call; the forced overflow's run (a budget of half the need)
+ENGINES = ("eager", "queued", "scan")
+ENGINE_CHECKS = (20, 60)
+PROFILE_STEPS = 10
+HEAL_ITERS = 12
+HEAL_EVALS = (4, HEAL_ITERS)
+# the 3x3 SVD kernel against torch.linalg.svd: S within this share of the
+# largest singular value, U diag(g) V^T within SVD_ATOL where the values are apart
+SVD_RTOL, SVD_ATOL = 1e-5, 1e-4
+# f32 operations of one matrix in csrc/svd3.cu: 8 sweeps of 3 rotations (the
+# three dot products, zeta, t, c, s and the two rotated column pairs), then
+# the norms, u1, u2, u3 and s3
+SVD_OPS = 8 * 3 * 52 + 100
+SVD_BYTES = 4 * (9 + 9 + 3 + 9 + 1)
+
+
+def launch_counts():
+    """The training path's kernels' launches since zero_launch_counts, as
+    their wrappers counted them (calls recorded into a CUDA graph are not)."""
+    return {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
+            "segment_sum": rc.segment_launches, "svd3": fisher.launches}
+
+
+def zero_launch_counts():
+    rc.launches = rc.bwd_launches = rc.segment_launches = fisher.launches = 0
+
+
+BLEND_KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum")
+
+
+def blend(launches):
+    """The blend kernels' part of launch_counts()."""
+    return {k: launches[k] for k in BLEND_KERNELS}
+
+
+def engine_run(dev, scene, frames, lp, engine):
+    """One TRAINER run under `engine` (the queued one with every segment under
+    torch.cuda's sync debug mode "error"): (trainer, the flattened state after
+    each of ENGINE_CHECKS, its timings, the kernels' launches in the run)."""
+    tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], trainer_config(), lp,
+                 crop_hw=(CROP, CROP), device=dev)
+    if engine == "queued":
+        tr.segment_sync_mode = "error"
+    states, host = {}, {"densify": [], "eval": [], "budgets": [], "checkpoint": []}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            out, ms = clocked_ms(lambda: fn(*a, **kw))
+            host[key].append(ms)
+            return out
+        return run
+
+    tr.densify = timed(tr.densify, "densify")
+    tr.evaluate = timed(tr.evaluate, "eval")
+    tr._resize_pair_buffer = timed(tr._resize_pair_buffer, "budgets")
+    ckpt_fn = timed(lambda it: states.__setitem__(it, ckpt.flatten(tr.ts)), "checkpoint")
+    zero_launch_counts()
+    _, wall = clocked_ms(lambda: tr.train(eval_iters=ENGINE_CHECKS, ckpt_fn=ckpt_fn,
+                                          dispatch_engine=engine))
+    launches = launch_counts()
+    iters = TRAINER["iterations"]
+    steps_ms = wall - sum(sum(v) for v in host.values())
+    many = tr._many
+    return tr, states, {
+        "wall_ms": wall, "host_work_ms": {k: sum(v) for k, v in host.items()},
+        "ms_per_iteration": steps_ms / iters,
+        "ms_per_iteration_without_captures": (steps_ms - sum(many.capture_ms)) / iters,
+        "captures": many.captures, "replays": many.replays,
+        "captured_launches": dict(many.captured_launches), "capture_ms": list(many.capture_ms),
+        "pool_mb": many.pool_mb if engine == "scan" else 0.0}, launches
+
+
+def engine_breakdown(fn, steps):
+    """fn (steps training steps and their log read) once to warm up, once on
+    the host clock (steady ms a step), then once under torch.profiler:
+    device-busy ms and the idle share, device ops, the port's four training
+    kernels found by name in the trace, kernel-launch and graph-launch API
+    calls, host syncs and the kernels that took the most device time, each a
+    step (the profiler slows the host's launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _, steady = clocked_ms(fn)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    # the port's kernels by name in the trace (a graph's replays list each kernel they run)
+    named = {k: sum(1 for e in device if f"{k}_kernel" in e.name) / steps
+             for k in ("rasterize_fwd", "rasterize_bwd", "segment_sum", "svd3")}
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    calls = {e.key: e.count for e in prof.key_averages()}
+    by_name = {}
+    for e in device:
+        by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + e.time_range.elapsed_us() / 1e3
+
+    def n(*keys):
+        return sum(calls.get(k, 0) for k in keys)
+
+    return {"steady_ms_per_step": steady / steps, "wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall,
+            "device_ops_per_step": len(device) / steps, "kernels_traced_per_step": named,
+            "launch_calls_per_step": n("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                                       "cuLaunchKernelEx") / steps,
+            "graph_launches_per_step": n("cudaGraphLaunch") / steps,
+            "syncs_per_step": n("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                "cudaEventSynchronize") / steps,
+            "memcpy_calls_per_step": n("cudaMemcpyAsync", "cudaMemcpy") / steps,
+            "top_device_ms_per_step": [(k, v / steps) for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:12]]}
+
+
+def engine_profile(tr, engine, steps=PROFILE_STEPS):
+    """Steps past the run's end (tables for a longer run, no skips there) of
+    the trained state, as `engine` runs them: eager a step a call and its
+    logs read every 10, queued one call and one read, scan one call of a
+    captured graph and one read; engine_breakdown of that."""
+    cfg = dataclasses.replace(tr.cfg.optim, iterations=int(tr.ts.step) + 4 * steps)
+    tr._train_step.tables = optim.step_tables(cfg, False, optim.param_groups(tr.ts.params),
+                                              tr.extent, tr.device)
+    frames = stage_frames(tr.train_frames)
+    feats = tr._gt_lpips_features()
+    stacked = None if feats is None else [torch.stack(f) for f in zip(*feats)]
+    order = torch.arange(steps, device=tr.device) % len(tr.train_frames)
+    many = make_train_many(tr.step_fn, tr.cfg.model.sh_degree, per_step_logs=True,
+                           graph=engine == "scan")
+    ts = device_state(tr.ts)
+
+    def run():
+        if engine == "eager":
+            for i in range(steps):
+                _, logs = many(ts, frames, order[i:i + 1], stacked)
+                if (i + 1) % 10 == 0:
+                    logs["loss"].cpu()
+        else:
+            _, logs = many(ts, frames, order, stacked)
+            logs["loss"].cpu()
+
+    out = engine_breakdown(run, steps)
+    out["captures"], out["replays"] = many.captures, many.replays
+    return out
+
+
+def captured_projection(tr, frame):
+    """The Projected that tr's render of `frame` hands its rasterizer."""
+    got = {}
+
+    def capture(proj, bg, h, w):
+        got["proj"] = proj
+        z = torch.zeros((h, w), device=bg.device)
+        return {"color": torch.zeros((h, w, 3), device=bg.device), "depth": z, "alpha": z,
+                "final_T": z}
+
+    with torch.no_grad():
+        render_frame(tr.ts.params["gauss"], tr.ts.gstate.valid, tr.ts.params["mlps"], tr.scene,
+                     frame.smpl_params, frame.camera, tr.bg, MODEL.sh_degree,
+                     rasterize_fn=capture, device=tr.device)
+    return got["proj"]
+
+
+def capacity_rows(proj, bg, height, width, pair_budget, max_tiles):
+    """Rows 1, 2 and 2b at the budgeted capacity NPb (CTAs num_tiles + ceil(NPb /
+    S), surplus ones returning) against the per-frame list's: the same image,
+    rows and sums bit for bit (the kept pairs are the live ones: overflow 0);
+    the image against the plain blend of the kept pairs and the grads against
+    autograd through it (remat); each kernel's time at both sizes."""
+    cap = rc.bin_projected(proj, height, width, pair_budget, max_tiles)
+    live = rc.bin_projected(proj, height, width)
+    n = live.num_pairs
+    if int(cap.overflow) != 0 or int(cap.tile_offsets[-1]) != n or \
+            not torch.equal(cap.pair_gaussian[:n], live.pair_gaussian):
+        raise AssertionError(f"the budgeted list is not the live one: overflow {int(cap.overflow)}")
+    img_c, state_c = rc.rasterize_pairs(cap, proj, height, width)
+    img_l, state_l = rc.rasterize_pairs(live, proj, height, width)
+    if not torch.equal(img_c, img_l):
+        raise AssertionError("the forward kernel at capacity differs from the live list's")
+    mask = binning.kept_pair_mask(cap, proj.mean2d.shape[0], cap.tile_offsets.numel() - 1)
+    plain = functools.partial(rasterize_reference, tile_h=rc.TILE, tile_w=rc.TILE, remat=True,
+                              pair_mask=mask)
+    err_fwd = check_images(as_images(img_c, bg), plain(proj, bg, height, width),
+                           "capacity kernel vs plain")
+    gen = torch.Generator(device=bg.device).manual_seed(5)
+    up = {"color": torch.randn((height, width, 3), generator=gen, device=bg.device)}
+    kernel = functools.partial(rc.rasterize_cuda, pair_budget=pair_budget,
+                               max_tiles_per_gaussian=max_tiles)
+    g, _ = blend_grads(proj, bg, height, width, up, kernel)
+    g_ref, _ = blend_grads(proj, bg, height, width, up, plain)
+    errs = {f: scaled_err(a, b) for f, a, b in zip(rc._KERNEL_FIELDS, g[:-1], g_ref[:-1])}
+    if max(errs.values()) > GRAD_ATOL:
+        raise AssertionError(f"capacity backward vs plain: scaled errors {errs}")
+    gimg = torch.randn((6, height, width), generator=gen, device=bg.device)
+    rows_c = rc.rasterize_pairs_bwd(cap, proj, gimg, height, width, state_c)
+    rows_l = rc.rasterize_pairs_bwd(live, proj, gimg, height, width, state_l)
+    if not (torch.equal(rows_c[:n], rows_l) and not rows_c[n:].any()):
+        raise AssertionError("the backward kernel's rows at capacity differ from the live list's")
+    if not torch.equal(rc.segment_sum(rows_c, cap), rc.segment_sum(rows_l, live)):
+        raise AssertionError("the segment sum at capacity differs from the live list's")
+    S = rc.SEGMENT
+    return {"pairs": n, "npb": cap.num_pairs, "slots_live": split_blend.num_slots(
+        live.tile_count.numel(), n, S), "slots_capacity": split_blend.num_slots(
+        cap.tile_count.numel(), cap.num_pairs, S), "max_abs_err": err_fwd, "grad_scaled_err": errs,
+        "rasterize_fwd": {"ms_capacity": cuda_ms(lambda: rc.rasterize_pairs(
+            cap, proj, height, width), site="rasterize_fwd capacity"),
+            "ms_live": cuda_ms(lambda: rc.rasterize_pairs(live, proj, height, width),
+                               site="rasterize_fwd")},
+        "rasterize_bwd": {"ms_capacity": cuda_ms(lambda: rc.rasterize_pairs_bwd(
+            cap, proj, gimg, height, width, state_c), site="rasterize_bwd capacity"),
+            "ms_live": cuda_ms(lambda: rc.rasterize_pairs_bwd(
+                live, proj, gimg, height, width, state_l), site="rasterize_bwd")},
+        "segment_sum": {"ms_capacity": cuda_ms(lambda: rc.segment_sum(rows_c, cap),
+                                               site="segment_sum capacity"),
+                        "ms_live": cuda_ms(lambda: rc.segment_sum(rows_l, live),
+                                           site="segment_sum")},
+        "bin_ms_capacity": host_ms(lambda: rc.bin_projected(proj, height, width, pair_budget,
+                                                            max_tiles)),
+        "bin_ms_live": host_ms(lambda: rc.bin_projected(proj, height, width))}
+
+
+SVD_GENERAL = 4096   # random 3x3 matrices with well-separated singular values
+SVD_NEAR_EYE = 1024  # and near-identity ones, in svd3_row's general batch
+# an f32 SVD fixes a singular vector only to about eps |A| / gap, so U diag(g)
+# V^T is held at SVD_ATOL where every gap between singular values is above
+# SVD_APART of the largest
+SVD_APART = 1e-2
+
+
+def svd3_general(dev, seed=0):
+    """svd3_row's general batch from a seed: Q1 diag(s) Q2 with Haar-random
+    orthogonal Q1, Q2 (reflections included) and s drawn in [2, 3], [0.9,
+    1.6], [0.05, 0.5], then I + 1e-3 noise."""
+    rng = np.random.default_rng(seed)
+    q1 = np.linalg.qr(rng.standard_normal((SVD_GENERAL, 3, 3)))[0]
+    q2 = np.linalg.qr(rng.standard_normal((SVD_GENERAL, 3, 3)))[0]
+    sv = np.stack([rng.uniform(2.0, 3.0, SVD_GENERAL), rng.uniform(0.9, 1.6, SVD_GENERAL),
+                   rng.uniform(0.05, 0.5, SVD_GENERAL)], 1)
+    sep = np.einsum("bij,bj,bjk->bik", q1, sv, q2)
+    eye = np.eye(3) + 1e-3 * rng.standard_normal((SVD_NEAR_EYE, 3, 3))
+    return torch.as_tensor(np.concatenate([sep, eye]).astype(np.float32), device=dev)
+
+
+def svd3_check(F_, what):
+    """csrc/svd3.cu on (n, 3, 3) F_ against torch.linalg.svd (svd3_plain):
+    bitwise repeatable; S and the proper S within SVD_RTOL of each matrix's
+    largest singular value; U diag(S) V^T rebuilding F_ within SVD_ATOL of
+    it; where the singular values are SVD_APART apart, U diag(g) V^T (the
+    gradient's form) within SVD_ATOL of the plain one's (backward_err None
+    where none is). Returns the errors and how many matrices were apart."""
+    U, S, V, sign = fisher.svd3(F_)
+    again = fisher.svd3(F_)
+    if not all(torch.equal(a, b) for a, b in zip((U, S, V, sign), again)):
+        raise AssertionError(f"svd3 {what}: two launches on the same input differ")
+    Ur, Sr, Vr, sr = fisher.svd3_plain(F_)
+    scale = Sr[:, :1].clamp_min(1.0)
+
+    def proper(S, s):
+        return S * torch.stack([torch.ones_like(s), torch.ones_like(s), s], 1)
+
+    err_s = float(((S - Sr).abs() / scale).max())
+    err_p = float(((proper(S, sign) - proper(Sr, sr)).abs() / scale).max())
+    rebuilt = torch.einsum("bik,bk,bjk->bij", U, S, V)
+    err_a = float((rebuilt - F_).abs().max())
+    g = torch.tensor([0.3, -1.2, 0.7], device=F_.device)
+    apart = ((Sr[:, :2] - Sr[:, 1:]) > SVD_APART * scale).all(1)
+    back = torch.einsum("bik,bk,bjk->bij", U, proper(g.expand_as(S), sign), V)
+    back_r = torch.einsum("bik,bk,bjk->bij", Ur, proper(g.expand_as(Sr), sr), Vr)
+    err_b = float((back - back_r)[apart].abs().max()) if bool(apart.any()) else None
+    out = {"matrices": F_.shape[0], "apart": int(apart.sum()), "s_err": err_s,
+           "proper_s_err": err_p, "rebuild_err": err_a, "backward_err": err_b}
+    if max(err_s, err_p) > SVD_RTOL or err_a > SVD_ATOL or (err_b is not None
+                                                             and err_b > SVD_ATOL):
+        raise AssertionError(f"svd3 {what} vs torch.linalg.svd: {out}")
+    return out
+
+
+def svd3_row(Rs):
+    """csrc/svd3.cu against torch.linalg.svd (the plain version and the
+    library call), svd3_check on two inputs: the pose MLPs' 23 rotations
+    (the path's shape; all their singular values are 1, so none is apart)
+    and svd3_general's batch, in which matrices must be apart. Times and the
+    bound on the rotations. Its launches are not counted."""
+    F_ = Rs.detach().reshape(-1, 3, 3).contiguous()
+    before = fisher.launches
+    rot = svd3_check(F_, "on the rotations")
+    general = svd3_check(svd3_general(F_.device), "on the general batch")
+    if general["apart"] < SVD_GENERAL:
+        raise AssertionError(f"svd3: {general['apart']} of the general batch apart, want at "
+                             f"least {SVD_GENERAL}")
+    n = F_.shape[0]
+    t_bytes, t_ops = n * SVD_BYTES / PEAK_BYTES, n * SVD_OPS / PEAK_F32
+    row = {"matrices": n, "max_abs_err": max(rot["proper_s_err"], general["proper_s_err"]),
+           "backward_err": general["backward_err"], "rebuild_err": max(
+               rot["rebuild_err"], general["rebuild_err"]), "rotations": rot,
+           "general": general, "bitwise_repeat": True,
+           "ms": cuda_ms(lambda: fisher.svd3(F_), site="svd3"),
+           "plain_ms": cuda_ms(lambda: fisher.svd3_plain(F_), site="svd3 plain"),
+           "library_ms": cuda_ms(lambda: torch.linalg.svd(F_, full_matrices=False),
+                                 site="svd3 torch.linalg.svd"),
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+    fisher.launches = before  # a comparison: not counted
+    return row
+
+
+def phase_engines(dev, smi):
+    """The trainer's three dispatch engines at full width (phase 7b): the
+    trainer phase's scene, frames, capacity, crop, loss and TRAINER schedule
+    (60 iterations, rounds at 20-50, a reset at 30) once per engine. Gates:
+    every queued segment under the sync debug mode "error"; the scan
+    engine's state (a CUDA graph of the step, replayed) and the queued one's
+    bitwise eager's after ENGINE_CHECKS; each kernel of the step launched in
+    every run; a forced overflow (half the probed need
+    installed) counted, healed and regrown, the next segment reading 0. Per
+    engine: ms per iteration outside the rounds, evals and budget probes, a
+    profiled call's launches, syncs and idle share a step, captures and ms per
+    capture, the graph pool's MB, the budgets installed. Rows 1, 2 and 2b at
+    the budgeted capacity against the live list's and the plain blend, with
+    both times; svd3 against torch.linalg.svd. Launches are the wrappers'
+    counts: under scan only the warm-up step of each capture; its replays are
+    shown by the profiled replays' trace, which must name each kernel every
+    step, and reported as replays x calls captured. Returns ({engine:
+    launches}, the scan graph's counts, the capacity rows, the svd3 row)."""
+    scene = make_scene(n_verts=N_VERTS, device=dev)
+    frames, _ = make_frames(scene, n_frames=TRAIN_FRAMES + 1, H=HW, W=HW, crop=CROP,
+                            opacity=TARGET_OPACITY)
+    lp = lpips.init_random(3407, device=dev)
+    runs, launches, rows = {}, {}, {}
+    ref_states = None
+    for engine in ENGINES:
+        tr, states, timing_row, launches[engine] = engine_run(dev, scene, frames, lp, engine)
+        if sorted(states) != list(ENGINE_CHECKS):
+            raise AssertionError(f"{engine}: states at {sorted(states)}")
+        if any(n == 0 for n in launches[engine].values()):
+            raise AssertionError(f"{engine}: a kernel of the step never launched: "
+                                 f"{launches[engine]}")
+        if engine == "eager":
+            ref_states, ref_hist = states, tr.metrics_history
+        else:
+            for it in ENGINE_CHECKS:
+                diff = [k for k in ref_states[it] if not np.array_equal(ref_states[it][k],
+                                                                        states[it][k])]
+                if diff or sorted(states[it]) != sorted(ref_states[it]):
+                    raise AssertionError(f"{engine} differs from eager after {it}: {diff[:8]}")
+            strip = [{k: v for k, v in m.items() if k != "elapsed_s"} for m in tr.metrics_history]
+            if strip != [{k: v for k, v in m.items() if k != "elapsed_s"} for m in ref_hist]:
+                raise AssertionError(f"{engine}: evals differ from eager's")
+        if engine == "queued" and launches["queued"] != launches["eager"]:
+            raise AssertionError(f"queued launched {launches['queued']}, eager "
+                                 f"{launches['eager']}")
+        timing_row["budgets"] = tr.budgets
+        timing_row["profile"] = prof = engine_profile(tr, engine)
+        runs[engine] = timing_row
+        if engine == "scan":
+            # the wrappers counted the warm-up step of each capture; the
+            # replays ran the other steps, which the trace must show by name
+            many = tr._many
+            graph = {"captures": many.captures, "replays": many.replays,
+                     "captured_launches": dict(many.captured_launches),
+                     "replays_x_captured": {k: many.replays * n
+                                            for k, n in many.captured_launches.items()},
+                     "profiled_replays": prof["replays"],
+                     "traced_per_replay": prof["kernels_traced_per_step"]}
+            if many.captures < 1 or many.pool_mb <= 0 or \
+                    many.captures + many.replays != TRAINER["iterations"]:
+                raise AssertionError(f"scan: {graph}, pool {many.pool_mb} MB")
+            if any(launches["scan"][k] != many.captures for k in ("rasterize_bwd",
+                                                                  "segment_sum")):
+                raise AssertionError(f"scan launched {launches['scan']} outside its graphs in "
+                                     f"{many.captures} warm-up steps")
+            if prof["captures"] != 1 or prof["replays"] != 3 * PROFILE_STEPS - 1 or \
+                    prof["launch_calls_per_step"] >= 1 or prof["graph_launches_per_step"] != 1:
+                raise AssertionError(f"scan's profiled call was not all replays: {prof}")
+            traced = prof["kernels_traced_per_step"]
+            if any(traced[k] < max(n, 1) or traced[k] != int(traced[k])
+                   for k, n in many.captured_launches.items()):
+                raise AssertionError(f"scan's replays ran {traced} a step by name, the "
+                                     f"capture recorded {many.captured_launches}")
+        if engine == "queued":
+            b = tr.budgets
+            proj = captured_projection(tr, tr.train_frames[0])
+            rows = capacity_rows(proj, tr.bg, HW, HW, b["pair_budget"], b["max_tiles"])
+            with torch.no_grad():
+                Rs = tr.ts.params["mlps"]["pose"](tr.train_frames[0].poses)["Rs"]
+            svd_row = svd3_row(Rs)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the forced overflow: half the probed need installed for the first segment
+    heal_cfg = dataclasses.replace(trainer_config(), optim=OptimConfig(
+        iterations=HEAL_ITERS, densify_from_iter=100, densify_until_iter=0))
+    overflows = {}
+    tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], heal_cfg, lp,
+                 crop_hw=(CROP, CROP), device=dev,
+                 log_fn=lambda it, logs: overflows.__setitem__(it, logs["raster_overflow"]))
+    tr.segment_sync_mode = "error"
+    need = int(tr._probe_pair_need(tr._probe_frames(), tr._max_tiles)[0])
+    half = need // 2
+    tr._install_budgets(half, tr._max_tiles)
+    tr.train(eval_iters=HEAL_EVALS)
+    first = HEAL_EVALS[0] - 1  # the eval at 4's pre-step boundary ends the first segment
+    heal = {"need": need, "installed": half, "healed_to": tr.budgets, "heal_events":
+            tr._heal_events, "overflow_by_iteration": overflows}
+    if not (all(overflows[i] > 0 for i in range(1, first + 1)) and tr._heal_events >= 1
+            and tr.budgets["npb"] > half
+            and all(overflows[i] == 0 for i in range(first + 1, HEAL_ITERS + 1))):
+        raise AssertionError(f"the forced overflow did not heal: {heal}")
+    del tr
+    for engine, r in runs.items():
+        p = r["profile"]
+        print(f"engines {engine} ({smi}): {r['ms_per_iteration']:.2f} ms per iteration outside "
+              f"rounds ({r['ms_per_iteration_without_captures']:.2f} without captures), "
+              f"{p['steady_ms_per_step']:.2f} ms a step in a {PROFILE_STEPS}-step call; a step "
+              f"{p['launch_calls_per_step']:.0f} kernel launches, "
+              f"{p['graph_launches_per_step']:.0f} graph launches, {p['device_ops_per_step']:.0f}"
+              f" device ops, {p['syncs_per_step']:.2f} syncs, idle share {p['idle_share']:.3f}; "
+              f"{r['captures']} captures at {[round(x, 1) for x in r['capture_ms']]} ms, graph "
+              f"pool {r['pool_mb']:.1f} MB; budgets {r['budgets']}; device ms a step by kernel "
+              f"{[(k, round(v, 3)) for k, v in p['top_device_ms_per_step'][:8]]}", flush=True)
+    print(f"engines heal ({smi}): need {need}, installed {half}, overflow "
+          f"{[overflows[i] for i in range(1, HEAL_ITERS + 1)]}, healed to {heal['healed_to']}",
+          flush=True)
+    print(f"engines scan graph ({smi}): {graph['captures']} captures (the wrappers counted "
+          f"their warm-up steps: {launches['scan']}), {graph['replays']} replays of "
+          f"{graph['captured_launches']} recorded calls; the profiled replays' trace a step "
+          f"{graph['traced_per_replay']}", flush=True)
+    print(f"engines capacity rows ({smi}): NPb {rows['npb']} for {rows['pairs']} live pairs; "
+          + ", ".join(f"{k} {rows[k]['ms_capacity']:.4f} ms at capacity, "
+                      f"{rows[k]['ms_live']:.4f} live" for k in ("rasterize_fwd", "rasterize_bwd",
+                                                                 "segment_sum"))
+          + f"; svd3 {svd_row['ms']:.4f} ms, torch.linalg.svd {svd_row['library_ms']:.4f} ms",
+          flush=True)
+    emit({"phase": "engines", "nvidia_smi": smi, "hw": HW, "crop": CROP,
+          "capacity": MODEL.capacity, "schedule": TRAINER, "checks": ENGINE_CHECKS,
+          "bitwise_vs_eager": {e: True for e in ENGINES[1:]}, "queued_sync_mode": "error",
+          "runs": runs, "launches": launches, "scan_graph": graph, "heal": heal,
+          "capacity_rows": rows, "svd3": svd_row})
+    return launches, graph, rows, svd_row
 
 
 def flat_equal(a, b):
@@ -1276,12 +1757,11 @@ def phase_checkpoint(dev, trained, train_ts, ckpt_dir=CKPT_DIR, smi=""):
         lambda: ckpt.save_reference_layout(layout_dir, TRAINER["iterations"], final))
 
     # the path, driven once: resume and train to the end, then serve both layouts
-    rc.launches = rc.bwd_launches = rc.segment_launches = 0
+    zero_launch_counts()
     again = fresh()
     start = again.resume_latest(ckpt_dir)
     again.train()
-    resumed = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
-               "segment_sum": rc.segment_launches}
+    resumed = launch_counts()
     served, errs, times = {}, {}, {}
     for name in ("npz", "reference_layout"):
         srv = fresh()
@@ -1298,15 +1778,14 @@ def phase_checkpoint(dev, trained, train_ts, ckpt_dir=CKPT_DIR, smi=""):
         errs[name] = {"capacity": cap, "live": int(srv.ts.gstate.valid.sum()),
                       "max_abs_err_full": check_images(full_img, ref, f"{name} full path"),
                       "max_abs_err_cached": check_images(cached_img, ref, f"{name} cached path")}
-    launches = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
-                "segment_sum": rc.segment_launches}
+    launches = launch_counts()
 
     steps = TRAINER["iterations"] - RESUME_AT
     evals = [i for i in TRAINER_EVALS if i > RESUME_AT]
     want_resume = {"rasterize_fwd": steps + len(evals), "rasterize_bwd": steps,
                    "segment_sum": steps}
     want = {**want_resume, "rasterize_fwd": want_resume["rasterize_fwd"] + 2 * len(served)}
-    if start != RESUME_AT or resumed != want_resume or launches != want:
+    if start != RESUME_AT or blend(resumed) != want_resume or blend(launches) != want:
         raise AssertionError(f"resumed at {start}, launches {resumed} then {launches}, not "
                              f"{RESUME_AT}, {want_resume}, {want}")
     differ = flat_equal(ckpt.flatten(again.ts), ckpt.flatten(final))
@@ -1558,11 +2037,11 @@ def slice_trainer_config(model, **optim):
 
 
 def counted(fn):
-    """fn's result and the three kernels' launches in its run (counts set to 0 just before)."""
-    rc.launches = rc.bwd_launches = rc.segment_launches = 0
+    """fn's result and the training path's kernels' launches in its run
+    (launch_counts, the counts set to 0 just before)."""
+    zero_launch_counts()
     out = fn()
-    return out, {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
-                 "segment_sum": rc.segment_launches}
+    return out, launch_counts()
 
 
 def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, steps=5, warmup=2,
@@ -1604,9 +2083,10 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
                 raise AssertionError(f"{name} round {it}: {live} live in {model.capacity}")
             return stats
 
-        tr.step_fn, tr.densify = clocked(tr.step_fn, "step"), counted_densify
+        tr.densify = counted_densify
         tr.evaluate = clocked(tr.evaluate, "eval")
-        tr.train()
+        with clocked_steps(clocked):
+            tr.train()
         return tr, rounds, times
 
     # the Fisher fields of a body's rounds: at J=55 with no pose MLPs, SVDs
@@ -1626,7 +2106,7 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
     iters = SLICE_TRAINER["iterations"]
     want = {"rasterize_fwd": iters + len(evals) * (len(frames) - TRAIN_FRAMES),
             "rasterize_bwd": iters, "segment_sum": iters}
-    if trainer_launches != want:
+    if blend(trainer_launches) != want:
         raise AssertionError(f"{name}: the trainer launched {trainer_launches}, not {want}")
     hist = tr.metrics_history
     psnr = {m["iteration"]: m["psnr"] for m in hist}
@@ -1671,7 +2151,7 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
         return out
 
     step_ms, step_launches = counted(timed_steps)
-    if any(n != warmup + steps for n in step_launches.values()):
+    if any(n != warmup + steps for n in blend(step_launches).values()):
         raise AssertionError(f"{name}: {warmup + steps} steps launched {step_launches}")
     profile = device_breakdown(one_step, top=10)
     trace = None
@@ -1887,7 +2367,7 @@ def phase_dna(dev, smi, world, root=DNA_DIR, n_poses=2):
     tr.log_fn = lambda it, logs: losses.append(logs["loss"])
     _, launches = counted(lambda: tr.train(3, eval_iters=[]))
     if len(losses) != 3 or not all(math.isfinite(x) for x in losses) or \
-            any(n != 3 for n in launches.values()):
+            any(n != 3 for n in blend(launches).values()):
         raise AssertionError(f"dna: three steps gave losses {losses}, launches {launches}")
     shutil.rmtree(root, ignore_errors=True)
     print(f"dna ({smi}): a {W}x{H} capture pair of {n_poses} poses read in {read_ms:.1f} ms, "
@@ -1967,7 +2447,8 @@ def phase_novel_view(dev, trained, smi):
             return cache, outs
 
         (cache, outs), n = counted(drive)
-        if n != {"rasterize_fwd": 1 + len(views), "rasterize_bwd": 0, "segment_sum": 0}:
+        if n != {"rasterize_fwd": 1 + len(views), "rasterize_bwd": 0, "segment_sum": 0,
+                 "svd3": 0}:
             raise AssertionError(f"novel_view {dataset}: launches {n}")
         launches[dataset] = n
         offsets = []
@@ -2101,12 +2582,13 @@ def phase_viewer(dev, trained, smi, iters=VIEWER_ITERS):
     thread = threading.Thread(target=client)
     thread.start()
     try:
-        _, launches = counted(lambda: tr.train(iters, eval_iters=[]))
+        # eager: the viewer is polled after every iteration, one message a poll
+        _, launches = counted(lambda: tr.train(iters, eval_iters=[], dispatch_engine="eager"))
     finally:
         thread.join(timeout=600)
         gui.close()
     want = {"rasterize_fwd": iters + len(cams), "rasterize_bwd": iters, "segment_sum": iters}
-    if err or len(got) != len(cams) or launches != want:
+    if err or len(got) != len(cams) or blend(launches) != want:
         raise AssertionError(f"viewer: client {err}, {len(got)} images, launches {launches} "
                              f"(want {want})")
     for i, (a, b) in enumerate(zip(got, expected)):
@@ -2288,7 +2770,7 @@ def sharded_rank(rank, port, outdir, device):
 
         step.mesh_grads = mesh_grads
         losses, times = [], []
-        rc.launches = rc.bwd_launches = rc.segment_launches = 0
+        zero_launch_counts()
         for k in range(SHARDED_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2299,8 +2781,7 @@ def sharded_rank(rank, port, outdir, device):
             if k == 0:
                 after_first = {k2: v.clone() for k2, v in flat_params(ts.params).items()}
                 stats_first = {f: getattr(ts.gstate, f).clone() for f in STAT_FIELDS}
-        launches = {"rasterize_fwd": rc.launches, "rasterize_bwd": rc.bwd_launches,
-                    "segment_sum": rc.segment_launches}
+        launches = launch_counts()
         row = None
         if n_tile > 1:
             hb = HW // n_tile
@@ -2466,9 +2947,9 @@ def phase_sharded(dev, train_ts, smi):
                           b != 0].max()) if (b != 0).any() else 0.0}
         per = {"rasterize_fwd": SHARDED_STEPS, "rasterize_bwd": SHARDED_STEPS,
                "segment_sum": SHARDED_STEPS}
-        if any(r["launches"] != per for r in ranks):
+        if any(blend(r["launches"]) != per for r in ranks):
             raise AssertionError(f"sharded {name}: launches {[r['launches'] for r in ranks]}")
-        launches[name] = {k: 2 * v for k, v in per.items()}
+        launches[name] = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
         lines[name] = {"losses": ranks[0]["losses"], "reference_losses": ref["losses"],
                        "step_ms": [r["step_ms"] for r in ranks],
                        "ms_per_step": [float(np.median(r["step_ms"][1:])) for r in ranks],
@@ -2959,6 +3440,7 @@ def main():
     orbit_launches, orbit_rows = phase("novel_view", phase_novel_view, dev, trained, smi)
     viewer_launches = phase("viewer", phase_viewer, dev, trained, smi)
     del trained
+    engine_launches, scan_graph, cap_rows, svd_row = phase("engines", phase_engines, dev, smi)
     phase("densify", phase_densify, dev, train_ts, train_scene, cuts)
     sharded_launches, band_rows = phase("sharded", phase_sharded, dev, train_ts, smi)
     del train_ts, cuts
@@ -2968,12 +3450,13 @@ def main():
     del smplx_world
     monocap_launches, monocap_rows = phase("monocap", phase_monocap, dev, smi)
     # the later paths' launches, and rows 1, 2 and 2b on their inputs
-    zero = {"rasterize_fwd": 0, "rasterize_bwd": 0, "segment_sum": 0}
+    zero = {"rasterize_fwd": 0, "rasterize_bwd": 0, "segment_sum": 0, "svd3": 0}
     families = {"smplx": smplx_launches, "static": static_launches,
                 **({"dna": dna_launches} if dna_launches else {}),
                 "novel_view": {k: sum(n[k] for n in orbit_launches.values()) for k in zero},
                 "viewer": viewer_launches, "monocap": monocap_launches,
-                "sharded": {k: sum(n[k] for n in sharded_launches.values()) for k in zero}}
+                "sharded": {k: sum(n[k] for n in sharded_launches.values()) for k in zero},
+                "engines": {k: sum(n[k] for n in engine_launches.values()) for k in zero}}
     by_input = {f"smplx_{SMPLX_HW[1]}x{SMPLX_HW[0]}": smplx_rows,
                 f"static_{STATIC_HW}x{STATIC_HW}": static_rows,
                 f"monocap_{MONOCAP_HW}x{MONOCAP_HW}": monocap_rows, **orbit_rows,
@@ -3014,6 +3497,21 @@ def main():
         return {k: measured[k] for k in ("ms_unsplit", "seg_len", "segments", "split_tiles",
                                          "max_tile_pairs")}
 
+    def replayed(kernel):
+        """The scan engine's graph: what its replays ran, derived, not counted."""
+        return {"label": "the engines phase's scan run: replays x calls its last capture "
+                         "recorded; not in launches, which count only what the wrapper launched",
+                "captures": scan_graph["captures"], "replays": scan_graph["replays"],
+                "captured": scan_graph["captured_launches"][kernel],
+                "replays_x_captured": scan_graph["replays_x_captured"][kernel],
+                "traced_per_profiled_replay": scan_graph["traced_per_replay"][kernel]}
+
+    def capacity(kernel):
+        """The kernel at the engines phase's budgeted capacity and on the live list."""
+        return {"npb": cap_rows["npb"], "pairs": cap_rows["pairs"],
+                "slots_capacity": cap_rows["slots_capacity"], "slots_live": cap_rows["slots_live"],
+                **cap_rows[kernel]}
+
     mxu_tol = (f"max|out - plain| <= {mxu_micro.RTOL} max|plain| (tensor-core forms against a "
                "plain version rounding as the kernel does); observers bitwise equal across "
                "tiles; ms, bound, plain (on the TILES chunks stacked) and library (one "
@@ -3032,7 +3530,9 @@ def main():
               f"atol {ATOL} (depth {DEPTH_ATOL}); at most {OUTLIER_FRAC} of pixels beyond; "
               "against the plain blend and the plain segment scheme; bitwise repeatable; ms "
               "on the serving input, one call being two launches of the kernel",
-              **split(row), by_input=family_rows("rasterize_fwd")),
+              **split(row), by_input=family_rows("rasterize_fwd"),
+              at_capacity=capacity("rasterize_fwd"),
+              scan_graph=replayed("rasterize_fwd")),
         entry("rasterize_bwd", "moss_torch/csrc/rasterize_bwd.cu",
               "moss_tpu/ops/rasterize_tpu.py:383",
               sum(p["rasterize_bwd"] for p in (train_launches, trainer_launches, ckpt_launches,
@@ -3043,7 +3543,8 @@ def main():
                **{k: v["rasterize_bwd"] for k, v in families.items()}}, bwd,
               grad_tol + "; rows against the plain segment scheme, grads against the unsplit "
               "kernel, the same; ms on the training input", **split(bwd),
-              by_input=family_rows("rasterize_bwd")),
+              by_input=family_rows("rasterize_bwd"), at_capacity=capacity("rasterize_bwd"),
+              scan_graph=replayed("rasterize_bwd")),
         entry("segment_sum", "moss_torch/csrc/segment_sum.cu", "moss_tpu/ops/binning.py:51",
               sum(p["segment_sum"] for p in (train_launches, trainer_launches, ckpt_launches,
                                              *families.values())),
@@ -3052,7 +3553,22 @@ def main():
                "checkpoint": ckpt_launches["segment_sum"],
                **{k: v["segment_sum"] for k, v in families.items()}},
               bwd["segment"], "1e-5 of the max against index_add_; grads as rasterize_bwd",
-              library_ms=bwd["segment"]["library_ms"], by_input=family_rows("segment_sum")),
+              library_ms=bwd["segment"]["library_ms"], by_input=family_rows("segment_sum"),
+              at_capacity=capacity("segment_sum"),
+              scan_graph=replayed("segment_sum")),
+        entry("svd3", "moss_torch/csrc/svd3.cu",
+              "moss_tpu/ops/fisher.py:111 (XLA's SVD; no Pallas kernel)",
+              sum(p["svd3"] for p in (train_launches, trainer_launches, ckpt_launches,
+                                      *families.values())),
+              {"train": train_launches["svd3"], "trainer": trainer_launches["svd3"],
+               "checkpoint": ckpt_launches["svd3"],
+               **{k: v["svd3"] for k, v in families.items()}}, svd_row,
+              f"S and proper S within {SVD_RTOL} of the largest singular value, U diag(g) V^T "
+              f"within {SVD_ATOL} of torch.linalg.svd's (the plain version and the library "
+              "call), U diag(S) V^T within it of the input, on the pose MLPs' 23 rotations "
+              f"and {SVD_GENERAL} well-separated plus {SVD_NEAR_EYE} near-identity random "
+              "matrices; bitwise repeatable; ms on the rotations",
+              library_ms=svd_row["library_ms"], scan_graph=replayed("svd3")),
         *(entry(f"sort_{k}_pass", "moss_torch/csrc/sort_pass.cu", f"tools/sort_micro.py:{line}",
                 sort_launches[k], {"tools": sort_launches[k]}, sort_rows[k],
                 f"exact, every stride; ms per launch of R = 64 passes at {at} = 64",

@@ -1,7 +1,7 @@
 """Train avatars on ZJU-MoCap-Refine subjects with the port (the counterpart
 of the repository's train_zju.py, after the reference's train_ZJU.py).
 
-One eager process per subject: read the subject, train, write
+One process per subject: read the subject, train, write
 point_cloud/iteration_N/ and mlp_ckpt/iteration_N/ at --save_iterations (the
 state before step N), chkpnt{N}.npz at --test_iterations (the state after
 step N; --resume continues from the newest), append the evals to the result
@@ -10,7 +10,9 @@ cameras.json. Runs on the GPU; --device cpu runs the plain PyTorch path.
 --tensorboard logs to the output directory (tensorboardX), --gui_port serves
 the SIBR remote viewer, --debug_nans turns on autograd's anomaly mode (the
 loss of every step is checked finite in any case, and a non-finite one
-raises with its iteration).
+raises with its iteration). --dispatch picks the trainer's engine (queued,
+the default, scan or eager: train/trainer.py); several ranks run eager only
+(the mesh engines are not ported yet), so they need --dispatch eager.
 
 Several ranks (one process each, the same command) train one avatar over
 pixel bands and frames: --coordinator host:port --num_processes N
@@ -78,6 +80,10 @@ def add_training_args(p: argparse.ArgumentParser, output: str, result_file: str)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--n_data", type=int, default=0, help="frames a step (data rows of the mesh)")
     p.add_argument("--n_tile", type=int, default=0, help="pixel bands a frame (ranks per frame)")
+    p.add_argument("--dispatch", choices=["queued", "scan", "eager"], default="queued",
+                   help="dispatch engine: queued (steps launched with no host read, logs read "
+                        "at the host boundaries), scan (blocks of steps, each a CUDA graph of "
+                        "the step replayed) or eager (a step at a time, logs read every 10)")
     p.add_argument("--quiet", action="store_true", help="silence stdout")
     p.add_argument("--device", default=None, help="torch device (default: the GPU)")
 
@@ -156,7 +162,7 @@ def train_scene(args, name: str, path: str, reader, exp_name: str, device, mesh=
 
         metrics = trainer.train(eval_iters=args.test_iterations,
                                 save_iters=args.save_iterations, save_fn=save_at,
-                                ckpt_fn=ckpt_at)
+                                ckpt_fn=ckpt_at, dispatch_engine=args.dispatch)
     finally:
         tb.close()
         if gui is not None:

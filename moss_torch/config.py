@@ -3,11 +3,11 @@ the trainer and the drivers read.
 
 The port's own copies of moss_tpu/config.py (ModelConfig, OptimConfig,
 PipelineConfig, Config, the presets and the JSON round trip), with the same
-defaults. PipelineConfig has no rasterizer knob: the port picks the kernel or
-its plain version from the tensors' device, and sizes its pair buffers per
-frame from the live pair count (ops/binning.py), so the JAX pipeline's rect
-cap (max_tiles_per_gaussian) has no counterpart either; load_json drops both
-from a cfg.json that moss_tpu wrote (JAX_ONLY_KEYS).
+defaults. PipelineConfig keeps moss_tpu's rect cap, max_tiles_per_gaussian:
+the trainer's static pair budgets start from it (ops/binning.py,
+train/trainer.py). It has no rasterizer knob: the port picks the kernel or
+its plain version from the tensors' device, so load_json drops that key from
+a cfg.json that moss_tpu wrote (JAX_ONLY_KEYS).
 """
 from __future__ import annotations
 
@@ -72,6 +72,10 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
+    # the initial rect cap: the tiles one Gaussian may take before the rest
+    # are counted as overflow; the trainer's first probe may lower it and the
+    # self-heal raise it (moss_tpu/config.py:81-87)
+    max_tiles_per_gaussian: int = 16
     # evals and saves fire independently (Trainer.train eval_iters / save_iters)
     test_iterations: Tuple[int, ...] = (2500, 2700, 3000)
     save_iterations: Tuple[int, ...] = (2500, 2700, 3000)
@@ -89,7 +93,7 @@ class Config:
 
 
 # keys of a moss_tpu cfg.json that only its JAX/TPU path reads
-JAX_ONLY_KEYS = {"pipe": ("rasterizer", "max_tiles_per_gaussian")}
+JAX_ONLY_KEYS = {"pipe": ("rasterizer",)}
 
 
 def zju_preset(subject: str = "377") -> Config:

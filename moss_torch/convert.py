@@ -165,6 +165,8 @@ def config_from_jax(cfg) -> C.Config:
         return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
 
     return C.Config(model=fields(C.ModelConfig, cfg.model), optim=fields(C.OptimConfig, cfg.optim),
-                    pipe=C.PipelineConfig(test_iterations=tuple(cfg.pipe.test_iterations),
-                                          save_iterations=tuple(cfg.pipe.save_iterations)),
+                    pipe=C.PipelineConfig(
+                        max_tiles_per_gaussian=int(cfg.pipe.max_tiles_per_gaussian),
+                        test_iterations=tuple(cfg.pipe.test_iterations),
+                        save_iterations=tuple(cfg.pipe.save_iterations)),
                     seed=int(cfg.seed))

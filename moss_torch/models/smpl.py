@@ -199,8 +199,8 @@ def rigid_transform_chain(rot_mats, joints, parents: Tuple[int, ...]):
     rel = [joints[:, 0]]
     for j in range(1, J):
         rel.append(joints[:, j] - joints[:, parents[j]])
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=rot_mats.dtype,
-                          device=rot_mats.device).expand(B, 1, 4)
+    # made on the device: a copy from the host would be a sync in the step
+    bottom = torch.cat([rot_mats.new_zeros((1, 3)), rot_mats.new_ones((1, 1))], 1).expand(B, 1, 4)
 
     def make_T(R, t):
         return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)

@@ -15,10 +15,27 @@ for the port's 16x16 tiles:
      pairs (the inverse of the sort's permutation: the candidates were made
      in Gaussian order), which the backward's segment sum reads.
 
-The pair list is sized per frame from the live pair count, so there is no
-static budget and nothing overflows. The 8x128-supertile, lane-group and
-aligned-chunk layout of build_pair_rows (steps 6-8) exists for Mosaic and has
-no counterpart here.
+bin_pairs has two modes. With both budgets 0 the pair list is sized per
+frame from the live pair count: nothing is dropped, and the shapes follow the
+data (a repeat_interleave, a boolean index and two bincounts, each a host
+sync on a CUDA tensor); the serving drivers use it. With a pair budget or a
+rect cap (moss_tpu's NPb and max_tiles_per_gaussian) every shape is a
+function of P, the budgets and the frame alone, as _pair_keys' are, so a
+step that bins this way makes no host read and can be captured in a CUDA
+graph: a (P, B) candidate table, slot s of a Gaussian's rect being tile
+(min_y + s // n_x, min_x + s % n_x) while s < min(n_tiles, B); one sort with
+the dead candidates keyed past the last tile; the first NPb keys kept; the
+tile ranges and the live count by searchsorted; the per-Gaussian ranges by a
+cumsum over the kept candidates in Gaussian order and a scatter. The drops
+are counted: `overflow` = the rect cap's (tiles past B) + the pair budget's
+(live pairs past NPb), as moss_tpu sums them.
+
+moss_tpu's slot budget (default_slot_budget, worst_case_slot_budget and the
+aligned 8x128 supertile layout of build_pair_rows, steps 6-8) has no
+counterpart: the split blend kernels size their CTAs from the pair capacity
+(num_tiles + ceil(NPb / S), ops/split_blend.num_slots) and read the live
+count from tile_offsets[num_tiles] on the device, so they need no slot
+layout.
 """
 from __future__ import annotations
 
@@ -123,11 +140,16 @@ class PairList(NamedTuple):
     tile_offsets: (num_tiles + 1,) int32; tile t's pairs are
       pair_gaussian[tile_offsets[t]:tile_offsets[t + 1]].
     tile_count: (num_tiles,) int32 live pairs per tile.
-    overflow: () int32, always 0: every live pair is kept.
+    overflow: () int32 pairs dropped: 0 without budgets; with them, the rect
+      cap's drops plus the pair budget's.
     gaussian_pairs: (num_pairs,) int32 positions in the pair list, grouped by
       Gaussian; Gaussian g's pairs sit at
       gaussian_pairs[gaussian_offsets[g]:gaussian_offsets[g + 1]], in tile order.
     gaussian_offsets: (P + 1,) int32.
+
+    With budgets num_pairs is the capacity NPb: the list's kept pairs are its
+    first tile_offsets[num_tiles], and the positions past them belong to no
+    tile and no Gaussian (gaussian_pairs holds them in order there).
     """
 
     pair_gaussian: torch.Tensor
@@ -142,9 +164,110 @@ class PairList(NamedTuple):
         return self.pair_gaussian.shape[0]
 
 
+ALIGN = 128             # NPb rounds up to a multiple of it (moss_tpu's align)
+DEFAULT_MAX_TILES = 16  # the rect cap's default, moss_tpu/config.py:87
+
+
+def npb(P: int, pair_budget: int, num_tiles: int, max_tiles: int, align: int = ALIGN) -> int:
+    """The pair capacity NPb (moss_tpu's one rule, binning.py:276-287): the
+    caller's budget, or 4 P + 64 num_tiles when it is 0, rounded up to
+    `align`, at most the whole P x max_tiles candidate table."""
+    if pair_budget == 0:
+        pair_budget = 4 * P + 64 * num_tiles
+    return min(-(-pair_budget // align) * align, P * max_tiles)
+
+
+def default_pair_budget(P: int, height: int, width: int, tile_h: int = 16, tile_w: int = 16,
+                        max_tiles_per_gaussian: int = DEFAULT_MAX_TILES,
+                        align: int = ALIGN) -> int:
+    """The NPb bin_pairs picks when pair_budget is 0 (moss_tpu's
+    default_pair_budget at groups=1), so that a caller can compare a
+    measured live count with it before installing a budget of its own."""
+    num_tiles = -(-height // tile_h) * -(-width // tile_w)
+    return npb(P, 0, num_tiles, max_tiles_per_gaussian, align)
+
+
+def _depth_order(depth, valid):
+    """(order, rank): the stable depth order, invalid entries last, and each
+    Gaussian's place in it."""
+    order = torch.argsort(torch.where(valid, depth, float("inf")), stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.shape[0], device=order.device)
+    return order, rank
+
+
+class _Keys(NamedTuple):
+    """Steps 1-4 of the budgeted build over the (P, B) candidate table."""
+
+    order: torch.Tensor          # (P,) depth order
+    keys: torch.Tensor           # (P B,) sorted tile << 32 | rank, dead ones last
+    perm: torch.Tensor           # (P B,) candidate (Gaussian-major) of each sorted key
+    total_live: torch.Tensor     # () live pairs before the NPb cut
+    rect_overflow: torch.Tensor  # () rect tiles past the cap B
+    max_rect: torch.Tensor       # () largest rect of a valid Gaussian, before the cap
+
+
+def _budgeted_keys(mean2d, conic, opacity, depth, radius, radius_xy, valid, grid_h: int,
+                   grid_w: int, tile_h: int, tile_w: int, B: int) -> _Keys:
+    device = mean2d.device
+    P = mean2d.shape[0]
+    num_tiles = grid_h * grid_w
+    order, rank = _depth_order(depth, valid)
+
+    min_y, min_x, max_y, max_x = tile_rect_aabb(
+        mean2d, radius, radius_xy, grid_h, grid_w, tile_h, tile_w)
+    n_x = (max_x - min_x).long()
+    n_tiles = n_x * (max_y - min_y).long()
+    rect_overflow = torch.sum(torch.where(valid, torch.clamp_min(n_tiles - B, 0), 0))
+    max_rect = torch.amax(torch.where(valid, n_tiles, 0)) if P else n_tiles.new_zeros(())
+
+    # slot s of Gaussian g's rect, row-major in the rect (so in tile order)
+    slot = torch.arange(B, device=device)[None, :]
+    n_x_safe = torch.clamp_min(n_x, 1)[:, None]
+    ty = min_y.long()[:, None] + torch.div(slot, n_x_safe, rounding_mode="floor")
+    tx = min_x.long()[:, None] + slot % n_x_safe
+    live = valid[:, None] & (slot < torch.clamp_max(n_tiles, B)[:, None])
+
+    def per_slot(x):  # (P, ...) -> (P B, ...), each Gaussian's row B times
+        return x[:, None].expand(P, B, *x.shape[1:]).reshape(P * B, *x.shape[1:])
+
+    live = live & peak_alpha_live(per_slot(mean2d), per_slot(conic), per_slot(opacity),
+                                  tx.reshape(-1), ty.reshape(-1), tile_h, tile_w).reshape(P, B)
+    tile = torch.where(live, ty * grid_w + tx, num_tiles)
+    keys, perm = torch.sort(((tile << 32) | rank[:, None]).reshape(-1), stable=True)
+    end = torch.full((1,), num_tiles << 32, dtype=torch.int64, device=device)
+    total_live = torch.searchsorted(keys, end)[0]
+    return _Keys(order, keys, perm, total_live.to(torch.int32),
+                 rect_overflow.to(torch.int32), max_rect.to(torch.int32))
+
+
+def measure_pair_need(mean2d, conic, opacity, depth, radius, radius_xy, valid, height: int,
+                      width: int, tile_h: int = 16, tile_w: int = 16,
+                      max_tiles_per_gaussian: int = DEFAULT_MAX_TILES):
+    """A frame's need for the two budgets, the counterpart of moss_tpu's
+    measure_slot_need's total_live and max_rect (binning.py:479-526): the
+    budgeted build probed with pair_budget = P x max_tiles, so nothing is cut.
+    A dict of () int32 tensors: total_live (the live pairs under the rect
+    cap, what NPb is sized from), max_rect (the largest rect of a valid
+    Gaussian, before the cap, what the cap is sized from) and rect_overflow
+    (the tiles the cap drops)."""
+    grid_h, grid_w = -(-height // tile_h), -(-width // tile_w)
+    k = _budgeted_keys(mean2d, conic, opacity, depth, radius, radius_xy, valid, grid_h,
+                       grid_w, tile_h, tile_w, max_tiles_per_gaussian)
+    return {"total_live": k.total_live, "max_rect": k.max_rect,
+            "rect_overflow": k.rect_overflow}
+
+
 def bin_pairs(mean2d, conic, opacity, depth, radius, radius_xy, valid,
-              height: int, width: int, tile_h: int = 16, tile_w: int = 16) -> PairList:
-    """Build the pair list (module docstring steps 1-5)."""
+              height: int, width: int, tile_h: int = 16, tile_w: int = 16,
+              pair_budget: int = 0, max_tiles_per_gaussian: int = 0) -> PairList:
+    """Build the pair list (module docstring steps 1-5): per frame with both
+    budgets 0, else at the capacity npb(P, pair_budget, tiles, B), B being
+    max_tiles_per_gaussian or DEFAULT_MAX_TILES."""
+    if pair_budget > 0 or max_tiles_per_gaussian > 0:
+        return _bin_budgeted(mean2d, conic, opacity, depth, radius, radius_xy, valid, height,
+                             width, tile_h, tile_w, pair_budget,
+                             max_tiles_per_gaussian or DEFAULT_MAX_TILES)
     device = mean2d.device
     P = mean2d.shape[0]
     grid_h = -(-height // tile_h)
@@ -152,9 +275,7 @@ def bin_pairs(mean2d, conic, opacity, depth, radius, radius_xy, valid,
     num_tiles = grid_h * grid_w
 
     # 1. depth order and each Gaussian's rank in it
-    order = torch.argsort(torch.where(valid, depth, float("inf")), stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(P, device=device)
+    order, rank = _depth_order(depth, valid)
 
     # 2. rects, then one candidate pair per covered tile
     min_y, min_x, max_y, max_x = tile_rect_aabb(
@@ -197,3 +318,55 @@ def bin_pairs(mean2d, conic, opacity, depth, radius, radius_xy, valid,
         gaussian_pairs=gaussian_pairs.to(torch.int32),
         gaussian_offsets=offsets(torch.bincount(gid, minlength=P)),
     )
+
+
+def _bin_budgeted(mean2d, conic, opacity, depth, radius, radius_xy, valid, height: int,
+                  width: int, tile_h: int, tile_w: int, pair_budget: int, B: int) -> PairList:
+    """bin_pairs at the capacity NPb: no data-dependent shape and no host read."""
+    device = mean2d.device
+    P = mean2d.shape[0]
+    grid_h, grid_w = -(-height // tile_h), -(-width // tile_w)
+    num_tiles = grid_h * grid_w
+    k = _budgeted_keys(mean2d, conic, opacity, depth, radius, radius_xy, valid, grid_h,
+                       grid_w, tile_h, tile_w, B)
+    NPb = npb(P, pair_budget, num_tiles, B)
+    keys, perm = k.keys[:NPb], k.perm[:NPb]
+    tiles = torch.arange(num_tiles + 1, device=device) << 32
+    tile_offsets = torch.searchsorted(keys, tiles)
+    kept = tile_offsets[num_tiles]
+    pair_gaussian = k.order[keys & 0xFFFFFFFF].to(torch.int32)
+
+    # per-Gaussian ranges: each kept candidate's place among the kept ones in
+    # Gaussian order (an exclusive cumsum), scattered to by its pair; the
+    # positions past the kept count hold themselves
+    pos = torch.arange(NPb, device=device)
+    is_kept = pos < kept
+    kept_c = torch.zeros(P * B, dtype=torch.int64, device=device)
+    kept_c.scatter_(0, perm, is_kept.to(torch.int64))
+    csum = torch.cumsum(kept_c, 0)
+    dest = torch.where(is_kept, (csum - kept_c)[perm], pos)
+    gaussian_pairs = torch.empty_like(pos).scatter_(0, dest, pos)
+    gaussian_offsets = torch.cat([csum.new_zeros(1), csum.reshape(P, B)[:, -1]])
+    budget_overflow = k.total_live - kept.to(torch.int32)
+    return PairList(
+        pair_gaussian=pair_gaussian,
+        tile_offsets=tile_offsets.to(torch.int32),
+        tile_count=(tile_offsets[1:] - tile_offsets[:-1]).to(torch.int32),
+        overflow=k.rect_overflow + budget_overflow,
+        gaussian_pairs=gaussian_pairs.to(torch.int32),
+        gaussian_offsets=gaussian_offsets.to(torch.int32),
+    )
+
+
+def kept_pair_mask(pairs: PairList, num_gaussians: int, num_tiles: int):
+    """(P, num_tiles) bool: which (Gaussian, tile) pairs the list keeps, with
+    fixed shapes (the plain blend reads it in place of the tile rect)."""
+    device = pairs.tile_offsets.device
+    n = pairs.num_pairs
+    pos = torch.arange(n, device=device)
+    tile = torch.searchsorted(pairs.tile_offsets.long(), pos, right=True) - 1
+    flat = torch.where(pos < pairs.tile_offsets[num_tiles].long(),
+                       pairs.pair_gaussian.long() * num_tiles + tile, num_gaussians * num_tiles)
+    mask = torch.zeros(num_gaussians * num_tiles + 1, dtype=torch.bool, device=device)
+    mask[flat] = True
+    return mask[:-1].reshape(num_gaussians, num_tiles)

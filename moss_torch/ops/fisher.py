@@ -10,10 +10,19 @@ Port of moss_tpu/ops/fisher.py:
     backward dF = U diag(g) V^T of fisher.py:128-139, never differentiating
     through the SVD (stable at the near-degenerate S of the MLPs' init);
   * matrix_fisher_nll = -tr(F^T R) + 1.005 log c(S_proper).
+
+The SVD is svd3: csrc/svd3.cu on a CUDA tensor (one-sided Jacobi, one thread
+a matrix), torch.linalg.svd on a CPU one. On the card torch.linalg.svd reads
+cuSOLVER's info flags back to the host, a sync the training step cannot make
+when it runs without host reads or inside a CUDA graph.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import cuda_build
 
 NUM_TRAPS = 512
 
@@ -43,8 +52,8 @@ def bessel0_exp_scaled(x):
 def _trapezoid(func, s, num_traps: int = NUM_TRAPS):
     """Integrate func(u, s) over u in [-1, 1]."""
     u = torch.linspace(-1.0, 1.0, num_traps, dtype=s.dtype, device=s.device)[None, :]
-    w = torch.ones((num_traps,), dtype=s.dtype, device=s.device)
-    w[0] = w[-1] = 0.5
+    k = torch.arange(num_traps, device=s.device)  # no host value stored: no sync on a card
+    w = torch.where((k == 0) | (k == num_traps - 1), 0.5, 1.0).to(s.dtype)
     return torch.sum(func(u, s) * w[None, :], dim=1) * (2.0 / (num_traps - 1))
 
 
@@ -84,14 +93,55 @@ class LogMFNormConstant(torch.autograd.Function):
         return dc / c_bar[:, None] * g[:, None]
 
 
+launches = 0  # svd3 kernel launches since the last reset
+captured = 0  # svd3 calls recorded into a CUDA graph (its replays launch them), not launched
+
+
+def svd3_plain(F_):
+    """(U, S, V, sign) of (B, 3, 3): torch.linalg.svd, V = Vh^T, sign =
+    sign(det U det V). A matrix with a non-finite entry gives NaNs, as XLA's
+    SVD does (LAPACK would raise)."""
+    finite = torch.isfinite(F_).all(-1).all(-1)
+    U, S, Vh = torch.linalg.svd(torch.where(finite[..., None, None], F_, 0.0),
+                                full_matrices=False)
+    V = Vh.transpose(-1, -2)
+    sign = torch.sign(torch.linalg.det(U) * torch.linalg.det(V))
+    nan = float("nan")
+    return (torch.where(finite[..., None, None], U, nan), torch.where(finite[..., None], S, nan),
+            torch.where(finite[..., None, None], V, nan), torch.where(finite, sign, nan))
+
+
+def svd3(F_):
+    """svd3_plain's (U, S, V, sign): csrc/svd3.cu on a CUDA tensor, the plain
+    version on a CPU one. U and V may differ from the plain version's by the
+    sign of a pair (u_k, v_k); S, sign and U diag(g) V^T do not."""
+    global launches, captured
+    if F_.device.type == "cpu":
+        return svd3_plain(F_)
+    if F_.dtype != torch.float32 or F_.shape[-2:] != (3, 3):
+        raise ValueError(f"svd3: expected float32 (..., 3, 3), got {F_.dtype} {tuple(F_.shape)}")
+    a = F_.detach().reshape(-1, 3, 3).contiguous()
+    n = a.shape[0]
+    U, V = torch.empty_like(a), torch.empty_like(a)
+    S = a.new_empty((n, 3))
+    sign = a.new_empty((n,))
+    cuda_build.launch("svd3", "moss_svd3", [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4,
+                      a.device, a.data_ptr(), n, U.data_ptr(), S.data_ptr(), V.data_ptr(),
+                      sign.data_ptr())
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
+    batch = F_.shape[:-2]
+    return U.reshape(*batch, 3, 3), S.reshape(*batch, 3), V.reshape(*batch, 3, 3), sign.reshape(batch)
+
+
 class ProperSingularValues(torch.autograd.Function):
     """Proper singular values of (B, 3, 3): s3 times sign(det(U) det(V))."""
 
     @staticmethod
     def forward(ctx, F_):
-        U, S, Vh = torch.linalg.svd(F_, full_matrices=False)
-        V = Vh.transpose(-1, -2)
-        sign = torch.sign(torch.linalg.det(U) * torch.linalg.det(V))
+        U, S, V, sign = svd3(F_)
         ctx.save_for_backward(U, V, sign)
         return torch.cat([S[..., :2], S[..., 2:] * sign[..., None]], dim=-1)
 
@@ -108,10 +158,10 @@ proper_singular_values = ProperSingularValues.apply
 
 
 def proper_svd3(F_):
-    """(U, S, V, S_proper) of (B, 3, 3): U, S, V detached (torch.linalg.svd,
-    V = Vh^T); the grads flow through S_proper only."""
-    U, S, Vh = torch.linalg.svd(F_.detach(), full_matrices=False)
-    return U, S, Vh.transpose(-1, -2), proper_singular_values(F_)
+    """(U, S, V, S_proper) of (B, 3, 3): U, S, V detached (svd3); the grads
+    flow through S_proper only."""
+    U, S, V, _ = svd3(F_.detach())
+    return U, S, V, proper_singular_values(F_)
 
 
 def matrix_fisher_nll(pred_F, target_R, overreg: float = 1.005):

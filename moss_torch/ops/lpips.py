@@ -117,10 +117,15 @@ def _features(params, x, dtype) -> List[torch.Tensor]:
     return feats
 
 
+_SCALING_ON = {}  # device -> (shift, scale): copied to a device once, not every call
+
+
 def _norm_input(im):
     """(H, W, 3) in [0, 1] -> (1, 3, H, W) through the scaling layer."""
-    shift = torch.as_tensor(_SHIFT, device=im.device)
-    scale = torch.as_tensor(_SCALE, device=im.device)
+    if im.device not in _SCALING_ON:
+        _SCALING_ON[im.device] = (torch.as_tensor(_SHIFT, device=im.device),
+                                  torch.as_tensor(_SCALE, device=im.device))
+    shift, scale = _SCALING_ON[im.device]
     return ((im - shift) / scale).permute(2, 0, 1)[None]
 
 

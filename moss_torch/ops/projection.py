@@ -141,7 +141,10 @@ def preprocess(means3d, cov3d_packed, color, opacity, camera, valid_mask=None) -
     nsig = torch.sqrt(torch.clamp_min(
         2.0 * (torch.log(torch.clamp_min(opacity, 1e-12) * 255.0) + 1e-3), 0.0))
     nsig = torch.clamp_max(nsig, 3.4)
-    ext = torch.ceil(nsig[:, None] * torch.sqrt(torch.clamp_min(cov2d[..., [0, 2]], 0.0)))
+    # the two diagonal entries by basic indexing: a list index is copied from
+    # the host, a sync on a card
+    diag = torch.stack([cov2d[..., 0], cov2d[..., 2]], -1)
+    ext = torch.ceil(nsig[:, None] * torch.sqrt(torch.clamp_min(diag, 0.0)))
     radius_xy = torch.minimum(ext, radius[:, None].to(ext.dtype)).to(torch.int32)
     return Projected(
         mean2d=mean2d,

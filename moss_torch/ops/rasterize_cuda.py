@@ -6,9 +6,18 @@ csrc/rasterize_fwd.cu (the port of _fwd_kernel) and its gradient from
 csrc/rasterize_bwd.cu (the port of _bwd_kernel) plus csrc/segment_sum.cu,
 which sums the per-pair gradient rows into Gaussians in a fixed order (the
 VJP of binning._gather_rows), all inside one torch.autograd.Function. The
-return dict matches rasterize_reference's plus `overflow` (always 0: the pair
-list is sized per frame). `bg` is added outside the kernels, as
-rasterize_tpu.py:741-744 does, so its gradient is autograd's.
+return dict matches rasterize_reference's plus `overflow`, the pairs the
+binning dropped: 0 for the per-frame pair list (both budgets 0), the rect
+cap's and the pair budget's drops with moss_tpu's static budgets
+(pair_budget, max_tiles_per_gaussian; ops/binning.py). `bg` is added outside
+the kernels, as rasterize_tpu.py:741-744 does, so its gradient is autograd's.
+
+With budgets the pair arrays have the capacity NPb and no host reads a pair
+count: the kernels launch num_tiles + ceil(NPb / S) CTAs, each reads the live
+count tile_offsets[num_tiles] on the device and the surplus ones return
+(csrc/blend_common.cuh segment_of), the forward's state and the backward's
+rows are sized by the capacity, and the rows past the live count stay zero
+and are read by no Gaussian's range.
 
 Both blend kernels cut a tile of more than `seg_len` pairs into segments of
 at most seg_len, one CTA each (ops/split_blend.py has the scheme and its
@@ -21,8 +30,9 @@ no exchange between them. seg_len defaults to SEGMENT, the one length the
 training and serving paths use.
 
 On a CPU tensor the wrapper runs the plain version (ops/rasterize_ref.py) at
-the same tile shape, with autograd; on a CUDA tensor it launches the kernels
-or raises.
+the same tile shape, with autograd, reading the budgeted list's kept pairs
+in place of the tile rect when there are budgets; on a CUDA tensor it
+launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -31,7 +41,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .binning import PairList, bin_pairs
+from .binning import PairList, bin_pairs, kept_pair_mask
 from .projection import Projected
 from .rasterize_ref import rasterize_reference
 from .split_blend import GRAD_COLS, num_slots
@@ -45,6 +55,9 @@ SEGMENT_LONG = 32  # csrc/segment_sum.cu kLong: longer segments are summed by a 
 launches = 0          # rasterize_fwd (one call: two launches of its kernel, one when none splits)
 bwd_launches = 0      # rasterize_bwd
 segment_launches = 0  # segment_sum
+# calls made while a CUDA graph captures the stream: recorded, not launched
+# (the graph's replays run them); not in the counts above
+captured = {"rasterize_fwd": 0, "rasterize_bwd": 0, "segment_sum": 0}
 
 _KERNEL_FIELDS = ("mean2d", "conic", "opacity", "color", "depth")
 _C_SIGNATURES = {
@@ -139,7 +152,10 @@ def rasterize_pairs(pairs: PairList, proj: Projected, height: int, width: int,
             *(getattr(proj, f).data_ptr() for f in _KERNEL_FIELDS),
             height, width, grid_w, num_tiles, pairs.num_pairs, seg_len, slots,
             out.data_ptr(), state.data_ptr(), tickets.data_ptr())
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured["rasterize_fwd"] += 1
+    else:
+        launches += 1
     return out, state
 
 
@@ -161,7 +177,10 @@ def rasterize_pairs_bwd(pairs: PairList, proj: Projected, gimg, height: int, wid
             *(getattr(proj, f).data_ptr() for f in _KERNEL_FIELDS), gimg.data_ptr(),
             height, width, grid_w, num_tiles, pairs.num_pairs, seg_len, slots,
             state.data_ptr(), rows.data_ptr())
-    bwd_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured["rasterize_bwd"] += 1
+    else:
+        bwd_launches += 1
     return rows
 
 
@@ -194,7 +213,10 @@ def segment_sum(rows, pairs: PairList):
     _launch("segment_sum", "moss_segment_sum", device, rows.data_ptr(),
             pairs.gaussian_pairs.data_ptr(), pairs.gaussian_offsets.data_ptr(), P,
             out.data_ptr())
-    segment_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured["segment_sum"] += 1
+    else:
+        segment_launches += 1
     return out
 
 
@@ -225,25 +247,39 @@ class _Blend(torch.autograd.Function):
                 None, None, None)
 
 
-def bin_projected(proj: Projected, height: int, width: int) -> PairList:
+def bin_projected(proj: Projected, height: int, width: int, pair_budget: int = 0,
+                  max_tiles_per_gaussian: int = 0) -> PairList:
     with torch.no_grad():
         return bin_pairs(proj.mean2d, proj.conic, proj.opacity, proj.depth, proj.radius,
-                         proj.radius_xy, proj.valid, height, width, TILE, TILE)
+                         proj.radius_xy, proj.valid, height, width, TILE, TILE,
+                         pair_budget=pair_budget, max_tiles_per_gaussian=max_tiles_per_gaussian)
 
 
-def rasterize_cuda(proj: Projected, bg_color, height: int, width: int):
+def rasterize_cuda(proj: Projected, bg_color, height: int, width: int, pair_budget: int = 0,
+                   max_tiles_per_gaussian: int = 0):
     """Drop-in for rasterize_reference (same dict, plus `overflow`), differentiable
-    in mean2d, conic, opacity, color, depth and bg_color."""
+    in mean2d, conic, opacity, color, depth and bg_color. pair_budget and
+    max_tiles_per_gaussian: the binning's static budgets (both 0: the
+    per-frame pair list)."""
     device = proj.mean2d.device
+    budgets = dict(pair_budget=pair_budget, max_tiles_per_gaussian=max_tiles_per_gaussian)
     if device.type == "cpu":
-        out = rasterize_reference(proj, bg_color, height, width, tile_h=TILE, tile_w=TILE)
-        out["overflow"] = torch.zeros((), dtype=torch.int32)
+        if pair_budget == 0 and max_tiles_per_gaussian == 0:
+            out = rasterize_reference(proj, bg_color, height, width, tile_h=TILE, tile_w=TILE)
+            out["overflow"] = torch.zeros((), dtype=torch.int32)
+            return out
+        pairs = bin_projected(proj, height, width, **budgets)
+        num_tiles = pairs.tile_offsets.shape[0] - 1
+        mask = kept_pair_mask(pairs, proj.mean2d.shape[0], num_tiles)
+        out = rasterize_reference(proj, bg_color, height, width, tile_h=TILE, tile_w=TILE,
+                                  pair_mask=mask)
+        out["overflow"] = pairs.overflow
         return out
     if device.type != "cuda":
         raise ValueError(f"rasterize_cuda runs on CPU or CUDA tensors, got {device}")
     if bg_color.device != device or tuple(bg_color.shape) != (3,):
         raise ValueError(f"bg_color: expected shape (3,) on {device}")
-    pairs = bin_projected(proj, height, width)
+    pairs = bin_projected(proj, height, width, **budgets)
     img = _Blend.apply(*(getattr(proj, f) for f in _KERNEL_FIELDS), pairs, height, width)
     final_T = img[5]
     color = img[:3].permute(1, 2, 0) + final_T[..., None] * bg_color[None, None, :]

@@ -17,6 +17,12 @@ _composite_chunk). This is the CPU path of the port and the oracle the CUDA
 kernels (ops/rasterize_cuda.py) are held to, forward and, through autograd,
 backward.
 
+pair_mask, a (P, num_tiles) bool table of the (Gaussian, tile) pairs a
+budgeted pair list keeps (binning.kept_pair_mask), takes the place of the
+tile rect: a Gaussian then reaches only the tiles its kept pairs name. A pair
+that the binning's AABB and peak-alpha cull drop has alpha < 1/255 at every
+pixel of its tile, so with budgets that drop nothing the image is the rect's.
+
 remat=True (moss_tpu's rasterize_reference(remat=...)) runs each chunk under
 torch.utils.checkpoint when grads are recorded: autograd then keeps only the
 chunk's inputs and the carried T, and recomputes the (chunk, H*W) tensors in
@@ -60,18 +66,23 @@ def _composite_chunk(T_in, done_in, alpha, feat):
     return T_in * cum2[-1], fired[-1].clone(), acc
 
 
-def _blend_chunk(T, done, mean2d, conic, opacity, valid, rect, feat, px, py, pt_y, pt_x):
+def _blend_chunk(T, done, mean2d, conic, opacity, valid, rect, feat, px, py, pt_y, pt_x,
+                 pt=None):
     """One depth-ordered chunk: alphas with the skip and rect masks, then
-    the sequential composite. rect: (K, 4) int (min_y, min_x, max_y, max_x)."""
+    the sequential composite. rect: (K, 4) int (min_y, min_x, max_y, max_x),
+    or a (K, num_tiles) bool pair mask read at the pixels' tiles `pt`."""
     dx = mean2d[:, 0:1] - px[None]  # (K, N)
     dy = mean2d[:, 1:2] - py[None]
     a, b, c = conic[:, 0:1], conic[:, 1:2], conic[:, 2:3]
     power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
     alpha = torch.clamp_max(opacity[:, None] * torch.exp(power), ALPHA_MAX)
-    in_rect = (
-        (pt_y[None] >= rect[:, 0:1]) & (pt_y[None] < rect[:, 2:3])
-        & (pt_x[None] >= rect[:, 1:2]) & (pt_x[None] < rect[:, 3:4])
-    )
+    if rect.dtype == torch.bool:
+        in_rect = rect[:, pt]
+    else:
+        in_rect = (
+            (pt_y[None] >= rect[:, 0:1]) & (pt_y[None] < rect[:, 2:3])
+            & (pt_x[None] >= rect[:, 1:2]) & (pt_x[None] < rect[:, 3:4])
+        )
     mask = valid[:, None] & (power <= 0.0) & (alpha >= ALPHA_MIN) & in_rect
     alpha = torch.where(mask, alpha, 0.0)
     return _composite_chunk(T, done, alpha, feat)
@@ -79,7 +90,7 @@ def _blend_chunk(T, done, mean2d, conic, opacity, valid, rect, feat, px, py, pt_
 
 def rasterize_reference(proj, bg_color, height: int, width: int,
                         tile_h: int = 16, tile_w: int = 16, chunk: int = 128,
-                        remat: bool = False):
+                        remat: bool = False, pair_mask=None):
     """Rasterize pre-projected Gaussians; dict of (H, W, *) images."""
     device = proj.mean2d.device
     P = proj.mean2d.shape[0]
@@ -93,8 +104,11 @@ def rasterize_reference(proj, bg_color, height: int, width: int,
     depth = proj.depth[order]
     opacity = proj.opacity[order]
     valid = proj.valid[order]
-    rect = torch.stack(tile_rect(
-        mean2d, proj.radius[order], grid_h, grid_w, tile_h, tile_w), dim=1)
+    if pair_mask is None:
+        rect = torch.stack(tile_rect(
+            mean2d, proj.radius[order], grid_h, grid_w, tile_h, tile_w), dim=1)
+    else:
+        rect = pair_mask[order]
 
     py, px = torch.meshgrid(
         torch.arange(height, dtype=torch.float32, device=device),
@@ -105,6 +119,7 @@ def rasterize_reference(proj, bg_color, height: int, width: int,
     py = py.reshape(-1)
     pt_y = torch.div(py, tile_h, rounding_mode="floor").to(torch.int32)
     pt_x = torch.div(px, tile_w, rounding_mode="floor").to(torch.int32)
+    pt = pt_y.long() * grid_w + pt_x.long()
     N = height * width
     C = color.shape[-1]
     # per-splat features accumulated with the blend weights: rgb, depth, 1
@@ -117,7 +132,7 @@ def rasterize_reference(proj, bg_color, height: int, width: int,
     for s in range(0, P, chunk):
         sl = slice(s, s + chunk)
         args = (T, done, mean2d[sl], conic[sl], opacity[sl], valid[sl], rect[sl], feat[sl],
-                px, py, pt_y, pt_x)
+                px, py, pt_y, pt_x, pt)
         if remat:
             T, done, acc_k = checkpoint(_blend_chunk, *args, use_reentrant=False)
         else:

@@ -34,7 +34,6 @@ from ..data.frames import Frame
 from ..ops import rasterize_cuda as rc
 from ..render.camera import Camera
 from ..render.render import SceneContext
-from ..train import optim
 from ..train.train_step import TrainState, TrainStep
 from .distributed import Mesh, make_mesh  # noqa: F401  (make_mesh: moss_tpu's home for it)
 
@@ -152,9 +151,7 @@ class ShardedTrainStep(TrainStep):
         cfg, mesh = self.cfg, self.mesh
         logs, out, grads, offset_grad, frame = self.mesh_grads(ts, frames_all, idx, sh_degree,
                                                                gt_lpips_feats)
-        skip = optim.skipped_groups(cfg.optim, cfg.model.white_background, ts.step + 1)
-        opt_state = optim.adamw_step(cfg.optim, ts.params, grads, ts.opt_state, skip,
-                                     self.spatial_lr_scale)
+        opt_state = self.update(ts, grads)
         with torch.no_grad():
             gs = ts.gstate
             vis = out["visibility_filter"]

@@ -4,7 +4,10 @@ Port of moss_tpu/render/render.py:35-154 with the same arguments and the same
 return dict (images plus the training-contract extras). `mlps` holds the two
 correction modules, {"pose": PoseRefine, "lbs": LBSField}. The rasterizer
 defaults to ops.rasterize_cuda.rasterize_cuda: the CUDA kernel on a GPU, its
-plain version on the CPU.
+plain version on the CPU, with the per-frame pair list. The trainer passes
+rasterize_cuda with its static pair budgets bound (functools.partial, as
+moss_tpu binds rasterize_tpu's), and the pairs they drop come back as the
+`overflow` extra.
 """
 from __future__ import annotations
 

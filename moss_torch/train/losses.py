@@ -28,9 +28,15 @@ class LossWeights(NamedTuple):
     s3im: float = 0.3
 
 
-def crop_window(img, y0: int, x0: int, crop_h: int, crop_w: int):
-    """Fixed-size crop at (y0, x0); img (H, W, C) or (H, W)."""
-    return img[y0:y0 + crop_h, x0:x0 + crop_w]
+def crop_window(img, y0, x0, crop_h: int, crop_w: int):
+    """Fixed-size crop at (y0, x0); img (H, W, C) or (H, W). y0 and x0 are
+    ints, or 0-d device ints (a step that reads no host value), gathered
+    then; either way the crop is a contiguous copy with the same bits."""
+    if isinstance(y0, torch.Tensor):
+        rows = y0 + torch.arange(crop_h, device=img.device)
+        cols = x0 + torch.arange(crop_w, device=img.device)
+        return img.index_select(0, rows).index_select(1, cols)
+    return img[y0:y0 + crop_h, x0:x0 + crop_w].contiguous()
 
 
 def compute_losses(
@@ -39,8 +45,8 @@ def compute_losses(
     bkgd_mask,            # (H, W) soft alpha target
     bound_mask,           # (H, W) 0/1 region of interest
     target_pose_rotmats,  # (23, 3, 3) dataset pose rotations
-    crop_y0: int,
-    crop_x0: int,
+    crop_y0,              # int, or a 0-d device int
+    crop_x0,
     crop_h: int,
     crop_w: int,
     lpips_params=None,

@@ -12,12 +12,24 @@ the update is optax.adamw's, with decoupled weight decay:
 
 with lr read at the count before the step. torch.optim.AdamW is not used: it
 folds the decay in before the moments and has no per-group skips.
+
+The update is adamw_step_device, for a step that makes no host read (the
+trainer's engines, a CUDA graph of the step): the counts are 0-d device
+tensors, the count-dependent numbers (xyz's learning rate, 1 - b1^(count +
+1), 1 - b2^(count + 1)) come from StepTables, computed on the host in
+float64 and cast to float32, and the skips of iteration i from the tables'
+skip row. The parameters and moments are updated in place, and the divisors
+are float32 tensors: a Python float divisor would take another path on a
+card (PyTorch multiplies by a reciprocal it rounds itself). adamw_step is
+the same update for Python-int counts and a skip set, through tables it
+builds for the one step (the form the tests hold to moss_tpu's optax).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, FrozenSet, NamedTuple
+from typing import Dict, FrozenSet, List, NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import OptimConfig
@@ -77,30 +89,24 @@ def init_state(params: Dict) -> Dict[str, AdamState]:
     }
 
 
-@torch.no_grad()
 def adamw_step(cfg: OptimConfig, params: Dict, grads: Dict[str, Dict[str, torch.Tensor]],
                state: Dict[str, AdamState], skip: FrozenSet[str] = frozenset(),
                spatial_lr_scale: float = 1.0) -> Dict[str, AdamState]:
-    """Update the parameters in place; return the new state. Groups in `skip`
+    """adamw_step_device for int counts: the parameters and moments updated
+    in place, the state returned with the counts advanced. Groups in `skip`
     keep their parameters and state (see skipped_groups)."""
-    new_state = dict(state)
-    for group, tensors in param_groups(params).items():
-        if group in skip:
-            continue
-        count, mu, nu = state[group]
-        lr = group_lr(cfg, group, count, spatial_lr_scale)
-        c1 = 1.0 - B1 ** (count + 1)
-        c2 = 1.0 - B2 ** (count + 1)
-        mu_new, nu_new = {}, {}
-        for name, p in tensors.items():
-            g = grads[group][name]
-            m = (1.0 - B1) * g + B1 * mu[name]
-            v = (1.0 - B2) * (g * g) + B2 * nu[name]
-            u = (m / c1) / (torch.sqrt(v / c2) + cfg.adam_eps) + cfg.weight_decay * p
-            p.sub_(lr * u)
-            mu_new[name], nu_new[name] = m, v
-        new_state[group] = AdamState(count + 1, mu_new, nu_new)
-    return new_state
+    groups = list(param_groups(params))
+    device = params["gauss"].xyz.device
+    skip_row = np.array([[g in skip for g in groups]])
+    tables = StepTables(groups, *_count_tables(cfg, max(int(state[g].count) for g in groups) + 1,
+                                               spatial_lr_scale, device),
+                        torch.as_tensor(skip_row, device=device), skip_row)
+    counts = {g: torch.full((), int(s.count), dtype=torch.int64, device=device)
+              for g, s in state.items()}
+    adamw_step_device(cfg, params, grads, {g: AdamState(counts[g], s.mu, s.nu)
+                                           for g, s in state.items()},
+                      tables, torch.zeros((), dtype=torch.int64, device=device), spatial_lr_scale)
+    return advance_counts(state, tables, 1, 1)
 
 
 def skipped_groups(cfg: OptimConfig, white_background: bool, it: int) -> FrozenSet[str]:
@@ -140,3 +146,79 @@ def zero_group_moments(state: Dict[str, AdamState], group: str) -> Dict[str, Ada
     out[group] = AdamState(count, {n: torch.zeros_like(t) for n, t in mu.items()},
                            {n: torch.zeros_like(t) for n, t in nu.items()})
     return out
+
+
+class StepTables(NamedTuple):
+    """adamw_step_device's numbers for a run of `iterations` steps, on a device."""
+
+    groups: List[str]          # the groups in param_groups order
+    lr_xyz: torch.Tensor       # (iterations + 1,) f32 xyz learning rate at each count
+    c1: torch.Tensor           # (iterations + 1,) f32 1 - b1^(count + 1)
+    c2: torch.Tensor           # (iterations + 1,) f32 1 - b2^(count + 1)
+    skip: torch.Tensor         # (iterations, len(groups)) bool: skipped at iteration i + 1
+    skip_host: np.ndarray      # the same skips on the host
+
+
+def _count_tables(cfg: OptimConfig, n: int, spatial_lr_scale: float, device):
+    """(lr_xyz, c1, c2) of StepTables at counts 0..n - 1: float64 on the
+    host, then float32 on the device."""
+    def f32(vals):
+        return torch.as_tensor(np.asarray(vals, np.float64).astype(np.float32), device=device)
+
+    return (f32([group_lr(cfg, "xyz", k, spatial_lr_scale) for k in range(n)]),
+            f32([1.0 - B1 ** (k + 1) for k in range(n)]),
+            f32([1.0 - B2 ** (k + 1) for k in range(n)]))
+
+
+def step_tables(cfg: OptimConfig, white_background: bool, groups, spatial_lr_scale: float,
+                device, length: int = 0) -> StepTables:
+    """The tables of adamw_step_device for iterations 1..length (default
+    cfg.iterations; the final iteration's skips stay at cfg.iterations)."""
+    device = torch.device(device)
+    length = length or cfg.iterations
+    groups = list(groups)
+    skip = np.array([[g in skipped_groups(cfg, white_background, it) for g in groups]
+                     for it in range(1, length + 1)], dtype=bool).reshape(-1, len(groups))
+    return StepTables(groups, *_count_tables(cfg, length + 1, spatial_lr_scale, device),
+                      skip=torch.as_tensor(skip, device=device), skip_host=skip)
+
+
+def _take(table, i):
+    """table[i] for a 0-d device index, without a host read."""
+    return table.index_select(0, i.reshape(1)).squeeze(0)
+
+
+@torch.no_grad()
+def adamw_step_device(cfg: OptimConfig, params: Dict, grads: Dict[str, Dict[str, torch.Tensor]],
+                      state: Dict[str, AdamState], tables: StepTables, step,
+                      spatial_lr_scale: float = 1.0) -> None:
+    """adamw_step at 0-based step `step` (a 0-d device int64), in place: the
+    parameters, the moments and the counts (0-d device int64s in `state`) of
+    the groups the skip row leaves on, with no host read."""
+    skip_row = _take(tables.skip, step)
+    for gi, (group, tensors) in enumerate(param_groups(params).items()):
+        if tables.groups[gi] != group:
+            raise ValueError(f"the tables' groups {tables.groups} are not the params'")
+        count, mu, nu = state[group]
+        skip = skip_row[gi]
+        lr = (_take(tables.lr_xyz, count) if group == "xyz"
+              else group_lr(cfg, group, 0, spatial_lr_scale))
+        c1, c2 = _take(tables.c1, count), _take(tables.c2, count)
+        for name, p in tensors.items():
+            g = grads[group][name]
+            m = (1.0 - B1) * g + B1 * mu[name]
+            v = (1.0 - B2) * (g * g) + B2 * nu[name]
+            u = (m / c1) / (torch.sqrt(v / c2) + cfg.adam_eps) + cfg.weight_decay * p
+            p.copy_(torch.where(skip, p, p - lr * u))
+            mu[name].copy_(torch.where(skip, mu[name], m))
+            nu[name].copy_(torch.where(skip, nu[name], v))
+        count.add_((~skip).to(count.dtype))
+
+
+def advance_counts(state: Dict[str, AdamState], tables: StepTables, first: int,
+                   last: int) -> Dict[str, AdamState]:
+    """The host's AdamState after iterations first..last (1-based) ran on the
+    device: each group's count plus the iterations that did not skip it, from
+    the tables, with no device read."""
+    ran = dict(zip(tables.groups, (~tables.skip_host[first - 1:last]).sum(0).tolist()))
+    return {g: AdamState(s.count + ran.get(g, 0), s.mu, s.nu) for g, s in state.items()}

@@ -56,7 +56,7 @@ tr.set_state(copy.deepcopy(d["ts"]))
 rounds = []
 densify = tr.densify
 tr.densify = lambda it: rounds.append(it) or densify(it)
-hist = tr.train(t["iterations"], eval_iters=[t["iterations"]])
+hist = tr.train(t["iterations"], eval_iters=[t["iterations"]], dispatch_engine="eager")
 assert tr.resume_latest(outdir) == 0  # no checkpoint there: 0 on every rank
 out = {f"param.{k}": v for k, v in
        {f: getattr(tr.ts.params["gauss"], f).numpy() for f in G.FIELDS}.items()}

@@ -11,7 +11,11 @@ bitwise the full frame's rows, the bands' grads summing to the full
 frame's), the sort passes
 (csrc/sort_pass.cu), the 3x3 conv's two kernels (csrc/conv3x3.cu: tensor
 cores for bf16, CUDA cores for f32) and the reductions and scans
-(csrc/reduce_scan.cu).
+(csrc/reduce_scan.cu); the 3x3 SVD (csrc/svd3.cu) against torch.linalg.svd,
+the budgeted pair list on the card equal to the CPU's, the blend kernels at
+the pair capacity against the plain blend of the kept pairs, the table-driven
+AdamW bitwise the host one, and the trainer's CUDA-graph engine bitwise the
+launched ones with every queued segment free of host syncs.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. Imports neither jax nor
 moss_tpu, so it runs on a machine with only PyTorch:
@@ -1174,3 +1178,144 @@ def test_band_grads_sum_to_the_full_frames(cuda_device):
         total = g if total is None else [a + b for a, b in zip(total, g)]
     for name, a, b in zip(rc._KERNEL_FIELDS, total, g_full):
         assert_grad_close(a, b, name)
+
+
+# ---- the static budgets, the 3x3 SVD and the engines ------------------------------------
+
+
+@pytest.mark.cuda
+def test_svd3_kernel_against_plain(cuda_device):
+    """csrc/svd3.cu against torch.linalg.svd on the card: S and the proper S
+    within 1e-5 of the max, U diag(g) V^T within 1e-4 where the singular values
+    are apart; one launch a call; bitwise repeatable."""
+    from moss_torch.ops import fisher
+
+    g = torch.Generator().manual_seed(0)
+    a = torch.cat([torch.randn((1000, 3, 3), generator=g),
+                   torch.eye(3) + 1e-5 * torch.randn((23, 3, 3), generator=g)]).to(cuda_device)
+    before = fisher.launches
+    U, S, V, sign = fisher.svd3(a)
+    again = fisher.svd3(a)
+    assert fisher.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip((U, S, V, sign), again))
+    Ur, Sr, Vr, sr = fisher.svd3_plain(a)
+    scale = Sr[:, :1].clamp_min(1.0)
+    assert float(((S - Sr).abs() / scale).max()) <= 1e-5
+    ok = Sr[:, 2] > 1e-3 * Sr[:, 0]
+    assert torch.equal(sign[ok], sr[ok])
+    gv = torch.tensor([0.3, -1.2, 0.7], device=cuda_device)
+    apart = ((Sr[:, :2] - Sr[:, 1:]) > 1e-3 * scale).all(1)
+
+    def back(U, V, s):
+        return torch.einsum("bik,bk,bjk->bij", U, gv * torch.stack(
+            [torch.ones_like(s), torch.ones_like(s), s], 1), V)
+
+    assert float((back(U, V, sign) - back(Ur, Vr, sr))[apart].abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_device_adamw_is_the_host_adamw_on_the_card(cuda_device):
+    """The tables' reciprocals reproduce a Python scalar divisor's CUDA path bit for bit."""
+    from moss_torch.config import OptimConfig
+    from moss_torch.models import gaussians as G
+    from moss_torch.train import optim
+
+    cfg = OptimConfig(iterations=30, densify_from_iter=3, densify_until_iter=25,
+                      densification_interval=5, opacity_reset_interval=7)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = {"gauss": G.GaussianParams(**{f: torch.randn((5000, 3), generator=g,
+                                                          device=cuda_device)
+                                           for f in G.FIELDS}), "mlps": None}
+    dev = {"gauss": G.GaussianParams(**{f: getattr(params["gauss"], f).clone()
+                                        for f in G.FIELDS}), "mlps": None}
+    host = optim.init_state(params)
+    state = {k: optim.AdamState(torch.tensor(0, device=cuda_device), s.mu, s.nu)
+             for k, s in optim.init_state(dev).items()}
+    tables = optim.step_tables(cfg, False, optim.param_groups(params), 1.0, cuda_device)
+    for step in range(30):
+        grads = {f: {f: torch.randn((5000, 3), generator=g, device=cuda_device)}
+                 for f in G.FIELDS}
+        host = optim.adamw_step(cfg, params, grads, host,
+                                optim.skipped_groups(cfg, False, step + 1))
+        optim.adamw_step_device(cfg, dev, grads, state, tables,
+                                torch.tensor(step, device=cuda_device))
+    for f in G.FIELDS:
+        assert torch.equal(getattr(params["gauss"], f), getattr(dev["gauss"], f)), f
+        assert torch.equal(host[f].mu[f], state[f].mu[f]) and int(state[f].count) == host[f].count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,budget", [(4, 40000), (64, 512), (4, 384), (64, 40000)])
+def test_budgeted_pairs_on_the_card_are_the_cpus(cuda_device, B, budget):
+    from moss_torch.ops import binning
+
+    proj = projected(cuda_device, 64, 96, n=300)
+    args = (proj.mean2d, proj.conic, proj.opacity, proj.depth, proj.radius, proj.radius_xy,
+            proj.valid, 64, 96)
+    gpu = binning.bin_pairs(*args, pair_budget=budget, max_tiles_per_gaussian=B)
+    cpu = binning.bin_pairs(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args),
+                            pair_budget=budget, max_tiles_per_gaussian=B)
+    for f in gpu._fields:
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,budget", [(4, 40000), (64, 512), (64, 40000)])
+def test_budgeted_blend_kernels_against_plain(cuda_device, B, budget):
+    """rasterize_cuda with budgets (pair arrays at the capacity NPb, CTAs for the
+    capacity) against the plain blend of the same kept pairs on the card: the
+    image rule, and the grads of mean2d, conic, opacity, color and depth."""
+    from moss_torch.ops import binning
+
+    H, W = 64, 96
+    proj = projected(cuda_device, H, W, n=300)
+    leaves = {f: getattr(proj, f).clone().requires_grad_() for f in
+              ("mean2d", "conic", "opacity", "color", "depth")}
+    p = proj._replace(**leaves)
+    bg = torch.tensor([0.2, 0.5, 0.9], device=cuda_device)
+    out = rc.rasterize_cuda(p, bg, H, W, pair_budget=budget, max_tiles_per_gaussian=B)
+    pairs = rc.bin_projected(proj, H, W, budget, B)
+    mask = binning.kept_pair_mask(pairs, proj.mean2d.shape[0], pairs.tile_offsets.shape[0] - 1)
+    ref = rasterize_reference(p, bg, H, W, tile_h=rc.TILE, tile_w=rc.TILE, pair_mask=mask)
+    assert int(out["overflow"]) == int(pairs.overflow)
+    for k in ("color", "alpha", "final_T"):
+        assert_images_match(out[k], ref[k])
+    g = torch.randn((H, W, 3), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    got = torch.autograd.grad((out["color"] * g).sum(), list(leaves.values()))
+    want = torch.autograd.grad((ref["color"] * g).sum(), list(leaves.values()))
+    for name, a, b in zip(leaves, got, want):
+        assert float((a - b).abs().max()) <= 5e-4 * float(b.abs().max()) + 1e-12, name
+
+
+@pytest.mark.cuda
+def test_captured_step_equals_the_uncaptured_one(cuda_device):
+    """The scan engine (a CUDA graph of the step, replayed) against eager and
+    queued (the same step, launched): bitwise every leaf after 12 iterations
+    with two rounds and a reset; every queued segment free of host syncs. The
+    wrappers count what they launch: every step under eager and queued, the
+    warm-up step of each capture under scan, whose captures record one step's
+    calls each and whose replays run the rest of the 12 steps."""
+    from moss_torch.ops import fisher
+    from moss_torch.train import checkpoint as ckpt
+
+    leaves, launches = {}, {}
+    for engine in ("eager", "queued", "scan"):
+        tr = _small_trainer(cuda_device)
+        if engine == "queued":
+            tr.segment_sync_mode = "error"
+        rc.launches = rc.bwd_launches = rc.segment_launches = fisher.launches = 0
+        tr.train(eval_iters=[], dispatch_engine=engine)
+        launches[engine] = (rc.bwd_launches, rc.segment_launches, fisher.launches)
+        leaves[engine] = ckpt.flatten(tr.ts)
+        if engine == "scan":
+            many = tr._many
+            assert many.captures >= 1 and many.pool_mb > 0
+            assert many.captures + many.replays == 12
+            assert many.captured_launches == {"rasterize_fwd": 1, "rasterize_bwd": 1,
+                                              "segment_sum": 1, "svd3": 1}
+            assert launches["scan"] == (many.captures,) * 3
+    for engine in ("eager", "queued"):
+        assert launches[engine] == (12, 12, 12), (engine, launches)
+    for engine in ("queued", "scan"):
+        assert [k for k in leaves["eager"]
+                if not np.array_equal(leaves["eager"][k], leaves[engine][k])] == [], engine

@@ -130,3 +130,43 @@ def test_train_monocap_then_render_novel_views(tmp_path, capsys):
     img_dir = model_path / "renders" / "novel_view_iteration_10"
     assert result["img_dir"] == str(img_dir)
     assert len(list(img_dir.glob("*.png"))) == 17 * 4
+
+
+def test_dispatch_parses_in_both_drivers():
+    """--dispatch {queued,scan,eager}, queued by default, as train_zju.py:58."""
+    for mod in (train_zju, train_monocap):
+        assert mod.parse_args(["--data_root", "d"]).dispatch == "queued"
+        for engine in ("queued", "scan", "eager"):
+            assert mod.parse_args(["--data_root", "d", "--dispatch", engine]).dispatch == engine
+        try:
+            mod.parse_args(["--data_root", "d", "--dispatch", "fast"])
+        except SystemExit as e:
+            assert e.code == 2
+        else:
+            raise AssertionError("--dispatch fast was accepted")
+
+
+def test_dispatch_reaches_the_trainer(tmp_path, monkeypatch):
+    """train_zju hands --dispatch to Trainer.train; the run stops there."""
+    from moss_torch.train.trainer import Trainer
+
+    data_root = tmp_path / "zju"
+    _write_zju_fixture(str(data_root / "my_377"), n_frames=20)
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def train(self, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(Trainer, "train", train)
+    try:
+        train_zju.main(["--data_root", str(data_root), "--subjects", "377", "--iterations", "2",
+                        "--crop", "32", "--capacity", "512", "--n_init", "100", "--output",
+                        str(tmp_path / "out"), "--result_file", str(tmp_path / "r.txt"),
+                        "--device", "cpu", "--dispatch", "scan"])
+    except Stop:
+        pass
+    assert seen["dispatch_engine"] == "scan"

@@ -129,3 +129,24 @@ def test_proper_svd3(rng):
     (Sp * torch.as_tensor(w)).sum().backward()
     jg = jax.grad(lambda f: jnp.sum(jfisher.proper_svd3(f)[3] * w))(jnp.asarray(F))
     close(Ft.grad.numpy(), np.asarray(jg), atol=5e-4)
+
+
+def test_config_keeps_the_rect_cap(tmp_path):
+    """A moss_tpu cfg.json with max_tiles_per_gaussian loads in the port with the
+    value kept, goes back to moss_tpu with it, and convert keeps it too."""
+    import dataclasses
+
+    from moss_tpu import config as jconfig
+    from moss_torch import config, convert
+
+    jcfg = dataclasses.replace(jconfig.Config(), pipe=jconfig.PipelineConfig(
+        max_tiles_per_gaussian=12, rasterizer="reference"))
+    path = str(tmp_path / "cfg.json")
+    jconfig.save_json(jcfg, path)
+    cfg = config.load_json(path)
+    assert cfg.pipe.max_tiles_per_gaussian == 12
+    assert config.PipelineConfig().max_tiles_per_gaussian == \
+        jconfig.PipelineConfig().max_tiles_per_gaussian == 16
+    assert convert.config_from_jax(jcfg).pipe.max_tiles_per_gaussian == 12
+    config.save_json(cfg, str(tmp_path / "port.json"))
+    assert jconfig.load_json(str(tmp_path / "port.json")).pipe.max_tiles_per_gaussian == 12

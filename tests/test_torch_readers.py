@@ -234,7 +234,8 @@ def test_load_json_reads_moss_tpus_cfg(tmp_path):
         config.zju_preset("386"), seed=7, model_path="out/my_386",
         model=config.ModelConfig(capacity=512, sh_degree=2, white_background=True),
         optim=config.OptimConfig(iterations=20, densify_from_iter=5),
-        pipe=config.PipelineConfig(test_iterations=(10, 20), save_iterations=(20,)))
+        pipe=config.PipelineConfig(max_tiles_per_gaussian=8, test_iterations=(10, 20),
+                                   save_iterations=(20,)))
     config.save_json(cfg, str(tmp_path / "port.json"))
     assert config.load_json(str(tmp_path / "port.json")) == cfg
     assert jconfig.load_json(str(tmp_path / "port.json")).model == jcfg.model

@@ -70,7 +70,10 @@ def test_snapshot_matches_moss_tpu(tmp_path):
     path = tr._dump_failure_snapshot(5, frames[0], logs, "non-finite loss")
     assert path == str(tmp_path / "port" / "snapshot_iter5.npz")
     with np.load(jpath) as jd, np.load(path) as d:
-        assert set(d.files) == set(jd.files) - {"slot_budget", "pair_budget", "max_tiles"}
+        # the port has the pair budget and the rect cap, not the slot budget
+        assert set(d.files) == set(jd.files) - {"slot_budget"}
+        assert int(d["max_tiles"]) == tr.budgets["max_tiles"] > 0
+        assert int(d["pair_budget"]) == tr.budgets["pair_budget"]
         for k in ("reason", "iteration", "height", "width"):
             assert d[k] == jd[k], k
         assert np.isnan(d["log_loss"]) and d["log_l1"] == 0.25
