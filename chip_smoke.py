@@ -91,7 +91,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              46,080) bitwise through save_checkpoint / restore_checkpoint;
              host-clock ms of save, load and compact_for_eval, the files' MB,
              and the serving frame's ms on the trained cloud in the 46,080
-             buffer and compacted, beside nvidia-smi's name and power limit
+             buffer and compacted, beside nvidia-smi's name and power limit;
+             the compacted avatar's test frame on both paths through the
+             installed budgets (render_zju's serving) bitwise the per-frame
+             list's with overflow 0, counted, each binning's host ms (in
+             turns), device-busy ms, launches and host syncs of a profiled
+             frame
   9. densify  one densify_and_prune round at full width on the train
              phase's state after its steps (45,695 live in 46,080: the arena
              at the cap, so one clone turns split and merge off): host-clock ms
@@ -147,7 +152,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              by its SMPL translation; every view with alpha > 0.5 somewhere and
              its subject within a quarter of the frame of the centre, the views
              ORBIT_CHECKED against the plain blend; ms per orbit frame, every
-             view's pairs and longest tile, row 1 on view 0
+             view's pairs and longest tile, row 1 on view 0; then each orbit
+             as render_zju serves it, through the budgets of a Trainer built on
+             its first view: every view bitwise the per-frame list's with
+             overflow 0, counted, ms per orbit frame on each binning (in
+             turns), and for view 0 each binning's host ms, device-busy ms,
+             launches and host syncs
  14. viewer  the SIBR remote viewer (train/network_gui.py) on localhost while a
              Trainer trains VIEWER_ITERS iterations: a client thread sends three
              cameras (one at scale_modifier 0.5), one a poll; the bytes it gets
@@ -159,8 +169,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              meshes 1 x 2 (two 256-row bands) and 2 x 1 (two frames a step),
              SHARDED_STEPS steps each from the train phase's state, held to the
              same steps on one process (losses, first grads, params, densify
-             statistics; tests/test_parallel.py's tolerances); each band's rows
-             1, 2 and 2b; ms per step on each rank
+             statistics; tests/test_parallel.py's tolerances); the denser
+             band's rows 1, 2 and 2b (BAND_ROWS); ms per step on each rank;
+             then on each mesh the
+             Trainer (phase 7's scene and crop, MESH_TRAINER: 20 iterations,
+             one densify round, an eval) under the queued and the eager
+             engine, bitwise equal on both ranks, the kernels counted, ms per
+             iteration, a profiled call's launches and syncs a step, the band
+             and eval budgets; and on this process a 1 x 1 mesh's queued
+             segment under the sync debug mode "error" (no host sync)
  16. monocap  phase 10's path at MonoCap's 1024x1024 on a 6,890-vertex SMPL
              scene (the MLPs on), 46,080 capacity, the autosized crop, evals at
              MONOCAP_EVALS, a TBWriter where tensorboardX imports, and five
@@ -202,7 +219,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              too) and the bf16 forms
  21. timing  how many runs cuda_ms took again because the host had not
              queued them before their spin ended (0: every time above is the
-             first run's), by phase and by kernel
+             first run's), by phase and by kernel; each phase's seconds
 
 Each tool phase sets its kernels' launch counts to 0 just before it drives
 the tool's main() and reads them just after; each training path sets those
@@ -218,6 +235,7 @@ import dataclasses
 import functools
 import gc
 import glob
+import hashlib
 import json
 import math
 import os
@@ -377,12 +395,27 @@ MONOCAP_EVALS = (1, 20, 40)
 # the sharded phase: meshes (n_data, n_tile) of its two ranks, steps each,
 # tests/test_parallel.py's tolerances, and the ranks' time limit in seconds
 SHARDED_MESHES = ((1, 2), (2, 1))
-SHARDED_STEPS = 5
+SHARDED_STEPS = 3
+# the bands whose rows 1, 2 and 2b are measured on a 1 x 2 mesh: the lower,
+# denser one (band 1 holds most of the body's pairs), whose kernels pace the step
+BAND_ROWS = (1,)
 SHARDED_LOSS_RTOL, SHARDED_LOSS_ATOL = 1e-4, 1e-5
 SHARDED_GRAD_RTOL, SHARDED_GRAD_ATOL = 1e-3, 1e-5
 SHARDED_PARAM_ATOL = 2e-5
 SHARDED_TIMEOUT = 600
 SHARDED_DIR = os.path.join(BUILD, "sharded")
+# the mesh trainer on both ranks and meshes: MESH_TRAINER (20 iterations, one
+# densify round at 10, the eval at the end) under each of MESH_ENGINES, then
+# MESH_PROFILE_STEPS steps a call of the queued engine's step profiled; on one
+# process a 1 x 1 mesh's queued segment of MESH_SYNC_ITERS steps under the
+# sync debug mode "error"
+MESH_TRAINER = dict(iterations=20, densify_from_iter=5, densify_until_iter=15,
+                    densification_interval=10, opacity_reset_interval=1000)
+MESH_EVALS = (20,)
+MESH_ENGINES = ("queued", "eager")
+MESH_PROFILE_STEPS = 3
+MESH_SYNC_ITERS = 6
+SERVE_TURNS = 2  # turns of (per-frame list, budgets, budgets, per-frame list) a served frame
 STAT_FIELDS = ("xyz_grad_accum", "denom", "max_radii2d")
 
 
@@ -1706,16 +1739,18 @@ def clocked_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def serving_images(tr, frame, cache=None):
+def serving_images(tr, frame, cache=None, raster=None):
     """The test frame through the full path (MLPs + deform) or, with the
-    transforms of an earlier full-path render, the cached path."""
+    transforms of an earlier full-path render, the cached path; on the
+    per-frame pair list, or binned by `raster` (the trainer's _eval_raster:
+    the installed budgets, as render_zju serves)."""
     ts = tr.ts
     kw = {} if cache is None else {"cached_transforms": cache["transforms"],
                                    "cached_translation": cache["translation"]}
     with torch.no_grad():
         out = render_frame(ts.params["gauss"], ts.gstate.valid, ts.params["mlps"], tr.scene,
                            frame.smpl_params, frame.camera, tr.bg, MODEL.sh_degree,
-                           device=tr.device, **kw)
+                           rasterize_fn=raster, device=tr.device, **kw)
     return out, {"color": out["render"], "alpha": out["render_alpha"],
                  "depth": out["render_depth"], "final_T": out["final_T"]}
 
@@ -1738,7 +1773,8 @@ def phase_checkpoint(dev, trained, train_ts, ckpt_dir=CKPT_DIR, smi=""):
     compact_for_eval, the files' MB, and the serving frame's ms on the trained
     cloud inside the 46,080 buffer and after compaction (host clock, the
     median of 2 FRAME_TURNS turns each, and the device-busy ms of a profiled
-    frame)."""
+    frame); the compacted avatar served through its budgets
+    (served_through_budgets), whose launches join the phase's."""
     tr, scene, frames, lp = trained
     test = frames[TRAIN_FRAMES]
 
@@ -1822,6 +1858,8 @@ def phase_checkpoint(dev, trained, train_ts, ckpt_dir=CKPT_DIR, smi=""):
             frame_ms.setdefault(key, []).append(host_ms(fn))
             if key not in device_ms:
                 device_ms[key] = device_breakdown(fn)["device_busy_ms"]
+    budgeted = served_through_budgets(srv, test, "checkpoint", smi)
+    launches = {k: v + budgeted["launches"][k] for k, v in launches.items()}
     mb = {"trained": os.path.getsize(npz) / 1e6, "train_phase_state": os.path.getsize(wide) / 1e6,
           "reference_layout": sum(os.path.getsize(os.path.join(d, f))
                                   for d, _, fs in os.walk(layout_dir) for f in fs) / 1e6}
@@ -1841,9 +1879,65 @@ def phase_checkpoint(dev, trained, train_ts, ckpt_dir=CKPT_DIR, smi=""):
                                 "bitwise": True},
           "file_mb": mb, "frame_ms": {k: float(np.median(v)) for k, v in frame_ms.items()},
           "frame_ms_turns": frame_ms, "frame_device_busy_ms": device_ms,
-          "launches_resume": resumed,
+          "served_through_budgets": budgeted, "launches_resume": resumed,
           "launches": launches})
     return launches
+
+
+def binning_times(fns, turns=SERVE_TURNS):
+    """{binning: host ms (the median over turns of host_ms, the binnings taken
+    in turns: a, b, b, a), device-busy ms, kernel launches, host syncs and
+    idle share of a profiled call} of each call in fns."""
+    ms = {b: [] for b in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(turns):
+        for b in order:
+            ms[b].append(host_ms(fns[b]))
+    out = {}
+    for b, fn in fns.items():
+        prof = device_breakdown(fn)
+        out[b] = {"host_ms": float(np.median(ms[b])), "host_ms_turns": ms[b],
+                  "device_busy_ms": prof["device_busy_ms"],
+                  "kernel_launches": prof["kernel_launches"], "host_syncs": prof["host_syncs"],
+                  "idle_share": prof["idle_share"]}
+    return out
+
+
+def same_images(a, b):
+    return all(torch.equal(a[k], b[k]) for k in ("color", "alpha", "depth", "final_T"))
+
+
+def served_through_budgets(srv, frame, what, smi):
+    """render_zju's serving of `frame` by a loaded, compacted Trainer: the
+    full and the cached path through its installed budgets (_eval_raster)
+    against the per-frame pair list, bitwise equal with overflow 0; each
+    path's binning_times for both binnings."""
+    raster = srv._eval_raster
+    full, _ = serving_images(srv, frame)
+    cache = {"transforms": full["transforms"], "translation": full["translation"]}
+    paths = (("full_path", None), ("cached_path", cache))
+    budgeted, n = counted(lambda: {path: serving_images(srv, frame, c, raster)
+                                   for path, c in paths})
+    if raster is None or n["rasterize_fwd"] != len(paths):
+        raise AssertionError(f"{what}: the budgeted frames launched {n} (raster {raster})")
+    out = {"budgets": srv.budgets, "launches": n}
+    for path, c in paths:
+        plain = serving_images(srv, frame, c)
+        if not same_images(budgeted[path][1], plain[1]) or \
+                int(budgeted[path][0]["overflow"]) != 0:
+            raise AssertionError(f"{what} {path}: the frame through the budgets is not the "
+                                 f"per-frame list's (overflow "
+                                 f"{int(budgeted[path][0]['overflow'])})")
+        fns = {b: functools.partial(serving_images, srv, frame, c, r)
+               for b, r in (("per_frame_list", None), ("budgets", raster))}
+        out.update({f"{path}_{b}": v for b, v in binning_times(fns).items()})
+    print(f"{what} served through the budgets ({smi}): bitwise the per-frame list's, overflow 0; "
+          f"budgets {out['budgets']['eval']}; "
+          + "; ".join(f"{k}: {v['host_ms']:.2f} host ms, {v['device_busy_ms']:.2f} busy ms, "
+                      f"{v['host_syncs']} syncs" for k, v in out.items()
+                      if k not in ("budgets", "launches"))
+          + " (a profiled frame's syncs count the synchronize that ends it)", flush=True)
+    return out
 
 
 # ---- the SMPL-X and static scene families ------------------------------------------
@@ -2429,7 +2523,7 @@ def phase_novel_view(dev, trained, smi):
     the pairs and longest tile of every view, and row 1 on view 0: the
     kernel's ms, its bound and the plain blend's ms. Returns ({orbit:
     launches}, {input: row})."""
-    tr, scene, frames, _ = trained
+    tr, scene, frames, lp = trained
     cap = tr.compact_for_eval()
     live = int(tr.ts.gstate.valid.sum())
     base = frames[TRAIN_FRAMES]
@@ -2474,6 +2568,9 @@ def phase_novel_view(dev, trained, smi):
             cached_render(tr, f, cache)
         torch.cuda.synchronize()
         frame_ms = (time.perf_counter() - t0) * 1e3 / len(views)
+        budgeted = orbit_through_budgets(tr, lp, views, cache, outs, f"novel_view {dataset}", smi)
+        n = {k: v + budgeted["launches"][k] for k, v in n.items()}
+        launches[dataset] = n
         bins = [rc.bin_projected(seen[i], H, H) for i in range(len(views))]
         pairs = [p.num_pairs for p in bins]
         longest = [int(p.tile_count.max()) for p in bins]
@@ -2489,6 +2586,7 @@ def phase_novel_view(dev, trained, smi):
                                       site="rasterize_fwd orbit unsplit"),
                 **kernel_bound(proj0, p0, H, H)}}
         lines[dataset] = {"hw": H, "views": len(views), "ms_per_frame": frame_ms,
+                          "served_through_budgets": budgeted,
                           "pairs": pairs, "max_tile_pairs": longest,
                           "subject_offset_share_max": max(offsets), "max_abs_err": errs,
                           "plain_ms": plain_ms, "launches": n}
@@ -2501,6 +2599,51 @@ def phase_novel_view(dev, trained, smi):
     emit({"phase": "novel_view", "nvidia_smi": smi, "live": live, "capacity": cap,
           "orbit_focal_heights": ORBIT_FOCAL, **lines})
     return launches, rows
+
+
+def orbit_through_budgets(tr, lp, views, cache, outs, what, smi):
+    """render_zju --novel_view's serving of an orbit: a Trainer whose train
+    split is the orbit's first view, given the compacted avatar's state, so
+    its budgets are probed at the orbit's size (render_zju builds its
+    Trainer on the first served frame); every view on the cached path through
+    those budgets (_eval_raster), counted, bitwise the per-frame list's
+    (outs) with overflow 0; ms per orbit frame over the views on each
+    binning (host clock, SERVE_TURNS turns), and for view 0 on both
+    binnings binning_times."""
+    srv = Trainer(tr.scene, views[:1], views, tr.cfg, lp, device=tr.device)
+    srv.set_state(tr.ts)
+    raster = srv._eval_raster
+    got, n = counted(lambda: [cached_render(srv, f, cache, raster) for f in views])
+    if raster is None or n["rasterize_fwd"] != len(views):
+        raise AssertionError(f"{what}: the budgeted orbit launched {n}")
+    over = [int(o["overflow"]) for o in got]
+    same = [same_images(plane_images(a), plane_images(b)) for a, b in zip(got, outs)]
+    if any(over) or not all(same):
+        raise AssertionError(f"{what}: through the budgets, overflow {over}, views not bitwise "
+                             f"the per-frame list's: {[i for i, x in enumerate(same) if not x]}")
+    def orbit(r):
+        for f in views:
+            cached_render(srv, f, cache, r)
+
+    loops = {b: [] for b in ("per_frame_list", "budgets")}
+    for _ in range(SERVE_TURNS):
+        for b in ("per_frame_list", "budgets", "budgets", "per_frame_list"):
+            _, ms = clocked_ms(functools.partial(orbit, raster if b == "budgets" else None))
+            loops[b].append(ms / len(views))
+    out = {"budgets": srv.budgets, "launches": n,
+           "ms_per_frame": {b: float(np.median(v)) for b, v in loops.items()},
+           "ms_per_frame_turns": loops}
+    out.update({f"view0_{b}": v for b, v in binning_times(
+        {b: functools.partial(cached_render, srv, views[0], cache, r)
+         for b, r in (("per_frame_list", None), ("budgets", raster))}).items()})
+    print(f"{what} served through the budgets ({smi}): {len(views)} views bitwise the per-frame "
+          f"list's, overflow 0; ms per orbit frame (median of {2 * SERVE_TURNS} loops each, in "
+          f"turns) {out['ms_per_frame']}; budgets {out['budgets']['eval']}; "
+          + "; ".join(f"{k}: {v['host_ms']:.2f} host ms, {v['device_busy_ms']:.2f} busy ms, "
+                      f"{v['host_syncs']} syncs" for k, v in out.items() if k.startswith("view0"))
+          + " (a profiled frame's syncs count the synchronize that ends it)", flush=True)
+    del srv
+    return out
 
 
 def phase_viewer(dev, trained, smi, iters=VIEWER_ITERS):
@@ -2734,10 +2877,13 @@ def sharded_rank(rank, port, outdir, device):
     """One of the sharded phase's two ranks (`python chip_smoke.py
     --sharded-rank R PORT DIR DEVICE`): both on DEVICE in a gloo group; for each
     mesh of SHARDED_MESHES, SHARDED_STEPS steps of make_sharded_train_step
-    from the train phase's state (DIR/start.npz), timed, counted; rank 0
-    writes the losses, the first step's grads, the params after the first and
-    the last step and the densify statistics; on the 1 x 2 mesh each rank
-    measures rows 1, 2 and 2b on its band's input (one rank at a time)."""
+    (its eager form, each band at the default budgets) from the train phase's
+    state (DIR/start.npz), timed, counted; rank 0 writes the losses, the first
+    step's grads, the params after the first and the last step and the densify
+    statistics; on the 1 x 2 mesh the ranks of BAND_ROWS measure rows 1, 2
+    and 2b on their band's input (one rank at a time); then the mesh
+    trainer's runs
+    (mesh_trainer_runs)."""
     import torch.distributed as dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2758,7 +2904,7 @@ def sharded_rank(rank, port, outdir, device):
         bands = []
         _, step = make_sharded_train_step(
             scene, cfg, mesh, CROP, CROP, lp,
-            rasterize=lambda proj, *a: bands.append(proj) or rc.rasterize_cuda(proj, *a))
+            rasterize=lambda proj, *a, **k: bands.append(proj) or rc.rasterize_cuda(proj, *a, **k))
         ts = ckpt.restore_checkpoint(os.path.join(outdir, "start.npz"), dev)
         first = {}
         grads_of = step.mesh_grads
@@ -2788,13 +2934,14 @@ def sharded_rank(rank, port, outdir, device):
             band = rc.Projected(*(t.detach() if torch.is_tensor(t) else t for t in bands[0]))
             for r in range(2):
                 dist.barrier()
-                if r == rank:
+                if r == rank and mesh.tile_index in BAND_ROWS:
                     ref, plain_ms = clocked_ms(lambda: rasterize_reference(
                         band, step.bg, hb, HW, tile_h=rc.TILE, tile_w=rc.TILE))
                     row = measure_rows(band, step.bg, hb, HW, ref, plain_ms)
             dist.barrier()
         report["meshes"][name] = {"mesh": [mesh.data_index, mesh.tile_index], "losses": losses,
-                                  "step_ms": times, "launches": launches, "band_rows": row}
+                                  "step_ms": times, "launches": launches, "band_rows": row,
+                                  "trainer": mesh_trainer_runs(mesh, dev)}
         if rank == 0:
             arrays = {f"first.{k2}": v.cpu().numpy() for k2, v in after_first.items()}
             arrays.update({f"last.{k2}": v.cpu().numpy()
@@ -2812,6 +2959,122 @@ def sharded_rank(rank, port, outdir, device):
         json.dump(report, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def mesh_trainer_config(**optim_kw):
+    return Config(model=MODEL, optim=OptimConfig(**{**MESH_TRAINER, **optim_kw}),
+                  pipe=PipelineConfig(test_iterations=MESH_EVALS, save_iterations=()))
+
+
+def mesh_trainer_inputs(dev):
+    """The trainer phase's scene, frames (4 train, 1 test) and LPIPS backbone."""
+    scene = make_scene(n_verts=N_VERTS, device=dev)
+    frames, _ = make_frames(scene, n_frames=TRAIN_FRAMES + 1, H=HW, W=HW, crop=CROP,
+                            opacity=TARGET_OPACITY)
+    return scene, frames, lpips.init_random(3407, device=dev)
+
+
+def mesh_profile(tr, engine, steps=MESH_PROFILE_STEPS):
+    """engine_breakdown of `steps` mesh steps a call past the run's end (tables
+    for a longer run, no skips there), launched as the engine launches them:
+    each step with no host read, the loss read once at the end of the call
+    (eager reads every 10th, which a call of `steps` < 10 does not reach)."""
+    cfg = dataclasses.replace(tr.cfg.optim, iterations=int(tr.ts.step) + 4 * steps)
+    tr._train_step.tables = optim.step_tables(cfg, False, optim.param_groups(tr.ts.params),
+                                              tr.extent, tr.device)
+    frames = stage_frames(tr.train_frames)
+    feats = tr._gt_lpips_features()
+    stacked = None if feats is None else [torch.stack(f) for f in zip(*feats)]
+    order = torch.arange(steps * tr.mesh.n_data, device=tr.device) % len(tr.train_frames)
+    ts = device_state(tr.ts)
+
+    def run():
+        if engine == "eager":
+            for i in range(steps):
+                logs = tr._mesh_steps(ts, frames, order, stacked, i + 1, i + 1)
+        else:
+            logs = tr._mesh_steps(ts, frames, order, stacked, 1, steps)
+        logs["loss"].cpu()
+
+    return engine_breakdown(run, steps)
+
+
+def mesh_trainer_runs(mesh, dev):
+    """The Trainer over `mesh` (this rank's part), MESH_TRAINER under each of
+    MESH_ENGINES from the same init: ms per iteration outside its host work
+    (the round, the eval, the budget probes), the kernels' launches in the
+    run, the installed band and eval budgets, a profiled call of the queued
+    engine's step;
+    whether queued and eager end bitwise equal (state and evals), and a
+    digest of the state for the ranks' comparison."""
+    scene, frames, lp = mesh_trainer_inputs(dev)
+    out, states, hists = {}, {}, {}
+    for engine in MESH_ENGINES:
+        tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], mesh_trainer_config(),
+                     lp, crop_hw=(CROP, CROP), mesh=mesh, device=dev)
+        host = {"densify": [], "eval": [], "budgets": []}
+
+        def timed(fn, key):
+            def run(*a, **kw):
+                res, ms = clocked_ms(lambda: fn(*a, **kw))
+                host[key].append(ms)
+                return res
+            return run
+
+        tr.densify = timed(tr.densify, "densify")
+        tr.evaluate = timed(tr.evaluate, "eval")
+        tr._resize_pair_buffer = timed(tr._resize_pair_buffer, "budgets")
+        zero_launch_counts()
+        _, wall = clocked_ms(lambda: tr.train(eval_iters=MESH_EVALS, dispatch_engine=engine))
+        launches = launch_counts()
+        # copies: the profiled call below advances the state in place
+        states[engine] = {k: np.array(v) for k, v in ckpt.flatten(tr.ts).items()}
+        hists[engine] = [{k: v for k, v in m.items() if k != "elapsed_s"}
+                         for m in tr.metrics_history]
+        iters = MESH_TRAINER["iterations"]
+        out[engine] = {"wall_ms": wall, "host_work_ms": {k: sum(v) for k, v in host.items()},
+                       "ms_per_iteration": (wall - sum(sum(v) for v in host.values())) / iters,
+                       "launches": launches, "budgets": tr.budgets, "evals": hists[engine],
+                       "rounds": len(host["densify"])}
+        if engine == "queued":  # eager launches the same step, its logs read every 10th
+            out[engine]["profile"] = mesh_profile(tr, engine)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = states[MESH_ENGINES[0]], states[MESH_ENGINES[1]]
+    out["bitwise"] = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a) \
+        and hists[MESH_ENGINES[0]] == hists[MESH_ENGINES[1]]
+    digest = hashlib.sha256()
+    for k in sorted(a):
+        digest.update(k.encode() + np.ascontiguousarray(a[k]).tobytes())
+    out["state_digest"] = digest.hexdigest()
+    return out
+
+
+def mesh_sync_free(dev):
+    """A 1 x 1 mesh (no process group) on this process: the Trainer's queued
+    segment of MESH_SYNC_ITERS steps of the sharded step under the sync debug
+    mode "error", so that one host sync inside it fails the phase (two gloo
+    ranks cannot show this: gloo's CUDA all-reduce stages through the host);
+    its launches and a profiled call of the step."""
+    scene, frames, lp = mesh_trainer_inputs(dev)
+    tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:],
+                 mesh_trainer_config(iterations=MESH_SYNC_ITERS, densify_from_iter=100,
+                                     densify_until_iter=0), lp,
+                 crop_hw=(CROP, CROP), mesh=make_mesh(1, 1, device=dev), device=dev)
+    tr.segment_sync_mode = "error"
+    zero_launch_counts()
+    tr.train(eval_iters=[], dispatch_engine="queued")
+    launches = launch_counts()
+    want = {k: MESH_SYNC_ITERS for k in BLEND_KERNELS}
+    if blend(launches) != want or launches["svd3"] != MESH_SYNC_ITERS:
+        raise AssertionError(f"the 1 x 1 mesh launched {launches}, not {want} and svd3")
+    out = {"iterations": MESH_SYNC_ITERS, "sync_debug_mode": "error", "syncs_in_segment": 0,
+           "launches": launches, "budgets": tr.budgets, "profile": mesh_profile(tr, "queued")}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def assert_sharded_params(name, got, ref, grads, lr_steps, cfg):
@@ -2844,9 +3107,11 @@ def phase_sharded(dev, train_ts, smi):
     step's loss (rtol 1e-4, atol 1e-5), the first step's grads (rtol 1e-3,
     atol 1e-5), the params after the first and the last step (atol 2e-5,
     assert_sharded_params), the densify denom exactly and accum to the grad
-    rule. Each band's rows 1, 2 and 2b (its input against the plain
-    versions), each rank's step ms. Returns ({mesh: launches}, the band
-    rows of rank 0)."""
+    rule. The denser band's rows 1, 2 and 2b (BAND_ROWS: its input against
+    the plain versions), each rank's step ms. The mesh trainer on each mesh
+    (mesh_trainer_runs, gated by mesh_trainer_line) and a 1 x 1 mesh's
+    sync-free queued segment on this process (mesh_sync_free). Returns
+    ({mesh or mesh_trainer_engine: launches}, the band rows of rank 0)."""
     outdir = SHARDED_DIR
     shutil.rmtree(outdir, ignore_errors=True)
     os.makedirs(outdir)
@@ -2884,6 +3149,7 @@ def phase_sharded(dev, train_ts, smi):
     del step, ts
     gc.collect()
     torch.cuda.empty_cache()
+    sync_free = mesh_sync_free(dev)
 
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -2957,27 +3223,91 @@ def phase_sharded(dev, train_ts, smi):
                        "param_max_abs_err_last": err_last, "denom_exact": True,
                        "accum_after_last_step": accum_last,
                        "launches_per_rank": per}
+        lines[name]["trainer"] = mesh_trainer_line(name, [r["trainer"] for r in ranks], smi)
+        for engine in MESH_ENGINES:
+            launches[f"{name}_trainer_{engine}"] = {
+                k: sum(r["trainer"][engine]["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
         if n_tile > 1:
-            for r, rank in zip(ranks, range(2)):
+            measured = [(r, rank) for r, rank in zip(ranks, range(2)) if r["band_rows"]]
+            for r, rank in measured:
                 band_rows[f"band{rank}_{HW // n_tile}x{HW}"] = r["band_rows"]
             lines[name]["bands"] = {
                 f"band{rank}": {k: {f: r["band_rows"][k][f] for f in (
                     "ms", "ms_unsplit", "plain_ms", "bound_ms", "bound_by") if f in
                     r["band_rows"][k]} for k in ("rasterize_fwd", "rasterize_bwd",
                                                   "segment_sum")}
-                for r, rank in zip(ranks, range(2))}
+                for r, rank in measured}
         print(f"sharded {name} ({smi}): {SHARDED_STEPS} steps from the train state on 2 ranks "
               f"of {dev} (gloo): step ms per rank {lines[name]['ms_per_step']}; losses "
               f"{ranks[0]['losses']} against one process's {ref['losses']}; grads max abs err "
               f"{grad_err:.2e}, params {err_first:.2e} after one step, {err_last:.2e} after "
               f"{SHARDED_STEPS}; denom exact; accum after {SHARDED_STEPS} steps {accum_last}"
               + (f"; bands {lines[name]['bands']}" if n_tile > 1 else ""), flush=True)
+    launches["1x1_trainer_queued"] = sync_free["launches"]
+    p = sync_free["profile"]
+    print(f"sharded 1x1 ({smi}): a queued segment of {MESH_SYNC_ITERS} mesh steps under the "
+          f"sync debug mode \"error\" on one process, no host sync; a profiled call "
+          f"{p['steady_ms_per_step']:.2f} ms a step, {p['launch_calls_per_step']:.0f} kernel "
+          f"launches, {p['syncs_per_step']:.2f} syncs a step (the call's log read and the "
+          f"synchronizes that end it), idle "
+          f"share {p['idle_share']:.3f}; budgets {sync_free['budgets']}", flush=True)
     shutil.rmtree(outdir, ignore_errors=True)
     emit({"phase": "sharded", "nvidia_smi": smi, "hw": HW, "capacity": CAPACITY,
           "backend": "gloo", "ranks_on_one_device": 2, "gloo_cuda_all_reduce": all(
               r["gloo_cuda_all_reduce"] for r in reports), "steps": SHARDED_STEPS, **lines,
+          "trainer_schedule": MESH_TRAINER, "trainer_evals": MESH_EVALS,
+          "sync_free_1x1": sync_free,
           "nccl": "not run: NCCL takes one rank a device, and this card is one device"})
     return launches, band_rows
+
+
+def mesh_trainer_line(name, ranks, smi):
+    """Gate and print the mesh trainer's runs of one mesh on the two ranks
+    (mesh_trainer_runs): queued and eager bitwise equal on each rank, one
+    state digest on both, every kernel of the step launched, once a step
+    and eval frame for the blend kernels. Returns the phase line's part."""
+    iters = MESH_TRAINER["iterations"]
+    want = {"rasterize_fwd": iters + len(MESH_EVALS), "rasterize_bwd": iters,
+            "segment_sum": iters}
+    digests = {r["state_digest"] for r in ranks}
+    if not all(r["bitwise"] for r in ranks) or len(digests) != 1:
+        raise AssertionError(f"sharded {name} trainer: queued and eager not bitwise equal "
+                             f"({[r['bitwise'] for r in ranks]}) or the ranks differ {digests}")
+    for engine in MESH_ENGINES:
+        got = [r[engine]["launches"] for r in ranks]
+        if any(blend(n) != want or n["svd3"] < 1 for n in got):
+            raise AssertionError(f"sharded {name} trainer {engine}: launches {got}, not {want}")
+        if any(r[engine]["rounds"] != 1 for r in ranks) or any(
+                m["raster_overflow"] for r in ranks for m in r[engine]["evals"]):
+            raise AssertionError(f"sharded {name} trainer {engine}: rounds or eval overflow "
+                                 f"{[(r[engine]['rounds'], r[engine]['evals']) for r in ranks]}")
+    line = {"bitwise_queued_eager": True, "state_digest": digests.pop(),
+            "budgets": [r["queued"]["budgets"] for r in ranks]}
+    for engine in MESH_ENGINES:
+        rows = [r[engine] for r in ranks]
+        line[engine] = {
+            "ms_per_iteration": [x["ms_per_iteration"] for x in rows],
+            "host_work_ms": [x["host_work_ms"] for x in rows],
+            "launches_per_rank": [x["launches"] for x in rows], "evals": rows[0]["evals"]}
+        print(f"sharded {name} trainer {engine} ({smi}): {iters} iterations, one round, an eval; "
+              f"ms per iteration outside host work a rank "
+              f"{[round(x['ms_per_iteration'], 2) for x in rows]}", flush=True)
+    prof = [r["queued"]["profile"] for r in ranks]
+    line["queued"]["profile"] = [{k: x[k] for k in (
+        "steady_ms_per_step", "launch_calls_per_step", "syncs_per_step", "memcpy_calls_per_step",
+        "device_busy_ms", "idle_share", "kernels_traced_per_step", "top_device_ms_per_step")}
+        for x in prof]
+    print(f"sharded {name} trainer queued, a profiled {MESH_PROFILE_STEPS}-step call ({smi}): "
+          f"{[round(x['steady_ms_per_step'], 2) for x in prof]} ms a step, "
+          f"{[round(x['launch_calls_per_step']) for x in prof]} kernel launches and "
+          f"{[round(x['syncs_per_step'], 2) for x in prof]} syncs a step, idle "
+          f"{[round(x['idle_share'], 3) for x in prof]}", flush=True)
+    b = line["budgets"][0]
+    print(f"sharded {name} trainer ({smi}): queued and eager bitwise equal on both ranks; band "
+          f"budgets pair_budget {b['pair_budget']}, rect cap {b['max_tiles']}, NPb {b['npb']}; "
+          f"eval budgets {b['eval']}", flush=True)
+    return line
 
 
 def phase_tool_sort(dev):
@@ -3416,16 +3746,18 @@ def main():
 
     timing.runs_retaken = 0
     timing.retaken_by_site.clear()
-    by_phase = {}
+    by_phase, seconds = {}, {}
 
     def phase(name, fn, *args):
-        """fn(*args), with the runs cuda_ms retook in it counted by site; the
-        card's memory of earlier phases (trainers hold reference cycles)
-        freed first."""
+        """fn(*args), with the runs cuda_ms retook in it counted by site and
+        its seconds; the card's memory of earlier phases (trainers hold
+        reference cycles) freed first."""
         gc.collect()
         torch.cuda.empty_cache()
         before = dict(timing.retaken_by_site)
+        t0 = time.perf_counter()
         out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
         by_phase[name] = {k: v - before.get(k, 0) for k, v in timing.retaken_by_site.items()
                           if v != before.get(k, 0)}
         return out
@@ -3455,7 +3787,10 @@ def main():
                 **({"dna": dna_launches} if dna_launches else {}),
                 "novel_view": {k: sum(n[k] for n in orbit_launches.values()) for k in zero},
                 "viewer": viewer_launches, "monocap": monocap_launches,
-                "sharded": {k: sum(n[k] for n in sharded_launches.values()) for k in zero},
+                "sharded": {k: sum(n[k] for m, n in sharded_launches.items()
+                                   if "trainer" not in m) for k in zero},
+                "sharded_trainer": {k: sum(n[k] for m, n in sharded_launches.items()
+                                           if "trainer" in m) for k in zero},
                 "engines": {k: sum(n[k] for n in engine_launches.values()) for k in zero}}
     by_input = {f"smplx_{SMPLX_HW[1]}x{SMPLX_HW[0]}": smplx_rows,
                 f"static_{STATIC_HW}x{STATIC_HW}": static_rows,
@@ -3479,7 +3814,7 @@ def main():
         kernel = SITE_KERNELS.get(key, key)
         by_kernel[kernel] = by_kernel.get(kernel, 0) + n
     emit({"phase": "timing", "runs_retaken": timing.runs_retaken, "by_phase": by_phase,
-          "by_kernel": by_kernel})
+          "by_kernel": by_kernel, "phase_seconds": seconds})
     grad_tol = f"grads: max|g - g_plain| / max|g_plain| <= {GRAD_ATOL}; bg rtol {BG_RTOL}"
 
     def entry(name, source, replaces, launches, by_path, measured, tolerance, library_ms=None,

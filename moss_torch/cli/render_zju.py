@@ -9,12 +9,19 @@ mlp_ckpt/iteration_N/), fit the capacity to the live cloud unless
 --keep_capacity, cache each pose's transforms once (written to
 smpl_rot/iteration_N/smpl_rot.pickle as numpy), time the cached MLP-free
 render of every test frame and print one JSON line: subject, iteration, fps,
-psnr, ssim, lpips_x1000 and the LPIPS backbone. --novel_view N renders
-instead N orbit views about each test pose (render/novel_view.py: each pose
-decoded once, its camera swapped for the orbit's), writes them all to
-renders/novel_view_iteration_N/ and prints subject, iteration, fps,
-novel_views and img_dir (no ground truth exists at those viewpoints). Runs
-on the GPU; --device cpu runs the plain PyTorch path.
+psnr, ssim, lpips_x1000, the LPIPS backbone and raster_overflow. --novel_view
+N renders instead N orbit views about each test pose (render/novel_view.py:
+each pose decoded once, its camera swapped for the orbit's), writes them all
+to renders/novel_view_iteration_N/ and prints subject, iteration, fps,
+novel_views, img_dir (no ground truth exists at those viewpoints) and
+raster_overflow. Runs on the GPU; --device cpu runs the plain PyTorch path.
+
+The cached renders bin at the static pair budgets the trainer probed on the
+first served frame after the load and the compaction (trainer._eval_raster,
+as the repository's render_zju.py renders through trainer.rasterize_fn), so
+a served frame makes no host read in binning. raster_overflow is the pairs
+those budgets dropped, summed over the served frames; a frame that drops
+pairs is reported there, not rendered again.
 
     python -m moss_torch.cli.render_zju --data_root /data/zju_mocap --subjects 377 \\
         --iterations -1
@@ -132,16 +139,18 @@ def render_subject(args, subject: str, iteration: int, device):
         pickle.dump({k: tuple(None if t is None else t.cpu().numpy() for t in v)
                      for k, v in smpl_rot.items()}, f)
 
-    # 2. the cached render of every test frame, timed, then the metrics
-    ts, bg = trainer.ts, trainer.bg
+    # 2. the cached render of every test frame through the installed budgets,
+    # timed, then the metrics
+    ts, bg, raster = trainer.ts, trainer.bg, trainer._eval_raster
 
     def cached_render(frame):
         transforms, translation = smpl_rot[frame.pose_id]
-        return render_frame(ts.params["gauss"], ts.gstate.valid, ts.params.get("mlps"), scene,
-                            frame.smpl_params, frame.camera, bg, cfg.model.sh_degree,
-                            cached_transforms=transforms, cached_translation=translation,
-                            motion_offset=cfg.model.motion_offset,
-                            static_scene=cfg.model.static_scene, device=device)["render"]
+        out = render_frame(ts.params["gauss"], ts.gstate.valid, ts.params.get("mlps"), scene,
+                           frame.smpl_params, frame.camera, bg, cfg.model.sh_degree,
+                           rasterize_fn=raster, cached_transforms=transforms,
+                           cached_translation=translation, motion_offset=cfg.model.motion_offset,
+                           static_scene=cfg.model.static_scene, device=device)
+        return out["render"], out["overflow"]
 
     def sync():
         if device.type == "cuda":
@@ -151,14 +160,16 @@ def render_subject(args, subject: str, iteration: int, device):
         cached_render(test_frames[0])  # warm-up
         sync()
         t0 = time.perf_counter()
-        renders = [cached_render(frame) for frame in test_frames]
+        renders, overflow = zip(*[cached_render(frame) for frame in test_frames])
         sync()
         fps = len(test_frames) / (time.perf_counter() - t0)
+        overflow = int(torch.stack(overflow).sum())
         if args.novel_view:
             img_dir = os.path.join(model_path, "renders", f"novel_view_iteration_{iteration}")
             write_pngs(img_dir, renders)
             result = {"subject": subject, "iteration": iteration, "fps": fps,
-                      "novel_views": len(test_frames), "img_dir": img_dir}
+                      "novel_views": len(test_frames), "img_dir": img_dir,
+                      "raster_overflow": overflow}
             print(json.dumps(result))
             return result
         img_dir = os.path.join(model_path, "renders", f"iteration_{iteration}")
@@ -172,7 +183,8 @@ def render_subject(args, subject: str, iteration: int, device):
             write_pngs(img_dir, renders)
     n = len(test_frames)
     result = {"subject": subject, "iteration": iteration, "fps": fps, "psnr": sums[0] / n,
-              "ssim": sums[1] / n, "lpips_x1000": sums[2] / n * 1000, "lpips_backbone": kind}
+              "ssim": sums[1] / n, "lpips_x1000": sums[2] / n * 1000, "lpips_backbone": kind,
+              "raster_overflow": overflow}
     if note:
         result["lpips_note"] = note
     print(json.dumps(result))

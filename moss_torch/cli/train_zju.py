@@ -11,13 +11,15 @@ cameras.json. Runs on the GPU; --device cpu runs the plain PyTorch path.
 the SIBR remote viewer, --debug_nans turns on autograd's anomaly mode (the
 loss of every step is checked finite in any case, and a non-finite one
 raises with its iteration). --dispatch picks the trainer's engine (queued,
-the default, scan or eager: train/trainer.py); several ranks run eager only
-(the mesh engines are not ported yet), so they need --dispatch eager.
+the default, scan or eager: train/trainer.py).
 
 Several ranks (one process each, the same command) train one avatar over
 pixel bands and frames: --coordinator host:port --num_processes N
 --process_id i, or torchrun's environment; --n_data/--n_tile lay the ranks
-out (0 0 factors automatically). Only rank 0 writes files.
+out (0 0 factors automatically). Only rank 0 writes files. They run the
+queued engine (the default; --dispatch scan prints a line and runs it too,
+no CUDA graph being taken over collectives) or eager, with budgets probed
+per band and full-image ones for the evals.
 
     python -m moss_torch.cli.train_zju --data_root /data/zju_mocap \\
         --smpl assets/SMPL_NEUTRAL.pkl --subjects 377 386

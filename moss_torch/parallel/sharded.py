@@ -21,11 +21,27 @@ that order, in one flat buffer each, so every rank applies the same update.
 The band gather is a SUM all-reduce of zero-padded full frames (a value plus
 zeros is that value): NCCL and gloo both take it, and gloo's CUDA path has
 no all_gather.
+
+Each band bins at the static budgets the step was built with (pair_budget,
+max_tiles; ops/binning.py), sized by the trainer for the densest band: the
+band's capacity NPb is binning's default at height H / n_tile when
+pair_budget is 0. max_tiles 0 with pair_budget 0 bins on the per-frame
+pair list instead.
+
+The step takes two forms of its frame index. The device form, the
+trainer's engines': idx an (n_data,) int64 tensor on the device, frames_all
+train_step.stage_frames' stack and gt_lpips_feats the towers stacked by
+frame; the frame and its towers are gathered on the device, and with a
+train_step.device_state TrainState the step reads nothing back to the host
+(its counters advance in place; the optimizer's numbers come from the step's
+`tables`). The eager form: idx host ints, frames_all a list of Frames or
+stack_frames' stack, gt_lpips_feats a list by frame, an int-state
+TrainState. Both run the same arithmetic and give the same state.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List
 
 import torch
 
@@ -34,7 +50,7 @@ from ..data.frames import Frame
 from ..ops import rasterize_cuda as rc
 from ..render.camera import Camera
 from ..render.render import SceneContext
-from ..train.train_step import TrainState, TrainStep
+from ..train.train_step import TrainState, TrainStep, staged_frame
 from .distributed import Mesh, make_mesh  # noqa: F401  (make_mesh: moss_tpu's home for it)
 
 IMAGE_KEYS = ("color", "depth", "alpha", "final_T")
@@ -72,12 +88,15 @@ class _OnTileZero(torch.autograd.Function):
         return (g if ctx.keep else torch.zeros_like(g)), None
 
 
-def band_rasterize_fn(mesh: Mesh, rasterize=None):
+def band_rasterize_fn(mesh: Mesh, rasterize=None, pair_budget: int = 0, max_tiles: int = 16):
     """A rasterize_fn for render_frame that renders this rank's pixel band:
     mean2d shifted into band-local rows (binning and blending commute with
-    a shift of whole tiles), the images gathered over the tile group, the
-    overflow summed. rasterize defaults to rasterize_cuda."""
+    a shift of whole tiles), binned at the band's budgets (pair_budget,
+    max_tiles: rasterize_cuda's pair_budget and max_tiles_per_gaussian), the
+    images gathered over the tile group, the overflow summed over it.
+    rasterize defaults to rasterize_cuda and takes those two keywords."""
     raster = rc.rasterize_cuda if rasterize is None else rasterize
+    shifts = {}
 
     def fn(proj, bg_color, height: int, width: int):
         if height % (mesh.n_tile * rc.TILE):
@@ -85,8 +104,11 @@ def band_rasterize_fn(mesh: Mesh, rasterize=None):
                              f"of whole {rc.TILE}-row tiles")
         hb = height // mesh.n_tile
         y0 = mesh.tile_index * hb
-        shift = torch.tensor([0.0, float(y0)], device=proj.mean2d.device)
-        out = raster(proj._replace(mean2d=proj.mean2d - shift), bg_color, hb, width)
+        shift = shifts.get(proj.mean2d.device)
+        if shift is None:  # filled on the device: a host copy would sync
+            shift = shifts[proj.mean2d.device] = band_shift(y0, proj.mean2d.device)
+        out = raster(proj._replace(mean2d=proj.mean2d - shift), bg_color, hb, width,
+                     pair_budget=pair_budget, max_tiles_per_gaussian=max_tiles)
         full = {k: _BandGather.apply(out[k], mesh, y0, height) for k in IMAGE_KEYS}
         overflow = torch.as_tensor(out["overflow"]).to(device=mesh.device, dtype=torch.int64)
         full["overflow"] = mesh.all_reduce(overflow.reshape(1).clone(), "tile")[0]
@@ -95,14 +117,21 @@ def band_rasterize_fn(mesh: Mesh, rasterize=None):
     return fn
 
 
+def band_shift(y0: int, device) -> torch.Tensor:
+    """(2,) [0, y0]: what a band starting at row y0 subtracts from mean2d."""
+    return torch.cat([torch.zeros(1, device=device), torch.full((1,), float(y0), device=device)])
+
+
 class ShardedTrainStep(TrainStep):
     """make_sharded_train_step's step: step(ts, frames_all, idx, sh_degree,
-    gt_lpips_feats=None), idx the (n_data,) frame indices of this step."""
+    gt_lpips_feats=None), in its device form or its eager one (module
+    docstring)."""
 
     def __init__(self, scene: SceneContext, cfg: Config, mesh: Mesh, crop_h: int, crop_w: int,
-                 lpips_params=None, spatial_lr_scale: float = 1.0, rasterize=None):
-        super().__init__(scene, cfg, band_rasterize_fn(mesh, rasterize), lpips_params, crop_h,
-                         crop_w, spatial_lr_scale, mesh.device)
+                 lpips_params=None, spatial_lr_scale: float = 1.0, rasterize=None,
+                 pair_budget: int = 0, max_tiles: int = 16):
+        super().__init__(scene, cfg, band_rasterize_fn(mesh, rasterize, pair_budget, max_tiles),
+                         lpips_params, crop_h, crop_w, spatial_lr_scale, mesh.device)
         self.mesh = mesh
         self.loss_scale = 1.0 / mesh.n_data
 
@@ -113,15 +142,25 @@ class ShardedTrainStep(TrainStep):
         keep = self.mesh.tile_index == 0
         return {**out, "pose_out": {**pose_out, "Rs": _OnTileZero.apply(pose_out["Rs"], keep)}}
 
-    def mesh_grads(self, ts: TrainState, frames_all, idx: Sequence[int], sh_degree: int,
-                   gt_lpips_feats=None):
+    def frame_of(self, frames_all, idx, gt_lpips_feats=None):
+        """This data row's frame of the step and its LPIPS towers (None
+        without them): gathered on the device by a device idx from
+        stage_frames' stack, else by a host int from a list or stack_frames."""
+        d = self.mesh.data_index
+        if isinstance(idx, torch.Tensor):
+            i = idx[d:d + 1]
+            feats = None if gt_lpips_feats is None else [
+                x.index_select(0, i).squeeze(0) for x in gt_lpips_feats]
+            return staged_frame(frames_all, i), feats
+        i = int(idx[d])
+        return frame_at(frames_all, i), None if gt_lpips_feats is None else gt_lpips_feats[i]
+
+    def mesh_grads(self, ts: TrainState, frames_all, idx, sh_degree, gt_lpips_feats=None):
         """(logs averaged over data, this rank's render out, the all-reduced
         grads {group: {name: grad}}, the mean2d-offset grad of this rank's
         whole frame, that frame)."""
         mesh = self.mesh
-        i = int(idx[mesh.data_index])
-        frame = frame_at(frames_all, i)
-        feats = None if gt_lpips_feats is None else gt_lpips_feats[i]
+        frame, feats = self.frame_of(frames_all, idx, gt_lpips_feats)
         _, logs, out, grads, offset_grad = self.grads(ts, frame, sh_degree, feats)
         names = [(g, n) for g in grads for n in grads[g]]
         flat = torch.cat([grads[g][n].reshape(-1) for g, n in names] + [offset_grad.reshape(-1)])
@@ -145,19 +184,18 @@ class ShardedTrainStep(TrainStep):
         mean_logs["raster_overflow"] = mesh.all_reduce(overflow.clone(), "data")[0]
         return mean_logs, out, reduced, frame_offset_grad, frame
 
-    def __call__(self, ts: TrainState, frames_all, idx: Sequence[int], sh_degree: int,
-                 gt_lpips_feats=None):
-        """One data-parallel update; (new TrainState, logs), the same on every rank."""
-        cfg, mesh = self.cfg, self.mesh
+    def __call__(self, ts: TrainState, frames_all, idx, sh_degree, gt_lpips_feats=None):
+        """One data-parallel update; (TrainState, logs), the same on every
+        rank. The densify statistics are written in place, and a
+        device_state TrainState is advanced in place and returned."""
+        mesh = self.mesh
         logs, out, grads, offset_grad, frame = self.mesh_grads(ts, frames_all, idx, sh_degree,
                                                                gt_lpips_feats)
         opt_state = self.update(ts, grads)
         with torch.no_grad():
             gs = ts.gstate
             vis = out["visibility_filter"]
-            cam = frame.camera
-            ndc_scale = torch.tensor([cam.width * 0.5, cam.height * 0.5], device=self.device)
-            gnorm = torch.linalg.norm(offset_grad * ndc_scale[None, :], dim=-1)
+            gnorm = torch.linalg.norm(offset_grad * self.ndc_scale(frame.camera)[None, :], dim=-1)
             pose_out = out["pose_out"]
             with_bw = pose_out is not None and out["lbs_weights"] is not None
             P = vis.shape[0]
@@ -171,36 +209,39 @@ class ShardedTrainStep(TrainStep):
             if with_bw:
                 parts.append(out["lbs_weights"].detach().reshape(-1))
             summed = mesh.all_reduce(torch.cat(parts), "data")
-            acc, den = summed[:P], summed[P:2 * P]
             at = 2 * P + mesh.n_data * P
-            radii_max = summed[2 * P:at].view(mesh.n_data, P).amax(0)
-            gstate = dataclasses.replace(
-                gs, xyz_grad_accum=gs.xyz_grad_accum + acc, denom=gs.denom + den,
-                max_radii2d=torch.maximum(gs.max_radii2d, radii_max))
+            stats = dict(xyz_grad_accum=gs.xyz_grad_accum + summed[:P],
+                         denom=gs.denom + summed[P:2 * P],
+                         max_radii2d=torch.maximum(
+                             gs.max_radii2d, summed[2 * P:at].view(mesh.n_data, P).amax(0)))
             if pose_out is not None:
                 nF = gs.joint_F.numel()
-                gstate = dataclasses.replace(
-                    gstate, joint_F=gs.joint_F + summed[at:at + nF].view_as(gs.joint_F))
+                stats["joint_F"] = gs.joint_F + summed[at:at + nF].view_as(gs.joint_F)
                 at += nF
             if with_bw:
-                gstate = dataclasses.replace(
-                    gstate, lbs_weight_sum=gs.lbs_weight_sum + summed[at:].view_as(
-                        gs.lbs_weight_sum))
+                stats["lbs_weight_sum"] = gs.lbs_weight_sum + summed[at:].view_as(
+                    gs.lbs_weight_sum)
+            for k, v in stats.items():  # written in place
+                getattr(gs, k).copy_(v)
             logs["psnr_proxy"] = -10.0 * torch.log10(logs["l1"] ** 2 + 1e-12)
-            logs["num_points"] = gstate.num_valid
-        return TrainState(ts.params, opt_state, gstate, ts.step + 1), logs
+            logs["num_points"] = gs.num_valid
+        if isinstance(ts.step, torch.Tensor):
+            ts.step.add_(1)
+            return ts, logs
+        return TrainState(ts.params, opt_state, gs, ts.step + 1), logs
 
 
 def make_sharded_train_step(scene: SceneContext, cfg: Config, mesh: Mesh, crop_h: int,
                             crop_w: int, lpips_params=None, spatial_lr_scale: float = 1.0,
-                            rasterize=None):
+                            rasterize=None, pair_budget: int = 0, max_tiles: int = 16):
     """(init_fn, step_fn) for training over the mesh, as moss_tpu's
     make_sharded_train_step: step_fn(ts, frames_all, idx, sh_degree,
-    gt_lpips_feats=None), frames_all the whole train split (a list of Frames
-    or stack_frames of it) on every rank, idx the (n_data,) frame each data
-    row trains on; gt_lpips_feats, if given, is indexed by frame."""
+    gt_lpips_feats=None), frames_all the whole train split on every rank,
+    idx the (n_data,) frame each data row trains on (module docstring: the
+    device form and the eager one); each band binned at pair_budget and
+    max_tiles (band_rasterize_fn)."""
     step = ShardedTrainStep(scene, cfg, mesh, crop_h, crop_w, lpips_params, spatial_lr_scale,
-                            rasterize)
+                            rasterize, pair_budget, max_tiles)
     return step.init, step
 
 

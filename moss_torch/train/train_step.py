@@ -171,6 +171,15 @@ class TrainStep:
         logs = {k: v.detach() for k, v in logs.items()}
         return total.detach(), logs, out, grads, flat[-1]
 
+    def ndc_scale(self, cam) -> torch.Tensor:
+        """(2,) [W / 2, H / 2]: the screen-space gradient's units."""
+        key = (cam.width, cam.height)
+        if key not in self._ndc_scale:  # filled on the device: a host copy would sync
+            self._ndc_scale[key] = torch.cat([
+                torch.full((1,), cam.width * 0.5, device=self.device),
+                torch.full((1,), cam.height * 0.5, device=self.device)])
+        return self._ndc_scale[key]
+
     def update(self, ts: TrainState, grads) -> Dict[str, optim.AdamState]:
         """AdamW on ts (optim.adamw_step_device, in place); the opt_state with
         the counts advanced: ts's own under a device-state ts (the caller's
@@ -204,13 +213,7 @@ class TrainStep:
         with torch.no_grad():
             gs = ts.gstate
             vis = out["visibility_filter"]
-            cam = frame.camera
-            key = (cam.width, cam.height)
-            if key not in self._ndc_scale:  # filled on the device: a host copy would sync
-                self._ndc_scale[key] = torch.cat([
-                    torch.full((1,), cam.width * 0.5, device=self.device),
-                    torch.full((1,), cam.height * 0.5, device=self.device)])
-            gnorm = torch.linalg.norm(offset_grad * self._ndc_scale[key][None, :], dim=-1)
+            gnorm = torch.linalg.norm(offset_grad * self.ndc_scale(frame.camera)[None, :], dim=-1)
             pose_out = out["pose_out"]
             stats = dict(  # written in place
                 xyz_grad_accum=gs.xyz_grad_accum + torch.where(vis, gnorm, 0.0),

@@ -28,7 +28,12 @@ round, from scratch on load, set_state and compact_for_eval. A segment whose
 summed raster_overflow is above 0 re-probes every train frame and grows past
 the budget that dropped pairs (the self-heal); when drops persist at the
 largest budget, the failure snapshot is written. With the budgets installed
-every shape of the step is fixed and the step reads no host value.
+every shape of the step is fixed and the step reads no host value. With a
+mesh the train budgets are per band, probed on every band (each rank renders
+H / n_tile rows, so they must cover the densest band), and evaluate,
+render_eval and the viewer, which render the full image, get budgets of
+their own probed on the full frame (_resize_eval_budgets), with the train
+budgets' grow policy at 2x headroom; an eval that drops pairs regrows them.
 
 Three dispatch engines, moss_tpu's (Trainer.train(dispatch_engine=...)),
 between host boundaries (densify, reset, SH bump, eval, save, and every
@@ -40,11 +45,12 @@ boundary_interval iterations; _host_boundaries):
     the same step without a graph;
   * "eager": a step at a time, its logs read every 10 iterations.
 All three run the same device-state step (train_step.device_state), so their
-states are bitwise equal. With a mesh only "eager" runs (the sharded step, a
-step at a time, its logs read every iteration); the mesh engines are ROADMAP
-Q1's next item. Densify noise
-comes from a torch Generator seeded with (cfg.seed, iteration), so a
-resumed run replays it.
+states are bitwise equal. With a mesh the step is parallel/sharded.py's in its
+device form: the split and its LPIPS towers staged on every rank, each step's
+frames gathered by index on the device; "queued" and "eager" run as above,
+and "scan" prints moss_tpu's line and runs "queued" (no CUDA graph over
+collectives). Densify noise comes from a torch Generator seeded with
+(cfg.seed, iteration), so a resumed run replays it.
 
 save / load / resume_latest write and read chkpnt{N}.npz in moss_tpu's
 schema (train/checkpoint.py); compact_for_eval keeps moss_tpu's rule for the
@@ -85,6 +91,7 @@ from ..ops import binning, lpips
 from ..ops.rasterize_cuda import TILE, rasterize_cuda
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn
+from ..parallel.sharded import band_shift, make_sharded_train_step
 from ..render.camera import Camera
 from ..render.render import SceneContext, render_frame
 from . import checkpoint, optim
@@ -94,6 +101,8 @@ from .train_step import (TrainState, active_sh_degree, device_state, make_train_
                          make_train_step, stage_frames)
 
 ENGINES = ("queued", "scan", "eager")
+SCAN_ON_A_MESH = ("[trainer] dispatch_engine='scan' is single-chip only — mesh mode uses the "
+                  "queued engine (device-resident frames, zero per-step host tensor work)")
 
 
 # the scene's spatial scale: the monocular reference forces the camera
@@ -153,11 +162,8 @@ class Trainer:
         self.crop_hw = crop_hw if crop_hw is not None else (min(H, 256), min(W, 256))
         self.bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0,
                              device=self.device)
-        # the static budgets (module docstring): only the single-card path
-        # has them; the mesh's band budgets are ROADMAP Q1's next item
-        self._autosize = mesh is None
         self._reset_budget_state()
-        self._installed = False
+        self._installed = self._eval_installed = False
         self._budget_version = 0
         self.boundary_interval = 100  # the unconditional host boundary's cadence
         self.segment_sync_mode = None  # e.g. "error": torch.cuda's sync debug mode in segments
@@ -172,7 +178,7 @@ class Trainer:
 
     def _raster_fn(self, max_tiles: int):
         """rasterize_cuda with the installed pair budget and rect cap `max_tiles`
-        (None before the budgets are installed, and with a mesh)."""
+        (None before the budgets are installed)."""
         if not self._installed:
             return None
         return functools.partial(rasterize_cuda, pair_budget=self._pair_budget,
@@ -180,36 +186,53 @@ class Trainer:
 
     def _make_step(self):
         if self.mesh is not None:
-            from ..parallel.sharded import make_sharded_train_step
-
-            return make_sharded_train_step(self.scene, self.cfg, self.mesh, *self.crop_hw,
-                                           self.lpips_params, spatial_lr_scale=self.extent)
-        self._train_step = make_train_step(
-            self.scene, self.cfg, self._raster_fn(self._max_tiles), self.lpips_params,
-            *self.crop_hw, spatial_lr_scale=self.extent, device=self.device)[1]
+            # before the first install the bands bin on the per-frame list
+            init_fn, self._train_step = make_sharded_train_step(
+                self.scene, self.cfg, self.mesh, *self.crop_hw, self.lpips_params,
+                spatial_lr_scale=self.extent, pair_budget=self._pair_budget,
+                max_tiles=self._max_tiles if self._installed else 0)
+        else:
+            init_fn, self._train_step = make_train_step(
+                self.scene, self.cfg, self._raster_fn(self._max_tiles), self.lpips_params,
+                *self.crop_hw, spatial_lr_scale=self.extent, device=self.device)
         self._train_step.tables = self._tables  # a step rebuilt mid-run keeps the run's
-        return self._train_step.init, self._train_step
+        return init_fn, self._train_step
 
     @property
     def _eval_raster(self):
-        # eval, the viewer and render_eval render cameras no probe saw: a rect
-        # cap lowered below the configured one must not clip them
-        return self._raster_fn(max(self.cfg.pipe.max_tiles_per_gaussian, self._max_tiles))
+        """The rasterize_fn of evaluate, render_eval and the viewer: the train
+        budgets on one card, the full-image eval budgets with a mesh. They
+        render cameras no probe saw: a rect cap lowered below the configured
+        one must not clip them."""
+        B0 = self.cfg.pipe.max_tiles_per_gaussian
+        if self.mesh is None:
+            return self._raster_fn(max(B0, self._max_tiles))
+        if not self._eval_installed:
+            return None
+        return functools.partial(rasterize_cuda, pair_budget=self._eval_pair,
+                                 max_tiles_per_gaussian=max(B0, self._eval_max_tiles))
 
     # ---- the static budgets ---------------------------------------------------
 
-    def _num_tiles(self) -> int:
+    def _budget_shape(self, full_image: bool = False):
+        """(height, width) the budgets are sized for: a band's with a mesh,
+        the full frame's without one or with full_image (the eval budgets)."""
         cam = self.train_frames[0].camera
-        return -(-cam.height // TILE) * -(-cam.width // TILE)
+        n_tile = 1 if self.mesh is None or full_image else self.mesh.n_tile
+        return cam.height // n_tile, cam.width
 
-    def _default_pair_budget(self, max_tiles: int) -> int:
-        cam = self.train_frames[0].camera
-        return binning.default_pair_budget(self.cfg.model.capacity, cam.height, cam.width,
-                                           TILE, TILE, max_tiles)
+    def _num_tiles(self, full_image: bool = False) -> int:
+        h, w = self._budget_shape(full_image)
+        return -(-h // TILE) * -(-w // TILE)
 
-    def _capacity_of(self, pair_budget: int, max_tiles: int) -> int:
+    def _default_pair_budget(self, max_tiles: int, full_image: bool = False) -> int:
+        h, w = self._budget_shape(full_image)
+        return binning.default_pair_budget(self.cfg.model.capacity, h, w, TILE, TILE, max_tiles)
+
+    def _capacity_of(self, pair_budget: int, max_tiles: int, full_image: bool = False) -> int:
         """The NPb that pair_budget (0: the default) gives at rect cap max_tiles."""
-        return binning.npb(self.cfg.model.capacity, pair_budget, self._num_tiles(), max_tiles)
+        return binning.npb(self.cfg.model.capacity, pair_budget, self._num_tiles(full_image),
+                           max_tiles)
 
     def _probe_frames(self) -> List[Frame]:
         """Up to 8 train frames spread evenly over the split (moss_tpu's sample)."""
@@ -220,7 +243,8 @@ class Trainer:
         return [self.train_frames[i] for i in idx]
 
     @torch.no_grad()
-    def _probe_pair_need(self, frames: List[Frame], max_tiles: int) -> np.ndarray:
+    def _probe_pair_need(self, frames: List[Frame], max_tiles: int,
+                         n_tile: Optional[int] = None) -> np.ndarray:
         """(2,) int64 [live pairs, largest rect] over `frames` under the current
         cloud, through the whole deform chain (binning.measure_pair_need, so
         nothing is cut), with OPACITY-BLIND extents: each splat's box at
@@ -228,7 +252,12 @@ class Trainer:
         trainer.py:218-240). Opacities train, and an init cloud at 0.1 probes
         boxes about 1.8x smaller in pairs than the same splats at 0.9; the
         blind boxes bound every opacity the optimizer can reach, while the
-        render stays adaptive. One host read for all the frames."""
+        render stays adaptive. With n_tile bands (default the mesh's, else 1)
+        each band is measured at its H / n_tile rows, mean2d shifted by its
+        first row, and the elementwise max over the bands is taken (moss_tpu's
+        _probe_slot_need(n_tile=...)). One host read for all the frames."""
+        if n_tile is None:
+            n_tile = 1 if self.mesh is None else self.mesh.n_tile
         needs = []
 
         def measure(proj, bg, h, w):
@@ -237,10 +266,13 @@ class Trainer:
             cov_diag = torch.stack([c[:, 2] / det, c[:, 0] / det], -1)
             ext = torch.ceil(3.4 * torch.sqrt(torch.clamp_min(cov_diag, 0.0)))
             blind_xy = torch.minimum(ext, proj.radius[:, None].to(ext.dtype)).to(torch.int32)
-            m = binning.measure_pair_need(proj.mean2d, proj.conic, torch.ones_like(proj.opacity),
-                                          proj.depth, proj.radius, blind_xy, proj.valid, h, w,
-                                          TILE, TILE, max_tiles)
-            needs.append(torch.stack([m["total_live"], m["max_rect"]]))
+            hb = h // n_tile
+            for b in range(n_tile):
+                m = binning.measure_pair_need(
+                    proj.mean2d - band_shift(b * hb, proj.mean2d.device), proj.conic,
+                    torch.ones_like(proj.opacity), proj.depth, proj.radius, blind_xy, proj.valid,
+                    hb, w, TILE, TILE, max_tiles)
+                needs.append(torch.stack([m["total_live"], m["max_rect"]]))
             z = torch.zeros((h, w), device=bg.device)
             return {"color": torch.zeros((h, w, 3), device=bg.device), "depth": z, "alpha": z,
                     "final_T": z}
@@ -254,19 +286,26 @@ class Trainer:
         return torch.stack(needs).amax(0).cpu().numpy().astype(np.int64)
 
     def _resize_pair_buffer(self, full: bool = False, grow_from: int = 0):
+        """Probe and grow the train budgets and, with a mesh, the full-image
+        eval budgets (moss_tpu's _resize_pair_buffer)."""
+        self._resize_train_budgets(full, grow_from)
+        if self.mesh is not None:
+            self._resize_eval_budgets(full)
+
+    def _resize_train_budgets(self, full: bool = False, grow_from: int = 0):
         """moss_tpu's _resize_train_budgets without the slot budget: probe the
-        cloud's need and grow the pair budget and the rect cap with 2x
-        headroom before the densify window and 1.5x after, bucket-quantized,
-        never shrinking; the step is rebuilt only when one grows (or at the
-        first install). At the first probe only, a rect cap above 1.25x the
-        largest rect is lowered to it (at least 8): the key sort runs over
-        P x B entries. A rect larger than the cap raises it to the next power
-        of two (at most 1024 and the tile count) and probes again. With
-        grow_from (the capacity that dropped pairs; full re-probes every train
-        frame) the pair budget ends past grow_from by 1, 2, 4, 8, 16 buckets
-        at consecutive heals, at most the whole P x B table; when nothing can
-        grow, _overflow_persists is set for the caller's snapshot."""
-        if not self._autosize or not self.train_frames:
+        cloud's need (per band with a mesh) and grow the pair budget and the
+        rect cap with 2x headroom before the densify window and 1.5x after,
+        bucket-quantized, never shrinking; the step is rebuilt only when one
+        grows (or at the first install). At the first probe only, a rect cap
+        above 1.25x the largest rect is lowered to it (at least 8): the key
+        sort runs over P x B entries. A rect larger than the cap raises it to
+        the next power of two (at most 1024 and the tile count) and probes
+        again. With grow_from (the capacity that dropped pairs; full re-probes
+        every train frame) the pair budget ends past grow_from by 1, 2, 4, 8,
+        16 buckets at consecutive heals, at most the whole P x B table; when
+        nothing can grow, _overflow_persists is set for the caller's snapshot."""
+        if not self.train_frames:
             return
         first_probe = not self._init_probe_done
         self._init_probe_done = True
@@ -316,6 +355,45 @@ class Trainer:
             return
         self._install_budgets(pair_budget, max_tiles)
 
+    def _resize_eval_budgets(self, full: bool = False, grow_from: int = 0):
+        """A mesh's full-image budgets for evaluate, render_eval and the viewer
+        (moss_tpu's _resize_eval_budgets without the slot budget): the train
+        budgets' policy on the full frame's need at 2x headroom (eval views
+        are unprobed cameras), with no rect-cap lowering and no snapshot
+        signal; grow_from (the eval capacity that dropped pairs) as there."""
+        if self.mesh is None or not self.train_frames:
+            return
+        probe = self.train_frames if full else self._probe_frames()
+        B = self._eval_max_tiles
+        live, max_rect = (int(v) for v in self._probe_pair_need(probe, B, n_tile=1))
+        if max_rect > B:
+            b_cap = min(1024, self._num_tiles(full_image=True))
+            B = min(max(1 << int(np.ceil(np.log2(max_rect))), B), b_cap)
+            live, max_rect = (int(v) for v in self._probe_pair_need(probe, B, n_tile=1))
+        bucket = (32768 if self._default_pair_budget(self._eval_max_tiles, full_image=True)
+                  >= 4 * 32768 else 2048)
+        max_tiles = max(B, self._eval_max_tiles)
+        target = max(-(-int(live * 2.0) // bucket) * bucket, self._eval_pair)
+        pair_budget = (0 if target <= self._default_pair_budget(max_tiles, full_image=True)
+                       else target)
+        if grow_from:
+            max_tiles = max(max_tiles, self.cfg.pipe.max_tiles_per_gaussian)
+            self._eval_heal_events += 1
+            step = bucket * (1 << min(self._eval_heal_events - 1, 4))
+            hard = self.cfg.model.capacity * max_tiles
+            grown = min(max(self._capacity_of(pair_budget, max_tiles, full_image=True),
+                            grow_from + step), hard)
+            cur = self._capacity_of(self._eval_pair, self._eval_max_tiles, full_image=True)
+            if grown <= cur and max_tiles == self._eval_max_tiles:
+                print(f"[trainer] eval overflow persists at the largest pair budget {cur}: "
+                      "eval budgets unchanged")
+                return
+            pair_budget = grown
+        elif self._eval_installed and pair_budget == self._eval_pair and \
+                max_tiles == self._eval_max_tiles:
+            return
+        self._install_eval_budgets(pair_budget, max_tiles)
+
     def _install_budgets(self, pair_budget: int = 0, max_tiles: int = 16):
         """Rebuild the step with the budgets (pair_budget 0: the default NPb)."""
         self._pair_budget, self._max_tiles = pair_budget, max_tiles
@@ -323,31 +401,46 @@ class Trainer:
         _, self.step_fn = self._make_step()
         self._budget_version += 1
 
+    def _install_eval_budgets(self, pair_budget: int = 0, max_tiles: int = 16):
+        """A mesh's full-image eval budgets (_eval_raster reads them)."""
+        self._eval_pair, self._eval_max_tiles = pair_budget, max_tiles
+        self._eval_installed = True
+        self._budget_version += 1
+
     def _reset_budget_state(self):
         """Forget the probe and heal history: the next _resize_pair_buffer
         probes the current cloud from scratch (moss_tpu's, trainer.py:1347)."""
-        self._pair_budget = 0
-        self._max_tiles = self.cfg.pipe.max_tiles_per_gaussian
+        self._pair_budget = self._eval_pair = 0
+        self._max_tiles = self._eval_max_tiles = self.cfg.pipe.max_tiles_per_gaussian
         self._init_probe_done = False
-        self._heal_events = 0
+        self._heal_events = self._eval_heal_events = 0
         self._overflow_persists = False
 
     def _reprobe_from_scratch(self):
         """After a new cloud (load, set_state, compact_for_eval): probe afresh
         and install unconditionally, so no budget of the old cloud survives."""
-        if not self._autosize:
-            return
         self._reset_budget_state()
         self._resize_pair_buffer()
         self._install_budgets(self._pair_budget, self._max_tiles)
+        if self.mesh is not None:
+            self._install_eval_budgets(self._eval_pair, self._eval_max_tiles)
 
     @property
     def budgets(self) -> Dict:
         """The installed budgets: pair_budget (0: the default), the capacity
-        NPb it gives, max_tiles (the rect cap), and how many were installed."""
+        NPb it gives (a band's with a mesh), max_tiles (the rect cap), how many
+        times a set was installed, and under "eval" what _eval_raster renders
+        the full image with (a mesh's eval budgets, else the train ones)."""
+        if self.mesh is None:
+            ev = (self._installed, self._pair_budget, self._max_tiles)
+        else:
+            ev = (self._eval_installed, self._eval_pair, self._eval_max_tiles)
+        B = max(self.cfg.pipe.max_tiles_per_gaussian, ev[2])
         return {"pair_budget": self._pair_budget, "max_tiles": self._max_tiles,
                 "npb": self._capacity_of(self._pair_budget, self._max_tiles)
-                if self._installed else None, "installs": self._budget_version}
+                if self._installed else None, "installs": self._budget_version,
+                "eval": {"pair_budget": ev[1], "max_tiles": B,
+                         "npb": self._capacity_of(ev[1], B, full_image=True) if ev[0] else None}}
 
     def set_state(self, ts: TrainState):
         """Replace the train state (a converted moss_tpu state, a checkpoint);
@@ -509,17 +602,15 @@ class Trainer:
         iteration i's pre-step state, ckpt_fn(i) at the eval iterations on
         its post-step state. dispatch_engine: "queued", "scan" or "eager"
         (module docstring); fused_dispatch=False is "eager", as in moss_tpu.
-        With a mesh only "eager" runs: another engine raises
-        NotImplementedError. Returns metrics_history."""
+        With a mesh "scan" runs "queued". Returns metrics_history."""
         cfg = self.cfg
         if not fused_dispatch:
             dispatch_engine = "eager"
         if dispatch_engine not in ENGINES:
             raise ValueError(f"dispatch_engine must be one of {ENGINES}, got {dispatch_engine!r}")
-        if self.mesh is not None and dispatch_engine != "eager":
-            raise NotImplementedError(
-                f"dispatch_engine={dispatch_engine!r} with a mesh: the mesh engines with per-band "
-                "budgets are ROADMAP Q1's next item; pass dispatch_engine='eager'")
+        if dispatch_engine == "scan" and self.mesh is not None:
+            print(SCAN_ON_A_MESH)
+            dispatch_engine = "queued"
         iters = iterations or cfg.optim.iterations
         start = int(self.ts.step)
         if start >= iters:
@@ -581,7 +672,7 @@ class Trainer:
                 self.reset_opacity()
             if fire_log_fn and self.log_fn is not None and logs is not None:
                 self.log_fn(it, logs)
-            if self._autosize and logs is not None and logs.get("raster_overflow", 0) > 0:
+            if logs is not None and logs.get("raster_overflow", 0) > 0:
                 # the self-heal: re-probe every frame, grow past the budget that dropped
                 cur = self._capacity_of(self._pair_budget, self._max_tiles)
                 print(f"[trainer] raster_overflow={logs['raster_overflow']} at iter {it} under "
@@ -600,15 +691,6 @@ class Trainer:
 
         if start in eval_at or start in save_at:
             fire_eval_save(start)
-        if self.mesh is not None:
-            for it in range(start + 1, iters + 1):
-                deg = active_sh_degree(it, cfg.model.sh_degree)
-                self.ts, logs = self.step_fn(self.ts, self.train_frames,
-                                             order[(it - 1) * n_data:it * n_data], deg, feats)
-                logs = _to_host(logs)  # every step, as before the engines
-                check_finite([logs], it)
-                host_work(it, logs)
-            return self.metrics_history
 
         # the engines: one device-state step, staged frames and order
         tables = optim.step_tables(cfg.optim, cfg.model.white_background,
@@ -619,14 +701,17 @@ class Trainer:
         order_dev = torch.tensor(order, dtype=torch.int64, device=self.device)
         dev = device_state(self.ts)
         counters = (dev.step, {g: s.count for g, s in dev.opt_state.items()})
-        if self._many is None:
+        if self.mesh is None and self._many is None:
             self._many = make_train_many(self.step_fn, cfg.model.sh_degree, per_step_logs=True)
 
         def run(first, last, graph):
             """Steps first..last on the device; the host state follows."""
-            self._many.step_fn, self._many.graph = self.step_fn, graph
             ts = device_state(self.ts, *counters)
-            _, logs = self._many(ts, frames, order_dev[first - 1:last], stacked)
+            if self.mesh is None:
+                self._many.step_fn, self._many.graph = self.step_fn, graph
+                _, logs = self._many(ts, frames, order_dev[first - 1:last], stacked)
+            else:
+                logs = self._mesh_steps(ts, frames, order_dev, stacked, first, last)
             self.ts = TrainState(self.ts.params,
                                  optim.advance_counts(self.ts.opt_state, tables, first, last),
                                  self.ts.gstate, last)
@@ -663,6 +748,21 @@ class Trainer:
             host_work(bound, logs, fire_log_fn=False)
             prev = bound
         return self.metrics_history
+
+    def _mesh_steps(self, ts: TrainState, frames: Frame, order, stacked, first: int,
+                    last: int) -> Dict:
+        """Mesh steps first..last of a device_state ts, each launched with no
+        host read: step it trains on order[(it - 1) n_data : it n_data], its
+        SH degree from the device step count. The logs as make_train_many's
+        per-step logs, a dict of (K,) tensors."""
+        n = self.mesh.n_data
+        rows = []
+        for it in range(first, last + 1):
+            deg = active_sh_degree(ts.step + 1, self.cfg.model.sh_degree)
+            _, logs = self.step_fn(ts, frames, order[(it - 1) * n:it * n], deg, stacked)
+            rows.append(logs)
+        return {k: torch.stack([torch.as_tensor(r[k]).reshape(()) for r in rows])
+                for k in rows[0]}
 
     def _segment_guard(self):
         """torch.cuda's sync debug mode set to segment_sync_mode for a segment
@@ -772,9 +872,10 @@ class Trainer:
         full image, the render and ground truth clipped to [0, 1]; SH at the
         degree of iteration sh_it (default ts.step). raster_overflow is the
         pairs the installed budgets dropped, summed over the frames; when it
-        is above 0 the budgets are regrown (the train path's self-heal) and,
-        if one grew, the eval runs once more and reports the first count as
-        raster_overflow_healed_from (moss_tpu's evaluate). With tb_step and a TBWriter:
+        is above 0 the budgets are regrown (the train path's self-heal; with a
+        mesh the eval budgets) and, if one grew, the eval runs once more and
+        reports the first count as raster_overflow_healed_from (moss_tpu's
+        evaluate, its trainer.py:1302-1330). With tb_step and a TBWriter:
         the first five renders, their ground truth at the first such eval,
         the live opacities' histogram and the live count (moss_tpu's dump,
         the reference's training_report, train_ZJU.py:249-263)."""
@@ -812,13 +913,18 @@ class Trainer:
             sums = [s + v for s, v in zip(sums, row)]
         out = {"psnr": sums[0] / n, "ssim": sums[1] / n, "lpips": sums[2] / n,
                "raster_overflow": int(sums[3])}
-        if out["raster_overflow"] > 0 and self._autosize and self.train_frames and \
-                not _healed_retry:
+        if out["raster_overflow"] > 0 and self.train_frames and not _healed_retry:
             before = self._budget_version
-            cur = self._capacity_of(self._pair_budget, self._max_tiles)
-            print(f"[trainer] eval raster_overflow={out['raster_overflow']} under pair budget "
-                  f"{cur}: re-probing and regrowing")
-            self._resize_pair_buffer(full=True, grow_from=cur)
+            if self.mesh is None:
+                cur = self._capacity_of(self._pair_budget, self._max_tiles)
+                print(f"[trainer] eval raster_overflow={out['raster_overflow']} under pair "
+                      f"budget {cur}: re-probing and regrowing")
+                self._resize_pair_buffer(full=True, grow_from=cur)
+            else:
+                cur = self._capacity_of(self._eval_pair, self._eval_max_tiles, full_image=True)
+                print(f"[trainer] eval raster_overflow={out['raster_overflow']} under eval pair "
+                      f"budget {cur}: regrowing the eval budgets")
+                self._resize_eval_budgets(full=True, grow_from=cur)
             self._overflow_persists = False  # the train boundary's snapshot signal
             if self._budget_version != before:
                 retried = self.evaluate(frames=frames, tb_step=tb_step, sh_it=sh_it,
@@ -829,11 +935,3 @@ class Trainer:
         out["lpips_backbone"] = self.lpips_backbone
         return out
 
-
-def _to_host(logs: Dict) -> Dict:
-    """A step's 0-d log tensors as Python numbers, in one transfer."""
-    keys = list(logs)
-    vals = torch.stack([torch.as_tensor(logs[k]).to(torch.float64).reshape(())
-                        for k in keys]).tolist()
-    return {k: (int(v) if not torch.is_floating_point(torch.as_tensor(logs[k])) else v)
-            for k, v in zip(keys, vals)}

@@ -7,8 +7,10 @@ tests/test_readers.py's ZJU fixture (60 frames: 12 train, 8 test), then
 moss_torch.cli.render_zju renders the test split with --iterations -1:
 the artifacts (chkpnt20.npz, point_cloud.ply and the reference layout,
 cfg.json, cameras.json, the result lines with the random-backbone note),
-the render's JSON line and its smpl_rot cache; then a render from the
-reference layout alone, with LPIPS weights passed by --lpips_weights.
+the render's JSON line with raster_overflow 0, its served frames through
+the installed pair budgets bitwise the per-frame list's, and its smpl_rot
+cache; then a render from the reference layout alone, with LPIPS weights
+passed by --lpips_weights.
 
 moss_torch.cli.train_monocap (the counterpart of train_monocap.py) trains 10
 iterations on tests/test_torch_readers.py's MonoCap fixture at its full
@@ -38,7 +40,7 @@ def last_json(out):
     return json.loads([line for line in out.splitlines() if line.startswith("{")][-1])
 
 
-def test_train_then_render_cli(tmp_path, capsys):
+def test_train_then_render_cli(tmp_path, capsys, monkeypatch):
     data_root, out = tmp_path / "zju", tmp_path / "out"
     result_file = tmp_path / "result" / "ZJU.txt"
     _write_zju_fixture(str(data_root / "my_377"), n_frames=60)
@@ -62,9 +64,30 @@ def test_train_then_render_cli(tmp_path, capsys):
     assert ts.step == 20 and ts.params["gauss"].capacity == 512
     capsys.readouterr()
 
+    # every cached render goes through the installed budgets; each is held
+    # to the same render on the per-frame pair list, bit for bit
+    served = []
+
+    def spy(*a, **kw):
+        out = render_frame(*a, **kw)
+        if kw.get("cached_transforms") is not None:
+            ref = render_frame(*a, **{**kw, "rasterize_fn": None})
+            served.append((kw["rasterize_fn"], out, ref))
+        return out
+
+    render_frame = render_zju.render_frame
+    monkeypatch.setattr(render_zju, "render_frame", spy)
     render_zju.main(["--data_root", str(data_root), "--subjects", "377", "--iterations", "-1",
                      "--output", str(out), "--device", "cpu"])
+    monkeypatch.undo()
     result = last_json(capsys.readouterr().out)
+    assert len(served) == 1 + 8  # the warm-up and the eight test frames
+    for raster, out_b, ref in served:
+        assert raster.keywords["max_tiles_per_gaussian"] >= 16
+        assert int(out_b["overflow"]) == 0
+        for k in ("render", "render_alpha", "render_depth", "final_T"):
+            assert torch.equal(out_b[k], ref[k]), k
+    assert result["raster_overflow"] == 0
     assert result["subject"] == "377" and result["iteration"] == 20
     assert result["fps"] > 0 and np.isfinite(result["psnr"]) and result["psnr"] > 5
     assert result["lpips_backbone"] == "random" and result["lpips_note"] == lpips.RANDOM_NOTE
@@ -126,7 +149,7 @@ def test_train_monocap_then_render_novel_views(tmp_path, capsys):
                      "--device", "cpu"])
     result = last_json(capsys.readouterr().out)
     assert result["subject"] == seq and result["iteration"] == 10 and result["fps"] > 0
-    assert result["novel_views"] == 17 * 4
+    assert result["novel_views"] == 17 * 4 and result["raster_overflow"] == 0
     img_dir = model_path / "renders" / "novel_view_iteration_10"
     assert result["img_dir"] == str(img_dir)
     assert len(list(img_dir.glob("*.png"))) == 17 * 4

@@ -15,7 +15,7 @@ train_step.make_train_many) on the CPU, the counterparts of moss_tpu's tests:
     test_scan_overflow_self_heals), and the failure snapshot when it cannot grow;
   * load re-probes the budgets from scratch (test_load_reprobes_budgets_from_scratch);
   * the rect cap is lowered on the first probe only (test_rect_cap_lowering_only_on_first_probe);
-  * a mesh with an engine other than eager raises;
+  * a mesh runs queued, and scan as queued with moss_tpu's line;
   * the device-table AdamW bitwise the host one, with skips;
   * a queued run with budgets that never bind against moss_tpu's queued run,
     within tests/test_torch_trainer.py::test_run_matches_moss_tpu's tolerances.
@@ -45,7 +45,8 @@ from moss_torch.train import densify as D
 from moss_torch.train import optim
 from moss_torch.train.train_step import (active_sh_degree, device_state, make_train_many,
                                          stage_frames)
-from moss_torch.train.trainer import Trainer
+from moss_torch.parallel.distributed import Mesh
+from moss_torch.train.trainer import SCAN_ON_A_MESH, Trainer
 from test_torch_densify import jax_densify_noise
 from test_torch_trainer import jax_pca_normals
 from _torch_threads import two_torch_threads  # noqa: F401
@@ -271,13 +272,26 @@ def test_rect_cap_lowering_only_on_first_probe():
 
 
 @pytest.mark.parametrize("engine", ["queued", "scan"])
-def test_a_mesh_runs_eager_only(engine):
-    tr = port_trainer(iterations=4)
-    tr.mesh = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP Q1"):
-        tr.train(4, eval_iters=[], dispatch_engine=engine)
+def test_a_mesh_runs_queued(engine, capsys):
+    """On a 1 x 1 mesh both run the queued engine (log_fn sees every
+    iteration, eager only every tenth), scan after moss_tpu's line, and end
+    where the single-card queued run ends, bit for bit."""
+    runs = {}
+    for mesh in (None, Mesh(1, 1, 0, 0, 0, None, None, torch.device(CPU))):
+        logged = []
+        tr = port_trainer(iterations=4, log_fn=lambda it, lg, logged=logged: logged.append(it))
+        if mesh is not None:
+            tr = Trainer(tr.scene, tr.train_frames, tr.test_frames, tr.cfg, tr.lpips_params,
+                         crop_hw=tr.crop_hw, log_fn=tr.log_fn, mesh=mesh, device=CPU)
+        capsys.readouterr()
+        tr.train(4, eval_iters=[], dispatch_engine=engine if mesh is not None else "queued")
+        assert logged == [1, 2, 3, 4]
+        assert (SCAN_ON_A_MESH in capsys.readouterr().out) == (mesh is not None and
+                                                               engine == "scan")
+        runs[mesh is None] = tr
+    assert_same_state(runs[False].ts, runs[True].ts)
     with pytest.raises(ValueError, match="dispatch_engine"):
-        tr.train(4, eval_iters=[], dispatch_engine="fast")
+        runs[False].train(4, eval_iters=[], dispatch_engine="fast")
 
 
 def test_device_adamw_is_the_host_adamw():
