@@ -55,7 +55,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              1 and the last above the one right after the reset (31), the
              blend kernels and the segment sum launched once per step and eval
              frame (counts set to 0 just before the run and read just after);
-             a second run bitwise equal in params, valid, moments and metrics;
+             one run (phase 7b runs the schedule three times, bitwise equal);
              ms per iteration outside densify rounds, per round, per eval frame
  7b. engines  the trainer's dispatch engines (train/trainer.py): phase 7's
              scene, frames, crop, loss and schedule once per engine (eager,
@@ -182,7 +182,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              scene (the MLPs on), 46,080 capacity, the autosized crop, evals at
              MONOCAP_EVALS, a TBWriter where tensorboardX imports, and five
              steps under observability.profile_trace, whose trace must name
-             both blend kernels
+             both blend kernels; one trainer run, not two (phase 16b holds
+             the Trainer's runs bitwise)
+ 16b. drivers  the users' main path from disk: a ZJU-MoCap-Refine subject
+             (my_377 in the reader's layout: 1024x1024 JPEGs and PNG masks of
+             the 12 train and 8 test frames, the 6,890-vertex synthetic rig
+             posed per frame) and a MonoCap sequence (olek_images0812: 117
+             frames at 1024x1024, soft masks) written with cv2 and
+             readers.imwrite, every file read back through readers.imread
+             (PNGs the array encoded, JPEGs cv2's decode of the bytes); then
+             each driver's main() in this process with no --device: train_zju
+             at 512x512 (the reader's 0.5 scale), 46,080 capacity, 6,890
+             initial points, the autosized crop, DRIVER_ITERS iterations with
+             evals and saves at DRIVER_CHECKS under queued and under scan
+             (bitwise the same chkpnt60), --resume from the queued run's
+             chkpnt30 (bitwise its chkpnt60), render_zju --save_images (every
+             served frame bitwise the per-frame list's, overflow 0, the PNGs
+             the served frames), render_zju --rasterizer reference (the plain
+             blend: no kernel launched, every frame within the image rule of
+             the kernels', the PSNR within DRIVER_PSNR_ATOL dB), render_zju
+             --novel_view, train_zju --rasterizer reference for 2 iterations
+             (the first step's losses within DRIVER_LOSS_RTOL of the kernel
+             run's; no blend kernel launched), train_monocap at 1024x1024
+             then render_monocap; the files each wrote loaded back; per call
+             the kernels' launches (set to 0 just before, read just after),
+             wall seconds, ms an iteration outside evals, saves and budget
+             probes, and ms a served frame (1000 / the driver's fps); and
+             Trainer(rasterizer="reference") under queued (segments under the
+             sync debug mode "error") and scan (a CUDA graph of the plain
+             blend), bitwise equal
  17. tool_sort  moss_torch.tools.sort_micro, counted, which holds the two
              sort-pass kernels to their plain versions, exactly, at every
              stride of a 2^19-key network and times both at each stride at R
@@ -230,6 +258,7 @@ Needs a CUDA device and nvcc; builds into build/moss_torch/.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -239,6 +268,7 @@ import hashlib
 import json
 import math
 import os
+import pickle
 import shutil
 import socket
 import subprocess
@@ -1218,9 +1248,10 @@ def clocked_steps(clocked):
 
 
 def phase_trainer(dev, H=HW, n_verts=N_VERTS, ckpt_dir=CKPT_DIR):
-    """The trainer path end to end, twice; returns the kernels' launches in
-    the first run, its rounds' cuts and (trainer, scene, frames, LPIPS
-    params) of that run, which also wrote chkpnt{RESUME_AT}.npz to ckpt_dir."""
+    """The trainer path end to end, once (the engines phase runs its schedule
+    three times, bitwise equal); returns the kernels' launches in the run,
+    its rounds' cuts and (trainer, scene, frames, LPIPS params) of that run,
+    which also wrote chkpnt{RESUME_AT}.npz to ckpt_dir."""
     scene = make_scene(n_verts=n_verts, device=dev)
     frames, _ = make_frames(scene, n_frames=TRAIN_FRAMES + 1, H=H, W=H, crop=CROP,
                             opacity=TARGET_OPACITY)
@@ -1244,20 +1275,6 @@ def phase_trainer(dev, H=HW, n_verts=N_VERTS, ckpt_dir=CKPT_DIR):
     if len(rounds) != 4 or sum(r["cloned"] + r["split"] for r in rounds) == 0:
         raise AssertionError(f"the rounds: {rounds}")
 
-    again, _, _, _ = trainer_run(dev, scene, frames, lp)
-    a, b = tr.ts, again.ts
-    same = {"valid": torch.equal(a.gstate.valid, b.gstate.valid),
-            **{f: torch.equal(getattr(a.params["gauss"], f), getattr(b.params["gauss"], f))
-               for f in G.FIELDS},
-            **{f"{g}.{m}.{n}": torch.equal(getattr(a.opt_state[g], m)[n],
-                                          getattr(b.opt_state[g], m)[n])
-               for g in a.opt_state for m in ("mu", "nu") for n in a.opt_state[g].mu},
-            "mlps": all(torch.equal(x, y) for k in ("pose", "lbs") for x, y in zip(
-                a.params["mlps"][k].parameters(), b.params["mlps"][k].parameters())),
-            "metrics_history": [{k: v for k, v in m.items() if k != "elapsed_s"} for m in hist]
-            == [{k: v for k, v in m.items() if k != "elapsed_s"} for m in again.metrics_history]}
-    if not all(same.values()):
-        raise AssertionError(f"two trainer runs differ: {[k for k, v in same.items() if not v]}")
     steps = np.array(times["step"])
     outside = [t for i, t in enumerate(steps, 1) if i not in {r["round"] for r in rounds}]
     counts = [r["live"] for r in rounds]
@@ -1273,7 +1290,7 @@ def phase_trainer(dev, H=HW, n_verts=N_VERTS, ckpt_dir=CKPT_DIR):
           "live_after_rounds": counts, "rounds": rounds, "metrics_history": hist,
           "s_to_best_pre_reset_eval": max((m for m in hist if m["iteration"] <= 30),
                                           key=lambda m: m["psnr"])["elapsed_s"],
-          "launches": launches, "bitwise_repeat": True,
+          "launches": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return launches, cuts, (tr, scene, frames, lp)
 
@@ -2139,7 +2156,7 @@ def counted(fn):
 
 
 def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, steps=5, warmup=2,
-                       tb=None, trace_dir=None):
+                       tb=None, trace_dir=None, repeat=True):
     """A scene family's main path at full width: the Trainer over
     SLICE_TRAINER (two rounds, one opacity reset, evals at the config's
     test_iterations), a second run bitwise equal; training steps timed and
@@ -2148,7 +2165,8 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
     projected input. A body without pose MLPs has zero Fisher fields, which
     must come out zero. tb: the first run's TBWriter. trace_dir: five more
     steps under observability.profile_trace there, whose trace must name
-    both blend kernels. Returns ({path: launches}, the rows)."""
+    both blend kernels. repeat=False skips the second run (the steps then
+    continue from the first's state). Returns ({path: launches}, the rows)."""
     H, W = frames[0].camera.height, frames[0].camera.width
     model = cfg.model
     evals = tuple(cfg.pipe.test_iterations)
@@ -2184,8 +2202,9 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
         return tr, rounds, times
 
     # the Fisher fields of a body's rounds: at J=55 with no pose MLPs, SVDs
-    # (cuSOLVER) of 23 zero matrices weighted by zero LBS sums, which must
-    # come out zero and finite
+    # (densify.fisher_fields' torch.linalg.svd, cuSOLVER; the step's Fisher
+    # loss runs its SVDs on csrc/svd3.cu) of 23 zero matrices weighted by zero
+    # LBS sums, which must come out zero and finite
     fields, fisher = [], D.fisher_fields
     D.fisher_fields = lambda gs: fields.append(fisher(gs)) or fields[-1]
     try:
@@ -2211,7 +2230,7 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
     if [r["round"] for r in rounds] != [20, 30] or sum(r["cloned"] + r["split"]
                                                        for r in rounds) == 0:
         raise AssertionError(f"{name}: the rounds {rounds}")
-    again, _, _ = run(False)
+    again = run(False)[0] if repeat else tr
     a, b = tr.ts, again.ts
     same = {"valid": torch.equal(a.gstate.valid, b.gstate.valid),
             **{f: torch.equal(getattr(a.params["gauss"], f), getattr(b.params["gauss"], f))
@@ -2313,7 +2332,7 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
           "step_ms_trainer": times["step"], "ms_per_densify_round": times["densify"],
           "eval_ms": times["eval"], "live_after_rounds": [r["live"] for r in rounds],
           "rounds": rounds, "fisher_fields_max_abs": fisher_max, "metrics_history": hist,
-          "bitwise_repeat": True,
+          "bitwise_repeat": repeat,
           "ms_per_step": float(np.median(step_ms[warmup:])), "step_ms": step_ms,
           "profile_step": profile, "profile_trace": trace, "served_ms_per_frame": serve_ms,
           "max_abs_err_served": err_served, "launches": launches,
@@ -2807,9 +2826,12 @@ def phase_monocap(dev, smi):
     tb_on = tb.writer is not None
     print(f"monocap: {MONOCAP_HW}x{MONOCAP_HW}, crop {crop}; tensorboardX "
           f"{'imports: TBWriter on' if tb_on else 'does not import: TBWriter off'}", flush=True)
+    # no second run: the drivers phase trains MonoCap's 1024x1024 frames from
+    # disk, and holds the Trainer's runs bitwise there (scan against queued,
+    # a resume against the uninterrupted run)
     out = phase_scene_family("monocap", dev, scene, frames, cfg,
                              lpips.init_random(3407, device=dev), crop, 1.0, smi, tb=tb,
-                             trace_dir=os.path.join(BUILD, "monocap_trace"))
+                             trace_dir=os.path.join(BUILD, "monocap_trace"), repeat=False)
     tb.close()
     events = glob.glob(os.path.join(logdir, "events.out.tfevents.*"))
     if tb_on and not events:
@@ -3718,6 +3740,535 @@ def phase_tool_mxu(dev):
     return kernels, {k[0]: launches[k[1]] for k in MXU_KERNELS}, stage_launches
 
 
+# ---- the users' drivers, from disk ----------------------------------------------
+
+DRIVERS_DIR = os.path.join(BUILD, "drivers")
+DRIVER_RAW = 1024      # ZJU-MoCap's published frame; the reader scales it by 0.5 to 512
+DRIVER_ZJU_FRAMES = 60  # -> 12 train frames (view 4, stride 5), 8 test (2 poses x 4 views)
+DRIVER_ITERS = 60
+DRIVER_CHECKS = (30, 60)
+DRIVER_NOVEL_VIEWS = 4
+DRIVER_MONOCAP_SEQ = "olek_images0812"  # soft masks, multiplied in (readers.read_monocap)
+DRIVER_MONOCAP_ITERS = 40
+DRIVER_REFERENCE_ITERS = 2
+DRIVER_LOSS_RTOL = 1e-4
+DRIVER_PSNR_ATOL = 1e-3
+DRIVER_ENGINE_HW = 128   # the plain blend under the engines, at a small size
+DRIVER_KERNELS = ("rasterize_fwd", "rasterize_bwd", "segment_sum", "svd3")
+
+
+def smooth_image(rng, H, W):
+    """A seeded uint8 RGB frame: a coarse random field resized up, with noise."""
+    coarse = (rng.random((12, 12, 3)) * 200 + 20).astype(np.float32)
+    img = readers.cv2.resize(coarse, (W, H), interpolation=readers.cv2.INTER_CUBIC)
+    return np.clip(img, 0, 239).astype(np.uint8) + rng.integers(0, 16, (H, W, 3), dtype=np.uint8)
+
+
+def body_mask(xyz, K, RT, H, W, soft=False):
+    """255 inside the convex hull of the body's projected vertices; with
+    soft, 128 on a band along its edge (MonoCap's soft masks)."""
+    cv2 = readers.cv2
+    uv = np.round(readers.project_points_np(xyz, K, RT)).astype(np.int32)
+    hull = cv2.convexHull(uv)
+    mask = np.zeros((H, W), np.uint8)
+    cv2.fillConvexPoly(mask, hull, 255)
+    if soft:
+        inner = cv2.erode(mask, np.ones((9, 9), np.uint8))
+        mask = np.where((mask > 0) & (inner == 0), 128, mask).astype(np.uint8)
+    return mask
+
+
+class FrameFiles:
+    """The frame files a dataset writer writes, on a pool of host threads
+    (cv2 and numpy release the interpreter lock), each made by a function of
+    its own and read back through readers.imread at once: the PNGs against
+    the array encoded, the JPEGs against what cv2 decodes from the same
+    bytes. wait() raises the first failure and counts the files."""
+
+    def __init__(self, workers=8):
+        self.n_png = self.n_jpg = 0
+        self._pool = concurrent.futures.ThreadPoolExecutor(workers)
+        self._jobs = []
+
+    def jpeg(self, path, make):
+        self._jobs.append(self._pool.submit(self._jpeg, path, make))
+
+    def png(self, path, make):
+        self._jobs.append(self._pool.submit(self._png, path, make))
+
+    @staticmethod
+    def _jpeg(path, make):
+        cv2, rgb = readers.cv2, make()
+        if not cv2.imwrite(path, np.ascontiguousarray(rgb[..., ::-1])):
+            raise AssertionError(f"cv2 did not write {path}")
+        with open(path, "rb") as f:
+            raw = cv2.imdecode(np.frombuffer(f.read(), np.uint8), cv2.IMREAD_UNCHANGED)
+        back = readers.imread(path)
+        if back.shape != rgb.shape or not np.array_equal(back, raw[..., ::-1]):
+            raise AssertionError(f"{path}: readers.imread is not cv2's decode of the bytes")
+        return "jpg"
+
+    @staticmethod
+    def _png(path, make):
+        img = make()
+        readers.imwrite(path, img)
+        back = readers.imread(path)
+        if back.dtype != img.dtype or not np.array_equal(back, img):
+            raise AssertionError(f"{path}: readers.imread does not give back the array")
+        return "png"
+
+    def wait(self):
+        try:
+            kinds = [j.result() for j in self._jobs]
+        finally:
+            self._pool.shutdown(cancel_futures=True)
+        self.n_jpg, self.n_png = kinds.count("jpg"), kinds.count("png")
+
+
+def posed_body(model, params):
+    """The synthetic rig's vertices at a frame's SMPL params, in the world."""
+    v, _ = S.lbs_vertices(model, torch.as_tensor(params["poses"].reshape(72)),
+                          torch.as_tensor(params["shapes"].reshape(-1)))
+    R = readers.rodrigues_np(params["Rh"])
+    return v.numpy() @ R.T + params["Th"].reshape(1, 3)
+
+
+def smpl_param_draw(rng):
+    return {"poses": rng.normal(0, 0.1, (1, 72)).astype(np.float32),
+            "shapes": rng.normal(0, 0.5, (1, 10)).astype(np.float32),
+            "Rh": rng.normal(0, 0.1, (1, 3)).astype(np.float32),
+            "Th": rng.normal(0, 0.05, (1, 3)).astype(np.float32)}
+
+
+def write_zju_capture(root, files, n_frames, raw, n_views=6, seed=0):
+    """A ZJU-MoCap-Refine subject in tests/test_readers.py::_write_zju_fixture's
+    layout at the published frame: raw x raw JPEGs and PNG masks of the frames
+    the reader's two splits take, annots.npy with n_views cameras 2 m from
+    the body, smpl_params/ and 6,890-vertex smpl_vertices/ of the synthetic
+    rig posed per frame; images from a seed (one stream a file), masks the
+    posed body's hull. The files are written on files' pool."""
+    rng = np.random.default_rng(seed)
+    model = S.synthetic_smpl(device="cpu")
+    f0 = 0.9 * raw
+    cams = {"K": [np.array([[f0 * (1 + 0.01 * i), 0, raw / 2], [0, f0 * (1 + 0.01 * i), raw / 2],
+                            [0, 0, 1.0]]) for i in range(n_views)],
+            "D": [np.zeros(5) for _ in range(n_views)],
+            "R": [np.eye(3) for _ in range(n_views)],
+            "T": [np.array([[0.0], [0.0], [2000.0]]) for _ in range(n_views)]}
+    ims = [{"ims": [f"images/{v:02d}/{f:06d}.jpg" for v in range(n_views)]}
+           for f in range(n_frames)]
+    needed = {(4, f) for f in range(0, min(n_frames, 500), 5)}
+    needed |= {(v, f) for f in range(0, min(n_frames, 510), 30) for v in range(n_views)
+               if v not in (3, 4)}
+    for d in ("smpl_vertices", "smpl_params"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    bodies = {}
+    for v, f in sorted(needed, key=lambda x: (x[1], x[0])):
+        if f not in bodies:
+            params = smpl_param_draw(rng)
+            bodies[f] = posed_body(model, params).astype(np.float32)
+            np.save(os.path.join(root, "smpl_vertices", f"{f}.npy"), bodies[f])
+            np.save(os.path.join(root, "smpl_params", f"{f}.npy"), params)
+        for d in ("images", "mask"):
+            os.makedirs(os.path.join(root, d, f"{v:02d}"), exist_ok=True)
+        RT = np.concatenate([cams["R"][v], cams["T"][v] / 1000.0], axis=1)
+        files.jpeg(os.path.join(root, "images", f"{v:02d}", f"{f:06d}.jpg"),
+                   functools.partial(smooth_image, np.random.default_rng((seed, v, f)), raw, raw))
+        files.png(os.path.join(root, "mask", f"{v:02d}", f"{f:06d}.png"),
+                  functools.partial(body_mask, bodies[f], cams["K"][v], RT, raw, raw))
+    np.save(os.path.join(root, "annots.npy"), {"cams": cams, "ims": ims})
+
+
+def write_monocap_capture(root, files, hw, seed=1):
+    """A MonoCap sequence in tests/test_torch_readers.py::write_monocap_fixture's
+    layout (olek_images0812's views 44 and 45, poses from 1, soft masks) at
+    hw x hw: the 100 train and 17 test frames, cameras 2.5 m from the body
+    with a small distortion, params/ per pose; the synthetic rig posed as
+    read_monocap poses it, images from a seed (one stream a file), masks its
+    hull. The files are written on files' pool."""
+    rng = np.random.default_rng(seed)
+    model = S.synthetic_smpl(device="cpu")
+    train_view, test_view, start = [44], [45], 1
+    n_views = max(train_view + test_view) + 1
+    f0 = 0.6 * hw
+    cams = {"K": [np.array([[f0 * (1 + 0.01 * v), 0, hw / 2], [0, f0 * (1 + 0.01 * v), hw / 2],
+                            [0, 0, 1.0]]) for v in range(n_views)],
+            "D": [np.array([0.01, -0.01, 0.0, 0.0, 0.0]) for _ in range(n_views)],
+            "R": [np.eye(3) for _ in range(n_views)],
+            "T": [np.array([[0.05 * (v % 3)], [0.0], [2500.0]]) for v in range(n_views)]}
+    needed = [(v, p) for v in train_view for p in range(start, start + 500, 5)]
+    needed += [(v, p) for v in test_view for p in range(start, start + 510, 30)]
+    os.makedirs(os.path.join(root, "params"), exist_ok=True)
+    bodies = {}
+    for v, p in needed:
+        vz, pz = str(v).zfill(2), str(p).zfill(6)
+        for d in ("images", "mask"):
+            os.makedirs(os.path.join(root, d, vz), exist_ok=True)
+        if p not in bodies:
+            params = smpl_param_draw(rng)
+            np.save(os.path.join(root, "params", f"{p}.npy"), params)
+            bodies[p] = posed_body(model, params)
+        RT = np.concatenate([cams["R"][v], cams["T"][v] / 1000.0], axis=1)
+        files.jpeg(os.path.join(root, "images", vz, pz + ".jpg"),
+                   functools.partial(smooth_image, np.random.default_rng((seed, v, p)), hw, hw))
+        files.png(os.path.join(root, "mask", vz, pz + ".png"),
+                  functools.partial(body_mask, bodies[p], cams["K"][v], RT, hw, hw, soft=True))
+    np.save(os.path.join(root, "annots.npy"), {"cams": cams})
+
+
+class DriverSpies:
+    """What a driver call did, read from inside this process: every
+    iteration's logs (the drivers' EMALogger sees each), the Trainers built,
+    the host ms of Trainer.train and of the evals, saves and budget probes
+    inside it (outermost calls only), and each served frame's render_frame
+    call."""
+
+    def __init__(self):
+        self.logs, self.trainers, self.served = [], [], []
+        self.ms = {"train": 0.0, "host_work": 0.0}
+        self._depth, self._in_train = 0, False
+
+    @contextlib.contextmanager
+    def installed(self):
+        from moss_torch.cli import render_zju, train_zju
+        from moss_torch.train.trainer import Trainer
+
+        spies = self
+        HOST_WORK = ("evaluate", "densify", "_resize_pair_buffer", "save")
+        patched = {(train_zju, "EMALogger"), (render_zju, "render_frame"),
+                   (train_zju, "save_reference_layout"), (Trainer, "__init__"),
+                   (Trainer, "train"), *((Trainer, k) for k in HOST_WORK)}
+        orig = {(obj, k): getattr(obj, k) for obj, k in patched}
+
+        class Logger(obs.EMALogger):
+            def update(self, logs):
+                spies.logs.append(dict(logs))
+                return super().update(logs)
+
+        def served(*a, **kw):
+            out = orig[render_zju, "render_frame"](*a, **kw)
+            if kw.get("cached_transforms") is not None:
+                spies.served.append((a, kw, out))
+            return out
+
+        def host_work(fn):
+            def go(*a, **kw):
+                spies._depth += 1
+                try:
+                    if spies._depth > 1 or not spies._in_train:
+                        return fn(*a, **kw)
+                    out, ms = clocked_ms(lambda: fn(*a, **kw))
+                    spies.ms["host_work"] += ms
+                    return out
+                finally:
+                    spies._depth -= 1
+            return go
+
+        def init(tr, *a, **kw):
+            orig[Trainer, "__init__"](tr, *a, **kw)
+            spies.trainers.append(tr)
+
+        def train(tr, *a, **kw):
+            spies._in_train = True
+            try:
+                out, ms = clocked_ms(lambda: orig[Trainer, "train"](tr, *a, **kw))
+            finally:
+                spies._in_train = False
+            spies.ms["train"] += ms
+            return out
+
+        train_zju.EMALogger = Logger
+        render_zju.render_frame = served
+        train_zju.save_reference_layout = host_work(orig[train_zju, "save_reference_layout"])
+        Trainer.__init__, Trainer.train = init, train
+        for k in HOST_WORK:
+            setattr(Trainer, k, host_work(orig[Trainer, k]))
+        try:
+            yield self
+        finally:
+            for (obj, k), v in orig.items():
+                setattr(obj, k, v)
+
+
+def driver_call(name, main, argv, results, launch_gate):
+    """main(argv) in this process under DriverSpies, its kernels counted
+    (the counts set to 0 just before and read just after) and held to
+    launch_gate ({kernel: True} must launch, False must not); its line."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    spies = DriverSpies()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with spies.installed():
+        out = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for k, must in launch_gate.items():
+        if (launches[k] > 0) != must:
+            raise AssertionError(f"drivers {name}: {k} launched {launches[k]} times, expected "
+                                 f"{'some' if must else 'none'}")
+    line = {"call": name, "argv": " ".join(argv), "wall_s": wall, "launches": launches}
+    msg = f"drivers {name}: {wall:.1f} s, launches {launches}"
+    if spies.logs:  # a training driver
+        n = len(spies.logs)
+        line.update(iterations=n, host_work_ms=spies.ms["host_work"],
+                    ms_per_iteration=(spies.ms["train"] - spies.ms["host_work"]) / n)
+        msg += f", {line['ms_per_iteration']:.2f} ms an iteration outside evals, saves and probes"
+    else:  # a render driver: its result line
+        line.update(ms_per_served_frame=1e3 / out[0]["fps"],
+                    result={k: v for k, v in out[0].items() if not isinstance(v, str)})
+        msg += f", {line['ms_per_served_frame']:.2f} ms a served frame"
+    results.append(line)
+    print(msg, flush=True)
+    return out, spies
+
+
+def planes(out):
+    return {"color": out["render"], "alpha": out["render_alpha"], "depth": out["render_depth"],
+            "final_T": out["final_T"]}
+
+
+def check_served(spies, what):
+    """Every frame served through the installed budgets bitwise the same
+    render on the per-frame pair list, overflow 0 (the per-frame renders
+    made here, after the driver's timed loop)."""
+    if not spies.served:
+        raise AssertionError(f"{what}: no frame was served")
+    with torch.no_grad():
+        for a, kw, out in spies.served:
+            raster = kw["rasterize_fn"]
+            if raster is None or raster.func is not rc.rasterize_cuda or \
+                    raster.keywords["max_tiles_per_gaussian"] < 16:
+                raise AssertionError(f"{what}: a frame served without the budgets ({raster})")
+            ref = render_frame(*a, **{**kw, "rasterize_fn": None})
+            if int(out["overflow"]) != 0 or not same_images(planes(out), planes(ref)):
+                raise AssertionError(f"{what}: a served frame is not the per-frame list's "
+                                     f"(overflow {int(out['overflow'])})")
+    return len(spies.served)
+
+
+def check_outputs(model_path, iteration, n_test, dev, result_file):
+    """The training driver's files exist and load back."""
+    ts = ckpt.restore_checkpoint(os.path.join(model_path, f"chkpnt{iteration}.npz"), dev)
+    if int(ts.step) != iteration:
+        raise AssertionError(f"{model_path}: chkpnt{iteration}.npz holds step {ts.step}")
+    from moss_torch.data.ply import load_ply
+
+    ply = load_ply(os.path.join(model_path, "point_cloud.ply"))
+    live = int(ts.gstate.valid.sum())
+    n_ply = len(next(iter(ply.values())))
+    cams = json.load(open(os.path.join(model_path, "cameras.json")))
+    cfg = json.load(open(os.path.join(model_path, "cfg.json")))
+    lines = [x for x in open(result_file).read().splitlines() if x.strip()]
+    for rel in (f"point_cloud/iteration_{iteration}/point_cloud.ply",
+                f"mlp_ckpt/iteration_{iteration}/ckpt.npz"):
+        if not os.path.exists(os.path.join(model_path, rel)):
+            raise AssertionError(f"{model_path}: no {rel}")
+    if n_ply != live or len(cams) < n_test or cfg["pipe"]["rasterizer"] not in (
+            "pallas", "reference") or not lines:
+        raise AssertionError(f"{model_path}: ply {n_ply} points for {live} live, "
+                             f"{len(cams)} cameras, cfg {cfg['pipe']}, {len(lines)} result lines")
+    return ts, {"live": live, "cameras": len(cams), "result_lines": len(lines)}
+
+
+def flat_equal_npz(a, b):
+    """Two chkpnt npz files: the same keys, every array bitwise equal."""
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            np.array_equal(x[k], y[k]) for k in x.files)
+
+
+def plain_blend_engines(dev):
+    """Trainer(rasterizer="reference") under the engines on the card at
+    DRIVER_ENGINE_HW: the queued segments under torch.cuda's sync debug mode
+    "error" (a host read in a segment raises), then scan, whose CUDA graph
+    must capture the plain blend's chunk loop and its remat backward; the two
+    states bitwise equal. No blend kernel launches."""
+    scene = make_scene(n_verts=300, device=dev)
+    crop = DRIVER_ENGINE_HW * 3 // 4
+    frames, _ = make_frames(scene, n_frames=3, H=DRIVER_ENGINE_HW, W=DRIVER_ENGINE_HW,
+                            crop=crop, opacity=TARGET_OPACITY)
+    cfg = Config(model=ModelConfig(capacity=2048, n_init_points=300),
+                 optim=OptimConfig(iterations=12, densify_from_iter=4, densify_until_iter=10,
+                                   densification_interval=4, opacity_reset_interval=8),
+                 pipe=PipelineConfig(rasterizer="reference", test_iterations=(12,),
+                                     save_iterations=()))
+    lp = lpips.init_random(3407, device=dev)
+    out, states = {}, {}
+    for engine in ("queued", "scan"):
+        tr = Trainer(scene, frames[:2], frames[2:], cfg, lp, crop_hw=(crop, crop), device=dev)
+        tr.segment_sync_mode = "error"
+        (_, ms), n = counted(lambda: clocked_ms(lambda: tr.train(dispatch_engine=engine)))
+        if any(n[k] for k in BLEND_KERNELS) or not n["svd3"]:
+            raise AssertionError(f"plain blend under {engine}: launches {n}")
+        states[engine] = ckpt.flatten(tr.ts)
+        out[engine] = {"ms": ms, "launches": n, "captures": tr._many.captures,
+                       "replays": tr._many.replays, "pool_mb": tr._many.pool_mb,
+                       "capture_ms": list(tr._many.capture_ms),
+                       "psnr": tr.metrics_history[-1]["psnr"]}
+    if dev.type == "cuda" and not (out["scan"]["captures"] and out["scan"]["replays"]):
+        raise AssertionError(f"plain blend under scan: no graph ({out['scan']})")
+    differ = flat_equal(states["queued"], states["scan"])
+    if differ:
+        raise AssertionError(f"plain blend: scan's state is not queued's in {differ[:8]}")
+    return out
+
+
+def phase_drivers(dev, smi):
+    """The users' main path on the card: train_zju -> render_zju and
+    train_monocap -> render_monocap from files on disk, each main() called in
+    this process with no --device. Module docstring, phase 16b."""
+    from moss_torch.cli import render_monocap, render_zju, train_monocap, train_zju
+
+    shutil.rmtree(DRIVERS_DIR, ignore_errors=True)
+    files = FrameFiles()
+    t0 = time.perf_counter()
+    zju_root = os.path.join(DRIVERS_DIR, "zju", "my_377")
+    write_zju_capture(zju_root, files, DRIVER_ZJU_FRAMES, DRIVER_RAW)
+    mono_root = os.path.join(DRIVERS_DIR, "monocap", DRIVER_MONOCAP_SEQ)
+    write_monocap_capture(mono_root, files, DRIVER_RAW)
+    files.wait()
+    write_s = time.perf_counter() - t0
+    print(f"drivers: wrote {files.n_jpg} JPEGs and {files.n_png} PNGs in {write_s:.1f} s, each read "
+          "back through readers.imread", flush=True)
+    results = []
+    every = dict.fromkeys(DRIVER_KERNELS, True)
+    serve_only = {"rasterize_fwd": True, "rasterize_bwd": False, "segment_sum": False,
+                  "svd3": False}
+    out_dir = {k: os.path.join(DRIVERS_DIR, f"out_{k}") for k in ("queued", "scan", "resume",
+                                                                 "reference", "monocap")}
+    zju = ["--data_root", os.path.dirname(zju_root), "--subjects", "377"]
+    train = zju + ["--iterations", str(DRIVER_ITERS),
+                   "--test_iterations", *map(str, DRIVER_CHECKS),
+                   "--save_iterations", *map(str, DRIVER_CHECKS),
+                   "--capacity", str(CAPACITY), "--n_init", str(N_VERTS)]
+
+    # train_zju under queued and scan, then --resume from the queued run's chkpnt30
+    runs = {}
+    for engine in ("queued", "scan"):
+        argv = train + ["--output", out_dir[engine], "--dispatch", engine,
+                        "--result_file", os.path.join(out_dir[engine], "ZJU.txt")]
+        metrics, spies = driver_call(f"train_zju_{engine}", train_zju.main, argv, results, every)
+        runs[engine] = spies
+        ts, files_line = check_outputs(os.path.join(out_dir[engine], "my_377"), DRIVER_ITERS,
+                                       8, dev, os.path.join(out_dir[engine], "ZJU.txt"))
+        results[-1].update(files_line, psnr=[m["psnr"] for m in metrics[0]],
+                           budgets=spies.trainers[-1].budgets)
+        if len(spies.logs) != DRIVER_ITERS or not all(
+                math.isfinite(x["loss"]) for x in spies.logs):
+            raise AssertionError(f"train_zju {engine}: {len(spies.logs)} logged iterations")
+        if any(x.get("raster_overflow", 0) for x in spies.logs):
+            raise AssertionError(f"train_zju {engine}: pairs dropped in training")
+    q_ckpt = os.path.join(out_dir["queued"], "my_377", f"chkpnt{DRIVER_ITERS}.npz")
+    if not flat_equal_npz(q_ckpt, os.path.join(out_dir["scan"], "my_377",
+                                               f"chkpnt{DRIVER_ITERS}.npz")):
+        raise AssertionError("train_zju: scan's final state is not queued's")
+    if dev.type == "cuda" and not runs["scan"].trainers[-1]._many.captures:
+        raise AssertionError("train_zju scan: no CUDA graph was captured")
+    results[-1]["captures"] = runs["scan"].trainers[-1]._many.captures
+    os.makedirs(os.path.join(out_dir["resume"], "my_377"))
+    shutil.copy(os.path.join(out_dir["queued"], "my_377", f"chkpnt{DRIVER_CHECKS[0]}.npz"),
+                os.path.join(out_dir["resume"], "my_377"))
+    driver_call("train_zju_resume", train_zju.main,
+                train + ["--output", out_dir["resume"], "--resume",
+                         "--result_file", os.path.join(out_dir["resume"], "ZJU.txt")],
+                results, every)
+    if not flat_equal_npz(q_ckpt, os.path.join(out_dir["resume"], "my_377",
+                                               f"chkpnt{DRIVER_ITERS}.npz")):
+        raise AssertionError("train_zju --resume: not bitwise the uninterrupted run")
+
+    # render_zju: the budgets' serving, the plain blend on the same checkpoint, novel views
+    model_path = os.path.join(out_dir["queued"], "my_377")
+    serve = zju + ["--iterations", "-1", "--output", out_dir["queued"]]
+    (res,), spies = driver_call("render_zju", render_zju.main, serve + ["--save_images"],
+                                results, serve_only)
+    kernel_frames = [planes(o) for _, _, o in spies.served]
+    results[-1]["served_bitwise"] = check_served(spies, "render_zju")
+    pngs = sorted(glob.glob(os.path.join(model_path, "renders", f"iteration_{DRIVER_ITERS}",
+                                         "*.png")))
+    if len(pngs) != 8 or res["raster_overflow"] != 0:
+        raise AssertionError(f"render_zju: {len(pngs)} PNGs, overflow {res['raster_overflow']}")
+    for path, (_, _, o) in zip(pngs, spies.served[1:]):
+        want = (torch.clamp(o["render"], 0.0, 1.0).cpu().numpy() * 255).astype(np.uint8)
+        if not np.array_equal(readers.imread(path), want):
+            raise AssertionError(f"{path}: not the served frame")
+    with open(os.path.join(model_path, "smpl_rot", f"iteration_{DRIVER_ITERS}",
+                           "smpl_rot.pickle"), "rb") as f:
+        if len(pickle.load(f)) != 2:
+            raise AssertionError("render_zju: smpl_rot holds no transforms of the 2 test poses")
+    del spies
+    (ref_res,), spies = driver_call("render_zju_reference", render_zju.main,
+                                    serve + ["--rasterizer", "reference"], results,
+                                    dict.fromkeys(DRIVER_KERNELS, False))
+    worst = 0.0
+    for i, ((_, kw, o), k) in enumerate(zip(spies.served, kernel_frames)):
+        if kw["rasterize_fn"].func is not rasterize_reference:
+            raise AssertionError("render_zju --rasterizer reference: served by "
+                                 f"{kw['rasterize_fn']}")
+        worst = max(worst, check_images(k, planes(o), f"render_zju frame {i}: kernel vs plain"))
+    if abs(ref_res["psnr"] - res["psnr"]) > DRIVER_PSNR_ATOL:
+        raise AssertionError(f"render_zju: PSNR {res['psnr']} with the kernels, "
+                             f"{ref_res['psnr']} with the plain blend")
+    results[-1].update(max_abs_err=worst, psnr_diff_db=ref_res["psnr"] - res["psnr"])
+    del spies, kernel_frames
+    (nv,), _ = driver_call("render_zju_novel_view", render_zju.main,
+                           serve + ["--novel_view", str(DRIVER_NOVEL_VIEWS)], results, serve_only)
+    n_nv = len(glob.glob(os.path.join(nv["img_dir"], "*.png")))
+    if nv["novel_views"] != 2 * DRIVER_NOVEL_VIEWS or n_nv != nv["novel_views"] or \
+            nv["raster_overflow"] != 0:
+        raise AssertionError(f"render_zju --novel_view: {nv}, {n_nv} PNGs")
+
+    # train_zju --rasterizer reference: the first step's losses against the kernels'
+    no_evals = [str(DRIVER_ITERS + 1)]
+    _, spies = driver_call(
+        "train_zju_reference", train_zju.main,
+        zju + ["--iterations", str(DRIVER_REFERENCE_ITERS), "--test_iterations", *no_evals,
+               "--save_iterations", *no_evals, "--capacity", str(CAPACITY), "--n_init",
+               str(N_VERTS), "--rasterizer", "reference", "--output", out_dir["reference"],
+               "--result_file", os.path.join(out_dir["reference"], "ZJU.txt")],
+        results, {"rasterize_fwd": False, "rasterize_bwd": False, "segment_sum": False,
+                  "svd3": True})
+    first, kfirst = spies.logs[0], runs["queued"].logs[0]
+    rel = {k: abs(first[k] - kfirst[k]) / max(abs(kfirst[k]), 1e-12)
+           for k in ("loss", "l1", "mask", "ssim", "lpips", "nll", "s3im") if k in kfirst}
+    if max(rel.values()) > DRIVER_LOSS_RTOL:
+        raise AssertionError(f"train_zju --rasterizer reference: first-step losses {rel}")
+    results[-1]["first_step_rel_err"] = rel
+    del spies, runs
+
+    # train_monocap -> render_monocap at 1024 x 1024
+    mono = ["--data_root", os.path.dirname(mono_root)]
+    metrics, spies = driver_call(
+        "train_monocap", train_monocap.main,
+        mono + ["--sequences", DRIVER_MONOCAP_SEQ, "--iterations", str(DRIVER_MONOCAP_ITERS),
+                "--test_iterations", str(DRIVER_MONOCAP_ITERS), "--save_iterations",
+                str(DRIVER_MONOCAP_ITERS), "--capacity", str(CAPACITY), "--n_init", str(N_VERTS),
+                "--output", out_dir["monocap"],
+                "--result_file", os.path.join(out_dir["monocap"], "monocap.txt")],
+        results, every)
+    check_outputs(os.path.join(out_dir["monocap"], DRIVER_MONOCAP_SEQ), DRIVER_MONOCAP_ITERS,
+                  17, dev, os.path.join(out_dir["monocap"], "monocap.txt"))
+    results[-1].update(psnr=[m["psnr"] for m in metrics[0]], crop=list(spies.trainers[-1].crop_hw),
+                       budgets=spies.trainers[-1].budgets)
+    del spies
+    (mres,), spies = driver_call(
+        "render_monocap", render_monocap.main,
+        mono + ["--subjects", DRIVER_MONOCAP_SEQ, "--iterations", "-1", "--output",
+                out_dir["monocap"]], results, serve_only)
+    results[-1]["served_bitwise"] = check_served(spies, "render_monocap")
+    if mres["raster_overflow"] != 0 or not np.isfinite(mres["psnr"]):
+        raise AssertionError(f"render_monocap: {mres}")
+    del spies
+
+    engines = plain_blend_engines(dev)
+    emit({"phase": "drivers", "nvidia_smi": smi, "frame_files": {"jpeg": files.n_jpg,
+                                                                 "png": files.n_png},
+          "write_s": write_s, "calls": results, "plain_blend_engines": engines})
+    shutil.rmtree(DRIVERS_DIR, ignore_errors=True)
+    return {r["call"]: r["launches"] for r in results}
+
+
 def main():
     if len(sys.argv) == 6 and sys.argv[1] == "--sharded-rank":
         return sharded_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
@@ -3781,6 +4332,7 @@ def main():
     dna_launches = phase("dna", phase_dna, dev, smi, smplx_world)
     del smplx_world
     monocap_launches, monocap_rows = phase("monocap", phase_monocap, dev, smi)
+    driver_launches = phase("drivers", phase_drivers, dev, smi)
     # the later paths' launches, and rows 1, 2 and 2b on their inputs
     zero = {"rasterize_fwd": 0, "rasterize_bwd": 0, "segment_sum": 0, "svd3": 0}
     families = {"smplx": smplx_launches, "static": static_launches,
@@ -3791,7 +4343,8 @@ def main():
                                    if "trainer" not in m) for k in zero},
                 "sharded_trainer": {k: sum(n[k] for m, n in sharded_launches.items()
                                            if "trainer" in m) for k in zero},
-                "engines": {k: sum(n[k] for n in engine_launches.values()) for k in zero}}
+                "engines": {k: sum(n[k] for n in engine_launches.values()) for k in zero},
+                **{f"drivers_{call}": n for call, n in driver_launches.items()}}
     by_input = {f"smplx_{SMPLX_HW[1]}x{SMPLX_HW[0]}": smplx_rows,
                 f"static_{STATIC_HW}x{STATIC_HW}": static_rows,
                 f"monocap_{MONOCAP_HW}x{MONOCAP_HW}": monocap_rows, **orbit_rows,

@@ -15,6 +15,8 @@ each pose decoded once, its camera swapped for the orbit's), writes them all
 to renders/novel_view_iteration_N/ and prints subject, iteration, fps,
 novel_views, img_dir (no ground truth exists at those viewpoints) and
 raster_overflow. Runs on the GPU; --device cpu runs the plain PyTorch path.
+--rasterizer overrides the cfg.json's (moss_tpu's rule): reference serves
+through the plain blend with no budgets, on the card too.
 
 The cached renders bin at the static pair budgets the trainer probed on the
 first served frame after the load and the compaction (trainer._eval_raster,
@@ -42,7 +44,7 @@ import torch
 
 from .. import resolve_device
 from ..config import Config, ModelConfig, load_json
-from ..data.readers import read_monocap, read_zju_mocap_refine
+from ..data.readers import imwrite, read_monocap, read_zju_mocap_refine
 from ..ops import lpips
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn
@@ -63,6 +65,9 @@ def parse_args(argv=None):
     p.add_argument("--output", default="output/zju_mocap_refine")
     p.add_argument("--save_images", action="store_true")
     p.add_argument("--white_background", action="store_true")
+    p.add_argument("--rasterizer", choices=["cuda", "reference"], default="cuda",
+                   help="cuda: the blend kernels with the installed budgets; reference: the "
+                        "plain blend with none")
     p.add_argument("--reader", default="zju", choices=["zju", "monocap"])
     p.add_argument("--keep_capacity", action="store_true",
                    help="render inside the training capacity (no compact_for_eval)")
@@ -107,10 +112,12 @@ def render_subject(args, subject: str, iteration: int, device):
         test_frames = [s.load(None, device) for s in test_specs]
     model_path = os.path.join(args.output, name)
     cfg_json = os.path.join(model_path, "cfg.json")
-    # the saved training config decides the model fields (capacity, SH degree, MLPs)
+    # the saved training config decides the model fields (capacity, SH degree,
+    # MLPs); the command line the rasterizer
     cfg = load_json(cfg_json) if os.path.exists(cfg_json) else Config(
         model=ModelConfig(white_background=args.white_background))
-    cfg = dataclasses.replace(cfg, model_path=model_path)
+    cfg = dataclasses.replace(cfg, model_path=model_path,
+                              pipe=dataclasses.replace(cfg.pipe, rasterizer=args.rasterizer))
     lp, kind, note = lpips.backbone(args.lpips_weights, device)
     trainer = Trainer(scene, test_frames[:1], test_frames, cfg, lp, lpips_backbone=kind,
                       device=device)
@@ -150,7 +157,7 @@ def render_subject(args, subject: str, iteration: int, device):
                            rasterize_fn=raster, cached_transforms=transforms,
                            cached_translation=translation, motion_offset=cfg.model.motion_offset,
                            static_scene=cfg.model.static_scene, device=device)
-        return out["render"], out["overflow"]
+        return out["render"], out.get("overflow", torch.zeros((), device=device))
 
     def sync():
         if device.type == "cuda":
@@ -193,12 +200,10 @@ def render_subject(args, subject: str, iteration: int, device):
 
 def write_pngs(img_dir: str, renders):
     """Each render, clipped to [0, 1], as <img_dir>/<index:05d>.png."""
-    import imageio.v2 as imageio
-
     os.makedirs(img_dir, exist_ok=True)
     for i, img in enumerate(renders):
-        imageio.imwrite(os.path.join(img_dir, f"{i:05d}.png"),
-                        (torch.clamp(img, 0.0, 1.0).cpu().numpy() * 255).astype(np.uint8))
+        imwrite(os.path.join(img_dir, f"{i:05d}.png"),
+                (torch.clamp(img, 0.0, 1.0).cpu().numpy() * 255).astype(np.uint8))
 
 
 def main(argv=None):

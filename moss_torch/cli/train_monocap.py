@@ -5,7 +5,8 @@ train_zju's loop over MonoCap sequences read at full resolution (1024x1024
 for the DeepCap captures), the loss crop autosized to the split's bound
 rects, the test split decoded lazily at each eval; the metrics go to
 result/monocap.txt. The flags are train_zju's: the saves, --resume,
---tensorboard, --gui_port, --debug_nans, --dispatch, --quiet, --device, and
+--tensorboard, --gui_port, --debug_nans, --dispatch, --rasterizer, --quiet,
+--device, and
 the ranks' --coordinator/--num_processes/--process_id/--n_data/--n_tile.
 
     python -m moss_torch.cli.train_monocap --data_root /data/monocap \\

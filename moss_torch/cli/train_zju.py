@@ -11,7 +11,10 @@ cameras.json. Runs on the GPU; --device cpu runs the plain PyTorch path.
 the SIBR remote viewer, --debug_nans turns on autograd's anomaly mode (the
 loss of every step is checked finite in any case, and a non-finite one
 raises with its iteration). --dispatch picks the trainer's engine (queued,
-the default, scan or eager: train/trainer.py).
+the default, scan or eager: train/trainer.py). --rasterizer reference
+trains and evaluates through the plain blend (ops/rasterize_ref.py) with no
+pair budgets, on the card too: an oracle for the default, cuda (the blend
+kernels with the static budgets).
 
 Several ranks (one process each, the same command) train one avatar over
 pixel bands and frames: --coordinator host:port --num_processes N
@@ -86,6 +89,9 @@ def add_training_args(p: argparse.ArgumentParser, output: str, result_file: str)
                    help="dispatch engine: queued (steps launched with no host read, logs read "
                         "at the host boundaries), scan (blocks of steps, each a CUDA graph of "
                         "the step replayed) or eager (a step at a time, logs read every 10)")
+    p.add_argument("--rasterizer", choices=["cuda", "reference"], default="cuda",
+                   help="cuda: the blend kernels with the static pair budgets; reference: the "
+                        "plain blend with none, as moss_tpu's --rasterizer reference")
     p.add_argument("--quiet", action="store_true", help="silence stdout")
     p.add_argument("--device", default=None, help="torch device (default: the GPU)")
 
@@ -120,7 +126,8 @@ def train_scene(args, name: str, path: str, reader, exp_name: str, device, mesh=
         model=ModelConfig(white_background=args.white_background, capacity=args.capacity,
                           n_init_points=args.n_init),
         optim=OptimConfig(iterations=args.iterations),
-        pipe=PipelineConfig(test_iterations=tuple(args.test_iterations),
+        pipe=PipelineConfig(rasterizer=args.rasterizer,
+                            test_iterations=tuple(args.test_iterations),
                             save_iterations=tuple(args.save_iterations)),
         exp_name=exp_name, model_path=os.path.join(args.output, os.path.basename(path)))
     if is_main:

@@ -5,9 +5,12 @@ The port's own copies of moss_tpu/config.py (ModelConfig, OptimConfig,
 PipelineConfig, Config, the presets and the JSON round trip), with the same
 defaults. PipelineConfig keeps moss_tpu's rect cap, max_tiles_per_gaussian:
 the trainer's static pair budgets start from it (ops/binning.py,
-train/trainer.py). It has no rasterizer knob: the port picks the kernel or
-its plain version from the tensors' device, so load_json drops that key from
-a cfg.json that moss_tpu wrote (JAX_ONLY_KEYS).
+train/trainer.py), and its rasterizer: "cuda" (moss_tpu's "pallas"), the
+blend kernels with the static budgets, or "reference", the plain blend
+(ops/rasterize_ref.py) with no budgets, on any device, as the user's
+explicit choice (train/trainer.py). A cfg.json keeps moss_tpu's words:
+save_json writes "pallas" for "cuda", load_json reads either, so each
+package loads the other's file.
 """
 from __future__ import annotations
 
@@ -76,6 +79,7 @@ class PipelineConfig:
     # are counted as overflow; the trainer's first probe may lower it and the
     # self-heal raise it (moss_tpu/config.py:81-87)
     max_tiles_per_gaussian: int = 16
+    rasterizer: str = "cuda"     # 'cuda' (moss_tpu's 'pallas') | 'reference'
     # evals and saves fire independently (Trainer.train eval_iters / save_iters)
     test_iterations: Tuple[int, ...] = (2500, 2700, 3000)
     save_iterations: Tuple[int, ...] = (2500, 2700, 3000)
@@ -92,8 +96,10 @@ class Config:
     exp_name: str = "default"
 
 
-# keys of a moss_tpu cfg.json that only its JAX/TPU path reads
-JAX_ONLY_KEYS = {"pipe": ("rasterizer",)}
+RASTERIZERS = ("cuda", "reference")
+# the rasterizer as a cfg.json spells it (moss_tpu's words), and as load_json reads it
+RASTERIZER_IN_JSON = {"cuda": "pallas", "reference": "reference"}
+RASTERIZER_FROM_JSON = {"pallas": "cuda", "cuda": "cuda", "reference": "reference"}
 
 
 def zju_preset(subject: str = "377") -> Config:
@@ -105,25 +111,28 @@ def monocap_preset(seq: str = "olek_images0812") -> Config:
 
 
 def save_json(cfg: Config, path: str) -> None:
-    """The experiment config as JSON (moss_tpu's cfg.json layout), which the
-    render drivers read back with load_json."""
+    """The experiment config as JSON (moss_tpu's cfg.json layout, the
+    rasterizer in its words), which the render drivers read back with
+    load_json."""
+    raw = dataclasses.asdict(cfg)
+    raw["pipe"]["rasterizer"] = RASTERIZER_IN_JSON[cfg.pipe.rasterizer]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2)
+        json.dump(raw, f, indent=2)
 
 
 def load_json(path: str) -> Config:
-    """A Config from save_json's output, the port's or moss_tpu's. The keys
-    of JAX_ONLY_KEYS are dropped; any other unknown key is rejected."""
+    """A Config from save_json's output, the port's or moss_tpu's: the
+    rasterizer "pallas" read as "cuda"; an unknown key or rasterizer is
+    rejected."""
     with open(path) as f:
         raw = json.load(f)
-    sections = {}
-    for name in ("model", "optim", "pipe"):
-        sec = dict(raw.get(name, {}))
-        for k in JAX_ONLY_KEYS.get(name, ()):
-            sec.pop(k, None)
-        sections[name] = sec
+    sections = {name: dict(raw.get(name, {})) for name in ("model", "optim", "pipe")}
     pipe = sections["pipe"]
+    if "rasterizer" in pipe:
+        if pipe["rasterizer"] not in RASTERIZER_FROM_JSON:
+            raise ValueError(f"{path}: unknown rasterizer {pipe['rasterizer']!r}")
+        pipe["rasterizer"] = RASTERIZER_FROM_JSON[pipe["rasterizer"]]
     for k in ("test_iterations", "save_iterations"):
         if k in pipe:
             pipe[k] = tuple(pipe[k])

@@ -159,7 +159,10 @@ def frame_from_jax(frame, device=None) -> Frame:
 
 
 def config_from_jax(cfg) -> C.Config:
-    """A moss_tpu Config as the port's: the fields the port has, same values."""
+    """A moss_tpu Config as the port's: the fields the port has, same values,
+    but the rasterizer, which stays the port's default: moss_tpu's CPU tests
+    pick "reference" to run without Pallas, where the port's default already
+    blends with the plain version (a load_json of the cfg.json keeps it)."""
 
     def fields(cls, src):
         return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})

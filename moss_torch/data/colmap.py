@@ -10,8 +10,8 @@ into the port: a SceneContext with no body (the points seed the cloud) and
 Frames with all-ones masks and zero SMPL fields, on `device` (the GPU unless
 the caller asks for the CPU); render them with
 render_frame(..., static_scene=True), which skips the deformation. Images
-are decoded with imageio, as moss_tpu decodes them; it is imported where a
-frame is decoded, and the readers of specs need neither it nor h5py.
+are decoded by readers.imread (cv2), to the arrays moss_tpu decodes; the
+readers of specs need neither cv2 nor h5py.
 """
 from __future__ import annotations
 
@@ -288,10 +288,10 @@ def frame_from_spec(spec: Dict, white_background: bool = False, device=None) -> 
     SMPL fields (render_frame(static_scene=True) and the losses ignore
     them: with no pose MLPs the Fisher NLL is 0), a Blender spec's K built
     from camera_angle_x."""
-    import imageio.v2 as imageio
+    from .readers import imread
 
     device = resolve_device(device)
-    img = np.asarray(imageio.imread(spec["image_path"]), np.float32) / 255.0
+    img = np.asarray(imread(spec["image_path"]), np.float32) / 255.0
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=2)
     if img.shape[2] == 4:

@@ -1,8 +1,8 @@
 """Streaming frames: a host thread decodes ahead into a bounded queue (port
 of moss_tpu/data/prefetch.py).
 
-A worker thread decodes frame i + depth (FrameSpec.load: imageio and cv2,
-which release the interpreter lock) while the device works on frame i, so a
+A worker thread decodes frame i + depth (FrameSpec.load: cv2, which
+releases the interpreter lock) while the device works on frame i, so a
 split's frames are never resident at once. Frames that are already loaded
 pass through untouched, so eager and lazy splits share one interface.
 """

@@ -1,6 +1,6 @@
 """Dataset readers: ZJU-MoCap-Refine and MonoCap (port of moss_tpu/data/readers.py).
 
-Host code in numpy with cv2 and imageio, as moss_tpu's: the same splits
+Host code in numpy and cv2: the same splits as moss_tpu's
 (ZJU train: view 4, 100 poses at stride 5; test: the views other than 3 and
 4, 17 poses at stride 30; MonoCap's per-sequence views and paths), the same
 per-frame work (undistort, background fill or soft-mask multiply, 0.5x (ZJU)
@@ -13,9 +13,16 @@ FrameSpec.load(crop_hw, device), which returns the port's Frame on `device`
 The SMPL asset is proprietary: pass its path when there is one, else the
 synthetic rig of the same structure is used. detect_and_read sends a
 DNA-Rendering capture (.smc) to data/dna.py; COLMAP and Blender scenes are
-read by data/colmap.py. imageio is imported where a frame is decoded, so the
-module (and data/dna.py, which shares its bound mask) imports on a machine
-without it.
+read by data/colmap.py.
+
+imread and imwrite decode and write frames with cv2, and imread returns
+what moss_tpu's frame decode (Pillow's) returns for a PNG or a JPEG:
+RGB(A) channel order, grey kept 2-D, a 1-bit grey PNG as bool, a 16-bit
+grey PNG as uint16 and the other 16-bit PNGs cut to their high bytes, a
+palette's and a tRNS chunk's transparency dropped, an 8-bit grey+alpha PNG
+as (H, W, 2) and a 16-bit one as RGBA, no EXIF rotation. The PNG's bit depth and colour type and the
+JPEG's component count come from the file's header (image_header), which
+also gives FrameSpec.image_size without a decode.
 """
 from __future__ import annotations
 
@@ -38,6 +45,93 @@ try:
 except ImportError:  # pragma: no cover
     cv2 = None
 
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# JPEG start-of-frame markers: 0xC0-0xCF but DHT (C4), JPG (C8) and DAC (CC)
+JPEG_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def image_header(data: bytes) -> dict:
+    """{"format", "height", "width", ...} from a PNG's IHDR (with its
+    "bit_depth" and "color_type") or a JPEG's start-of-frame marker (with its
+    "components"); {"format": None} for anything else."""
+    if data[:8] == PNG_SIGNATURE and data[12:16] == b"IHDR":
+        return {"format": "png", "width": int.from_bytes(data[16:20], "big"),
+                "height": int.from_bytes(data[20:24], "big"), "bit_depth": data[24],
+                "color_type": data[25]}
+    if data[:2] == b"\xff\xd8":
+        i = 2
+        while i + 4 <= len(data):
+            if data[i] != 0xFF:
+                break
+            marker = data[i + 1]
+            if marker == 0xFF:  # fill byte
+                i += 1
+                continue
+            if marker in JPEG_SOF and i + 10 <= len(data):
+                return {"format": "jpeg", "height": int.from_bytes(data[i + 5:i + 7], "big"),
+                        "width": int.from_bytes(data[i + 7:i + 9], "big"),
+                        "components": data[i + 9]}
+            if marker == 0x01 or 0xD0 <= marker <= 0xD8:  # no length field
+                i += 2
+                continue
+            i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    return {"format": None}
+
+
+def imread(path: str) -> np.ndarray:
+    """The image at `path` as moss_tpu's readers decode it (module
+    docstring), decoded by cv2. Raises on a missing or undecodable file and
+    on a CMYK JPEG (Pillow keeps CMYK, cv2 converts it)."""
+    import cv2
+
+    with open(path, "rb") as f:
+        data = f.read()
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise ValueError(f"cv2 cannot decode {path}")
+    head = image_header(data)
+    if head["format"] == "jpeg" and head["components"] == 4:
+        raise ValueError(f"{path}: a CMYK JPEG, which cv2 decodes otherwise than Pillow")
+    if head["format"] == "png":
+        depth, ctype = head["bit_depth"], head["color_type"]
+        if ctype == 0:           # grey: Pillow's mode "1" is bool, "I;16" uint16
+            return img != 0 if depth == 1 else img
+        if ctype == 4 and depth == 8:  # grey + alpha, which cv2 expands to BGRA
+            img = img[..., [0, 3]]
+        elif ctype in (2, 3):    # RGB or palette: tRNS transparency dropped
+            img = img[..., 2::-1]
+        else:                    # RGBA, and 16-bit grey + alpha (Pillow's RGBA too)
+            img = img[..., [2, 1, 0, 3]]
+        if depth == 16:          # Pillow keeps each sample's high byte
+            img = (img >> 8).astype(np.uint8)
+        return np.ascontiguousarray(img)
+    if img.ndim == 3:  # BGR(A) to RGB(A)
+        img = img[..., [2, 1, 0, 3][:img.shape[2]]]
+    return np.ascontiguousarray(img)
+
+
+def imwrite(path: str, image: np.ndarray) -> None:
+    """`image` as a PNG at `path` (whatever its extension) that imread reads
+    back bitwise: uint8 (H, W), (H, W, 3) RGB or (H, W, 4) RGBA, uint16
+    (H, W), or bool (H, W) as a 1-bit PNG."""
+    import cv2
+
+    image = np.asarray(image)
+    params = []
+    if image.dtype == np.bool_ and image.ndim == 2:
+        image, params = image.astype(np.uint8) * 255, [cv2.IMWRITE_PNG_BILEVEL, 1]
+    elif image.dtype == np.uint16 and image.ndim == 2:
+        pass
+    elif image.dtype == np.uint8 and (image.ndim == 2 or image.shape[2] in (3, 4)):
+        if image.ndim == 3:
+            image = image[..., [2, 1, 0, 3][:image.shape[2]]]
+    else:
+        raise ValueError(f"imwrite: cannot write a {image.dtype} image of shape {image.shape}")
+    ok, buf = cv2.imencode(".png", np.ascontiguousarray(image), params)
+    if not ok:
+        raise ValueError(f"cv2 cannot encode {path}")
+    with open(path, "wb") as f:
+        f.write(buf.tobytes())
 
 
 def get_bound_corners(bounds):
@@ -101,10 +195,11 @@ class FrameSpec:
 
     def image_size(self) -> Tuple[int, int]:
         """(H, W) after scaling, from the image header alone."""
-        from PIL import Image
-
-        with Image.open(self.image_path) as im:
-            w, h = im.size
+        with open(self.image_path, "rb") as f:
+            head = image_header(f.read())
+        if head["format"] is None:
+            raise ValueError(f"{self.image_path}: neither a PNG nor a JPEG")
+        h, w = head["height"], head["width"]
         if self.image_scaling != 1.0:
             h, w = int(h * self.image_scaling), int(w * self.image_scaling)
         return h, w
@@ -134,11 +229,9 @@ class FrameSpec:
 
     def load(self, crop_hw: Optional[Tuple[int, int]] = None, device=None) -> Frame:
         """Decode the frame; its tensors on `device` (default: the GPU)."""
-        import imageio.v2 as imageio
-
         device = resolve_device(device)
-        image = np.asarray(imageio.imread(self.image_path), np.float32) / 255.0
-        msk = imageio.imread(self.mask_path)
+        image = np.asarray(imread(self.image_path), np.float32) / 255.0
+        msk = imread(self.mask_path)
         if self.mask_style == "binary":
             msk = (np.asarray(msk) != 0).astype(np.float32)
         else:

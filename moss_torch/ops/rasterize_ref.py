@@ -27,7 +27,9 @@ remat=True (moss_tpu's rasterize_reference(remat=...)) runs each chunk under
 torch.utils.checkpoint when grads are recorded: autograd then keeps only the
 chunk's inputs and the carried T, and recomputes the (chunk, H*W) tensors in
 the backward. Without it, autograd keeps several of them for every chunk,
-hundreds of GB at 512x512 / 46k Gaussians.
+hundreds of GB at 512x512 / 46k Gaussians. The blend draws no random
+numbers, so the checkpoint keeps no RNG state (which also lets a CUDA graph
+capture it).
 """
 from __future__ import annotations
 
@@ -40,6 +42,28 @@ from .projection import preprocess
 ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
 T_EPS = 1e-4
+
+
+class _CumprodNonzero(torch.autograd.Function):
+    """torch.cumprod along dim 0 for factors that are never 0, with the
+    backward torch takes for them (reversed_cumsum(out * g) / x, the same ops
+    in the same order, so the same bits). torch's own backward first asks
+    the host whether x holds a zero (`.item()`), a sync a queued segment
+    would wait on and a CUDA graph cannot capture. The blend's factors
+    1 - alpha lie in [0.01, 1]: alpha <= ALPHA_MAX."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=0)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        if x.shape[0] == 1:  # torch's backward returns g itself there
+            return g
+        return (out * g).flip(0).cumsum(0).flip(0).div(x)
 
 
 def _composite_chunk(T_in, done_in, alpha, feat):
@@ -55,8 +79,9 @@ def _composite_chunk(T_in, done_in, alpha, feat):
     fired = (torch.cummax(trigger.to(torch.int32), dim=0).values > 0) | done_in[None]
     contrib = (alpha > 0) & ~fired
     a = torch.where(contrib, alpha, 0.0)
-    # exclusive cumprod of (1 - a)
-    cum2 = torch.cumprod(1.0 - a, dim=0)
+    # exclusive cumprod of (1 - a); `cum` above feeds only comparisons, so no
+    # gradient reaches its cumprod
+    cum2 = _CumprodNonzero.apply(1.0 - a)
     T_excl = T_in[None] * torch.cat([torch.ones_like(cum2[:1]), cum2[:-1]], dim=0)
     w = a * T_excl  # (K, N)
     acc = w.T @ feat
@@ -134,7 +159,8 @@ def rasterize_reference(proj, bg_color, height: int, width: int,
         args = (T, done, mean2d[sl], conic[sl], opacity[sl], valid[sl], rect[sl], feat[sl],
                 px, py, pt_y, pt_x, pt)
         if remat:
-            T, done, acc_k = checkpoint(_blend_chunk, *args, use_reentrant=False)
+            T, done, acc_k = checkpoint(_blend_chunk, *args, use_reentrant=False,
+                                         preserve_rng_state=False)
         else:
             T, done, acc_k = _blend_chunk(*args)
         acc = acc + acc_k

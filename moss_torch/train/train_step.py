@@ -357,8 +357,15 @@ class TrainMany:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(device)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._body(ts, frames, feats)
+            try:
+                with torch.cuda.graph(graph):
+                    self._body(ts, frames, feats)
+            except RuntimeError as e:
+                # e.g. a caller's rasterize_fn that reads a host value
+                raise RuntimeError("the training step could not be captured in a CUDA graph "
+                                   "(the scan engine): some op of it, such as a caller's "
+                                   "rasterize_fn, reads a host value or cannot be captured; "
+                                   "train it under dispatch_engine 'queued' or 'eager'") from e
             torch.cuda.synchronize(device)
             self.capture_ms.append((time.perf_counter() - t0) * 1e3)
             self.pool_mb = (torch.cuda.memory_reserved(device) - reserved) / 2**20

@@ -52,6 +52,21 @@ and "scan" prints moss_tpu's line and runs "queued" (no CUDA graph over
 collectives). Densify noise comes from a torch Generator seeded with
 (cfg.seed, iteration), so a resumed run replays it.
 
+The rasterizer, moss_tpu's choice (its trainer.py:104-136, :160-163): by
+default (cfg.pipe.rasterizer "cuda") rasterize_cuda with the static budgets
+above, the blend kernels on a CUDA tensor and their plain version on a CPU
+one. cfg.pipe.rasterizer "reference" renders the step, the evals and the
+viewer through the plain blend (reference_rasterizer) and a caller's
+rasterize_fn(proj, bg, H, W) through that function, on any device; either
+turns the budgets' probe, install and heal off (the caller's function
+manages its own budgets), and a mesh refuses both. The plain blend reaches a
+CUDA tensor only so, by the user's choice. Under it the queued segment reads
+no host value (its sort, masks, cumulative products and product are device
+work; its cumprod's backward skips torch's host check for zeros) and "scan"
+captures its chunk loop, the backward's recompute included, in the step's
+CUDA graph. A caller's function runs under "scan" only if a CUDA graph can
+capture it; make_train_many raises otherwise.
+
 save / load / resume_latest write and read chkpnt{N}.npz in moss_tpu's
 schema (train/checkpoint.py); compact_for_eval keeps moss_tpu's rule for the
 serving capacity.
@@ -81,7 +96,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..config import Config
+from ..config import RASTERIZERS, Config
 from ..data.frames import Frame
 from ..data.prefetch import iter_frames
 from ..models import gaussians as G
@@ -89,6 +104,7 @@ from ..models.lbs_field import LBSField
 from ..models.pose_refine import PoseRefine
 from ..ops import binning, lpips
 from ..ops.rasterize_cuda import TILE, rasterize_cuda
+from ..ops.rasterize_ref import rasterize_reference
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn
 from ..parallel.sharded import band_shift, make_sharded_train_step
@@ -109,6 +125,14 @@ SCAN_ON_A_MESH = ("[trainer] dispatch_engine='scan' is single-chip only — mesh
 # radius to 1 (dataset_readers.py:714), so every body scene trains at 1; a
 # static COLMAP/Blender scene passes its nerfpp_norm radius (data/colmap.py)
 EXTENT = 1.0
+
+
+def reference_rasterizer():
+    """cfg.pipe.rasterizer "reference": the plain blend at the kernels' 16 x 16
+    tiles, each chunk's activations recomputed in the backward (remat): at
+    512 x 512 and 46,080 Gaussians they would not fit in a card's memory.
+    Same values as without remat; no overflow count, as moss_tpu's."""
+    return functools.partial(rasterize_reference, tile_h=TILE, tile_w=TILE, remat=True)
 
 
 def init_gaussians_and_mlps(scene: SceneContext, cfg: Config, device=None):
@@ -137,21 +161,34 @@ class Trainer:
     trainer's device; lpips_params are the LPIPS tower's weights
     (ops/lpips.py), and lpips_backbone says what they are, "random" or
     "pretrained" (ops/lpips.backbone's kind), which every evaluate reports
-    as moss_tpu's does. Renders go through rasterize_cuda: the blend kernels for
-    CUDA tensors, their plain version for CPU ones. extent is the scene's
-    spatial scale: the xyz learning rate's factor and densification's size
-    unit. log_fn(it, logs) gets each iteration's logs as Python numbers.
+    as moss_tpu's does. Renders go through rasterize_cuda (the blend kernels
+    for CUDA tensors, their plain version for CPU ones) with the static
+    budgets, or through rasterize_fn or the plain blend under
+    cfg.pipe.rasterizer "reference", with no budgets (the module docstring).
+    extent is the scene's spatial scale: the xyz learning rate's factor and
+    densification's size unit. log_fn(it, logs) gets each iteration's logs as Python numbers.
     tb, gui, source_path and mesh: the module docstring; with a mesh the
     trainer runs on the mesh's device."""
 
     def __init__(self, scene: SceneContext, train_frames: List[Frame], test_frames: List[Frame],
                  cfg: Config, lpips_params, crop_hw=None, extent: float = EXTENT,
                  log_fn: Optional[Callable[[int, Dict], None]] = None, tb=None, mesh=None,
-                 gui=None, source_path: str = "", lpips_backbone: str = "random", device=None):
+                 gui=None, source_path: str = "", lpips_backbone: str = "random", device=None,
+                 rasterize_fn: Optional[Callable] = None):
         self.device = resolve_device(device if device is not None or mesh is None
                                      else mesh.device)
         if cfg.model.static_scene and cfg.model.motion_offset:
             raise ValueError("static_scene has no body model: set motion_offset=False")
+        if cfg.pipe.rasterizer not in RASTERIZERS:
+            raise ValueError(f"cfg.pipe.rasterizer must be one of {RASTERIZERS}, got "
+                             f"{cfg.pipe.rasterizer!r}")
+        # the budgets are the trainer's only with its own rasterizer (moss_tpu's _autosize)
+        self._autosize = rasterize_fn is None and cfg.pipe.rasterizer == "cuda"
+        if mesh is not None and not self._autosize:
+            raise ValueError("a mesh drives the band-sharded blend kernels: it takes no "
+                             "rasterize_fn and cfg.pipe.rasterizer 'cuda'")
+        self.rasterize_fn = (rasterize_fn if rasterize_fn is not None
+                             else None if self._autosize else reference_rasterizer())
         self.scene, self.cfg, self.extent = scene, cfg, extent
         self.train_frames, self.test_frames = train_frames, test_frames
         self.lpips_params, self.lpips_backbone = lpips_params, lpips_backbone
@@ -178,7 +215,10 @@ class Trainer:
 
     def _raster_fn(self, max_tiles: int):
         """rasterize_cuda with the installed pair budget and rect cap `max_tiles`
-        (None before the budgets are installed)."""
+        (None before the budgets are installed); the caller's or the plain
+        rasterizer without the budgets."""
+        if not self._autosize:
+            return self.rasterize_fn
         if not self._installed:
             return None
         return functools.partial(rasterize_cuda, pair_budget=self._pair_budget,
@@ -205,6 +245,8 @@ class Trainer:
         render cameras no probe saw: a rect cap lowered below the configured
         one must not clip them."""
         B0 = self.cfg.pipe.max_tiles_per_gaussian
+        if not self._autosize:
+            return self.rasterize_fn
         if self.mesh is None:
             return self._raster_fn(max(B0, self._max_tiles))
         if not self._eval_installed:
@@ -287,7 +329,10 @@ class Trainer:
 
     def _resize_pair_buffer(self, full: bool = False, grow_from: int = 0):
         """Probe and grow the train budgets and, with a mesh, the full-image
-        eval budgets (moss_tpu's _resize_pair_buffer)."""
+        eval budgets (moss_tpu's _resize_pair_buffer); nothing without the
+        trainer's own rasterizer."""
+        if not self._autosize:
+            return
         self._resize_train_budgets(full, grow_from)
         if self.mesh is not None:
             self._resize_eval_budgets(full)
@@ -419,6 +464,8 @@ class Trainer:
     def _reprobe_from_scratch(self):
         """After a new cloud (load, set_state, compact_for_eval): probe afresh
         and install unconditionally, so no budget of the old cloud survives."""
+        if not self._autosize:
+            return
         self._reset_budget_state()
         self._resize_pair_buffer()
         self._install_budgets(self._pair_budget, self._max_tiles)
@@ -672,7 +719,7 @@ class Trainer:
                 self.reset_opacity()
             if fire_log_fn and self.log_fn is not None and logs is not None:
                 self.log_fn(it, logs)
-            if logs is not None and logs.get("raster_overflow", 0) > 0:
+            if self._autosize and logs is not None and logs.get("raster_overflow", 0) > 0:
                 # the self-heal: re-probe every frame, grow past the budget that dropped
                 cur = self._capacity_of(self._pair_budget, self._max_tiles)
                 print(f"[trainer] raster_overflow={logs['raster_overflow']} at iter {it} under "
@@ -898,9 +945,10 @@ class Trainer:
                 self.tb.image(f"test/view_{i}/render", img, tb_step)
                 if not self._tb_gt_logged:
                     self.tb.image(f"test/view_{i}/ground_truth", frame.image, tb_step)
+            overflow = out.get("overflow", torch.zeros((), device=self.device))
             per_frame.append(torch.stack([psnr_fn(img, gt), ssim_fn(img, gt),
                                           lpips.lpips(self.lpips_params, img, gt),
-                                          out["overflow"].to(torch.float32)]))
+                                          overflow.to(torch.float32)]))
         if log_tb:
             valid = self.ts.gstate.valid
             opacity = torch.sigmoid(self.ts.params["gauss"].opacity[:, 0])
@@ -913,7 +961,8 @@ class Trainer:
             sums = [s + v for s, v in zip(sums, row)]
         out = {"psnr": sums[0] / n, "ssim": sums[1] / n, "lpips": sums[2] / n,
                "raster_overflow": int(sums[3])}
-        if out["raster_overflow"] > 0 and self.train_frames and not _healed_retry:
+        if (out["raster_overflow"] > 0 and self._autosize and self.train_frames
+                and not _healed_retry):
             before = self._budget_version
             if self.mesh is None:
                 cur = self._capacity_of(self._pair_budget, self._max_tiles)

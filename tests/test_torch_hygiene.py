@@ -70,31 +70,49 @@ def test_imports_neither_jax_nor_moss_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# the host-side image libraries, allowed only where frames are decoded or written
+# cv2, allowed only where frames are decoded or written; imageio nowhere (the
+# card's machine has cv2 and no imageio: readers.imread / imwrite stand in)
 IMAGE_IO = re.compile(r"^\s*(import|from)\s+(cv2|imageio)\b", re.M)
 IMAGE_IO_ALLOWED = {"data/readers.py", "data/smc.py", "data/dna.py", "data/colmap.py",
                     "cli/train_zju.py", "cli/render_zju.py", "cli/render_monocap.py"}
-# h5py and imageio at a module's top level (an import inside a function is indented)
+# h5py at a module's top level (an import inside a function is indented)
 TOP_LEVEL_H5PY_IMAGEIO = re.compile(r"^(import|from)\s+(h5py|imageio)\b", re.M)
 
 
-def test_cv2_and_imageio_only_in_the_readers_and_drivers():
+def _port_files(pattern="*.py"):
     root = os.path.join(REPO, "moss_torch")
-    users = {os.path.relpath(p, root) for p in glob.glob(os.path.join(root, "**", "*.py"),
-                                                         recursive=True)
-             if IMAGE_IO.search(open(p).read())}
+    return {os.path.relpath(p, root): p for p in glob.glob(os.path.join(root, "**", pattern),
+                                                           recursive=True)
+            if "__pycache__" not in p}
+
+
+def test_cv2_and_imageio_only_in_the_readers_and_drivers():
+    """cv2 only in the readers and drivers, imageio in no module at all."""
+    users = {rel for rel, p in _port_files().items() if IMAGE_IO.search(open(p).read())}
     assert users and users <= IMAGE_IO_ALLOWED, users
+    assert not [rel for rel, p in _port_files().items()
+                if re.search(r"^\s*(import|from)\s+imageio\b", open(p).read(), re.M)]
+
+
+def test_no_file_of_the_port_names_imageio():
+    """Not in code, comments or docstrings, in any file under moss_torch/."""
+    named = [rel for rel, p in _port_files("*").items()
+             if os.path.isfile(p) and b"imageio" in open(p, "rb").read()]
+    assert not named, named
 
 
 def test_the_readers_import_h5py_and_imageio_inside_functions_only():
-    """The card's machine may lack h5py and has no imageio: the readers and
-    the modules that import them must still import there."""
+    """The card's machine may lack h5py: the readers and the modules that
+    import them must still import there. imageio is named by none of them
+    (test_no_file_of_the_port_names_imageio); frames decode through
+    readers.imread."""
     data = os.path.join(REPO, "moss_torch", "data")
     for name in ("readers.py", "smc.py", "dna.py", "colmap.py", "prefetch.py"):
         src = open(os.path.join(data, name)).read()
         assert not TOP_LEVEL_H5PY_IMAGEIO.search(src), name
+        assert "imageio" not in src, name
     assert "import h5py" in open(os.path.join(data, "smc.py")).read()
-    assert "import imageio" in open(os.path.join(data, "colmap.py")).read()
+    assert "from .readers import imread" in open(os.path.join(data, "colmap.py")).read()
 
 
 JAX_OR_MOSS_TPU = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|moss_tpu)\b|\bmoss_tpu\.", re.M)

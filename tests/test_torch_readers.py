@@ -15,8 +15,8 @@
     scipy-sparse J_regressor and a uint32 kintree_table (root 2^32 - 1),
     against moss_tpu's loader, and the posed vertices on it.
   * load_json reads a cfg.json that moss_tpu's save_json wrote (SMPL,
-    SMPL-X and static configs), drops its JAX-only keys and rejects any
-    other unknown key; config_from_jax agrees.
+    SMPL-X and static configs), its rasterizer "reference" kept, and
+    rejects any unknown key; config_from_jax agrees on the model.
   * detect_and_read sends a .smc path to the DNA-Rendering reader.
   * iter_frames, the counterparts of tests/test_prefetch.py's: loaded frames
     pass through, specs decode in order onto the given device, an early
@@ -234,11 +234,12 @@ def test_load_json_reads_moss_tpus_cfg(tmp_path):
         config.zju_preset("386"), seed=7, model_path="out/my_386",
         model=config.ModelConfig(capacity=512, sh_degree=2, white_background=True),
         optim=config.OptimConfig(iterations=20, densify_from_iter=5),
-        pipe=config.PipelineConfig(max_tiles_per_gaussian=8, test_iterations=(10, 20),
-                                   save_iterations=(20,)))
+        pipe=config.PipelineConfig(rasterizer="reference", max_tiles_per_gaussian=8,
+                                   test_iterations=(10, 20), save_iterations=(20,)))
     config.save_json(cfg, str(tmp_path / "port.json"))
     assert config.load_json(str(tmp_path / "port.json")) == cfg
     assert jconfig.load_json(str(tmp_path / "port.json")).model == jcfg.model
+    assert jconfig.load_json(str(tmp_path / "port.json")).pipe == jcfg.pipe
     assert config.monocap_preset("lan").exp_name == jconfig.monocap_preset("lan").exp_name
 
     # an SMPL-X config (DNA-Rendering) and a static one (COLMAP/Blender)
