@@ -194,14 +194,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              each driver's main() in this process with no --device: train_zju
              at 512x512 (the reader's 0.5 scale), 46,080 capacity, 6,890
              initial points, the autosized crop, DRIVER_ITERS iterations with
-             evals and saves at DRIVER_CHECKS under queued and under scan
-             (bitwise the same chkpnt60), --resume from the queued run's
-             chkpnt30 (bitwise its chkpnt60), render_zju --save_images (every
+             evals and saves at DRIVER_CHECKS under queued (phase 16c trains
+             from disk under scan), --resume from its chkpnt30 (bitwise its
+             chkpnt60), render_zju --save_images (every
              served frame bitwise the per-frame list's, overflow 0, the PNGs
              the served frames), render_zju --rasterizer reference (the plain
              blend: no kernel launched, every frame within the image rule of
              the kernels', the PSNR within DRIVER_PSNR_ATOL dB), render_zju
-             --novel_view, train_zju --rasterizer reference for 2 iterations
+             --novel_view, train_zju --rasterizer reference for 1 iteration
              (the first step's losses within DRIVER_LOSS_RTOL of the kernel
              run's; no blend kernel launched), train_monocap at 1024x1024
              then render_monocap; the files each wrote loaded back; per call
@@ -211,6 +211,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              Trainer(rasterizer="reference") under queued (segments under the
              sync debug mode "error") and scan (a CUDA graph of the plain
              blend), bitwise equal
+ 16c. reference_schedule  one whole avatar as a user trains and serves it,
+             from phase 16b's ZJU-MoCap capture: train_zju with only
+             --data_root, --subjects, --output, --result_file and --dispatch
+             scan, so the default schedule (3000 iterations, 15 densify rounds
+             at 500-1900, no opacity reset, evals, PLY saves and checkpoints at
+             2500, 2700 and 3000), 512x512, the 46,080 capacity from 6,890
+             points, SH degree 3; then --resume from its chkpnt2700 to 3000
+             under scan; then render_zju --save_images on chkpnt3000
+             (compacted). Gates: 3000 logged iterations with finite losses;
+             rounds exactly at the schedule's iterations and no reset; the
+             live count within the capacity; a CUDA graph captured after
+             every round that gave the state new tensors and none that no
+             round, reset or budget install called for; the card's reserved
+             memory after the last capture within the second capture's plus
+             one graph pool and its allocated memory within
+             CAPTURE_LEAK_MB of it, every replaced graph freed; each SH degree's
+             coefficients zero until the boundary after its first updating
+             step; pairs dropped in training only with the trainer's heal;
+             the PSNR at 2500 above phase 16b's 60-iteration run's last; the
+             resume bitwise the uninterrupted chkpnt3000 with one capture;
+             every served frame bitwise the per-frame list's, the PNGs the
+             served frames. It prints the wall seconds by part (reads and
+             decodes, set-up, steps, rounds, heals, captures, evals, saves),
+             ms an iteration outside rounds, ms a round, each capture's ms,
+             pool and reserved MB, peak allocated MB, the live count after
+             each round with the round's stats and budgets, the evals, the
+             resume's seconds, ms a served frame and raster_overflow
  17. tool_sort  moss_torch.tools.sort_micro, counted, which holds the two
              sort-pass kernels to their plain versions, exactly, at every
              stride of a 2^19-key network and times both at each stride at R
@@ -258,6 +285,7 @@ Needs a CUDA device and nvcc; builds into build/moss_torch/.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -275,6 +303,7 @@ import subprocess
 import sys
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -1369,6 +1398,24 @@ def engine_run(dev, scene, frames, lp, engine):
         "pool_mb": many.pool_mb if engine == "scan" else 0.0}, launches
 
 
+def trace_events(prof):
+    """(name, device type, us) of each event a stopped torch.profiler
+    recorded, read from its raw results: the events, names and durations
+    prof.events() and key_averages() are built from (less the profiler's own,
+    which they drop too), without building their objects, which took 10-36 s
+    a profile at 6,000 launches a step."""
+    from torch.autograd.profiler_util import _filter_name
+
+    results = prof.profiler.kineto_results
+    t0, out = results.trace_start_ns(), []
+    for e in results.events():
+        name = e.name()
+        if not (_filter_name(name) or getattr(e, "is_hidden_event", lambda: False)()):
+            # from the trace's start, as FunctionEvent's time range
+            out.append((name, e.device_type(), (e.end_ns() - t0) / 1e3 - (e.start_ns() - t0) / 1e3))
+    return out
+
+
 def engine_breakdown(fn, steps):
     """fn (steps training steps and their log read) once to warm up, once on
     the host clock (steady ms a step), then once under torch.profiler:
@@ -1386,17 +1433,18 @@ def engine_breakdown(fn, steps):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    events = trace_events(prof)
+    device = [(name, us) for name, kind, us in events if kind == DeviceType.CUDA]
+    busy = sum(us for _, us in device) / 1e3
     # the port's kernels by name in the trace (a graph's replays list each kernel they run)
-    named = {k: sum(1 for e in device if f"{k}_kernel" in e.name) / steps
+    named = {k: sum(1 for name, _ in device if f"{k}_kernel" in name) / steps
              for k in ("rasterize_fwd", "rasterize_bwd", "segment_sum", "svd3")}
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
-    calls = {e.key: e.count for e in prof.key_averages()}
+    calls = collections.Counter(name for name, _, _ in events)
     by_name = {}
-    for e in device:
-        by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, us in device:
+        by_name[name[:70]] = by_name.get(name[:70], 0.0) + us / 1e3
 
     def n(*keys):
         return sum(calls.get(k, 0) for k in keys)
@@ -3750,7 +3798,7 @@ DRIVER_CHECKS = (30, 60)
 DRIVER_NOVEL_VIEWS = 4
 DRIVER_MONOCAP_SEQ = "olek_images0812"  # soft masks, multiplied in (readers.read_monocap)
 DRIVER_MONOCAP_ITERS = 40
-DRIVER_REFERENCE_ITERS = 2
+DRIVER_REFERENCE_ITERS = 1  # the first step's losses are what it checks
 DRIVER_LOSS_RTOL = 1e-4
 DRIVER_PSNR_ATOL = 1e-3
 DRIVER_ENGINE_HW = 128   # the plain blend under the engines, at a small size
@@ -3925,7 +3973,9 @@ class DriverSpies:
 
     def __init__(self):
         self.logs, self.trainers, self.served = [], [], []
-        self.ms = {"train": 0.0, "host_work": 0.0}
+        self.ms = {"train": 0.0, "host_work": 0.0, "init": 0.0}
+        self.work = []  # (method, ms, grow_from) of each clocked host-work call, in order
+        self.first_init = None  # perf_counter at the first Trainer.__init__'s start
         self._depth, self._in_train = 0, False
 
     @contextlib.contextmanager
@@ -3959,13 +4009,17 @@ class DriverSpies:
                         return fn(*a, **kw)
                     out, ms = clocked_ms(lambda: fn(*a, **kw))
                     spies.ms["host_work"] += ms
+                    spies.work.append((fn.__name__, ms, kw.get("grow_from", 0)))
                     return out
                 finally:
                     spies._depth -= 1
             return go
 
         def init(tr, *a, **kw):
-            orig[Trainer, "__init__"](tr, *a, **kw)
+            if spies.first_init is None:
+                spies.first_init = time.perf_counter()
+            _, ms = clocked_ms(lambda: orig[Trainer, "__init__"](tr, *a, **kw))
+            spies.ms["init"] += ms
             spies.trainers.append(tr)
 
         def train(tr, *a, **kw):
@@ -3990,16 +4044,17 @@ class DriverSpies:
                 setattr(obj, k, v)
 
 
-def driver_call(name, main, argv, results, launch_gate):
-    """main(argv) in this process under DriverSpies, its kernels counted
-    (the counts set to 0 just before and read just after) and held to
-    launch_gate ({kernel: True} must launch, False must not); its line."""
+def driver_call(name, main, argv, results, launch_gate, watch=contextlib.nullcontext):
+    """main(argv) in this process under DriverSpies (and the context manager
+    watch() inside them), its kernels counted (the counts set to 0 just
+    before and read just after) and held to launch_gate ({kernel: True} must
+    launch, False must not); its line."""
     gc.collect()
     torch.cuda.empty_cache()
     spies = DriverSpies()
     zero_launch_counts()
     t0 = time.perf_counter()
-    with spies.installed():
+    with spies.installed(), watch():
         out = main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4009,6 +4064,8 @@ def driver_call(name, main, argv, results, launch_gate):
             raise AssertionError(f"drivers {name}: {k} launched {launches[k]} times, expected "
                                  f"{'some' if must else 'none'}")
     line = {"call": name, "argv": " ".join(argv), "wall_s": wall, "launches": launches}
+    if spies.first_init is not None:  # the reads and decodes before the first Trainer
+        line["read_s"] = spies.first_init - t0
     msg = f"drivers {name}: {wall:.1f} s, launches {launches}"
     if spies.logs:  # a training driver
         n = len(spies.logs)
@@ -4136,37 +4193,28 @@ def phase_drivers(dev, smi):
     every = dict.fromkeys(DRIVER_KERNELS, True)
     serve_only = {"rasterize_fwd": True, "rasterize_bwd": False, "segment_sum": False,
                   "svd3": False}
-    out_dir = {k: os.path.join(DRIVERS_DIR, f"out_{k}") for k in ("queued", "scan", "resume",
-                                                                 "reference", "monocap")}
+    out_dir = {k: os.path.join(DRIVERS_DIR, f"out_{k}") for k in ("queued", "resume", "reference",
+                                                                 "monocap")}
     zju = ["--data_root", os.path.dirname(zju_root), "--subjects", "377"]
     train = zju + ["--iterations", str(DRIVER_ITERS),
                    "--test_iterations", *map(str, DRIVER_CHECKS),
                    "--save_iterations", *map(str, DRIVER_CHECKS),
                    "--capacity", str(CAPACITY), "--n_init", str(N_VERTS)]
 
-    # train_zju under queued and scan, then --resume from the queued run's chkpnt30
-    runs = {}
-    for engine in ("queued", "scan"):
-        argv = train + ["--output", out_dir[engine], "--dispatch", engine,
-                        "--result_file", os.path.join(out_dir[engine], "ZJU.txt")]
-        metrics, spies = driver_call(f"train_zju_{engine}", train_zju.main, argv, results, every)
-        runs[engine] = spies
-        ts, files_line = check_outputs(os.path.join(out_dir[engine], "my_377"), DRIVER_ITERS,
-                                       8, dev, os.path.join(out_dir[engine], "ZJU.txt"))
-        results[-1].update(files_line, psnr=[m["psnr"] for m in metrics[0]],
-                           budgets=spies.trainers[-1].budgets)
-        if len(spies.logs) != DRIVER_ITERS or not all(
-                math.isfinite(x["loss"]) for x in spies.logs):
-            raise AssertionError(f"train_zju {engine}: {len(spies.logs)} logged iterations")
-        if any(x.get("raster_overflow", 0) for x in spies.logs):
-            raise AssertionError(f"train_zju {engine}: pairs dropped in training")
+    # train_zju under queued (phase reference_schedule trains from disk under
+    # scan), then --resume from its chkpnt30
+    argv = train + ["--output", out_dir["queued"], "--dispatch", "queued",
+                    "--result_file", os.path.join(out_dir["queued"], "ZJU.txt")]
+    metrics, queued = driver_call("train_zju_queued", train_zju.main, argv, results, every)
+    ts, files_line = check_outputs(os.path.join(out_dir["queued"], "my_377"), DRIVER_ITERS,
+                                   8, dev, os.path.join(out_dir["queued"], "ZJU.txt"))
+    queued_psnr = [m["psnr"] for m in metrics[0]]
+    results[-1].update(files_line, psnr=queued_psnr, budgets=queued.trainers[-1].budgets)
+    if len(queued.logs) != DRIVER_ITERS or not all(math.isfinite(x["loss"]) for x in queued.logs):
+        raise AssertionError(f"train_zju queued: {len(queued.logs)} logged iterations")
+    if any(x.get("raster_overflow", 0) for x in queued.logs):
+        raise AssertionError("train_zju queued: pairs dropped in training")
     q_ckpt = os.path.join(out_dir["queued"], "my_377", f"chkpnt{DRIVER_ITERS}.npz")
-    if not flat_equal_npz(q_ckpt, os.path.join(out_dir["scan"], "my_377",
-                                               f"chkpnt{DRIVER_ITERS}.npz")):
-        raise AssertionError("train_zju: scan's final state is not queued's")
-    if dev.type == "cuda" and not runs["scan"].trainers[-1]._many.captures:
-        raise AssertionError("train_zju scan: no CUDA graph was captured")
-    results[-1]["captures"] = runs["scan"].trainers[-1]._many.captures
     os.makedirs(os.path.join(out_dir["resume"], "my_377"))
     shutil.copy(os.path.join(out_dir["queued"], "my_377", f"chkpnt{DRIVER_CHECKS[0]}.npz"),
                 os.path.join(out_dir["resume"], "my_377"))
@@ -4229,13 +4277,13 @@ def phase_drivers(dev, smi):
                "--result_file", os.path.join(out_dir["reference"], "ZJU.txt")],
         results, {"rasterize_fwd": False, "rasterize_bwd": False, "segment_sum": False,
                   "svd3": True})
-    first, kfirst = spies.logs[0], runs["queued"].logs[0]
+    first, kfirst = spies.logs[0], queued.logs[0]
     rel = {k: abs(first[k] - kfirst[k]) / max(abs(kfirst[k]), 1e-12)
            for k in ("loss", "l1", "mask", "ssim", "lpips", "nll", "s3im") if k in kfirst}
     if max(rel.values()) > DRIVER_LOSS_RTOL:
         raise AssertionError(f"train_zju --rasterizer reference: first-step losses {rel}")
     results[-1]["first_step_rel_err"] = rel
-    del spies, runs
+    del spies, queued
 
     # train_monocap -> render_monocap at 1024 x 1024
     mono = ["--data_root", os.path.dirname(mono_root)]
@@ -4265,6 +4313,321 @@ def phase_drivers(dev, smi):
     emit({"phase": "drivers", "nvidia_smi": smi, "frame_files": {"jpeg": files.n_jpg,
                                                                  "png": files.n_png},
           "write_s": write_s, "calls": results, "plain_blend_engines": engines})
+    for d in out_dir.values():  # the capture stays for phase reference_schedule
+        shutil.rmtree(d, ignore_errors=True)
+    return {r["call"]: r["launches"] for r in results}, zju_root, queued_psnr[-1]
+
+
+# ---- the reference schedule from disk, then serving ---------------------------------
+
+SCHEDULE_DIR = os.path.join(DRIVERS_DIR, "reference_schedule")
+SH_BANDS = ((0, 3), (3, 8), (8, 15))  # f_rest's rows of SH degrees 1, 2 and 3
+# the most the card's allocated memory may grow from the second capture to
+# the last: half the cuBLAS workspace a new warm-up stream a capture left
+CAPTURE_LEAK_MB = 32
+
+
+class ScheduleSpies:
+    """What a train_zju run did to its state, read from inside this process
+    beside DriverSpies: each densify round (its iteration, the live count
+    before, its stats, whether the state got new tensors, the budgets the
+    resize after it left and whether that rebuilt the step), each opacity
+    reset and budget install, each CUDA graph capture (the rounds before it,
+    its ms and pool MB, the card's reserved and allocated MB just after,
+    whether the graph it replaced was freed), and at each host boundary which
+    SH degrees' coefficients are nonzero. `events` keeps rounds, resets,
+    installs and captures in their order."""
+
+    def __init__(self):
+        self.rounds, self.resets, self.captures, self.bands, self.events = [], [], [], [], []
+
+    @contextlib.contextmanager
+    def installed(self):
+        from moss_torch.train.train_step import TrainMany
+
+        spies = self
+        names = ((Trainer, "densify"), (Trainer, "reset_opacity"), (Trainer, "_install_budgets"),
+                 (Trainer, "_resize_pair_buffer"), (Trainer, "_log_segment"),
+                 (TrainMany, "_run_graph"))
+        orig = {(c, k): getattr(c, k) for c, k in names}
+
+        def densify(tr, it):
+            live, ptr = int(tr.ts.gstate.valid.sum()), tr.ts.params["gauss"].xyz.data_ptr()
+            stats = orig[Trainer, "densify"](tr, it)
+            spies.rounds.append({"iteration": it, "live_before": live,
+                                 **{k: int(v) for k, v in stats.items() if k != "masks"},
+                                 "new_tensors": tr.ts.params["gauss"].xyz.data_ptr() != ptr,
+                                 "installs_before": tr.budgets["installs"]})
+            spies.events.append(("round", it))
+            return stats
+
+        def resize(tr, *a, **kw):
+            out = orig[Trainer, "_resize_pair_buffer"](tr, *a, **kw)
+            last = spies.rounds[-1] if spies.rounds else {}
+            if last and "budgets" not in last and not kw.get("grow_from"):
+                last["budgets"] = tr.budgets
+                last["rebuilt"] = last["budgets"]["installs"] != last["installs_before"]
+            return out
+
+        def reset(tr):
+            spies.resets.append(int(tr.ts.step))
+            spies.events.append(("reset", int(tr.ts.step)))
+            return orig[Trainer, "reset_opacity"](tr)
+
+        def install(tr, *a, **kw):
+            spies.events.append(("install", tr._budget_version + 1))
+            return orig[Trainer, "_install_budgets"](tr, *a, **kw)
+
+        def log_segment(tr, prev, bound, seg, **kw):
+            out = orig[Trainer, "_log_segment"](tr, prev, bound, seg, **kw)
+            f = tr.ts.params["gauss"].f_rest
+            spies.bands.append((bound, torch.stack([(f[:, a:b] != 0).any()
+                                                    for a, b in SH_BANDS]).tolist()))
+            return out
+
+        def run_graph(many, *a, **kw):
+            old = None if many._graph is None else weakref.ref(many._graph)
+            n = many.captures
+            out = orig[TrainMany, "_run_graph"](many, *a, **kw)
+            if many.captures != n:
+                spies.captures.append({
+                    "rounds_before": len(spies.rounds), "ms": many.capture_ms[-1],
+                    "pool_mb": many.pool_mb, "reserved_mb": torch.cuda.memory_reserved() / 2**20,
+                    "allocated_mb": torch.cuda.memory_allocated() / 2**20,
+                    "replaced_graph_freed": None if old is None else old() is None})
+                spies.events.append(("capture", len(spies.captures)))
+            return out
+
+        Trainer.densify, Trainer.reset_opacity, Trainer._install_budgets = densify, reset, install
+        Trainer._resize_pair_buffer, Trainer._log_segment = resize, log_segment
+        TrainMany._run_graph = run_graph
+        try:
+            yield self
+        finally:
+            for (c, k), v in orig.items():
+                setattr(c, k, v)
+
+
+def schedule_split(line, spies, captures_ms):
+    """A training driver call's wall seconds by part: the reads and decodes
+    before the Trainer, its construction (the cloud, the first budget probe),
+    the steps (train less the parts below), the rounds (densify and the
+    resize after it), the heals, the captures, the evals, the saves (PLY and
+    MLP layout, chkpnt npz), and what main did after train."""
+    work = spies.work
+
+    def of(*names, heal=False):
+        return sum(ms for n, ms, g in work if n in names and bool(g) == heal) / 1e3
+
+    train = spies.ms["train"] / 1e3
+    split = {"read_s": line["read_s"], "setup_s": spies.ms["init"] / 1e3,
+             "rounds_s": of("densify", "_resize_pair_buffer"),
+             "heals_s": of("_resize_pair_buffer", heal=True), "captures_s": captures_ms / 1e3,
+             "evals_s": of("evaluate"), "saves_s": of("save", "save_reference_layout")}
+    split["steps_s"] = train - spies.ms["host_work"] / 1e3 - split["captures_s"]
+    split["finish_s"] = line["wall_s"] - split["read_s"] - split["setup_s"] - train
+    return split
+
+
+def round_ms(spies):
+    """Each round's ms: its densify and the budget resize right after it."""
+    out, work = [], spies.work
+    for i, (name, ms, _) in enumerate(work):
+        if name == "densify":
+            nxt = work[i + 1] if i + 1 < len(work) else None
+            out.append(ms + (nxt[1] if nxt and nxt[0] == "_resize_pair_buffer" and not nxt[2]
+                             else 0.0))
+    return out
+
+
+def schedule_gates(spies, sched, cfg, iters, capacity, dev):
+    """Gates 1-5 of phase reference_schedule on a train_zju run (each
+    raises), with the SH degrees' step-ups and the captures' causes; returns
+    what they read."""
+    o = cfg.optim
+    # 1. every iteration logged, every loss finite
+    if len(spies.logs) != iters or not all(math.isfinite(x["loss"]) for x in spies.logs):
+        raise AssertionError(f"reference schedule: {len(spies.logs)} logged iterations of "
+                             f"{iters}, or a loss not finite")
+    # 2. rounds exactly at the schedule's iterations, no opacity reset
+    want = [i for i in range(o.densification_interval, iters + 1, o.densification_interval)
+            if o.densify_from_iter < i < o.densify_until_iter]
+    got = [r["iteration"] for r in sched.rounds]
+    if got != want or sched.resets:
+        raise AssertionError(f"reference schedule: rounds at {got}, want {want}; resets at "
+                             f"{sched.resets}")
+    # 3. the live count never above the capacity
+    live = [r["count_after"] for r in sched.rounds]
+    most = max(live + [int(x["num_points"]) for x in spies.logs])
+    if most > capacity:
+        raise AssertionError(f"reference schedule: {most} live in a {capacity} capacity")
+    # the SH degree steps up inside the replays: degree k's coefficients are
+    # 0 until the first step at degree k that updates f_rest (a round's step
+    # skips the Gaussians' update, the last iteration's every update), nonzero
+    # from the host boundary after it
+    step_ups = {}
+    for k in range(1, cfg.model.sh_degree + 1):
+        first_step = next((s for s in range(1, iters + 1)
+                           if active_sh_degree(s, cfg.model.sh_degree) >= k and "f_rest" not in
+                           optim.skipped_groups(o, cfg.model.white_background, s)), None)
+        if first_step is None:
+            continue
+        want_b = min(b for b, _ in sched.bands if b >= first_step)
+        got_b = next((b for b, nz in sched.bands if nz[k - 1]), None)
+        step_ups[k] = {"step": first_step, "first_nonzero_boundary": got_b}
+        if got_b != want_b:
+            raise AssertionError(f"SH degree {k}: its coefficients nonzero first at boundary "
+                                 f"{got_b}, want {want_b}")
+    # overflow in training only with the trainer's heal after it
+    dropped = [i + 1 for i, x in enumerate(spies.logs) if x.get("raster_overflow", 0)]
+    heals = sum(1 for n, _, g in spies.work if n == "_resize_pair_buffer" and g)
+    if dropped and not heals:
+        raise AssertionError(f"pairs dropped at iterations {dropped[:10]} and no heal")
+    out = {"rounds": got, "live_after_round": live, "max_live": most, "sh_step_ups": step_ups,
+           "overflow_iterations": dropped, "heals": heals}
+    if dev.type != "cuda":  # the CPU captures no graph
+        return out
+    caps = sched.captures
+    # 4. a capture after each round that gave the state new tensors
+    missing = [r["iteration"] for i, r in enumerate(sched.rounds) if r["new_tensors"] and not any(
+        c["rounds_before"] == i + 1 for c in caps)]
+    # and none that nothing called for: each capture after the first follows a
+    # round, a reset or a budget install since the one before it
+    uncalled, since = [], set()
+    for kind, n in sched.events:
+        if kind == "capture":
+            if n > 1 and not since:
+                uncalled.append(n)
+            since = set()
+        else:
+            since.add(kind)
+    if missing or uncalled:
+        raise AssertionError(f"captures: none after the rounds at {missing}; captures "
+                             f"{uncalled} with no round, reset or install before them")
+    # 5. the graph pools do not pile up, and nothing a capture leaves lives on
+    # (the state's capacity is fixed: a warm-up stream a capture left ~65 MB
+    # of cuBLAS workspace allocated each time, CAPTURE_LEAK_MB)
+    if len(caps) < 2:
+        raise AssertionError(f"reference schedule: {len(caps)} captures")
+    pool = max(c["pool_mb"] for c in caps)
+    grew = caps[-1]["allocated_mb"] - caps[1]["allocated_mb"]
+    if caps[-1]["reserved_mb"] > caps[1]["reserved_mb"] + pool or grew > CAPTURE_LEAK_MB or \
+            not all(c["replaced_graph_freed"] in (None, True) for c in caps):
+        raise AssertionError(f"the graph pools pile up: reserved {caps[1]['reserved_mb']:.0f} MB "
+                             f"after the second capture, {caps[-1]['reserved_mb']:.0f} after "
+                             f"the last, a pool {pool:.0f}; allocated {grew:.1f} MB more; {caps}")
+    out.update(captures=len(caps), reserved_bound_mb=caps[1]["reserved_mb"] + pool,
+               allocated_growth_mb=grew)
+    return out
+
+
+def phase_reference_schedule(dev, smi, zju_root, baseline_psnr):
+    """The avatar trained at the reference schedule from disk and served
+    (module docstring, phase 16c): train_zju on phase drivers' capture with
+    only --data_root, --subjects, --output, --result_file and --dispatch scan,
+    then --resume from its chkpnt at the second eval, then render_zju
+    --save_images on its last checkpoint. baseline_psnr: the PSNR phase
+    drivers' queued run reached at its last eval on the same test frames.
+    Returns {call: launches}."""
+    from moss_torch.cli import render_zju, train_zju
+
+    shutil.rmtree(SCHEDULE_DIR, ignore_errors=True)
+    zju = ["--data_root", os.path.dirname(zju_root), "--subjects", "377"]
+    args = train_zju.parse_args(zju)
+    iters, checks, capacity = args.iterations, sorted(args.test_iterations), args.capacity
+    out = {k: os.path.join(SCHEDULE_DIR, k) for k in ("run", "resume")}
+    model_path = {k: os.path.join(d, "my_377") for k, d in out.items()}
+    every = dict.fromkeys(DRIVER_KERNELS, True)
+    results = []
+
+    def argv(k):
+        return zju + ["--output", out[k], "--result_file", os.path.join(out[k], "ZJU.txt"),
+                      "--dispatch", "scan"]
+
+    # the whole schedule under scan
+    sched = ScheduleSpies()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, spies = driver_call("train_zju", train_zju.main, argv("run"), results, every,
+                                 sched.installed)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    tr = spies.trainers[-1]
+    if tr.cfg.optim != OptimConfig(iterations=iters):
+        raise AssertionError(f"reference schedule: the run's schedule is not the default: "
+                             f"{tr.cfg.optim}")
+    gates = schedule_gates(spies, sched, tr.cfg, iters, capacity, dev)
+    _, files_line = check_outputs(model_path["run"], iters, 8, dev,
+                                  os.path.join(out["run"], "ZJU.txt"))
+    for c in checks:
+        for rel in (f"chkpnt{c}.npz", f"point_cloud/iteration_{c}/point_cloud.ply"):
+            if not os.path.exists(os.path.join(model_path["run"], rel)):
+                raise AssertionError(f"reference schedule: no {rel}")
+    evals = {m["iteration"]: {k: m[k] for k in ("psnr", "ssim", "lpips", "raster_overflow")}
+             for m in metrics[0]}
+    # 6. the first eval above the 60-iteration run's last
+    if sorted(evals) != checks or not evals[checks[0]]["psnr"] > baseline_psnr:
+        raise AssertionError(f"reference schedule: evals {evals}; the 60-iteration run "
+                             f"reached {baseline_psnr}")
+    many = tr._many
+    split = schedule_split(results[-1], spies, sum(many.capture_ms))
+    rms = round_ms(spies)
+    line = {**results[-1], **files_line, "gates": gates, "split": split,
+            "ms_per_iteration_outside_rounds": split["steps_s"] * 1e3 / iters,
+            "round_ms": rms, "round_ms_median": float(np.median(rms)) if rms else None,
+            "round_ms_max": max(rms, default=None), "rounds": sched.rounds,
+            "captures": sched.captures, "capture_count": many.captures,
+            "replays": many.replays, "peak_allocated_mb": peak_mb, "evals": evals,
+            "psnr_margin_db": evals[checks[0]]["psnr"] - baseline_psnr,
+            "baseline_psnr": baseline_psnr, "budgets": tr.budgets,
+            "heal_events": tr._heal_events, "sh_bands_nonzero": sched.bands}
+    results[-1] = line
+    del spies, tr, many, sched
+    print(f"reference_schedule ({smi}): train_zju {iters} iterations under scan in "
+          f"{line['wall_s']:.1f} s: " + ", ".join(f"{k[:-2]} {v:.1f}" for k, v in split.items())
+          + f" s; {line['ms_per_iteration_outside_rounds']:.2f} ms an iteration outside rounds, "
+          f"a round {line['round_ms_median']:.1f} ms median, {line['round_ms_max']:.1f} max; "
+          f"{line['capture_count']} captures at "
+          f"{[round(c['ms'], 1) for c in line['captures']]} ms, pools "
+          f"{[round(c['pool_mb'], 1) for c in line['captures']]} MB, reserved after each "
+          f"{[round(c['reserved_mb']) for c in line['captures']]} MB; peak allocated "
+          f"{peak_mb:.0f} MB; live after each round {gates['live_after_round']}; evals {evals}",
+          flush=True)
+
+    # 7. --resume from the second eval's checkpoint, bitwise the uninterrupted run
+    resume_at = checks[-2]
+    os.makedirs(model_path["resume"])
+    shutil.copy(os.path.join(model_path["run"], f"chkpnt{resume_at}.npz"), model_path["resume"])
+    _, spies = driver_call("train_zju_resume", train_zju.main, argv("resume") + ["--resume"],
+                           results, every)
+    final = f"chkpnt{iters}.npz"
+    if len(spies.logs) != iters - resume_at or not flat_equal_npz(
+            os.path.join(model_path["run"], final), os.path.join(model_path["resume"], final)):
+        raise AssertionError(f"train_zju --resume from {resume_at}: {len(spies.logs)} iterations, "
+                             "or not bitwise the uninterrupted run")
+    captures = spies.trainers[-1]._many.captures
+    if dev.type == "cuda" and captures != 1:  # no round after resume_at: one graph serves
+        raise AssertionError(f"train_zju --resume: {captures} captures")
+    results[-1].update(resumed_from=resume_at, captures=captures)
+    del spies
+
+    # 8. render_zju on the last checkpoint: served bitwise, the PNGs the served frames
+    (res,), spies = driver_call(
+        "render_zju", render_zju.main,
+        zju + ["--iterations", str(iters), "--output", out["run"], "--save_images"], results,
+        {"rasterize_fwd": True, "rasterize_bwd": False, "segment_sum": False, "svd3": False})
+    print(f"reference_schedule render_zju ({smi}): {results[-1]['ms_per_served_frame']:.2f} ms a "
+          f"served frame, raster_overflow {res['raster_overflow']}", flush=True)
+    results[-1]["served_bitwise"] = check_served(spies, "render_zju at the reference schedule")
+    pngs = sorted(glob.glob(os.path.join(model_path["run"], "renders", f"iteration_{iters}",
+                                         "*.png")))
+    if len(pngs) != 8:
+        raise AssertionError(f"render_zju: {len(pngs)} PNGs")
+    for path, (_, _, o) in zip(pngs, spies.served[1:]):
+        want = (torch.clamp(o["render"], 0.0, 1.0).cpu().numpy() * 255).astype(np.uint8)
+        if not np.array_equal(readers.imread(path), want):
+            raise AssertionError(f"{path}: not the served frame")
+    del spies
+    emit({"phase": "reference_schedule", "nvidia_smi": smi, "iterations": iters,
+          "checks": checks, "capacity": capacity, "calls": results})
     shutil.rmtree(DRIVERS_DIR, ignore_errors=True)
     return {r["call"]: r["launches"] for r in results}
 
@@ -4309,6 +4672,7 @@ def main():
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
         by_phase[name] = {k: v - before.get(k, 0) for k, v in timing.retaken_by_site.items()
                           if v != before.get(k, 0)}
         return out
@@ -4332,7 +4696,9 @@ def main():
     dna_launches = phase("dna", phase_dna, dev, smi, smplx_world)
     del smplx_world
     monocap_launches, monocap_rows = phase("monocap", phase_monocap, dev, smi)
-    driver_launches = phase("drivers", phase_drivers, dev, smi)
+    driver_launches, zju_root, driver_psnr = phase("drivers", phase_drivers, dev, smi)
+    schedule_launches = phase("reference_schedule", phase_reference_schedule, dev, smi, zju_root,
+                              driver_psnr)
     # the later paths' launches, and rows 1, 2 and 2b on their inputs
     zero = {"rasterize_fwd": 0, "rasterize_bwd": 0, "segment_sum": 0, "svd3": 0}
     families = {"smplx": smplx_launches, "static": static_launches,
@@ -4344,7 +4710,9 @@ def main():
                 "sharded_trainer": {k: sum(n[k] for m, n in sharded_launches.items()
                                            if "trainer" in m) for k in zero},
                 "engines": {k: sum(n[k] for n in engine_launches.values()) for k in zero},
-                **{f"drivers_{call}": n for call, n in driver_launches.items()}}
+                **{f"drivers_{call}": n for call, n in driver_launches.items()},
+                "reference_schedule": {k: sum(n[k] for n in schedule_launches.values())
+                                       for k in zero}}
     by_input = {f"smplx_{SMPLX_HW[1]}x{SMPLX_HW[0]}": smplx_rows,
                 f"static_{STATIC_HW}x{STATIC_HW}": static_rows,
                 f"monocap_{MONOCAP_HW}x{MONOCAP_HW}": monocap_rows, **orbit_rows,

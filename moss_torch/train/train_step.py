@@ -275,6 +275,7 @@ class TrainMany:
         self.captured_launches: Dict[str, int] = {}
         self._graph = None
         self._signature = None
+        self._side = None  # the warm-ups' stream (_run_graph)
         self._keys: Optional[List[str]] = None
         self._ints: set = set()
         self._order = self._pos = self._logs = None
@@ -343,7 +344,12 @@ class TrainMany:
                 old[2] != signature[2]:
             self._graph, self._signature = None, None
             device = self._order.device
-            side = torch.cuda.Stream(device)
+            # one stream for every warm-up: cuBLAS keeps a workspace for each
+            # stream its handle ran on (about 65 MB on an H100) until the
+            # process ends, so a new stream a capture would leave one behind
+            if self._side is None:
+                self._side = torch.cuda.Stream(device)
+            side = self._side
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):  # the warm-up: the first of the K steps
                 self._body(ts, frames, feats)
