@@ -59,8 +59,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              ms per iteration outside densify rounds, per round, per eval frame
  7b. engines  the trainer's dispatch engines (train/trainer.py): phase 7's
              scene, frames, crop, loss and schedule once per engine (eager,
-             queued, scan); every queued segment under torch.cuda's sync
-             debug mode "error" (a host sync inside a segment fails the run);
+             queued, scan); every queued and scan segment under torch.cuda's
+             sync debug mode "error" (a host sync inside a segment fails the
+             run);
              the scan engine's state (a CUDA graph of the step, replayed) and
              the queued one's bitwise eager's after iterations 20 and 60, its
              evals the same; rows 1, 2, 2b and svd3 launched in every run
@@ -121,7 +122,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              densify rounds whose k=1 kNN runs to the SMPL-X vertices and whose
              Fisher fields are SVDs of zero matrices, one opacity reset), the
              eval at 20 above the one at 1, the kernels launched once per step
-             and eval frame, a second run bitwise equal; 7 more steps timed and
+             and eval frame, under queued; a second run under scan (a CUDA
+             graph of the step, captured at the start and after each state
+             change) bitwise the first; every segment of both under the sync
+             debug mode "error"; the scan run's captures (ms, graph pool, the
+             card's reserved and allocated MB after each: reserved after the
+             last within the second's plus one pool, allocated within
+             CAPTURE_LEAK_MB of it) and a profiled 10-step scan call whose
+             replays' trace must name each blend kernel every step (idle share,
+             launch calls, syncs), ms an iteration outside rounds and evals
+             under each engine; 7 more steps timed and
              one profiled (host ms, device-busy ms, idle share, launches, syncs);
              the trained avatar's test frame served on the full path against
              the plain blend (the image rule); rows 1, 2 and 2b on that frame's
@@ -172,7 +182,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              statistics; tests/test_parallel.py's tolerances); the denser
              band's rows 1, 2 and 2b (BAND_ROWS); ms per step on each rank;
              then on each mesh the
-             Trainer (phase 7's scene and crop, MESH_TRAINER: 20 iterations,
+             Trainer (phase 7's scene and crop, MESH_TRAINER: 12 iterations,
              one densify round, an eval) under the queued and the eager
              engine, bitwise equal on both ranks, the kernels counted, ms per
              iteration, a profiled call's launches and syncs a step, the band
@@ -182,8 +192,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              scene (the MLPs on), 46,080 capacity, the autosized crop, evals at
              MONOCAP_EVALS, a TBWriter where tensorboardX imports, and five
              steps under observability.profile_trace, whose trace must name
-             both blend kernels; one trainer run, not two (phase 16b holds
-             the Trainer's runs bitwise)
+             both blend kernels; queued, then scan, as in phase 10
  16b. drivers  the users' main path from disk: a ZJU-MoCap-Refine subject
              (my_377 in the reader's layout: 1024x1024 JPEGs and PNG masks of
              the 12 train and 8 test frames, the 6,890-vertex synthetic rig
@@ -195,8 +204,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              at 512x512 (the reader's 0.5 scale), 46,080 capacity, 6,890
              initial points, the autosized crop, DRIVER_ITERS iterations with
              evals and saves at DRIVER_CHECKS under queued (phase 16c trains
-             from disk under scan), --resume from its chkpnt30 (bitwise its
-             chkpnt60), render_zju --save_images (every
+             from disk under scan and resumes, bitwise), render_zju
+             --save_images (every
              served frame bitwise the per-frame list's, overflow 0, the PNGs
              the served frames), render_zju --rasterizer reference (the plain
              blend: no kernel launched, every frame within the image rule of
@@ -204,7 +213,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              --novel_view, train_zju --rasterizer reference for 1 iteration
              (the first step's losses within DRIVER_LOSS_RTOL of the kernel
              run's; no blend kernel launched), train_monocap at 1024x1024
-             then render_monocap; the files each wrote loaded back; per call
+             under queued and under --dispatch scan (its chkpnt bitwise
+             queued's), then render_monocap on the scan run's; every
+             Trainer a driver builds runs its segments under the sync debug
+             mode "error" (here and in phase 16c); the files each
+             wrote loaded back; per call
              the kernels' launches (set to 0 just before, read just after),
              wall seconds, ms an iteration outside evals, saves and budget
              probes, and ms a served frame (1000 / the driver's fps); and
@@ -463,14 +476,14 @@ SHARDED_GRAD_RTOL, SHARDED_GRAD_ATOL = 1e-3, 1e-5
 SHARDED_PARAM_ATOL = 2e-5
 SHARDED_TIMEOUT = 600
 SHARDED_DIR = os.path.join(BUILD, "sharded")
-# the mesh trainer on both ranks and meshes: MESH_TRAINER (20 iterations, one
+# the mesh trainer on both ranks and meshes: MESH_TRAINER (12 iterations, one
 # densify round at 10, the eval at the end) under each of MESH_ENGINES, then
 # MESH_PROFILE_STEPS steps a call of the queued engine's step profiled; on one
 # process a 1 x 1 mesh's queued segment of MESH_SYNC_ITERS steps under the
 # sync debug mode "error"
-MESH_TRAINER = dict(iterations=20, densify_from_iter=5, densify_until_iter=15,
+MESH_TRAINER = dict(iterations=12, densify_from_iter=5, densify_until_iter=15,
                     densification_interval=10, opacity_reset_interval=1000)
-MESH_EVALS = (20,)
+MESH_EVALS = (12,)
 MESH_ENGINES = ("queued", "eager")
 MESH_PROFILE_STEPS = 3
 MESH_SYNC_ITERS = 6
@@ -813,11 +826,27 @@ def segment_lengths(pairs):
 
 def blend_grads(proj, bg, height, width, upstream, raster):
     """Grads of sum(out * upstream) for the five kernel fields and bg."""
+    grads, out, _, _ = timed_blend_grads(proj, bg, height, width, upstream, raster, clock=False)
+    return grads, out
+
+
+def timed_blend_grads(proj, bg, height, width, upstream, raster, clock=True):
+    """blend_grads with the forward and the backward each on the host clock
+    (ended by a synchronize; None with clock=False): (grads, the forward's
+    images detached, forward ms, backward ms)."""
     leaves = [getattr(proj, f).detach().clone().requires_grad_() for f in rc._KERNEL_FIELDS]
     bg = bg.detach().clone().requires_grad_()
-    out = raster(proj._replace(**dict(zip(rc._KERNEL_FIELDS, leaves))), bg, height, width)
-    loss = sum((out[k] * upstream[k]).sum() for k in upstream)
-    return torch.autograd.grad(loss, leaves + [bg]), out
+
+    def forward():
+        return raster(proj._replace(**dict(zip(rc._KERNEL_FIELDS, leaves))), bg, height, width)
+
+    def backward():
+        loss = sum((out[k] * upstream[k]).sum() for k in upstream)
+        return torch.autograd.grad(loss, leaves + [bg])
+
+    out, fwd_ms = clocked_ms(forward) if clock else (forward(), None)
+    grads, bwd_ms = clocked_ms(backward) if clock else (backward(), None)
+    return grads, {k: v.detach() for k, v in out.items()}, fwd_ms, bwd_ms
 
 
 def scaled_err(g, g_ref):
@@ -1362,12 +1391,13 @@ def blend(launches):
 
 
 def engine_run(dev, scene, frames, lp, engine):
-    """One TRAINER run under `engine` (the queued one with every segment under
-    torch.cuda's sync debug mode "error"): (trainer, the flattened state after
-    each of ENGINE_CHECKS, its timings, the kernels' launches in the run)."""
+    """One TRAINER run under `engine` (queued and scan with every segment
+    under torch.cuda's sync debug mode "error"): (trainer, the flattened
+    state after each of ENGINE_CHECKS, its timings, the kernels' launches in
+    the run)."""
     tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], trainer_config(), lp,
                  crop_hw=(CROP, CROP), device=dev)
-    if engine == "queued":
+    if engine != "eager":
         tr.segment_sync_mode = "error"
     states, host = {}, {"densify": [], "eval": [], "budgets": [], "checkpoint": []}
 
@@ -1491,6 +1521,62 @@ def engine_profile(tr, engine, steps=PROFILE_STEPS):
     out = engine_breakdown(run, steps)
     out["captures"], out["replays"] = many.captures, many.replays
     return out
+
+
+def capture_line(many, replaced):
+    """The capture `many` (a make_train_many) just made: its ms and graph
+    pool MB, the card's reserved and allocated MB just after, and whether
+    the graph it replaced (a weakref, or None) was freed."""
+    return {"ms": many.capture_ms[-1], "pool_mb": many.pool_mb,
+            "reserved_mb": torch.cuda.memory_reserved() / 2**20,
+            "allocated_mb": torch.cuda.memory_allocated() / 2**20,
+            "replaced_graph_freed": None if replaced is None else replaced() is None}
+
+
+@contextlib.contextmanager
+def captures_recorded(out, extra=lambda: {}):
+    """Every CUDA graph capture a make_train_many makes inside, appended to
+    `out` as its capture_line and extra()'s keys."""
+    from moss_torch.train.train_step import TrainMany
+
+    run_graph = TrainMany._run_graph
+
+    def spy(many, *a, **kw):
+        old = None if many._graph is None else weakref.ref(many._graph)
+        n = many.captures
+        result = run_graph(many, *a, **kw)
+        if many.captures != n:
+            out.append({**extra(), **capture_line(many, old)})
+        return result
+
+    TrainMany._run_graph = spy
+    try:
+        yield out
+    finally:
+        TrainMany._run_graph = run_graph
+
+
+def capture_memory_gate(caps, what):
+    """The reference schedule's rule on a run's captures (capture_line
+    each, two at least): the graph pools do not pile up (the card's
+    reserved MB after the last capture at most that after the second plus
+    the largest pool) and
+    nothing a capture leaves lives on (its allocated MB at most
+    CAPTURE_LEAK_MB above the second's: the state's capacity is fixed; a
+    warm-up stream a capture left ~65 MB of cuBLAS workspace allocated each
+    time), every replaced graph freed. Returns what it read."""
+    if len(caps) < 2:
+        raise AssertionError(f"{what}: {len(caps)} captures")
+    pool = max(c["pool_mb"] for c in caps)
+    grew = caps[-1]["allocated_mb"] - caps[1]["allocated_mb"]
+    if caps[-1]["reserved_mb"] > caps[1]["reserved_mb"] + pool or grew > CAPTURE_LEAK_MB or \
+            not all(c["replaced_graph_freed"] in (None, True) for c in caps):
+        raise AssertionError(f"{what}: the graph pools pile up: reserved "
+                             f"{caps[1]['reserved_mb']:.0f} MB after the second capture, "
+                             f"{caps[-1]['reserved_mb']:.0f} after the last, a pool {pool:.0f}; "
+                             f"allocated {grew:.1f} MB more; {caps}")
+    return {"captures": len(caps), "reserved_bound_mb": caps[1]["reserved_mb"] + pool,
+            "allocated_growth_mb": grew}
 
 
 def captured_projection(tr, frame):
@@ -1657,7 +1743,7 @@ def phase_engines(dev, smi):
     """The trainer's three dispatch engines at full width (phase 7b): the
     trainer phase's scene, frames, capacity, crop, loss and TRAINER schedule
     (60 iterations, rounds at 20-50, a reset at 30) once per engine. Gates:
-    every queued segment under the sync debug mode "error"; the scan
+    every queued and scan segment under the sync debug mode "error"; the scan
     engine's state (a CUDA graph of the step, replayed) and the queued one's
     bitwise eager's after ENGINE_CHECKS; each kernel of the step launched in
     every run; a forced overflow (half the probed need
@@ -1783,7 +1869,8 @@ def phase_engines(dev, smi):
           flush=True)
     emit({"phase": "engines", "nvidia_smi": smi, "hw": HW, "crop": CROP,
           "capacity": MODEL.capacity, "schedule": TRAINER, "checks": ENGINE_CHECKS,
-          "bitwise_vs_eager": {e: True for e in ENGINES[1:]}, "queued_sync_mode": "error",
+          "bitwise_vs_eager": {e: True for e in ENGINES[1:]},
+          "sync_debug_mode": {"queued": "error", "scan": "error"},
           "runs": runs, "launches": launches, "scan_graph": graph, "heal": heal,
           "capacity_rows": rows, "svd3": svd_row})
     return launches, graph, rows, svd_row
@@ -2111,29 +2198,30 @@ def static_frames(scene, specs, dev, seed=1):
     return frames
 
 
-def measure_rows(proj, bg, height, width, ref, plain_ms, seed=0):
+def measure_rows(proj, bg, height, width, seed=0):
     """Rows 1, 2 and 2b on a full-size input, where the plain blend takes
-    seconds: the forward kernel against `ref` (the plain blend of the same
-    input, its call took plain_ms), the backward kernel + segment sum against
-    autograd through the plain blend (remat, one call timed), the segment sum
-    against its plain version and index_add_, each kernel bitwise repeatable;
-    the kernels' times split and unsplit, bounds (kernel_bound, bwd_bound,
-    segment_bound), segments and the longest tile."""
-    pairs = rc.bin_projected(proj, height, width)
-    img, state = rc.rasterize_pairs(pairs, proj, height, width)
-    if not torch.equal(img, rc.rasterize_pairs(pairs, proj, height, width)[0]):
-        raise AssertionError("two forward passes on the same input differ")
-    err_fwd = check_images(as_images(img, bg), ref, "kernel vs plain")
+    seconds: the plain blend run once, forward (remat: the same values as
+    without) and backward each clocked; the forward kernel against its
+    images, the backward kernel + segment sum against its grads, the segment
+    sum against its plain version and index_add_, each kernel bitwise
+    repeatable; the kernels' times split and unsplit, bounds (kernel_bound,
+    bwd_bound, segment_bound), segments and the longest tile. Returns (the
+    rows, the plain blend's images)."""
     gen = torch.Generator(device=bg.device).manual_seed(seed)
     up = {k: torch.randn(s, generator=gen, device=bg.device)
           for k, s in (("color", (height, width, 3)), ("depth", (height, width)),
                        ("alpha", (height, width)), ("final_T", (height, width)))}
     plain = functools.partial(rasterize_reference, tile_h=rc.TILE, tile_w=rc.TILE, remat=True)
+    g_ref, ref, plain_ms, plain_bwd_ms = timed_blend_grads(proj, bg, height, width, up, plain)
+    pairs = rc.bin_projected(proj, height, width)
+    img, state = rc.rasterize_pairs(pairs, proj, height, width)
+    if not torch.equal(img, rc.rasterize_pairs(pairs, proj, height, width)[0]):
+        raise AssertionError("two forward passes on the same input differ")
+    err_fwd = check_images(as_images(img, bg), ref, "kernel vs plain")
     g, _ = blend_grads(proj, bg, height, width, up, rc.rasterize_cuda)
     again, _ = blend_grads(proj, bg, height, width, up, rc.rasterize_cuda)
     if not all(torch.equal(a, b) for a, b in zip(g, again)):
         raise AssertionError("two backward passes on the same input differ")
-    (g_ref, _), fwd_bwd_ms = clocked_ms(lambda: blend_grads(proj, bg, height, width, up, plain))
     errs = {f: scaled_err(a, b) for f, a, b in zip(rc._KERNEL_FIELDS, g[:-1], g_ref[:-1])}
     bg_rel = float(((g[-1] - g_ref[-1]).abs() / g_ref[-1].abs()).max())
     if max(errs.values()) > GRAD_ATOL or bg_rel > BG_RTOL or \
@@ -2177,7 +2265,7 @@ def measure_rows(proj, bg, height, width, ref, plain_ms, seed=0):
             "ms_unsplit": cuda_ms(lambda: rc.rasterize_pairs_bwd(
                 pairs, proj, gimg, height, width, whole_state, whole),
                 site="rasterize_bwd unsplit"),
-            "plain_ms": fwd_bwd_ms - plain_ms, "plain_fwd_bwd_ms": fwd_bwd_ms,
+            "plain_ms": plain_bwd_ms, "plain_fwd_bwd_ms": plain_ms + plain_bwd_ms,
             **bwd_bound(proj, pairs, height, width, work=work)},
         "segment_sum": {
             "max_abs_err": float((seg - seg_plain).abs().max()), "scaled_err": seg_errs,
@@ -2187,7 +2275,7 @@ def measure_rows(proj, bg, height, width, ref, plain_ms, seed=0):
             "plain_ms": cuda_ms(lambda: rc.segment_sum_plain(rows, pairs),
                                 site="segment_sum plain"),
             "lengths": segment_lengths(pairs), **segment_bound(pairs, P)},
-    }
+    }, ref
 
 
 def slice_trainer_config(model, **optim):
@@ -2204,31 +2292,41 @@ def counted(fn):
 
 
 def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, steps=5, warmup=2,
-                       tb=None, trace_dir=None, repeat=True):
+                       tb=None, trace_dir=None):
     """A scene family's main path at full width: the Trainer over
     SLICE_TRAINER (two rounds, one opacity reset, evals at the config's
-    test_iterations), a second run bitwise equal; training steps timed and
-    one profiled; the trained avatar's test frame served on the full path,
-    the kernel against the plain blend; rows 1, 2 and 2b on that frame's
-    projected input. A body without pose MLPs has zero Fisher fields, which
-    must come out zero. tb: the first run's TBWriter. trace_dir: five more
-    steps under observability.profile_trace there, whose trace must name
-    both blend kernels. repeat=False skips the second run (the steps then
-    continue from the first's state). Returns ({path: launches}, the rows)."""
+    test_iterations) under queued, then under scan (a CUDA graph of the step,
+    captured at the start and after each state change, replayed), bitwise
+    the queued run, every segment of both under the sync debug mode "error";
+    the scan run's captures (ms, pool, reserved and allocated MB after each,
+    capture_memory_gate) and a profiled 10-step scan call whose replays'
+    trace must name each blend kernel every step; ms an iteration outside
+    rounds and evals under each; training steps timed and one profiled; the
+    trained avatar's test frame served on the full path, the kernel against
+    the plain blend; rows 1, 2 and 2b on that frame's projected input. A body
+    without pose MLPs has zero Fisher fields, which must come out zero. tb:
+    the first run's TBWriter. trace_dir: five more steps under
+    observability.profile_trace there, whose trace must name both blend
+    kernels. Returns ({path: launches}, the rows, the scan run's graph
+    counts)."""
     H, W = frames[0].camera.height, frames[0].camera.width
     model = cfg.model
     evals = tuple(cfg.pipe.test_iterations)
 
-    def run(timed):
+    def run(engine):
+        """One Trainer run under `engine` with every segment under the sync
+        debug mode "error": (trainer, rounds, host-work ms by part, the
+        run's wall ms, each capture's capture_line). The first (queued) run
+        gets tb."""
         tr = Trainer(scene, frames[:TRAIN_FRAMES], frames[TRAIN_FRAMES:], cfg, lp, crop_hw=crop,
-                     extent=extent, tb=tb if timed else None, device=dev)
-        rounds, times = [], {"step": [], "densify": [], "eval": []}
+                     extent=extent, tb=tb if engine == "queued" else None, device=dev)
+        tr.segment_sync_mode = "error"
+        rounds, host, caps = [], {"densify": [], "eval": [], "budgets": []}, []
 
         def clocked(fn, key):
             def go(*a, **kw):
-                out, ms = clocked_ms(lambda: fn(*a, **kw)) if timed else (fn(*a, **kw), None)
-                if timed:
-                    times[key].append(ms)
+                out, ms = clocked_ms(lambda: fn(*a, **kw))
+                host[key].append(ms)
                 return out
             return go
 
@@ -2245,9 +2343,13 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
 
         tr.densify = counted_densify
         tr.evaluate = clocked(tr.evaluate, "eval")
-        with clocked_steps(clocked):
-            tr.train()
-        return tr, rounds, times
+        tr._resize_pair_buffer = clocked(tr._resize_pair_buffer, "budgets")
+        with captures_recorded(caps):
+            _, wall = clocked_ms(lambda: tr.train(dispatch_engine=engine))
+        return tr, rounds, host, wall, caps
+
+    def ms_per_iteration(host, wall, captures_ms=0.0):
+        return (wall - sum(sum(v) for v in host.values()) - captures_ms) / iters
 
     # the Fisher fields of a body's rounds: at J=55 with no pose MLPs, SVDs
     # (densify.fisher_fields' torch.linalg.svd, cuSOLVER; the step's Fisher
@@ -2256,7 +2358,7 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
     fields, fisher = [], D.fisher_fields
     D.fisher_fields = lambda gs: fields.append(fisher(gs)) or fields[-1]
     try:
-        (tr, rounds, times), trainer_launches = counted(lambda: run(True))
+        (tr, rounds, times, wall, _), trainer_launches = counted(lambda: run("queued"))
     finally:
         D.fisher_fields = fisher
     fisher_max = [max(float(x.abs().max()) for x in f) for f in fields]
@@ -2265,8 +2367,8 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
             len(fields) != (0 if model.static_scene else 2):
         raise AssertionError(f"{name}: the rounds' Fisher fields: max |.| {fisher_max}")
     iters = SLICE_TRAINER["iterations"]
-    want = {"rasterize_fwd": iters + len(evals) * (len(frames) - TRAIN_FRAMES),
-            "rasterize_bwd": iters, "segment_sum": iters}
+    eval_frames = len(evals) * (len(frames) - TRAIN_FRAMES)
+    want = {"rasterize_fwd": iters + eval_frames, "rasterize_bwd": iters, "segment_sum": iters}
     if blend(trainer_launches) != want:
         raise AssertionError(f"{name}: the trainer launched {trainer_launches}, not {want}")
     hist = tr.metrics_history
@@ -2278,7 +2380,28 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
     if [r["round"] for r in rounds] != [20, 30] or sum(r["cloned"] + r["split"]
                                                        for r in rounds) == 0:
         raise AssertionError(f"{name}: the rounds {rounds}")
-    again = run(False)[0] if repeat else tr
+    queued = {"ms_per_iteration": ms_per_iteration(times, wall), "wall_ms": wall,
+              "host_work_ms": {k: sum(v) for k, v in times.items()}}
+    # the second run under scan, bitwise the first
+    (again, scan_rounds, scan_host, scan_wall, caps), scan_launches = counted(lambda: run("scan"))
+    many = again._many
+    scan = {"ms_per_iteration": ms_per_iteration(scan_host, scan_wall),
+            "ms_per_iteration_without_captures": ms_per_iteration(scan_host, scan_wall,
+                                                                  sum(many.capture_ms)),
+            "wall_ms": scan_wall, "host_work_ms": {k: sum(v) for k, v in scan_host.items()},
+            "launches": scan_launches, "captures": many.captures, "replays": many.replays,
+            "captured_launches": dict(many.captured_launches),
+            "replays_x_captured": {k: many.replays * n for k, n in many.captured_launches.items()},
+            "capture_lines": caps, "memory": capture_memory_gate(caps, name),
+            "rounds": scan_rounds}
+    scan_want = {"rasterize_fwd": many.captures + eval_frames,
+                 "rasterize_bwd": many.captures, "segment_sum": many.captures}
+    if many.captures + many.replays != iters or blend(scan_launches) != scan_want or \
+            any(many.captured_launches[k] < 1 for k in BLEND_KERNELS) or scan_rounds != rounds:
+        raise AssertionError(f"{name} under scan: {many.captures} captures, {many.replays} "
+                             f"replays, the wrappers launched {scan_launches} (want "
+                             f"{scan_want}), captured {many.captured_launches}; rounds "
+                             f"{scan_rounds}, queued's {rounds}")
     a, b = tr.ts, again.ts
     same = {"valid": torch.equal(a.gstate.valid, b.gstate.valid),
             **{f: torch.equal(getattr(a.params["gauss"], f), getattr(b.params["gauss"], f))
@@ -2286,11 +2409,29 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
             **{f"{g}.{m}.{n}": torch.equal(getattr(a.opt_state[g], m)[n],
                                           getattr(b.opt_state[g], m)[n])
                for g in a.opt_state for m in ("mu", "nu") for n in a.opt_state[g].mu},
+            **{f"{g}.count": a.opt_state[g].count == b.opt_state[g].count for g in a.opt_state},
+            **{f"gstate.{f}": torch.equal(getattr(a.gstate, f), getattr(b.gstate, f))
+               for f in STAT_FIELDS},
             "metrics_history": [{k: v for k, v in m.items() if k != "elapsed_s"} for m in hist]
             == [{k: v for k, v in m.items() if k != "elapsed_s"} for m in again.metrics_history]}
     if not all(same.values()):
-        raise AssertionError(f"{name}: two trainer runs differ: "
+        raise AssertionError(f"{name}: the scan run differs from the queued run: "
                              f"{[k for k, v in same.items() if not v]}")
+    # 10 steps past the run's end as one call of a captured graph, profiled;
+    # the replays' trace must name each blend kernel every step
+    prof = engine_profile(again, "scan")
+    traced = prof["kernels_traced_per_step"]
+    scan["profile"] = {k: prof[k] for k in (
+        "steady_ms_per_step", "device_busy_ms", "idle_share", "device_ops_per_step",
+        "kernels_traced_per_step", "launch_calls_per_step", "graph_launches_per_step",
+        "syncs_per_step", "memcpy_calls_per_step", "captures", "replays")}
+    if prof["captures"] != 1 or prof["replays"] != 3 * PROFILE_STEPS - 1 or \
+            prof["launch_calls_per_step"] >= 1 or prof["graph_launches_per_step"] != 1 or \
+            any(traced[k] < max(n, 1 if k in BLEND_KERNELS else 0) or traced[k] != int(traced[k])
+                for k, n in many.captured_launches.items()):
+        raise AssertionError(f"{name}: the profiled scan call was not all replays of the "
+                             f"captured step: {scan['profile']}, captured "
+                             f"{many.captured_launches}")
 
     # training steps on the second run's final state: host clock, launches,
     # one profiled step
@@ -2347,25 +2488,21 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
     if serve_launches["rasterize_fwd"] != 1:
         raise AssertionError(f"{name}: the served frame launched {serve_launches}")
     proj = seen[0]
-    with torch.no_grad():
-        ref, plain_ms = clocked_ms(lambda: rasterize_reference(proj, tr.bg, H, W, tile_h=rc.TILE,
-                                                               tile_w=rc.TILE))
+    rows, ref = measure_rows(proj, tr.bg, H, W)
     images = {"color": full["render"], "alpha": full["render_alpha"],
               "depth": full["render_depth"], "final_T": full["final_T"]}
     err_served = check_images(images, ref, f"{name} served frame")
     if float(full["render_alpha"].max()) <= 0:
         raise AssertionError(f"{name}: the served frame is empty")
     serve_ms = host_ms(serve, n=5, warmup=1)
-    rows = measure_rows(proj, tr.bg, H, W, ref, plain_ms)
-    steps_outside = [t for i, t in enumerate(times["step"], 1)
-                     if i not in {r["round"] for r in rounds}]
-    launches = {"trainer": trainer_launches, "steps": step_launches, "serve": serve_launches}
+    launches = {"trainer": trainer_launches, "trainer_scan": scan_launches,
+                "steps": step_launches, "serve": serve_launches}
     row_line = {k: {f: rows[k][f] for f in ("ms", "ms_unsplit", "plain_ms", "bound_ms",
                                             "bound_by") if f in rows[k]}
                 for k in ("rasterize_fwd", "rasterize_bwd", "segment_sum")}
     print(f"{name} ({smi}): {W}x{H}, crop {crop}, {model.capacity} capacity; trainer "
-          f"{float(np.median(steps_outside)):.2f} ms per iteration, rounds "
-          f"{[round(t, 1) for t in times['densify']]} ms, eval frames "
+          f"{queued['ms_per_iteration']:.2f} ms per iteration outside rounds and evals under "
+          f"queued, rounds {[round(t, 1) for t in times['densify']]} ms, eval frames "
           f"{[round(t, 1) for t in times['eval']]} ms, live after the rounds "
           f"{[r['live'] for r in rounds]}, psnr {psnr}; step {float(np.median(step_ms[warmup:])):.2f}"
           f" ms, device busy {profile['device_busy_ms']:.2f} ms, idle "
@@ -2373,19 +2510,36 @@ def phase_scene_family(name, dev, scene, frames, cfg, lp, crop, extent, smi, ste
           f"{profile['host_syncs']} syncs; served frame {serve_ms:.2f} ms; pairs {rows['pairs']}, "
           f"longest tile {rows['max_tile_pairs']}, segments {rows['segments']}; rows {row_line}",
           flush=True)
+    p, mem = scan["profile"], scan["memory"]
+    print(f"{name} scan ({smi}): bitwise queued's; {scan['ms_per_iteration']:.2f} ms per "
+          f"iteration outside rounds and evals ({scan['ms_per_iteration_without_captures']:.2f}"
+          f" without captures; queued {queued['ms_per_iteration']:.2f}); {scan['captures']} "
+          f"captures at {[round(c['ms'], 1) for c in scan['capture_lines']]} ms, pools "
+          f"{[round(c['pool_mb'], 1) for c in scan['capture_lines']]} MB, reserved after each "
+          f"{[round(c['reserved_mb']) for c in scan['capture_lines']]} MB, allocated "
+          f"{[round(c['allocated_mb'], 1) for c in scan['capture_lines']]} MB (bound "
+          f"{mem['reserved_bound_mb']:.0f}, growth {mem['allocated_growth_mb']:.1f}); "
+          f"{scan['replays']} replays of {scan['captured_launches']}; a {PROFILE_STEPS}-step "
+          f"call {p['steady_ms_per_step']:.2f} ms a step, idle {p['idle_share']:.3f}, "
+          f"{p['launch_calls_per_step']:.2f} launch calls, {p['graph_launches_per_step']:.0f} "
+          f"graph launches, {p['syncs_per_step']:.2f} syncs a step, traced "
+          f"{p['kernels_traced_per_step']}", flush=True)
     emit({"phase": name, "nvidia_smi": smi, "hw": [H, W], "crop": list(crop),
           "capacity": model.capacity, "initial_points": model.n_init_points,
           "sh_degree": model.sh_degree, "extent": extent, "schedule": SLICE_TRAINER,
-          "evals": evals, "ms_per_iteration": float(np.median(steps_outside)),
-          "step_ms_trainer": times["step"], "ms_per_densify_round": times["densify"],
+          "evals": evals, "ms_per_iteration": queued["ms_per_iteration"], "queued": queued,
+          "scan": scan, "ms_per_densify_round": times["densify"],
           "eval_ms": times["eval"], "live_after_rounds": [r["live"] for r in rounds],
           "rounds": rounds, "fisher_fields_max_abs": fisher_max, "metrics_history": hist,
-          "bitwise_repeat": repeat,
+          "scan_bitwise_queued": True, "sync_debug_mode": "error",
           "ms_per_step": float(np.median(step_ms[warmup:])), "step_ms": step_ms,
           "profile_step": profile, "profile_trace": trace, "served_ms_per_frame": serve_ms,
           "max_abs_err_served": err_served, "launches": launches,
           "kernel_rows": rows, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return {k: sum(p[k] for p in launches.values()) for k in trainer_launches}, rows
+    graph = {**{k: scan[k] for k in ("captures", "replays", "captured_launches",
+                                     "replays_x_captured")},
+             "traced_per_profiled_replay": traced}
+    return {k: sum(p[k] for p in launches.values()) for k in trainer_launches}, rows, graph
 
 
 def phase_smplx(dev, smi, n_verts=SMPLX_VERTS, hw=SMPLX_HW):
@@ -2862,8 +3016,9 @@ def monocap_frames(scene, dev, H=None, n_frames=TRAIN_FRAMES + 1):
 def phase_monocap(dev, smi):
     """MonoCap's frame size through the Trainer: phase_scene_family on a
     6,890-vertex SMPL scene at 1024x1024 (the MLPs on), 46,080 capacity,
-    the autosized crop, SLICE_TRAINER with evals at MONOCAP_EVALS and a
-    TBWriter where tensorboardX imports, five steps under profile_trace."""
+    the autosized crop, SLICE_TRAINER with evals at MONOCAP_EVALS under
+    queued (a TBWriter where tensorboardX imports) and scan, five steps
+    under profile_trace."""
     scene = make_scene(n_verts=N_VERTS, device=dev)
     frames, crop = monocap_frames(scene, dev)
     cfg = Config(model=MODEL, optim=OptimConfig(**SLICE_TRAINER),
@@ -2874,12 +3029,11 @@ def phase_monocap(dev, smi):
     tb_on = tb.writer is not None
     print(f"monocap: {MONOCAP_HW}x{MONOCAP_HW}, crop {crop}; tensorboardX "
           f"{'imports: TBWriter on' if tb_on else 'does not import: TBWriter off'}", flush=True)
-    # no second run: the drivers phase trains MonoCap's 1024x1024 frames from
-    # disk, and holds the Trainer's runs bitwise there (scan against queued,
-    # a resume against the uninterrupted run)
+    # the second run under scan, as for the other families; the drivers phase
+    # runs train_monocap from disk under both engines
     out = phase_scene_family("monocap", dev, scene, frames, cfg,
                              lpips.init_random(3407, device=dev), crop, 1.0, smi, tb=tb,
-                             trace_dir=os.path.join(BUILD, "monocap_trace"), repeat=False)
+                             trace_dir=os.path.join(BUILD, "monocap_trace"))
     tb.close()
     events = glob.glob(os.path.join(logdir, "events.out.tfevents.*"))
     if tb_on and not events:
@@ -3005,9 +3159,7 @@ def sharded_rank(rank, port, outdir, device):
             for r in range(2):
                 dist.barrier()
                 if r == rank and mesh.tile_index in BAND_ROWS:
-                    ref, plain_ms = clocked_ms(lambda: rasterize_reference(
-                        band, step.bg, hb, HW, tile_h=rc.TILE, tile_w=rc.TILE))
-                    row = measure_rows(band, step.bg, hb, HW, ref, plain_ms)
+                    row, _ = measure_rows(band, step.bg, hb, HW)
             dist.barrier()
         report["meshes"][name] = {"mesh": [mesh.data_index, mesh.tile_index], "losses": losses,
                                   "step_ms": times, "launches": launches, "band_rows": row,
@@ -4044,17 +4196,35 @@ class DriverSpies:
                 setattr(obj, k, v)
 
 
+@contextlib.contextmanager
+def segments_sync_error():
+    """Every Trainer built inside runs its segments under torch.cuda's sync
+    debug mode "error" (Trainer.segment_sync_mode)."""
+    init = Trainer.__init__
+
+    def go(tr, *a, **kw):
+        init(tr, *a, **kw)
+        tr.segment_sync_mode = "error"
+
+    Trainer.__init__ = go
+    try:
+        yield
+    finally:
+        Trainer.__init__ = init
+
+
 def driver_call(name, main, argv, results, launch_gate, watch=contextlib.nullcontext):
     """main(argv) in this process under DriverSpies (and the context manager
-    watch() inside them), its kernels counted (the counts set to 0 just
-    before and read just after) and held to launch_gate ({kernel: True} must
-    launch, False must not); its line."""
+    watch() inside them), every Trainer it builds running its segments under
+    the sync debug mode "error" (segments_sync_error), its kernels counted
+    (the counts set to 0 just before and read just after) and held to
+    launch_gate ({kernel: True} must launch, False must not); its line."""
     gc.collect()
     torch.cuda.empty_cache()
     spies = DriverSpies()
     zero_launch_counts()
     t0 = time.perf_counter()
-    with spies.installed(), watch():
+    with spies.installed(), watch(), segments_sync_error():
         out = main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4193,8 +4363,8 @@ def phase_drivers(dev, smi):
     every = dict.fromkeys(DRIVER_KERNELS, True)
     serve_only = {"rasterize_fwd": True, "rasterize_bwd": False, "segment_sum": False,
                   "svd3": False}
-    out_dir = {k: os.path.join(DRIVERS_DIR, f"out_{k}") for k in ("queued", "resume", "reference",
-                                                                 "monocap")}
+    out_dir = {k: os.path.join(DRIVERS_DIR, f"out_{k}") for k in ("queued", "reference", "monocap",
+                                                                 "monocap_scan")}
     zju = ["--data_root", os.path.dirname(zju_root), "--subjects", "377"]
     train = zju + ["--iterations", str(DRIVER_ITERS),
                    "--test_iterations", *map(str, DRIVER_CHECKS),
@@ -4202,7 +4372,7 @@ def phase_drivers(dev, smi):
                    "--capacity", str(CAPACITY), "--n_init", str(N_VERTS)]
 
     # train_zju under queued (phase reference_schedule trains from disk under
-    # scan), then --resume from its chkpnt30
+    # scan and resumes, bitwise)
     argv = train + ["--output", out_dir["queued"], "--dispatch", "queued",
                     "--result_file", os.path.join(out_dir["queued"], "ZJU.txt")]
     metrics, queued = driver_call("train_zju_queued", train_zju.main, argv, results, every)
@@ -4214,17 +4384,6 @@ def phase_drivers(dev, smi):
         raise AssertionError(f"train_zju queued: {len(queued.logs)} logged iterations")
     if any(x.get("raster_overflow", 0) for x in queued.logs):
         raise AssertionError("train_zju queued: pairs dropped in training")
-    q_ckpt = os.path.join(out_dir["queued"], "my_377", f"chkpnt{DRIVER_ITERS}.npz")
-    os.makedirs(os.path.join(out_dir["resume"], "my_377"))
-    shutil.copy(os.path.join(out_dir["queued"], "my_377", f"chkpnt{DRIVER_CHECKS[0]}.npz"),
-                os.path.join(out_dir["resume"], "my_377"))
-    driver_call("train_zju_resume", train_zju.main,
-                train + ["--output", out_dir["resume"], "--resume",
-                         "--result_file", os.path.join(out_dir["resume"], "ZJU.txt")],
-                results, every)
-    if not flat_equal_npz(q_ckpt, os.path.join(out_dir["resume"], "my_377",
-                                               f"chkpnt{DRIVER_ITERS}.npz")):
-        raise AssertionError("train_zju --resume: not bitwise the uninterrupted run")
 
     # render_zju: the budgets' serving, the plain blend on the same checkpoint, novel views
     model_path = os.path.join(out_dir["queued"], "my_377")
@@ -4285,25 +4444,46 @@ def phase_drivers(dev, smi):
     results[-1]["first_step_rel_err"] = rel
     del spies, queued
 
-    # train_monocap -> render_monocap at 1024 x 1024
+    # train_monocap at 1024 x 1024 under queued, then under scan (bitwise its
+    # checkpoint); then render_monocap on the scan run's
     mono = ["--data_root", os.path.dirname(mono_root)]
-    metrics, spies = driver_call(
-        "train_monocap", train_monocap.main,
-        mono + ["--sequences", DRIVER_MONOCAP_SEQ, "--iterations", str(DRIVER_MONOCAP_ITERS),
-                "--test_iterations", str(DRIVER_MONOCAP_ITERS), "--save_iterations",
-                str(DRIVER_MONOCAP_ITERS), "--capacity", str(CAPACITY), "--n_init", str(N_VERTS),
-                "--output", out_dir["monocap"],
-                "--result_file", os.path.join(out_dir["monocap"], "monocap.txt")],
-        results, every)
-    check_outputs(os.path.join(out_dir["monocap"], DRIVER_MONOCAP_SEQ), DRIVER_MONOCAP_ITERS,
-                  17, dev, os.path.join(out_dir["monocap"], "monocap.txt"))
-    results[-1].update(psnr=[m["psnr"] for m in metrics[0]], crop=list(spies.trainers[-1].crop_hw),
-                       budgets=spies.trainers[-1].budgets)
-    del spies
+    mono_train = mono + ["--sequences", DRIVER_MONOCAP_SEQ, "--iterations",
+                         str(DRIVER_MONOCAP_ITERS), "--test_iterations", str(DRIVER_MONOCAP_ITERS),
+                         "--save_iterations", str(DRIVER_MONOCAP_ITERS), "--capacity",
+                         str(CAPACITY), "--n_init", str(N_VERTS)]
+    mono_ckpts = {}
+    for engine, key in (("queued", "monocap"), ("scan", "monocap_scan")):
+        metrics, spies = driver_call(
+            "train_monocap" + ("_scan" if engine == "scan" else ""), train_monocap.main,
+            mono_train + ["--output", out_dir[key], "--dispatch", engine,
+                          "--result_file", os.path.join(out_dir[key], "monocap.txt")],
+            results, every)
+        model_path = os.path.join(out_dir[key], DRIVER_MONOCAP_SEQ)
+        check_outputs(model_path, DRIVER_MONOCAP_ITERS, 17, dev,
+                      os.path.join(out_dir[key], "monocap.txt"))
+        mono_ckpts[engine] = sorted(glob.glob(os.path.join(model_path, "chkpnt*.npz")))
+        tr = spies.trainers[-1]
+        results[-1].update(psnr=[m["psnr"] for m in metrics[0]], crop=list(tr.crop_hw),
+                           budgets=tr.budgets)
+        if engine == "scan":
+            many = tr._many
+            names = [[os.path.basename(p) for p in mono_ckpts[e]] for e in ("queued", "scan")]
+            same = names[0] == names[1] and len(names[0]) > 0 and all(
+                flat_equal_npz(q, c) for q, c in zip(mono_ckpts["queued"], mono_ckpts["scan"]))
+            results[-1].update(captures=many.captures, replays=many.replays,
+                               capture_ms=list(many.capture_ms), pool_mb=many.pool_mb,
+                               captured_launches=dict(many.captured_launches),
+                               checkpoints=names[1], bitwise_queued=same)
+            if not same or many.captures < 1 or \
+                    many.captures + many.replays != DRIVER_MONOCAP_ITERS:
+                raise AssertionError(f"train_monocap --dispatch scan: checkpoints {names} "
+                                     f"bitwise queued's: {same}; {many.captures} captures, "
+                                     f"{many.replays} replays")
+        del spies, tr
     (mres,), spies = driver_call(
         "render_monocap", render_monocap.main,
         mono + ["--subjects", DRIVER_MONOCAP_SEQ, "--iterations", "-1", "--output",
-                out_dir["monocap"]], results, serve_only)
+                out_dir["monocap_scan"]], results, serve_only)
     results[-1]["served_bitwise"] = check_served(spies, "render_monocap")
     if mres["raster_overflow"] != 0 or not np.isfinite(mres["psnr"]):
         raise AssertionError(f"render_monocap: {mres}")
@@ -4343,12 +4523,9 @@ class ScheduleSpies:
 
     @contextlib.contextmanager
     def installed(self):
-        from moss_torch.train.train_step import TrainMany
-
         spies = self
         names = ((Trainer, "densify"), (Trainer, "reset_opacity"), (Trainer, "_install_budgets"),
-                 (Trainer, "_resize_pair_buffer"), (Trainer, "_log_segment"),
-                 (TrainMany, "_run_graph"))
+                 (Trainer, "_resize_pair_buffer"), (Trainer, "_log_segment"))
         orig = {(c, k): getattr(c, k) for c, k in names}
 
         def densify(tr, it):
@@ -4385,24 +4562,15 @@ class ScheduleSpies:
                                                     for a, b in SH_BANDS]).tolist()))
             return out
 
-        def run_graph(many, *a, **kw):
-            old = None if many._graph is None else weakref.ref(many._graph)
-            n = many.captures
-            out = orig[TrainMany, "_run_graph"](many, *a, **kw)
-            if many.captures != n:
-                spies.captures.append({
-                    "rounds_before": len(spies.rounds), "ms": many.capture_ms[-1],
-                    "pool_mb": many.pool_mb, "reserved_mb": torch.cuda.memory_reserved() / 2**20,
-                    "allocated_mb": torch.cuda.memory_allocated() / 2**20,
-                    "replaced_graph_freed": None if old is None else old() is None})
-                spies.events.append(("capture", len(spies.captures)))
-            return out
+        def capture():
+            spies.events.append(("capture", len(spies.captures) + 1))
+            return {"rounds_before": len(spies.rounds)}
 
         Trainer.densify, Trainer.reset_opacity, Trainer._install_budgets = densify, reset, install
         Trainer._resize_pair_buffer, Trainer._log_segment = resize, log_segment
-        TrainMany._run_graph = run_graph
         try:
-            yield self
+            with captures_recorded(self.captures, capture):
+                yield self
         finally:
             for (c, k), v in orig.items():
                 setattr(c, k, v)
@@ -4505,19 +4673,7 @@ def schedule_gates(spies, sched, cfg, iters, capacity, dev):
         raise AssertionError(f"captures: none after the rounds at {missing}; captures "
                              f"{uncalled} with no round, reset or install before them")
     # 5. the graph pools do not pile up, and nothing a capture leaves lives on
-    # (the state's capacity is fixed: a warm-up stream a capture left ~65 MB
-    # of cuBLAS workspace allocated each time, CAPTURE_LEAK_MB)
-    if len(caps) < 2:
-        raise AssertionError(f"reference schedule: {len(caps)} captures")
-    pool = max(c["pool_mb"] for c in caps)
-    grew = caps[-1]["allocated_mb"] - caps[1]["allocated_mb"]
-    if caps[-1]["reserved_mb"] > caps[1]["reserved_mb"] + pool or grew > CAPTURE_LEAK_MB or \
-            not all(c["replaced_graph_freed"] in (None, True) for c in caps):
-        raise AssertionError(f"the graph pools pile up: reserved {caps[1]['reserved_mb']:.0f} MB "
-                             f"after the second capture, {caps[-1]['reserved_mb']:.0f} after "
-                             f"the last, a pool {pool:.0f}; allocated {grew:.1f} MB more; {caps}")
-    out.update(captures=len(caps), reserved_bound_mb=caps[1]["reserved_mb"] + pool,
-               allocated_growth_mb=grew)
+    out.update(capture_memory_gate(caps, "reference schedule"))
     return out
 
 
@@ -4691,11 +4847,13 @@ def main():
     phase("densify", phase_densify, dev, train_ts, train_scene, cuts)
     sharded_launches, band_rows = phase("sharded", phase_sharded, dev, train_ts, smi)
     del train_ts, cuts
-    (smplx_launches, smplx_rows), smplx_world = phase("smplx", phase_smplx, dev, smi)
-    static_launches, static_rows = phase("static", phase_static, dev, smi)
+    (smplx_launches, smplx_rows, smplx_graph), smplx_world = phase("smplx", phase_smplx, dev,
+                                                                    smi)
+    static_launches, static_rows, static_graph = phase("static", phase_static, dev, smi)
     dna_launches = phase("dna", phase_dna, dev, smi, smplx_world)
     del smplx_world
-    monocap_launches, monocap_rows = phase("monocap", phase_monocap, dev, smi)
+    monocap_launches, monocap_rows, monocap_graph = phase("monocap", phase_monocap, dev, smi)
+    family_graphs = {"smplx": smplx_graph, "static": static_graph, "monocap": monocap_graph}
     driver_launches, zju_root, driver_psnr = phase("drivers", phase_drivers, dev, smi)
     schedule_launches = phase("reference_schedule", phase_reference_schedule, dev, smi, zju_root,
                               driver_psnr)
@@ -4754,13 +4912,21 @@ def main():
                                          "max_tile_pairs")}
 
     def replayed(kernel):
-        """The scan engine's graph: what its replays ran, derived, not counted."""
-        return {"label": "the engines phase's scan run: replays x calls its last capture "
-                         "recorded; not in launches, which count only what the wrapper launched",
-                "captures": scan_graph["captures"], "replays": scan_graph["replays"],
-                "captured": scan_graph["captured_launches"][kernel],
-                "replays_x_captured": scan_graph["replays_x_captured"][kernel],
-                "traced_per_profiled_replay": scan_graph["traced_per_replay"][kernel]}
+        """The scan engine's graphs: what their replays ran, derived, not
+        counted; the engines phase's, then each family phase's."""
+        out = {"label": "the scan runs: replays x calls the last capture recorded; not in "
+                        "launches, which count only what the wrapper launched",
+               "captures": scan_graph["captures"], "replays": scan_graph["replays"],
+               "captured": scan_graph["captured_launches"][kernel],
+               "replays_x_captured": scan_graph["replays_x_captured"][kernel],
+               "traced_per_profiled_replay": scan_graph["traced_per_replay"][kernel]}
+        out["by_path"] = {name: {"captures": g["captures"], "replays": g["replays"],
+                                 "captured": g["captured_launches"][kernel],
+                                 "replays_x_captured": g["replays_x_captured"][kernel],
+                                 "traced_per_profiled_replay":
+                                     g["traced_per_profiled_replay"][kernel]}
+                          for name, g in family_graphs.items()}
+        return out
 
     def capacity(kernel):
         """The kernel at the engines phase's budgeted capacity and on the live list."""

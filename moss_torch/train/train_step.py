@@ -326,22 +326,29 @@ class TrainMany:
             last["raster_overflow"] = logs["raster_overflow"].sum()
         return ts, last
 
+    def signature(self, ts, frames, feats):
+        """What a graph of the step holds: the step (its budgets, buffers and
+        tables, kept alive by the graph's signature, so no later object
+        takes their place) and every tensor it reads or writes, by address
+        and shape. A graph is captured again when it changes."""
+        tables = getattr(self.step_fn, "tables", None)
+        return (self.step_fn, tables, tuple(
+            (t.data_ptr(), tuple(t.shape)) for t in _state_tensors(ts, frames, feats)
+            + [self._order] + ([] if tables is None else [tables.lr_xyz, tables.c1, tables.c2,
+                                                          tables.skip])))
+
+    @staticmethod
+    def same_signature(a, b) -> bool:
+        """Whether a graph captured at signature a replays the step at b."""
+        return a is not None and b is not None and a[0] is b[0] and a[1] is b[1] and a[2] == b[2]
+
     def _run_graph(self, ts, frames, feats, K):
         from ..ops import fisher
         from ..ops import rasterize_cuda as rc
 
-        # what the graph holds: the step (its budgets, buffers and tables, kept
-        # alive here, so no later object takes their place) and every tensor
-        # it reads or writes, by address and shape
-        tables = getattr(self.step_fn, "tables", None)
-        signature = (self.step_fn, tables, tuple(
-            (t.data_ptr(), tuple(t.shape)) for t in _state_tensors(ts, frames, feats)
-            + [self._order] + ([] if tables is None else [tables.lr_xyz, tables.c1, tables.c2,
-                                                          tables.skip])))
+        signature = self.signature(ts, frames, feats)
         left = K
-        old = self._signature
-        if old is None or old[0] is not self.step_fn or old[1] is not tables or \
-                old[2] != signature[2]:
+        if not self.same_signature(self._signature, signature):
             self._graph, self._signature = None, None
             device = self._order.device
             # one stream for every warm-up: cuBLAS keeps a workspace for each

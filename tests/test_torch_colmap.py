@@ -28,18 +28,12 @@ import os
 import types
 
 import imageio.v2 as imageio
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from moss_tpu.config import Config as JConfig
-from moss_tpu.config import ModelConfig as JModelConfig
-from moss_tpu.config import OptimConfig as JOptimConfig
-from moss_tpu.config import PipelineConfig as JPipelineConfig
 from moss_tpu.data import colmap as JC
-from moss_tpu.ops import lpips_jax
 from moss_tpu.train import checkpoint as jckpt
 from moss_tpu.train.trainer import Trainer as JTrainer
 from moss_torch import convert
@@ -47,9 +41,8 @@ from moss_torch.data import colmap as C
 from moss_torch.train import checkpoint as ckpt
 from moss_torch.train.trainer import Trainer
 from test_colmap import _make_model
-from test_static_scene import _static_frame
 from test_torch_checkpoint import assert_flat_equal
-from test_torch_densify import jax_densify_noise
+import _family_runs as FR
 from _torch_threads import two_torch_threads  # noqa: F401
 
 CPU = "cpu"
@@ -282,70 +275,19 @@ def test_scene_from_jax_carries_a_static_scene():
 # ---- the static trainer and its checkpoint ---------------------------------------
 
 @pytest.fixture(scope="module")
-def static_world():
-    """moss_tpu's static fixture (tests/test_static_scene.py) at 48x64: four
-    frames of a known 160-Gaussian cloud, the training starting from its
-    positions with random colours."""
-    from moss_tpu.data.synthetic import make_camera as jax_make_camera
-    from moss_tpu.ops import transforms as tf
-    from moss_tpu.ops.projection import preprocess
-    from moss_tpu.ops.rasterize_ref import rasterize_reference
-
-    rng = np.random.default_rng(7)
-    n = 160
-    pts = rng.normal(0.0, 0.25, (n, 3)).astype(np.float32)
-    colors = rng.uniform(0.2, 0.9, (n, 3)).astype(np.float32)
-    scales = rng.uniform(0.02, 0.05, (n, 3)).astype(np.float32)
-    quats = rng.normal(size=(n, 4)).astype(np.float32)
-    cov3d = tf.build_covariance(jnp.asarray(scales), jnp.asarray(quats))
-    frames = []
-    for ang in (0.0, 0.35, -0.35, 0.7):
-        cam = jax_make_camera(H=48, W=64, dist=2.0, angle=ang)
-        proj = preprocess(jnp.asarray(pts), cov3d, jnp.asarray(colors), jnp.full((n,), 0.85),
-                          cam)
-        out = rasterize_reference(proj, jnp.zeros(3), cam.height, cam.width)
-        frames.append(_static_frame(cam, np.asarray(out["color"])))
-    jcfg = JConfig(
-        model=JModelConfig(sh_degree=1, capacity=512, n_init_points=n, motion_offset=False,
-                           static_scene=True),
-        optim=JOptimConfig(iterations=24, w_mask=0.0, w_nll=0.0, w_lpips=0.0, w_s3im=0.0,
-                           densify_from_iter=5, densify_until_iter=20, densification_interval=8,
-                           opacity_reset_interval=12, densify_grad_threshold=1e-5),
-        pipe=JPipelineConfig(rasterizer="reference", test_iterations=(1, 12, 24),
-                             save_iterations=()))
-    return pts, frames, jcfg
-
-
-@pytest.fixture(scope="module")
-def static_runs(static_world):
-    """(port trainer, moss_tpu trainer, their l1 by iteration, their rounds)."""
-    pts, jframes, jcfg = static_world
-    mp = pytest.MonkeyPatch()
-    jl1, jcounts = {}, []
-    jtr = JTrainer(JC.static_scene_context(pts), jframes[:3], jframes[3:], jcfg,
-                   crop_hw=(32, 32), extent=2.0,
-                   log_fn=lambda it, logs: jl1.__setitem__(it, float(logs["l1"])))
-    ts0 = convert.train_state_from_jax(jtr.ts, CPU)
-    jdensify = jtr.densify
-    mp.setattr(jtr, "densify", lambda it: jcounts.append((it, int(jdensify(it)["count_after"]))))
-    jtr.train(24)
-
-    scene = C.static_scene_context(pts, device=CPU)
-    frames = [convert.frame_from_jax(f, CPU) for f in jframes]
+def static_runs():
+    """(port trainer, moss_tpu trainer, their l1 by iteration, their rounds)
+    on moss_tpu's static fixture at 48x64 (tests/_family_runs.py)."""
+    world = FR.static_world()
+    run = FR.jax_run(world)
     l1, counts = {}, []
-    tr = Trainer(scene, frames[:3], frames[3:], convert.config_from_jax(jcfg),
-                 convert.lpips_params_from_jax(lpips_jax.get_default_params(), CPU),
-                 crop_hw=(32, 32), extent=2.0,
-                 log_fn=lambda it, logs: l1.__setitem__(it, logs["l1"]), device=CPU)
-    tr.set_state(ts0)
-    P = jcfg.model.capacity
-    mp.setattr(tr, "densify_noise", lambda it: torch.as_tensor(
-        jax_densify_noise(jax.random.fold_in(jtr.key, it), P, static=True)))
+    tr = FR.port_trainer(world, run, log_fn=lambda it, logs: l1.__setitem__(it, logs["l1"]))
+    mp = pytest.MonkeyPatch()
     densify = tr.densify
     mp.setattr(tr, "densify", lambda it: counts.append((it, int(densify(it)["count_after"]))))
     tr.train(24)
     mp.undo()
-    return tr, jtr, (l1, jl1), (counts, jcounts)
+    return tr, run.jtr, (l1, run.l1), (counts, run.counts)
 
 
 def test_static_trainer_matches_moss_tpu(static_runs):

@@ -16,7 +16,8 @@ moss_torch.cli.train_monocap (the counterpart of train_monocap.py) trains 10
 iterations on tests/test_torch_readers.py's MonoCap fixture at its full
 resolution, with --tensorboard, --gui_port (no viewer connects) and
 --debug_nans, then render_zju --reader monocap --novel_view 4 renders four
-orbit views about each of the 17 test poses.
+orbit views about each of the 17 test poses; under --dispatch scan it
+reaches Trainer.train with the scan engine and writes queued's checkpoint.
 """
 import glob
 import json
@@ -193,3 +194,36 @@ def test_dispatch_reaches_the_trainer(tmp_path, monkeypatch):
     except Stop:
         pass
     assert seen["dispatch_engine"] == "scan"
+
+
+def test_train_monocap_scan_gives_queueds_checkpoint(tmp_path, monkeypatch):
+    """train_monocap --dispatch scan reaches Trainer.train with
+    dispatch_engine "scan" and writes the queued run's chkpnt, bit for bit."""
+    from moss_torch.train.trainer import Trainer
+
+    seq = "olek_images0812"
+    data_root = tmp_path / "monocap"
+    write_monocap_fixture(str(data_root / seq))
+    engines, train = [], Trainer.train
+
+    def spy(self, *a, **kw):
+        engines.append(kw["dispatch_engine"])
+        return train(self, *a, **kw)
+
+    monkeypatch.setattr(Trainer, "train", spy)
+    # each step computes its frame's LPIPS towers (not the 100 frames' up front)
+    monkeypatch.setenv("MOSS_LPIPS_GT_CACHE", "0")
+    ckpts = {}
+    for engine in ("queued", "scan"):
+        out = tmp_path / engine
+        train_monocap.main(["--data_root", str(data_root), "--sequences", seq, "--iterations", "6",
+                            "--test_iterations", "6", "--save_iterations", "6", "--capacity",
+                            "512", "--n_init", "100", "--output", str(out), "--result_file",
+                            str(tmp_path / f"{engine}.txt"), "--dispatch", engine,
+                            "--device", "cpu"])
+        with np.load(out / seq / "chkpnt6.npz") as data:
+            ckpts[engine] = dict(data)
+    assert engines == ["queued", "scan"]
+    assert sorted(ckpts["queued"]) == sorted(ckpts["scan"]) and ckpts["scan"][".step"] == 6
+    for k, v in ckpts["queued"].items():
+        assert v.dtype == ckpts["scan"][k].dtype and np.array_equal(v, ckpts["scan"][k]), k

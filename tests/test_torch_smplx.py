@@ -34,10 +34,6 @@ import numpy as np
 import pytest
 import torch
 
-from moss_tpu.config import Config as JConfig
-from moss_tpu.config import ModelConfig as JModelConfig
-from moss_tpu.config import OptimConfig as JOptimConfig
-from moss_tpu.config import PipelineConfig as JPipelineConfig
 from moss_tpu.models import gaussians as JG
 from moss_tpu.models import smpl as JS
 from moss_tpu.models.deform import coarse_deform_c2source as jax_deform
@@ -48,7 +44,6 @@ from moss_tpu.render.render import SceneContext as JSceneContext
 from moss_tpu.render.render import render_frame as jax_render_frame
 from moss_tpu.train.train_step import TrainState as JTrainState
 from moss_tpu.train.train_step import make_train_step as jax_make_train_step
-from moss_tpu.train.trainer import Trainer as JTrainer
 from moss_torch import convert
 from moss_torch.models import smpl as S
 from moss_torch.models.deform import apply_cached_transform, coarse_deform_c2source
@@ -57,11 +52,10 @@ from moss_torch.render.render import SceneContext, render_frame
 from moss_torch.train import densify as D
 from moss_torch.train import optim
 from moss_torch.train.train_step import make_train_step
-from moss_torch.train.trainer import Trainer
 from test_rasterize_tpu import assert_images_match
-from test_torch_densify import jax_densify_noise
 from test_torch_raster_bwd import assert_grad_close
-from test_torch_trainer import jax_pca_normals
+import _family_runs as FR
+from _family_runs import write_dna_capture, write_smplx_npz  # noqa: F401 (test_torch_dna)
 from _torch_threads import two_torch_threads  # noqa: F401
 
 CPU = "cpu"
@@ -202,21 +196,6 @@ def test_render_frame_smplx_matches_moss_tpu(model, jmodel, rng):
 
 # ---- the asset --------------------------------------------------------------------
 
-def write_smplx_npz(path, jmodel, seed=5):
-    """A 400-column SMPL-X asset holding jmodel's arrays: its betas in
-    columns [:10], its expressions in [300:310], noise elsewhere."""
-    rng = np.random.default_rng(seed)
-    sd = np.asarray(jmodel.shapedirs)
-    full = rng.normal(0, 0.5, sd.shape[:2] + (400,)).astype(np.float32)
-    full[..., :10], full[..., 300:310] = sd[..., :10], sd[..., 10:]
-    parents = np.array(jmodel.parents, np.int64)
-    np.savez(path, v_template=np.asarray(jmodel.v_template), shapedirs=full,
-             posedirs=np.asarray(jmodel.posedirs), J_regressor=np.asarray(jmodel.J_regressor),
-             weights=np.asarray(jmodel.weights), f=np.asarray(jmodel.faces).astype(np.uint32),
-             kintree_table=np.stack([parents, np.arange(55)]))
-    return path
-
-
 def test_load_smplx_npz_matches_moss_tpu(jmodel, tmp_path):
     path = write_smplx_npz(str(tmp_path / "SMPLX_NEUTRAL.npz"), jmodel)
     model = S.load_smplx_npz(path, device=CPU)
@@ -230,61 +209,22 @@ def test_load_smplx_npz_matches_moss_tpu(jmodel, tmp_path):
 
 # ---- one step and the Trainer, on DNA-Rendering frames ----------------------------
 
-def write_dna_capture(root, n_frames=3, H=128, W=128, views=(24, 25, 26, 27, 28)):
-    """tests/test_smplx_dna.py's capture pair, its colour frames and masks
-    extended from frame 0 to n_frames (each frame its own JPEG and mask), so
-    that every pose of the SMPL-X block can be decoded."""
-    import cv2
-    import h5py
-    from test_smplx_dna import _write_smc_fixture
-
-    main = _write_smc_fixture(root, n_frames=n_frames, H=H, W=W, views=views)
-    annot = main.replace("main", "annotations").split(".")[0] + "_annots.smc"
-    rng = np.random.default_rng(11)
-    with h5py.File(main, "a") as fm, h5py.File(annot, "a") as fa:
-        for i in range(1, n_frames):
-            img = rng.integers(0, 255, (H, W, 3), dtype=np.uint8)
-            msk = np.zeros((H, W, 3), np.uint8)
-            msk[H // 8 + i: H - H // 8, W // 8: W - W // 8 - i] = 255
-            jpg, png = cv2.imencode(".jpg", img)[1], cv2.imencode(".png", msk)[1]
-            for v in views:
-                fm[f"Camera_5mp/{v}/color"].create_dataset(
-                    str(i), data=np.frombuffer(jpg.tobytes(), np.uint8))
-                fa[f"Mask/{v}/mask"].create_dataset(
-                    str(i), data=np.frombuffer(png.tobytes(), np.uint8))
-    return main
-
-
 @pytest.fixture(scope="module")
 def dna_world(jmodel, tmp_path_factory):
-    """moss_tpu's reader on the DNA capture (128x128, 64x64 frames) with the
-    500-vertex SMPL-X asset: its scene and 3 train frames (view 26)."""
-    pytest.importorskip("cv2")
-    pytest.importorskip("h5py")
-    from moss_tpu.data.dna import read_dna_rendering
-
-    root = tmp_path_factory.mktemp("dna")
-    asset = write_smplx_npz(str(root / "SMPLX_NEUTRAL.npz"), jmodel)
-    main = write_dna_capture(str(root))
-    jscene, specs = read_dna_rendering(main, split="train", smplx_path=asset)
-    jframes = [s.load((48, 48)) for s in specs]
-    scene = convert.scene_from_jax(jscene.smpl, jscene.big_pose_params,
-                                   jscene.big_pose_vertices, device=CPU)
-    return jscene, jframes, scene, [convert.frame_from_jax(f, CPU) for f in jframes]
+    """moss_tpu's reader on the DNA capture (128x128, 48x48 frames) with the
+    500-vertex SMPL-X asset: its scene and 3 train frames (view 26)
+    (tests/_family_runs.py)."""
+    return FR.dna_world(tmp_path_factory.mktemp("dna"), jmodel)
 
 
-def jax_cfg(**optim):
-    return JConfig(model=JModelConfig(sh_degree=1, capacity=512, n_init_points=400,
-                                      smpl_type="smplx", motion_offset=False),
-                   optim=JOptimConfig(**optim),
-                   pipe=JPipelineConfig(rasterizer="reference", test_iterations=(1, 12, 24),
-                                        save_iterations=()))
+jax_cfg = FR.smplx_jax_cfg
 
 
 def test_one_step_at_j55_matches_moss_tpu(dna_world):
     from moss_tpu.train.trainer import init_gaussians_and_mlps as jax_init
 
-    jscene, jframes, scene, frames = dna_world
+    jscene, jframes, scene, frames = (dna_world.jscene, dna_world.jframes, dna_world.scene,
+                                      dna_world.frames)
     jcfg = jax_cfg()
     rng = np.random.default_rng(17)
     params, gstate, mlps = jax_init(jscene, jcfg, jax.random.PRNGKey(0))
@@ -329,34 +269,21 @@ def test_one_step_at_j55_matches_moss_tpu(dna_world):
 
 
 def test_trainer_at_j55_matches_moss_tpu(dna_world, monkeypatch):
-    jscene, jframes, scene, frames = dna_world
-    jcfg = jax_cfg(iterations=24, densify_from_iter=5, densify_until_iter=20,
-                   densification_interval=8, opacity_reset_interval=12)
-    jl1, jcounts = {}, []
-    jtr = JTrainer(jscene, jframes, jframes[:1], jcfg, crop_hw=(48, 48),
-                   log_fn=lambda it, logs: jl1.__setitem__(it, float(logs["l1"])))
+    jscene, jcfg = dna_world.jscene, dna_world.jcfg
+    run = FR.jax_run(dna_world)  # moss_tpu's queued run (tests/_family_runs.py)
+    jtr, jl1, jcounts = run.jtr, run.l1, run.counts
     assert "mlps" not in jtr.ts.params
-    ts0 = convert.train_state_from_jax(jtr.ts, CPU)
-    jdensify = jtr.densify
-    monkeypatch.setattr(jtr, "densify", lambda it: jcounts.append(
-        (it, int(jdensify(it)["count_after"]))))
-    jtr.train(24)
 
     l1, counts, fields = {}, [], []
-    tr = Trainer(scene, frames, frames[:1], convert.config_from_jax(jcfg),
-                 convert.lpips_params_from_jax(lpips_jax.get_default_params(), CPU),
-                 crop_hw=(48, 48), log_fn=lambda it, logs: l1.__setitem__(it, logs["l1"]),
-                 device=CPU)
+    tr = FR.port_trainer(dna_world, run, log_fn=lambda it, logs: l1.__setitem__(it, logs["l1"]),
+                         start=False)
     # init_gaussians_and_mlps on the SMPL-X scene: 400 of the 500 big-pose
     # vertices, evenly, and no MLPs
     assert tr.ts.params["mlps"] is None
     np.testing.assert_array_equal(tr.ts.params["gauss"].xyz.numpy(),
                                   np.asarray(jtr_initial_xyz(jscene, jcfg)))
-    tr.set_state(ts0)
-    P = jcfg.model.capacity
-    monkeypatch.setattr(tr, "densify_noise", lambda it: torch.as_tensor(
-        jax_densify_noise(jax.random.fold_in(jtr.key, it), P)))
-    monkeypatch.setattr(D, "pca_normals", jax_pca_normals)
+    FR.start_from(tr, run)
+    FR.jax_normals_patched(monkeypatch)
     densify, fisher = tr.densify, D.fisher_fields
     monkeypatch.setattr(D, "fisher_fields", lambda gs: fields.append(fisher(gs)) or fields[-1])
     monkeypatch.setattr(tr, "densify", lambda it: counts.append(
